@@ -1,0 +1,232 @@
+"""CUDA point kernels and their plain torch versions.
+
+The counterpart of tendermint_tpu/ops/pallas_fe.py. Three hand-written
+Hopper kernels (csrc/point_kernels.cu, field arithmetic in csrc/fe25519.cuh):
+
+- `padd(p, q)`            unified a=-1 extended add (add-2008-hwcd-3)
+- `pdbl(p, times)`        `times` chained dbl-2008-hwcd doublings
+- `fsquare_chain(x, k)`   x^(2^k), k squarings
+
+A point batch is one contiguous int32 tensor `(4, 20, ...batch)` (x, y, z, t
+in radix-2^13 limbs, lanes innermost); a field batch is `(20, ...batch)`.
+
+Each wrapper, for a tensor on the CPU, returns its plain version (`*_plain`,
+built on ops/fe25519.py). For a CUDA tensor it checks dtype, shape and
+contiguity, allocates the output, launches the kernel on the current stream,
+raises if the launch failed, and adds one to `LAUNCHES[name]`. There is no
+fallback from a CUDA tensor to the plain version.
+
+The kernels are built with nvcc for sm_90a at first use into `_build/` (keyed
+by a hash of the sources and flags) and bound with ctypes. A failed build
+raises with nvcc's stderr.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+
+from tendermint_tpu_torch.ops import fe25519 as fe
+
+NL = fe.NLIMBS
+
+LAUNCHES = {"padd": 0, "pdbl": 0, "fsquare_chain": 0}
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("fe25519.cuh", "point_kernels.cu")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_LIB = None
+_LOCK = threading.Lock()
+BUILD_LOG = {"seconds": None, "ptxas": ""}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (the formulas of pallas_fe._padd_rows / _pdbl_rows /
+# _fsq_n_kernel on ops/fe25519.py).
+
+
+def padd_plain(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    px, py, pz, pt = p
+    qx, qy, qz, qt = q
+    a = fe.mul(fe.sub(py, px), fe.sub(qy, qx))
+    b = fe.mul(fe.add(py, px), fe.add(qy, qx))
+    c = fe.mul(fe.mul(pt, qt), fe.const("d2", p.device, pt.dim()))
+    d = fe.mul_small(fe.mul(pz, qz), 2)
+    e = fe.sub(b, a)
+    f = fe.sub(d, c)
+    g = fe.add(d, c)
+    h = fe.add(b, a)
+    return torch.stack([fe.mul(e, f), fe.mul(g, h), fe.mul(f, g), fe.mul(e, h)])
+
+
+def _pdbl_once(p: torch.Tensor) -> torch.Tensor:
+    px, py, pz, _ = p
+    xx = fe.square(px)
+    yy = fe.square(py)
+    zz2 = fe.mul_small(fe.square(pz), 2)
+    xy2 = fe.square(fe.add(px, py))
+    s = fe.add(xx, yy)
+    e = fe.sub(xy2, s)
+    g = fe.sub(yy, xx)
+    f = fe.sub(g, zz2)
+    h = fe.neg(s)
+    return torch.stack([fe.mul(e, f), fe.mul(g, h), fe.mul(f, g), fe.mul(e, h)])
+
+
+def pdbl_plain(p: torch.Tensor, times: int = 1) -> torch.Tensor:
+    for _ in range(times):
+        p = _pdbl_once(p)
+    return p
+
+
+def fsquare_chain_plain(x: torch.Tensor, k: int) -> torch.Tensor:
+    for _ in range(k):
+        x = fe.square(x)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Build and bind.
+
+
+def _source_tag() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    for cand in (os.environ.get("NVCC"), shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set NVCC or put the CUDA toolkit on PATH)")
+
+
+def build() -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        import time
+
+        so_path = os.path.join(BUILD_DIR, f"point_kernels-{_source_tag()}.so")
+        log_path = so_path + ".log"
+        t0 = time.perf_counter()
+        if not os.path.exists(so_path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=".so-", suffix=".so")
+            os.close(fd)
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, "point_kernels.cu")]
+            res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+            if res.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"nvcc build of the point kernels failed: {' '.join(cmd)}\n{res.stderr}"
+                )
+            with open(log_path, "w") as f:
+                f.write(res.stderr)
+            os.replace(tmp, so_path)
+        BUILD_LOG["seconds"] = time.perf_counter() - t0
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                BUILD_LOG["ptxas"] = f.read()
+        lib = ctypes.CDLL(so_path)
+        vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.tm_padd.argtypes = [vp, vp, vp, i64, vp]
+        lib.tm_pdbl.argtypes = [vp, vp, i64, ci, vp]
+        lib.tm_fsquare_chain.argtypes = [vp, vp, i64, ci, vp]
+        for fn in (lib.tm_padd, lib.tm_pdbl, lib.tm_fsquare_chain):
+            fn.restype = ci
+        _LIB = lib
+        return lib
+
+
+def _check(x: torch.Tensor, lead: tuple, what: str) -> int:
+    if x.dtype != torch.int32:
+        raise TypeError(f"{what}: expected int32, got {x.dtype}")
+    if tuple(x.shape[: len(lead)]) != lead:
+        raise ValueError(f"{what}: expected shape {lead + ('...',)}, got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what}: tensor must be contiguous")
+    n = 1
+    for d in x.shape[len(lead):]:
+        n *= d
+    return n
+
+
+def _launched(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA launch of {name} failed: cudaError {err}")
+    LAUNCHES[name] += 1
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def padd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """p + q for point batches (4, 20, ...batch)."""
+    if p.device.type == "cpu":
+        return padd_plain(p, q)
+    n = _check(p, (4, NL), "padd p")
+    if q.shape != p.shape or q.device != p.device:
+        raise ValueError(f"padd: q {tuple(q.shape)} on {q.device} vs p {tuple(p.shape)} on {p.device}")
+    _check(q, (4, NL), "padd q")
+    out = torch.empty_like(p)
+    if n:
+        _launched("padd", build().tm_padd(p.data_ptr(), q.data_ptr(), out.data_ptr(), n, _stream(p)))
+    return out
+
+
+def pdbl(p: torch.Tensor, times: int = 1) -> torch.Tensor:
+    """[2^times] p for a point batch (4, 20, ...batch); `times` is a run-time
+    count of the kernel's loop."""
+    if p.device.type == "cpu":
+        return pdbl_plain(p, times)
+    n = _check(p, (4, NL), "pdbl p")
+    if times < 1:
+        raise ValueError("pdbl: times must be >= 1")
+    out = torch.empty_like(p)
+    if n:
+        _launched("pdbl", build().tm_pdbl(p.data_ptr(), out.data_ptr(), n, int(times), _stream(p)))
+    return out
+
+
+def fsquare_chain(x: torch.Tensor, k: int) -> torch.Tensor:
+    """x^(2^k) for a field batch (20, ...batch)."""
+    if x.device.type == "cpu":
+        return fsquare_chain_plain(x, k)
+    n =_check(x, (NL,), "fsquare_chain x")
+    if k < 1:
+        raise ValueError("fsquare_chain: k must be >= 1")
+    out = torch.empty_like(x)
+    if n:
+        _launched(
+            "fsquare_chain",
+            build().tm_fsquare_chain(x.data_ptr(), out.data_ptr(), n, int(k), _stream(x)),
+        )
+    return out
