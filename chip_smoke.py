@@ -3,30 +3,31 @@
 
 Run from the repository root on a machine with a CUDA card, nvcc and gcc:
 
-    python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --kernels  # build + kernel-vs-plain checks only
+    python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught and swallowed):
   1. the card (nvidia-smi name and power limit), torch / CUDA / nvcc versions;
   2. build the CUDA kernels (nvcc, sm_90a) and the native host prep (gcc);
-  3. each kernel against its plain torch version on the card at the main
-     path's shapes, tolerance zero (integer arithmetic), with its time, the
-     plain version's time and its bound; plus the MSM total against the
-     integer reference on a small input;
+  3. each kernel against its plain torch version on the card at the shapes
+     each of the three paths below gives it, tolerance zero (integer
+     arithmetic), with its time, the plain version's time and its bound;
+     plus the MSM total against the integer reference on a small input;
   4. a 10,000-validator commit (random keys from a seed, real signatures over
-     each row's precommit sign bytes): ValidatorSet.verify_commit cold (plain
-     kernel, fills the A cache) and warm (cached-A kernel), with the launch
-     counts of the three kernels over that run, and one more warm call under
+     each row's precommit sign bytes) through ValidatorSet.verify_commit on
+     two paths: "cold" (plain kernel: A and R decompressed together, fills
+     the A cache) and "warm" (cached-A kernel), then one more warm call under
      torch.profiler (device busy time, idle share, kernels by device time);
-  5. three tampered signatures: verify_batch returns False exactly there, and
-     verify_commit raises CommitVerifyError;
+  5. the "tampered" path: three tampered signatures, so verify_batch's
+     combined check fails and the per-signature recovery gives the mask, which
+     must be False exactly there; verify_commit raises CommitVerifyError;
   6. a `kernels` JSON line, the card line, and last the `ok` JSON line.
+The launch counts are zeroed just before each path and read just after it
+(the warm path per call); every kernel must launch on every path.
 Exits non-zero without a result when no CUDA device is available.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import multiprocessing as mp
 import os
@@ -46,15 +47,29 @@ TAMPERED = (17, 4242, 9_999)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_MAD_PER_SM_PER_CLK = 64  # CUDA C++ Programming Guide, cc 9.0 throughput table
+SM_PARTITIONS = 4  # a warp issues on one of an SM's 4 sub-partitions (16 int32 lanes each)
 # Product multiply-adds per lane, counted from csrc/fe25519.cuh: a field mul
 # is 20 x 20 = 400, a square 20 + 190 = 210, a mul by a small constant 20.
 MUL, SQR, SMALL = 400, 210, 20
-PADD_MADS = 9 * MUL + SMALL + MUL  # 9 products, 2 * zz, the 2d constant product
+# a, b, pt qt, (pt qt) 2d, pz qz and the 4 outputs: 9 products; 2 * zz
+PADD_MADS = 9 * MUL + SMALL
+POINT_BYTES = 4 * 20 * 4
 
 
 def pdbl_mads(times: int) -> int:
     # per doubling: 4 squares, 3 products, 2 * zz; t = e h on the last one only
     return times * (4 * SQR + 3 * MUL + SMALL) + MUL
+
+
+def imad_seconds(mads_per_lane: int, lanes: int, card: dict) -> float:
+    """Least time for `lanes` threads of `mads_per_lane` int32 multiply-adds
+    each. A warp instruction takes a sub-partition's 16 lanes per clock for
+    all 32 lanes, active or not, and a launch of a few warps occupies only
+    that many sub-partitions, not the whole card."""
+    warps = -(-lanes // 32)
+    parts = min(warps, card["sms"] * SM_PARTITIONS)
+    per_part = INT32_MAD_PER_SM_PER_CLK / SM_PARTITIONS
+    return warps * 32 * mads_per_lane / (parts * per_part * card["clock_hz"])
 
 
 def sh(cmd) -> str:
@@ -92,9 +107,11 @@ def seeded_points(m: int, rng: np.random.Generator):
 
 
 def kernel_checks(dev, rng, card: dict) -> list:
+    """Each kernel against its plain version at the shapes of each path:
+    warm (cached A: R decompressed on 10,240 lanes), cold (A and R on 20,480)
+    and tampered (the per-signature ladder on the 16,384-lane bucket)."""
     from tendermint_tpu_torch.ops import cuda_fe, msm_torch
 
-    rate = card["sms"] * INT32_MAD_PER_SM_PER_CLK * card["clock_hz"]
     enc = seeded_points(2048, rng)
     p0, ok = msm_torch.decompress_rows(enc, dev)
     assert bool(ok.all()), "seeded points failed to decompress"
@@ -104,27 +121,39 @@ def kernel_checks(dev, rng, card: dict) -> list:
     def pick(n):
         return base[..., torch.from_numpy(rng.integers(0, nb, size=n)).to(dev)].contiguous()
 
-    cases = []
-    n_padd = 655_360
-    p, q = pick(n_padd), pick(n_padd)
-    cases.append(dict(
-        name="padd", lanes=n_padd, replaces="tendermint_tpu/ops/pallas_fe.py:249",
-        kern=lambda: cuda_fe.padd(p, q), plain=lambda: cuda_fe.padd_plain(p, q),
-        mads=PADD_MADS * n_padd, bytes=3 * 320 * n_padd))
-    p32 = pick(32)
-    for times in (8, 128):
-        cases.append(dict(
-            name="pdbl", variant=f"times={times}", lanes=32,
-            replaces="tendermint_tpu/ops/pallas_fe.py:262",
-            kern=(lambda t=times: cuda_fe.pdbl(p32, t)),
-            plain=(lambda t=times: cuda_fe.pdbl_plain(p32, t)),
-            mads=pdbl_mads(times) * 32, bytes=2 * 320 * 32))
-    x = pick(10_240)[1].contiguous()
-    cases.append(dict(
-        name="fsquare_chain", variant="k=50", lanes=10_240,
-        replaces="tendermint_tpu/ops/pallas_fe.py:275",
-        kern=lambda: cuda_fe.fsquare_chain(x, 50), plain=lambda: cuda_fe.fsquare_chain_plain(x, 50),
-        mads=50 * SQR * 10_240, bytes=2 * 80 * 10_240))
+    def padd_case(path, lanes, where):
+        p, q = pick(lanes), pick(lanes)
+        return dict(name="padd", path=path, variant=where, lanes=lanes,
+                    replaces="tendermint_tpu/ops/pallas_fe.py:249",
+                    kern=lambda: cuda_fe.padd(p, q), plain=lambda: cuda_fe.padd_plain(p, q),
+                    mads=PADD_MADS, bytes=3 * POINT_BYTES * lanes)
+
+    def pdbl_case(path, lanes, times, where):
+        p = pick(lanes)
+        return dict(name="pdbl", path=path, variant=f"times={times}, {where}", lanes=lanes,
+                    replaces="tendermint_tpu/ops/pallas_fe.py:262",
+                    kern=lambda: cuda_fe.pdbl(p, times), plain=lambda: cuda_fe.pdbl_plain(p, times),
+                    mads=pdbl_mads(times),
+                    bytes=(3 * 80 + POINT_BYTES) * lanes)  # x, y, z in (t is not read), 4 out
+
+    def fsq_case(path, lanes, where):
+        x = pick(lanes)[1].contiguous()
+        return dict(name="fsquare_chain", path=path, variant=f"k=50, {where}", lanes=lanes,
+                    replaces="tendermint_tpu/ops/pallas_fe.py:275",
+                    kern=lambda: cuda_fe.fsquare_chain(x, 50),
+                    plain=lambda: cuda_fe.fsquare_chain_plain(x, 50),
+                    mads=50 * SQR, bytes=2 * 80 * lanes)
+
+    cases = [
+        padd_case("warm", 32 * 10_240, "MSM tree level 1: 32 windows x 10,240 pairs"),
+        padd_case("tampered", 16_384, "per-signature ladder"),
+        pdbl_case("warm", 32, 8, "[256] P_255 per window"),
+        pdbl_case("warm", 1, 128, "last window-fold level"),
+        pdbl_case("tampered", 16_384, 4, "per-signature ladder"),
+        fsq_case("warm", 10_240, "R decompression"),
+        fsq_case("cold", 20_480, "A and R decompression"),
+        fsq_case("tampered", 16_384, "per-signature A or R decompression"),
+    ]
 
     rows = []
     for c in cases:
@@ -133,20 +162,20 @@ def kernel_checks(dev, rng, card: dict) -> list:
         torch.cuda.synchronize()
         err = int((got.long() - want.long()).abs().max())
         if err != 0:  # limb-identical, so equal after freeze too
-            raise SystemExit(f"kernel {c['name']} {c.get('variant', '')} disagrees with its "
+            raise SystemExit(f"kernel {c['name']} {c['variant']} disagrees with its "
                              f"plain version: max |err| {err}")
         ms = timed(c["kern"])
         plain_ms = timed(c["plain"])
-        t_ops = c["mads"] / rate * 1e3
+        t_ops = imad_seconds(c["mads"], c["lanes"], card) * 1e3
         t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
         row = dict(
-            name=c["name"], variant=c.get("variant"), lanes=c["lanes"], route="cuda",
+            name=c["name"], path=c["path"], variant=c["variant"], lanes=c["lanes"], route="cuda",
             source="tendermint_tpu_torch/csrc/point_kernels.cu", replaces=c["replaces"],
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
         )
         rows.append(row)
-        print(f"kernel {row['name']} {row['variant'] or ''} lanes={row['lanes']}: "
+        print(f"kernel {row['name']} [{row['path']}] {row['variant']} lanes={row['lanes']}: "
               f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.5f} "
               f"({row['bound_by']}) max_abs_err={err} library_ms=null", flush=True)
     return rows
@@ -256,7 +285,19 @@ def profile_warm(fn, warm_ms: float) -> None:
         print(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
 
+def read_launches(path: str) -> dict:
+    """The launch counts since the last reset; every kernel must have run."""
+    from tendermint_tpu_torch.ops import cuda_fe
+
+    counts = dict(cuda_fe.LAUNCHES)
+    for name, count in counts.items():
+        if count <= 0:
+            raise SystemExit(f"kernel {name} was not launched on the {path} path")
+    return counts
+
+
 def commit_phase(dev, corpus) -> dict:
+    """The three paths, each with its own launch counts: {path: {kernel: n}}."""
     from tendermint_tpu_torch.crypto import batch
     from tendermint_tpu_torch.ops import cuda_fe
     from tendermint_tpu_torch.types.block import Commit, CommitSig
@@ -264,28 +305,32 @@ def commit_phase(dev, corpus) -> dict:
 
     vals, block_id, commit, msgs = corpus
     batch.reset_a_cache()
+    launches = {}
 
-    # The main path: counts are zeroed just before and read just after.
+    # Cold: the plain kernel decompresses A and R together and fills the cache.
     cuda_fe.reset_launches()
     t0 = time.perf_counter()
     vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev)
     torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - t0) * 1e3
+    launches["cold"] = read_launches("cold")
     cold = dict(batch.LAST_FLUSH)
     assert cold.get("mode") == "plain" and "recovery_s" not in cold, cold
+
+    # Warm: the cached-A kernel; counts per call, the same on every call.
     warm, warm_flush = [], []
     for _ in range(7):
+        cuda_fe.reset_launches()
         t0 = time.perf_counter()
         vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev)
         torch.cuda.synchronize()
         warm.append((time.perf_counter() - t0) * 1e3)
+        counts = read_launches("warm")
+        if launches.setdefault("warm", counts) != counts:
+            raise SystemExit(f"warm calls launched different counts: {launches['warm']} vs {counts}")
         warm_flush.append(dict(batch.LAST_FLUSH))
-    launches = dict(cuda_fe.LAUNCHES)
     for f in warm_flush:
         assert f.get("mode") == "cached" and "recovery_s" not in f, f
-    for name, count in launches.items():
-        if count <= 0:
-            raise SystemExit(f"kernel {name} was not launched on the main path")
     prep = statistics.median(f["prep_s"] for f in warm_flush) * 1e3
     total = statistics.median(f["total_s"] for f in warm_flush) * 1e3
     sign_bytes = []
@@ -296,20 +341,24 @@ def commit_phase(dev, corpus) -> dict:
     print(f"verify_commit 10k: cold_ms={cold_ms:.1f} warm_median_ms={statistics.median(warm):.1f} "
           f"warm_ms={[round(w, 1) for w in warm]} sign_bytes_ms={statistics.median(sign_bytes):.1f} "
           f"host_prep_ms={prep:.1f} submit_to_sync_ms={total - prep:.1f} lanes={cold['lanes']} "
-          f"(A block {cold['lanes'] // 2}) launches={launches}", flush=True)
+          f"(A block {cold['lanes'] // 2})", flush=True)
+    print(f"launches cold={launches['cold']} warm per call={launches['warm']}", flush=True)
     profile_warm(lambda: vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev),
                  statistics.median(warm))
 
-    # Tampered rows: exact mask through the per-signature recovery.
+    # Tampered: the cached flush fails, the per-signature recovery gives the mask.
     pubkeys = [vals.validators[i].pub_key.bytes() for i in range(N_VALIDATORS)]
     sigs = [cs.signature for cs in commit.signatures]
     for i in TAMPERED:
         s = bytearray(sigs[i])
         s[40] ^= 0x01
         sigs[i] = bytes(s)
+    cuda_fe.reset_launches()
     t0 = time.perf_counter()
     mask = batch.verify_batch(pubkeys, msgs, sigs, device=dev)
+    torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t0) * 1e3
+    launches["tampered"] = read_launches("tampered")
     recovery_ms = batch.LAST_FLUSH["recovery_s"] * 1e3
     bad = tuple(int(i) for i in np.flatnonzero(~mask))
     if bad != TAMPERED:
@@ -324,14 +373,11 @@ def commit_phase(dev, corpus) -> dict:
     else:
         raise SystemExit("tampered commit was accepted")
     print(f"tampered rows {bad}: verify_batch ms={batch_ms:.1f} (per-signature recovery "
-          f"ms={recovery_ms:.1f})", flush=True)
+          f"ms={recovery_ms:.1f}) launches={launches['tampered']}", flush=True)
     return launches
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--kernels", action="store_true", help="build and kernel checks only")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -339,7 +385,7 @@ def main() -> int:
     from tendermint_tpu_torch.ops import cuda_fe
 
     # The signing pool forks before this process first touches the card.
-    corpus = None if args.kernels else build_commit(np.random.default_rng(SEED + 1))
+    corpus = build_commit(np.random.default_rng(SEED + 1))
     dev = torch.device("cuda")
     card_line = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     card_line = card_line.splitlines()[0]
@@ -364,13 +410,10 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     rows = kernel_checks(dev, rng, card)
     msm_reference_check(dev, rng)
-    if args.kernels:
-        print(card_line)
-        return 0
     launches = commit_phase(dev, corpus)
-    for r in rows:
-        r["launches"] = launches[r["name"]]
-    print(json.dumps({"kernels": rows}), flush=True)
+    for r in rows:  # the count on the path whose shape the row checks
+        r["launches"] = launches[r["path"]][r["name"]]
+    print(json.dumps({"kernels": rows, "launches_by_path": launches}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

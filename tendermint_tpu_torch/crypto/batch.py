@@ -168,8 +168,11 @@ def prepare_batch(pubkeys, msgs, sigs):
 
 
 # ---------------------------------------------------------------------------
-# Decompressed-pubkey cache on the device: pubkey bytes -> column of _A_STORE
-# (None = invalid encoding). Fills hold the lock (the store only grows).
+# Decompressed-pubkey cache on the device: pubkey bytes -> column of
+# _A["store"] (None = invalid encoding). Fills hold the lock and never rewrite
+# a column of a store in use: the store grows by copy, and a full reset
+# starts a new tensor. So (columns, store) read in one locked section stay a
+# consistent pair for the flush that read them.
 
 _A_LOCK = threading.Lock()
 _A_CACHE: dict = {}
@@ -206,6 +209,7 @@ def fill_a_cache(rows: np.ndarray, pts: torch.Tensor, ok) -> None:
                 _A_CACHE.clear()
                 _A["len"] = 0
                 new_cols, new_src = [], []
+                store = None  # a fresh tensor: flushes in flight keep reading the old one
             _A_CACHE[key] = _A["len"]
             new_cols.append(_A["len"])
             new_src.append(j)
@@ -226,15 +230,14 @@ def fill_a_cache(rows: np.ndarray, pts: torch.Tensor, ok) -> None:
         _A["store"] = store
 
 
-def _a_block(keys, precheck: np.ndarray, na: int, device) -> torch.Tensor:
-    """(4, 20, Na) A block: cached coordinates at included rows, the
-    basepoint everywhere else (the B lane at row n, excluded rows, pads)."""
+def _a_block(rows: np.ndarray, cols: np.ndarray, store: torch.Tensor, na: int,
+             device) -> torch.Tensor:
+    """(4, 20, Na) A block: store columns `cols` at included rows `rows`, the
+    basepoint everywhere else (the B lane at row n, excluded rows, pads).
+    `cols` and `store` are read in one locked section with the decision to
+    run the cached-A kernel, so a concurrent cache reset cannot move them."""
     from tendermint_tpu_torch.ops import msm_torch
 
-    rows = np.flatnonzero(precheck)
-    with _A_LOCK:
-        cols = np.fromiter((_A_CACHE[keys[i]] for i in rows), dtype=np.int64, count=len(rows))
-        store = _A["store"]
     base = torch.from_numpy(msm_torch.basepoint_coords()).to(device)
     block = base.unsqueeze(-1).repeat(1, 1, na)
     if len(rows):
@@ -270,9 +273,12 @@ def _rlc_submit(pubkeys, msgs, sigs, device) -> _RlcCall:
         for i in np.flatnonzero(precheck):
             if _A_CACHE.get(keys[i], True) is None:  # cached-invalid encoding
                 precheck[i] = False
+        rows = np.flatnonzero(precheck)
         store = _A["store"]
-        cached = (bool(precheck.any()) and store is not None and store.device.type == device.type
-                  and all(keys[i] in _A_CACHE for i in np.flatnonzero(precheck)))
+        cached = (len(rows) > 0 and store is not None and store.device.type == device.type
+                  and all(keys[i] in _A_CACHE for i in rows))
+        if cached:  # the columns are valid only together with this store
+            cols = np.fromiter((_A_CACHE[keys[i]] for i in rows), dtype=np.int64, count=len(rows))
     z16, w_rows, u = _rlc_scalars_fast(precheck, s_rows, h_rows)
     na = _lane_bucket(n + 1)
     b_enc = np.frombuffer(point_compress(BASE), dtype=np.uint8)
@@ -286,7 +292,7 @@ def _rlc_submit(pubkeys, msgs, sigs, device) -> _RlcCall:
     prep_s = time.perf_counter() - t0
     if cached:
         dev = msm_torch.rlc_check_cached_submit(
-            _a_block(keys, precheck, na, device), pts_r, perm, ends)
+            _a_block(rows, cols, store, na, device), pts_r, perm, ends)
         return _RlcCall(precheck, n, na, "cached", dev, None, None, prep_s, t0)
     pts_a = np.tile(b_enc, (na, 1))
     pts_a[:n][precheck] = a_rows[precheck]

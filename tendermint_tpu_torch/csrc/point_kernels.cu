@@ -12,22 +12,26 @@
 // arithmetic in registers, and writes its output limbs once.
 //
 // What bounds each kernel on the H100, and what the design does about it:
-// - padd at the MSM's widths (up to 655,360 lanes) moves 960 B per lane
-//   (two points in, one out) against ~4,020 int32 multiply-adds per lane: at
-//   3.35 TB/s and ~16.7 T IMAD/s the two bounds are close, with bytes the
-//   larger. The kernel reads each input limb once and writes each output limb
-//   once, nothing else touches memory; the point of the design is that no
-//   39-row product accumulator ever leaves registers (the TPU kernel's reason
-//   to exist, pallas_fe.py:1-12).
-// - pdbl runs at 32 lanes or fewer with up to 128 chained doublings: a
-//   latency-bound dependent chain; the run-time loop keeps x, y, z in
-//   registers across doublings (t is only produced on the last one, since
-//   dbl-2008-hwcd never reads it) and replaces the TPU's 8-deep cap.
+// - padd at the MSM's widths (up to 327,680 lanes: the first tree level, 32
+//   windows x 10,240 pairs) moves 960 B per lane (two points in, one out)
+//   against 3,620 int32 multiply-adds per lane: at 3.35 TB/s and ~16.7 T
+//   IMAD/s the two bounds are close, with bytes the larger. The kernel reads
+//   each input limb once and writes each output limb once, nothing else
+//   touches memory; the point of the design is that no 39-row product
+//   accumulator ever leaves registers (the TPU kernel's reason to exist,
+//   pallas_fe.py:1-12).
+// - pdbl runs the MSM's window fold and bucket sum on 32 lanes or fewer with
+//   up to 128 chained doublings (a latency-bound dependent chain on a warp or
+//   less), and the per-signature ladder's 1-4 doublings on up to 16,384
+//   lanes. The run-time loop keeps x, y, z in registers across doublings (t
+//   is only produced on the last one, since dbl-2008-hwcd never reads it)
+//   and replaces the TPU's 8-deep cap.
 // - fsquare_chain (10,240-20,480 lanes, k up to 100) is bound by its
 //   multiply-adds (210 per squaring per lane); the element stays in registers
 //   for all k squarings, k is a run-time count (no 16-deep cap).
 // Register pressure is the known cost: two points are 160 words and a
-// product accumulator 39 more, so padd spills (see `-Xptxas -v` in PERF.md).
+// product accumulator 39 more; loading each coordinate pair just before its
+// product keeps padd within the register file (`-Xptxas -v` in PERF.md).
 // A wider radix with 64-bit products, shared-memory staging of the second
 // operand and fusing the tree's even/odd lane gather are later work.
 #include <cuda_runtime.h>

@@ -98,19 +98,14 @@ def fenwick_nodes_device(ends: torch.Tensor, n_lanes: int) -> torch.Tensor:
 
 
 def sort_windows(digits: np.ndarray, zero16_from: int = 0):
-    """digits (n_lanes, T) uint8 (window w digit = byte w of the scalar) ->
-    (perm (T, N) uint16 or int32, ends (T, NBUCKETS) int32). The native
-    counting sort for the full 32 windows, a stable numpy argsort otherwise."""
+    """digits (n_lanes, NWIN) uint8 (window w digit = byte w of the scalar) ->
+    (perm (NWIN, N) uint16 or int32, ends (NWIN, NBUCKETS) int32), by the
+    native counting sort."""
     n, t = digits.shape
-    idt = np.uint16 if n < (1 << 16) else np.int32
-    if t == NWIN:
-        perm32, ends = native.sort_windows(digits, zero16_from)
-        return np.ascontiguousarray(perm32.astype(idt)), ends
-    perm = np.ascontiguousarray(np.argsort(digits, axis=0, kind="stable").T.astype(idt))
-    offs = (np.arange(t, dtype=np.int64) * NBUCKETS)[None, :]
-    flat = digits.astype(np.int64) + offs
-    counts = np.bincount(flat.ravel(), minlength=t * NBUCKETS).reshape(t, NBUCKETS)
-    return perm, np.cumsum(counts, axis=1).astype(np.int32)
+    if t != NWIN:
+        raise ValueError(f"sort_windows: expected {NWIN} windows, got {t}")
+    perm32, ends = native.sort_windows(digits, zero16_from)
+    return np.ascontiguousarray(perm32.astype(np.uint16 if n < (1 << 16) else np.int32)), ends
 
 
 def scalars_to_bytes(scalars, n_lanes: int) -> np.ndarray:

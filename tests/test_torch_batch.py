@@ -14,6 +14,7 @@ from tendermint_tpu.crypto import batch as jbatch
 from tendermint_tpu.crypto import ed25519_ref as ref
 from tendermint_tpu.crypto.keys import gen_ed25519
 from tendermint_tpu_torch.crypto import batch as tbatch
+from tendermint_tpu_torch.ops import msm_torch
 
 torch.set_num_threads(2)
 
@@ -102,6 +103,28 @@ def test_rlc_honest_then_cached_matches_jax():
     assert "recovery_s" not in tbatch.LAST_FLUSH
     assert _check(*rows).all()  # second call on the same set: cached A
     assert tbatch.LAST_FLUSH["mode"] == "cached" and "recovery_s" not in tbatch.LAST_FLUSH
+
+
+def test_cached_flush_survives_a_cache_reset_mid_submit(monkeypatch):
+    """Another thread's fill resets the full A cache after this flush chose
+    the cached-A kernel and before it built its A block: the flush still
+    reads its own keys' coordinates and passes without recovery."""
+    rows = _case("honest", 600)
+    assert _check(*rows).all()
+    monkeypatch.setattr(tbatch, "_A_CACHE_MAX", 600)
+    other = make_rows(1, seed=99)[0][0]
+    enc = np.frombuffer(other, dtype=np.uint8).reshape(1, 32)
+    scalars = tbatch._rlc_scalars_fast
+
+    def scalars_then_reset(*a):
+        pts, ok = msm_torch.decompress_rows(enc, device="cpu")
+        tbatch.fill_a_cache(enc, pts, ok)  # 601st key: full reset
+        return scalars(*a)
+
+    monkeypatch.setattr(tbatch, "_rlc_scalars_fast", scalars_then_reset)
+    assert _check(*rows).all()
+    assert tbatch.LAST_FLUSH["mode"] == "cached" and "recovery_s" not in tbatch.LAST_FLUSH
+    assert list(tbatch._A_CACHE) == [other]
 
 
 def test_rlc_failure_recovers_exact_mask():

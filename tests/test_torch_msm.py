@@ -62,10 +62,6 @@ def test_sort_and_fenwick_indices_match_jax(n):
     idx = M.fenwick_node_indices(ends, n)
     np.testing.assert_array_equal(idx, msm_jax.fenwick_node_indices(jends, n))
     np.testing.assert_array_equal(M.fenwick_nodes_device(torch.from_numpy(ends), n).numpy(), idx)
-    # a short digit table takes the numpy path of both packages
-    short = digits[:, :4].copy()
-    for got, want in zip(M.sort_windows(short), msm_jax.sort_windows(short)):
-        np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("n", [512, 2048])
