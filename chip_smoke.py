@@ -7,23 +7,31 @@ Run from the repository root on a machine with a CUDA card, nvcc and gcc:
 
 Phases (any failure exits non-zero; nothing is caught and swallowed):
   1. the card (nvidia-smi name and power limit), torch / CUDA / nvcc versions;
-  2. build the CUDA kernels (nvcc, sm_90a) and the native host prep (gcc);
-  3. each kernel against its plain torch version on the card at the shapes
-     each of the three paths below gives it, tolerance zero (integer
-     arithmetic), with its time, the plain version's time and its bound;
-     plus the MSM total against the integer reference on a small input;
+  2. build the CUDA kernel libraries (one nvcc each, started together, sm_90a)
+     and the native host prep (gcc);
+  3. each of the six kernels against its plain torch version on the card at
+     the shapes the paths below give it, tolerance zero (integer arithmetic),
+     with its time, the plain version's time and its bound; the unfused MSM
+     total against the integer reference on a small input, and the fused
+     total against the unfused one at the 10k commit's 20,480 lanes;
   4. a 10,000-validator commit (random keys from a seed, real signatures over
      each row's precommit sign bytes) through ValidatorSet.verify_commit on
      two paths: "cold" (plain kernel: A and R decompressed together, fills
      the A cache) and "warm" (cached-A kernel), then one more warm call under
      torch.profiler (device busy time, idle share, kernels by device time);
+     both run the fused MSM (uptree, fenwick_reduce, bucket_fold);
   5. the "tampered" path: three tampered signatures, so verify_batch's
      combined check fails and the per-signature recovery gives the mask, which
      must be False exactly there; verify_commit raises CommitVerifyError;
-  6. a `kernels` JSON line, the card line, and last the `ok` JSON line.
+  6. the "streamed" path: verify_batch over 100,000 rows (the commit's signed
+     rows tiled ten times) through the flush planner, 9 chunks of 24,576
+     lanes, once to warm and three timed runs, one more under torch.profiler;
+     then "streamed_tampered": two tampered rows in different chunks, the
+     chunk-wise recovery, a mask False exactly there;
+  7. a `kernels` JSON line, the card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
-(the warm path per call); every kernel must launch on every path.
-Exits non-zero without a result when no CUDA device is available.
+(the warm and streamed paths per call); every kernel must launch on every
+path. Exits non-zero without a result when no CUDA device is available.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -44,6 +53,8 @@ N_VALIDATORS = 10_000
 CHAIN_ID = "chip-smoke-chain"
 HEIGHT = 7
 TAMPERED = (17, 4242, 9_999)
+STREAM_TILES = 10  # 100,000 rows
+STREAM_TAMPERED = (17, 60_000)  # chunks 0 and 4
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_MAD_PER_SM_PER_CLK = 64  # CUDA C++ Programming Guide, cc 9.0 throughput table
@@ -59,6 +70,24 @@ POINT_BYTES = 4 * 20 * 4
 def pdbl_mads(times: int) -> int:
     # per doubling: 4 squares, 3 products, 2 * zz; t = e h on the last one only
     return times * (4 * SQR + 3 * MUL + SMALL) + MUL
+
+
+REPLACES = {
+    "padd": "tendermint_tpu/ops/pallas_fe.py:249",
+    "pdbl": "tendermint_tpu/ops/pallas_fe.py:262",
+    "fsquare_chain": "tendermint_tpu/ops/pallas_fe.py:275",
+    "uptree": "tendermint_tpu/ops/pallas_msm.py:302",
+    "fenwick_reduce": "tendermint_tpu/ops/pallas_msm.py:384",
+    "bucket_fold": "tendermint_tpu/ops/pallas_msm.py:490",
+}
+NO_LIBRARY = {
+    "padd": "no PyTorch call adds curve points",
+    "pdbl": "no PyTorch call doubles curve points",
+    "fsquare_chain": "no PyTorch call squares in GF(2^255-19)",
+    "uptree": "no PyTorch call builds a curve-point pair tree",
+    "fenwick_reduce": "no PyTorch call sums gathered curve points",
+    "bucket_fold": "no PyTorch call folds curve-point buckets",
+}
 
 
 def imad_seconds(mads_per_lane: int, lanes: int, card: dict) -> float:
@@ -106,11 +135,36 @@ def seeded_points(m: int, rng: np.random.Generator):
     return np.stack(out)
 
 
+def fused_storage(pts, rng, n: int):
+    """The fused MSM's intermediates over n lanes of `pts` (a 10k commit's
+    20,480) with seeded scalars: sort, the storage map and node indices
+    (msm_torch._fused_stages) and the prefix points."""
+    from tendermint_tpu_torch.ops import cuda_msm, msm_torch
+
+    digits = rng.integers(0, 256, size=(n, 32)).astype(np.uint8)
+    digits[n // 2:, 16:] = 0  # the R block's scalars are < 2^128
+    perm, ends = msm_torch.sort_windows(digits, zero16_from=n // 2)
+    perm_t = torch.from_numpy(perm.astype(np.int32)).to(pts.device)
+    ends_t = torch.from_numpy(ends).to(pts.device)
+    lvl0, ctree, top, idx = msm_torch._fused_stages(pts, perm_t, ends_t)
+    return dict(perm=perm_t, ends=ends_t, lvl0=lvl0, ctree=ctree, top=top, idx=idx,
+                prefix=cuda_msm.fenwick_reduce_plain(lvl0, ctree, top, idx), t=perm.shape[0])
+
+
+def max_err(got, want) -> int:
+    if isinstance(got, tuple):
+        return max(max_err(a, b) for a, b in zip(got, want))
+    return int((got.long() - want.long()).abs().max())
+
+
 def kernel_checks(dev, rng, card: dict) -> list:
     """Each kernel against its plain version at the shapes of each path:
-    warm (cached A: R decompressed on 10,240 lanes), cold (A and R on 20,480)
-    and tampered (the per-signature ladder on the 16,384-lane bucket)."""
-    from tendermint_tpu_torch.ops import cuda_fe, msm_torch
+    warm (cached A: R decompressed on 10,240 lanes, the fused MSM over
+    20,480 lanes), cold (A and R decompressed on 20,480), tampered (the
+    per-signature ladder on the 16,384-lane bucket) and streamed (24,576-lane
+    chunks: A and R decompressed, the fused MSM)."""
+    from tendermint_tpu_torch.ops import cuda_fe, cuda_msm, msm_torch
+    from tendermint_tpu_torch.ops.msm_geometry import chunk_geometry, tree_written_positions
 
     enc = seeded_points(2048, rng)
     p0, ok = msm_torch.decompress_rows(enc, dev)
@@ -124,68 +178,106 @@ def kernel_checks(dev, rng, card: dict) -> list:
     def padd_case(path, lanes, where):
         p, q = pick(lanes), pick(lanes)
         return dict(name="padd", path=path, variant=where, lanes=lanes,
-                    replaces="tendermint_tpu/ops/pallas_fe.py:249",
                     kern=lambda: cuda_fe.padd(p, q), plain=lambda: cuda_fe.padd_plain(p, q),
-                    mads=PADD_MADS, bytes=3 * POINT_BYTES * lanes)
+                    mads=PADD_MADS, items=lanes, bytes=3 * POINT_BYTES * lanes)
 
     def pdbl_case(path, lanes, times, where):
         p = pick(lanes)
         return dict(name="pdbl", path=path, variant=f"times={times}, {where}", lanes=lanes,
-                    replaces="tendermint_tpu/ops/pallas_fe.py:262",
                     kern=lambda: cuda_fe.pdbl(p, times), plain=lambda: cuda_fe.pdbl_plain(p, times),
-                    mads=pdbl_mads(times),
+                    mads=pdbl_mads(times), items=lanes,
                     bytes=(3 * 80 + POINT_BYTES) * lanes)  # x, y, z in (t is not read), 4 out
 
     def fsq_case(path, lanes, where):
         x = pick(lanes)[1].contiguous()
         return dict(name="fsquare_chain", path=path, variant=f"k=50, {where}", lanes=lanes,
-                    replaces="tendermint_tpu/ops/pallas_fe.py:275",
                     kern=lambda: cuda_fe.fsquare_chain(x, 50),
                     plain=lambda: cuda_fe.fsquare_chain_plain(x, 50),
-                    mads=50 * SQR, bytes=2 * 80 * lanes)
+                    mads=50 * SQR, items=lanes, bytes=2 * 80 * lanes)
 
+    def uptree_case(path, lanes, where):
+        ch = 2048
+        x = pick(lanes)
+        nchunks = lanes // ch
+        pos = torch.from_numpy(tree_written_positions(ch)).to(dev)
+
+        def written(t):  # the positions that hold a node
+            return t.reshape(4, 20, nchunks, chunk_geometry(ch).rows_out * 128)[..., pos]
+
+        return dict(name="uptree", path=path, variant=f"ch={ch}, {where}", lanes=lanes,
+                    kern=lambda: cuda_msm.uptree(x, ch), plain=lambda: cuda_msm.uptree_plain(x, ch),
+                    view=written, mads=PADD_MADS, items=nchunks * (ch - 1),
+                    bytes=(lanes + nchunks * (ch - 1)) * POINT_BYTES)
+
+    fs = fused_storage(pick(20_480), rng, 20_480)
+    m, kf = fs["idx"].shape
+    fw_args = (fs["lvl0"], fs["ctree"], fs["top"], fs["idx"])
+    t_ = fs["t"]
     cases = [
-        padd_case("warm", 32 * 10_240, "MSM tree level 1: 32 windows x 10,240 pairs"),
+        uptree_case("warm", 32 * 20_480, "10k commit: 32 windows x 10 chunks"),
+        uptree_case("streamed", 32 * 24_576, "planner chunk: 32 windows x 12 chunks"),
+        dict(name="fenwick_reduce", path="warm", variant=f"Kf={kf}, 256 buckets x {t_} windows",
+             lanes=m, kern=lambda: cuda_msm.fenwick_reduce(*fw_args),
+             plain=lambda: cuda_msm.fenwick_reduce_plain(*fw_args),
+             mads=(kf - 1) * PADD_MADS, items=m,
+             bytes=(m * kf + m) * POINT_BYTES + m * kf * 4),
+        dict(name="bucket_fold", path="warm", variant=f"T={t_}", lanes=m,
+             kern=lambda: cuda_msm.bucket_fold(fs["prefix"], t_),
+             plain=lambda: cuda_msm.bucket_fold_plain(fs["prefix"], t_),
+             mads=PADD_MADS, items=255 * t_, bytes=(m + 2 * t_) * POINT_BYTES),
+        padd_case("warm", 32 * 5, "top tree level 1: 32 windows x 5 root pairs"),
+        padd_case("streamed", 32 * 6, "top tree level 1: 32 windows x 6 root pairs"),
+        padd_case("warm", 32, "[255] P_255 and W per window"),
         padd_case("tampered", 16_384, "per-signature ladder"),
         pdbl_case("warm", 32, 8, "[256] P_255 per window"),
         pdbl_case("warm", 1, 128, "last window-fold level"),
         pdbl_case("tampered", 16_384, 4, "per-signature ladder"),
         fsq_case("warm", 10_240, "R decompression"),
         fsq_case("cold", 20_480, "A and R decompression"),
+        fsq_case("streamed", 24_576, "A and R decompression per chunk"),
         fsq_case("tampered", 16_384, "per-signature A or R decompression"),
     ]
 
     rows = []
     for c in cases:
+        view = c.get("view", lambda t: t)
         got = c["kern"]()
         want = c["plain"]()
         torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
+        err = max_err(view(got), view(want))
         if err != 0:  # limb-identical, so equal after freeze too
             raise SystemExit(f"kernel {c['name']} {c['variant']} disagrees with its "
                              f"plain version: max |err| {err}")
         ms = timed(c["kern"])
-        plain_ms = timed(c["plain"])
-        t_ops = imad_seconds(c["mads"], c["lanes"], card) * 1e3
+        plain_ms = timed(c["plain"], reps=3)
+        t_ops = imad_seconds(c["mads"], c["items"], card) * 1e3
         t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
+        source = ("tendermint_tpu_torch/csrc/msm_kernels.cu" if c["name"] in cuda_msm.LAUNCHES
+                  else "tendermint_tpu_torch/csrc/point_kernels.cu")
         row = dict(
             name=c["name"], path=c["path"], variant=c["variant"], lanes=c["lanes"], route="cuda",
-            source="tendermint_tpu_torch/csrc/point_kernels.cu", replaces=c["replaces"],
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+            source=source, replaces=REPLACES[c["name"]], max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
+            library_note=NO_LIBRARY[c["name"]],
         )
         rows.append(row)
         print(f"kernel {row['name']} [{row['path']}] {row['variant']} lanes={row['lanes']}: "
               f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.5f} "
               f"({row['bound_by']}) max_abs_err={err} library_ms=null", flush=True)
-    return rows
+    return rows, base
 
 
-def msm_reference_check(dev, rng) -> None:
+def msm_reference_check(dev, rng, base) -> None:
     """The unfused MSM total on the card against the integer MSM at 64 lanes
-    (A block with ~2^253 scalars, R block with < 2^128), by canonical encoding."""
+    (A block with ~2^253 scalars, R block with < 2^128), by canonical
+    encoding; then the fused total against the unfused one at 20,480 lanes
+    (the 10k commit's lanes) on seeded points and scalars."""
     from tendermint_tpu_torch.crypto import ed25519_ref as ref
     from tendermint_tpu_torch.ops import ed25519_torch, msm_torch
+
+    def compress(total):
+        return bytes(ed25519_torch.compress(total.reshape(4, 20, 1).contiguous())[:, 0].cpu().numpy())
 
     n = 64
     enc = seeded_points(n, rng)
@@ -198,10 +290,18 @@ def msm_reference_check(dev, rng) -> None:
     perm, ends = msm_torch.sort_windows(msm_torch.scalars_to_bytes(scal, n), zero16_from=n // 2)
     node_idx = msm_torch.fenwick_nodes_device(torch.from_numpy(ends).to(dev), n)
     total = msm_torch._msm_total(pts, torch.from_numpy(perm.astype(np.int32)).to(dev), node_idx)
-    got = bytes(ed25519_torch.compress(total.reshape(4, 20, 1).contiguous())[:, 0].cpu().numpy())
-    if got != ref.point_compress(want):
+    if compress(total) != ref.point_compress(want):
         raise SystemExit("MSM total on the card differs from the integer reference")
     print("msm total (64 lanes) equals the ed25519_ref integer MSM", flush=True)
+
+    n = 20_480
+    pts = base[..., torch.from_numpy(rng.integers(0, base.shape[-1], size=n)).to(dev)].contiguous()
+    fs = fused_storage(pts, rng, n)
+    fused = msm_torch._msm_total_fused(pts, fs["perm"], fs["ends"])
+    unfused = msm_torch._msm_total(pts, fs["perm"], msm_torch.fenwick_nodes_device(fs["ends"], n))
+    if compress(fused) != compress(unfused):
+        raise SystemExit("fused and unfused MSM totals differ at 20,480 lanes")
+    print(f"msm total ({n} lanes): fused == unfused by canonical encoding", flush=True)
 
 
 def _sign_rows(args):
@@ -263,10 +363,10 @@ def _pubkey_rows(args):
     return [ref.point_compress(ref.point_mul(ref.secret_expand(s)[0], ref.BASE)) for s, _ in args]
 
 
-def profile_warm(fn, warm_ms: float) -> None:
-    """One warm verify_commit under torch.profiler: device busy time (sum of
+def profile_path(path: str, fn, median_ms: float) -> None:
+    """One call of a path under torch.profiler: device busy time (sum of
     kernel times; one stream, so kernels do not overlap), the idle share
-    against the unprofiled warm median, and the kernels by device time."""
+    against the path's unprofiled median, and the kernels by device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -276,30 +376,44 @@ def profile_warm(fn, warm_ms: float) -> None:
     rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in rows)
     if busy_us <= 0:
-        print("profile: the profiler recorded no device time (device busy: not measured)")
+        print(f"profile {path}: the profiler recorded no device time (device busy: not measured)")
         return
     n_kernels = sum(e.count for e in rows)
-    print(f"profile: device_busy_ms={busy_us / 1e3:.2f} kernels={n_kernels} "
-          f"idle_share={1 - busy_us / 1e3 / warm_ms:.3f} (vs warm median {warm_ms:.1f} ms)")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"profile:   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    print(f"profile {path}: device_busy_ms={busy_us / 1e3:.2f} kernels={n_kernels} "
+          f"idle_share={1 - busy_us / 1e3 / median_ms:.3f} (vs median {median_ms:.1f} ms)")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:14]:
+        print(f"profile {path}:   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}")
+
+
+def reset_launches() -> None:
+    from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
+
+    cuda_fe.reset_launches()
+    cuda_msm.reset_launches()
 
 
 def read_launches(path: str) -> dict:
-    """The launch counts since the last reset; every kernel must have run."""
-    from tendermint_tpu_torch.ops import cuda_fe
+    """The launch counts of all six kernels since the last reset; every
+    kernel must have run."""
+    from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
 
-    counts = dict(cuda_fe.LAUNCHES)
+    counts = {**cuda_fe.LAUNCHES, **cuda_msm.LAUNCHES}
     for name, count in counts.items():
         if count <= 0:
             raise SystemExit(f"kernel {name} was not launched on the {path} path")
     return counts
 
 
+def same_counts(launches: dict, path: str, counts: dict) -> None:
+    if launches.setdefault(path, counts) != counts:
+        raise SystemExit(f"{path} calls launched different counts: {launches[path]} vs {counts}")
+
+
 def commit_phase(dev, corpus) -> dict:
-    """The three paths, each with its own launch counts: {path: {kernel: n}}."""
+    """The three commit paths, each with its own launch counts:
+    {path: {kernel: n}}."""
     from tendermint_tpu_torch.crypto import batch
-    from tendermint_tpu_torch.ops import cuda_fe
     from tendermint_tpu_torch.types.block import Commit, CommitSig
     from tendermint_tpu_torch.types.validator_set import CommitVerifyError
 
@@ -308,29 +422,27 @@ def commit_phase(dev, corpus) -> dict:
     launches = {}
 
     # Cold: the plain kernel decompresses A and R together and fills the cache.
-    cuda_fe.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev)
     torch.cuda.synchronize()
     cold_ms = (time.perf_counter() - t0) * 1e3
     launches["cold"] = read_launches("cold")
     cold = dict(batch.LAST_FLUSH)
-    assert cold.get("mode") == "plain" and "recovery_s" not in cold, cold
+    assert cold.get("mode") == "plain" and cold.get("fused") and "recovery_s" not in cold, cold
 
     # Warm: the cached-A kernel; counts per call, the same on every call.
     warm, warm_flush = [], []
     for _ in range(7):
-        cuda_fe.reset_launches()
+        reset_launches()
         t0 = time.perf_counter()
         vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev)
         torch.cuda.synchronize()
         warm.append((time.perf_counter() - t0) * 1e3)
-        counts = read_launches("warm")
-        if launches.setdefault("warm", counts) != counts:
-            raise SystemExit(f"warm calls launched different counts: {launches['warm']} vs {counts}")
+        same_counts(launches, "warm", read_launches("warm"))
         warm_flush.append(dict(batch.LAST_FLUSH))
     for f in warm_flush:
-        assert f.get("mode") == "cached" and "recovery_s" not in f, f
+        assert f.get("mode") == "cached" and f.get("fused") and "recovery_s" not in f, f
     prep = statistics.median(f["prep_s"] for f in warm_flush) * 1e3
     total = statistics.median(f["total_s"] for f in warm_flush) * 1e3
     sign_bytes = []
@@ -341,19 +453,17 @@ def commit_phase(dev, corpus) -> dict:
     print(f"verify_commit 10k: cold_ms={cold_ms:.1f} warm_median_ms={statistics.median(warm):.1f} "
           f"warm_ms={[round(w, 1) for w in warm]} sign_bytes_ms={statistics.median(sign_bytes):.1f} "
           f"host_prep_ms={prep:.1f} submit_to_sync_ms={total - prep:.1f} lanes={cold['lanes']} "
-          f"(A block {cold['lanes'] // 2})", flush=True)
+          f"(A block {cold['lanes'] // 2}) fused={cold['fused']}", flush=True)
     print(f"launches cold={launches['cold']} warm per call={launches['warm']}", flush=True)
-    profile_warm(lambda: vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev),
+    profile_path("warm", lambda: vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev),
                  statistics.median(warm))
 
     # Tampered: the cached flush fails, the per-signature recovery gives the mask.
     pubkeys = [vals.validators[i].pub_key.bytes() for i in range(N_VALIDATORS)]
     sigs = [cs.signature for cs in commit.signatures]
     for i in TAMPERED:
-        s = bytearray(sigs[i])
-        s[40] ^= 0x01
-        sigs[i] = bytes(s)
-    cuda_fe.reset_launches()
+        sigs[i] = flip(sigs[i])
+    reset_launches()
     t0 = time.perf_counter()
     mask = batch.verify_batch(pubkeys, msgs, sigs, device=dev)
     torch.cuda.synchronize()
@@ -377,12 +487,80 @@ def commit_phase(dev, corpus) -> dict:
     return launches
 
 
+def flip(sig: bytes) -> bytes:
+    s = bytearray(sig)
+    s[40] ^= 0x01
+    return bytes(s)
+
+
+def streamed_phase(dev, corpus, launches: dict) -> None:
+    """verify_batch over the commit's signed rows tiled STREAM_TILES times
+    (100,000 rows, 9 planner chunks of 24,576 lanes): once to warm, three
+    timed runs, one profiled; then two tampered rows in different chunks."""
+    from tendermint_tpu_torch.crypto import batch
+
+    vals, _, commit, msgs = corpus
+    pubkeys = [v.pub_key.bytes() for v in vals.validators] * STREAM_TILES
+    sigs = [cs.signature for cs in commit.signatures] * STREAM_TILES
+    msgs = list(msgs) * STREAM_TILES
+    n = len(pubkeys)
+    assert batch.planner_engaged(n)
+
+    def run():
+        reset_launches()
+        t0 = time.perf_counter()
+        mask = batch.verify_batch(pubkeys, msgs, sigs, device=dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        f = dict(batch.LAST_FLUSH)
+        if not mask.all() or mask.shape != (n,):
+            raise SystemExit(f"streamed mask wrong: {int((~mask).sum())} rows False")
+        if not (f.get("mode") == "streamed" and f.get("fused") and "recovery_s" not in f
+                and f["chunk_lanes"] == 24_576
+                and 0 < f["peak_lanes_in_flight"] <= 2 * f["chunk_lanes"]):
+            raise SystemExit(f"streamed flush detail wrong: {f}")
+        return ms, f
+
+    run()  # warm
+    times, flushes = [], []
+    for _ in range(3):
+        ms, f = run()
+        times.append(ms)
+        flushes.append(f)
+        same_counts(launches, "streamed", read_launches("streamed"))
+    f = flushes[-1]
+    print(f"streamed {n} rows: e2e_median_ms={statistics.median(times):.1f} "
+          f"e2e_ms={[round(t, 1) for t in times]} chunks={f['chunks']} "
+          f"chunk_lanes={f['chunk_lanes']} peak_lanes_in_flight={f['peak_lanes_in_flight']} "
+          f"host_prep_ms={statistics.median(x['prep_s'] for x in flushes) * 1e3:.1f} "
+          f"prep_wait_ms={statistics.median(x['prep_wait_s'] for x in flushes) * 1e3:.1f} "
+          f"launches={launches['streamed']}", flush=True)
+    profile_path("streamed", lambda: batch.verify_batch(pubkeys, msgs, sigs, device=dev),
+                 statistics.median(times))
+
+    bad_sigs = list(sigs)
+    for i in STREAM_TAMPERED:
+        bad_sigs[i] = flip(bad_sigs[i])
+    reset_launches()
+    t0 = time.perf_counter()
+    mask = batch.verify_batch(pubkeys, msgs, bad_sigs, device=dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches["streamed_tampered"] = read_launches("streamed_tampered")
+    bad = tuple(int(i) for i in np.flatnonzero(~mask))
+    if bad != STREAM_TAMPERED or "recovery_s" not in batch.LAST_FLUSH:
+        raise SystemExit(f"streamed tampered mask wrong: False at {bad}, expected {STREAM_TAMPERED}")
+    print(f"streamed tampered rows {bad}: verify_batch ms={ms:.1f} (chunk-wise recovery "
+          f"ms={batch.LAST_FLUSH['recovery_s'] * 1e3:.1f}) "
+          f"launches={launches['streamed_tampered']}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from tendermint_tpu_torch import native
-    from tendermint_tpu_torch.ops import cuda_fe
+    from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
 
     # The signing pool forks before this process first touches the card.
     corpus = build_commit(np.random.default_rng(SEED + 1))
@@ -399,18 +577,21 @@ def main() -> int:
           f"{sh([cuda_fe._nvcc(), '--version']).splitlines()[-1]}", flush=True)
 
     t0 = time.perf_counter()
-    cuda_fe.build()
-    native._lib()
-    print(f"build: {time.perf_counter() - t0:.1f} s (nvcc {cuda_fe.BUILD_LOG['seconds']:.1f} s)",
-          flush=True)
-    for line in cuda_fe.BUILD_LOG["ptxas"].splitlines():
-        if "Used" in line or "spill" in line or "Compiling entry" in line:
-            print("ptxas:", line.strip(), flush=True)
+    with ThreadPoolExecutor(3) as ex:  # one nvcc per library, and gcc, at once
+        for f in [ex.submit(fn) for fn in (cuda_fe.build, cuda_msm.build, native._lib)]:
+            f.result()
+    print(f"build: {time.perf_counter() - t0:.1f} s (" + ", ".join(
+        f"{k} {v['seconds']:.1f} s" for k, v in cuda_fe.BUILD_LOG.items()) + ")", flush=True)
+    for lib, log in cuda_fe.BUILD_LOG.items():
+        for line in log["ptxas"].splitlines():
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
+                print(f"ptxas {lib}:", line.strip(), flush=True)
 
     rng = np.random.default_rng(SEED)
-    rows = kernel_checks(dev, rng, card)
-    msm_reference_check(dev, rng)
+    rows, base = kernel_checks(dev, rng, card)
+    msm_reference_check(dev, rng, base)
     launches = commit_phase(dev, corpus)
+    streamed_phase(dev, corpus, launches)
     for r in rows:  # the count on the path whose shape the row checks
         r["launches"] = launches[r["path"]][r["name"]]
     print(json.dumps({"kernels": rows, "launches_by_path": launches}), flush=True)

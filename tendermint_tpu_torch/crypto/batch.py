@@ -1,15 +1,24 @@
 """Batch Ed25519 verification on the card: `verify_batch -> bool mask`.
 
-The counterpart of the single-flush, unfused-MSM configuration of
-tendermint_tpu/crypto/batch.py (`verify_batch_jax` with TMTPU_PREP_STREAM=0,
-TMTPU_BISECT=0, TMTPU_FUSED_MSM=0). Routing:
+The counterpart of tendermint_tpu/crypto/batch.py's `verify_batch_jax` in the
+single-device configuration with TMTPU_PREP_STREAM=0 and TMTPU_BISECT=0.
+Routing:
 
 - fewer than RLC_MIN rows: the per-signature ladder (ops/ed25519_torch.py);
-- RLC_MIN rows or more: ONE random-linear-combination flush (ops/msm_torch.py).
-  If the combined check fails, one per-signature flush over all rows gives
-  the exact mask (the reference's non-bisect recovery);
-- more rows than the largest lane bucket: refused (that needs the flush
-  planner, a later slice of the port).
+- RLC_MIN to planner_chunk_rows() rows (12,287 at the default budget): ONE
+  random-linear-combination flush (ops/msm_torch.py), on the fused MSM
+  schedule whenever a chunk tiles its lanes (every lane bucket of 1,024
+  A lanes or more, so every flush this module makes). If the combined check
+  fails, one per-signature flush over all rows gives the exact mask (the
+  reference's non-bisect recovery);
+- more rows: the streamed flush planner. Fixed chunks of planner_budget()
+  lanes, each with its own B lane, are prepared on a worker thread one chunk
+  ahead, run as partial MSMs, summed on the device with one padd each, and
+  checked once. If that check fails, the exact mask is recovered chunk by
+  chunk through the in-budget path above.
+
+A kernel or launch failure raises: there is no retry on another schedule
+and no recovery from a device error (ROADMAP.md section C).
 
 Verification is COFACTORED with canonical encodings and s < L on every path,
 so the mask never depends on the route (crypto/ed25519_ref.verify_cofactored).
@@ -19,13 +28,15 @@ window sort. Decompressed public keys are cached ON THE DEVICE across calls
 (consensus re-verifies one validator set every height): the first flush of a
 set runs the plain kernel, which decompresses A in-kernel and fills the
 cache; once every included key is cached, the cached-A kernel decompresses
-only R.
+only R. The streamed path decompresses A and R in every chunk, as the
+reference's does.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from collections import deque
 from typing import Optional, Sequence
 
 import numpy as np
@@ -59,8 +70,65 @@ def _lane_bucket(m: int) -> int:
     return m
 
 
-# Timings of the last flush (host prep, device + sync), for chip_smoke.py.
+# Timings and shape of the last flush (host prep, device + sync, schedule),
+# for chip_smoke.py.
 LAST_FLUSH: dict = {}
+
+# ---------------------------------------------------------------------------
+# Streamed flush planner: a flush above the lane budget runs as fixed chunks
+# of the budget. Each chunk carries its own B lane with scalar (L - u_k): B
+# has order L, so the per-chunk B terms sum to a single flush's one term and
+# the combined verdict equals a single flush's.
+
+_PLANNER = {"max_flush_lanes": 24576}
+
+
+def configure_planner(max_flush_lanes: Optional[int] = None) -> None:
+    """Set the device budget per flush, in MSM lanes (process-global)."""
+    if max_flush_lanes is not None:
+        v = int(max_flush_lanes)
+        if v < 8:  # >= 1 row + the B lane per half
+            raise ValueError(f"max_flush_lanes {v} < 8")
+        _PLANNER["max_flush_lanes"] = v & ~1  # even: A block + R block
+
+
+def planner_budget() -> int:
+    """Device budget per flush, in MSM lanes (A + B + R + pads)."""
+    return _PLANNER["max_flush_lanes"]
+
+
+def planner_chunk_rows() -> int:
+    """Signature rows per streamed chunk: half the budget is the A block
+    (rows + the chunk's B lane), the other half the R block."""
+    return planner_budget() // 2 - 1
+
+
+def planner_engaged(n: int) -> bool:
+    """Does an n-row flush stream? Exactly when one flush would exceed the
+    budget."""
+    return n > planner_chunk_rows()
+
+
+def _planner_chunks(n: int) -> list:
+    """[(lo, hi), ...] row spans; every chunk pads to the same lanes."""
+    c = planner_chunk_rows()
+    return [(lo, min(lo + c, n)) for lo in range(0, n, c)]
+
+
+_PREP_POOL = None  # the planner's single prep worker, made at first use
+_PREP_POOL_LOCK = threading.Lock()
+
+
+def _prep_pool():
+    global _PREP_POOL
+    if _PREP_POOL is None:
+        with _PREP_POOL_LOCK:
+            if _PREP_POOL is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                _PREP_POOL = ThreadPoolExecutor(max_workers=1, thread_name_prefix="flush-prep")
+    return _PREP_POOL
+
 
 # ---------------------------------------------------------------------------
 # Host prep (native C).
@@ -259,10 +327,29 @@ class _RlcCall:
         self.dev, self.pts, self.a_rows, self.prep_s, self.t0 = dev, pts, a_rows, prep_s, t0
 
 
+def _rlc_lanes(precheck, a_rows, r_rows, s_rows, h_rows, na: int):
+    """Lanes and window sort of one RLC flush over n = len(precheck) rows:
+    [A_0..A_{n-1}, B, pads -> na | R_0..R_{n-1}, pads -> na]; excluded and pad
+    lanes carry the basepoint with scalar 0 (bucket 0 is never summed).
+    Returns (pts (2 na, 32) uint8, perm, ends)."""
+    from tendermint_tpu_torch.ops import msm_torch
+
+    n = len(precheck)
+    z16, w_rows, u = _rlc_scalars_fast(precheck, s_rows, h_rows)
+    b_enc = np.frombuffer(point_compress(BASE), dtype=np.uint8)
+    pts = np.tile(b_enc, (2 * na, 1))
+    pts[:n][precheck] = a_rows[precheck]
+    pts[na : na + n][precheck] = r_rows[precheck]
+    scalars = np.zeros((2 * na, 32), dtype=np.uint8)
+    scalars[:n] = w_rows
+    scalars[n] = np.frombuffer(((L - u) % L).to_bytes(32, "little"), dtype=np.uint8)
+    scalars[na : na + n, :16] = z16
+    perm, ends = msm_torch.sort_windows(scalars, zero16_from=na)
+    return pts, perm, ends
+
+
 def _rlc_submit(pubkeys, msgs, sigs, device) -> _RlcCall:
-    """Host prep + device submit of the combined check (no sync). Lanes:
-    [A_0..A_{n-1}, B, pads -> Na | R_0..R_{n-1}, pads -> Na]; excluded and
-    pad lanes carry the basepoint with scalar 0 (bucket 0 is never summed)."""
+    """Host prep + device submit of the combined check (no sync)."""
     from tendermint_tpu_torch.ops import msm_torch
 
     t0 = time.perf_counter()
@@ -279,31 +366,22 @@ def _rlc_submit(pubkeys, msgs, sigs, device) -> _RlcCall:
                   and all(keys[i] in _A_CACHE for i in rows))
         if cached:  # the columns are valid only together with this store
             cols = np.fromiter((_A_CACHE[keys[i]] for i in rows), dtype=np.int64, count=len(rows))
-    z16, w_rows, u = _rlc_scalars_fast(precheck, s_rows, h_rows)
     na = _lane_bucket(n + 1)
-    b_enc = np.frombuffer(point_compress(BASE), dtype=np.uint8)
-    pts_r = np.tile(b_enc, (na, 1))
-    pts_r[:n][precheck] = r_rows[precheck]
-    scalars = np.zeros((2 * na, 32), dtype=np.uint8)
-    scalars[:n] = w_rows
-    scalars[n] = np.frombuffer(((L - u) % L).to_bytes(32, "little"), dtype=np.uint8)
-    scalars[na : na + n, :16] = z16
-    perm, ends = msm_torch.sort_windows(scalars, zero16_from=na)
+    pts, perm, ends = _rlc_lanes(precheck, a_rows, r_rows, s_rows, h_rows, na)
     prep_s = time.perf_counter() - t0
     if cached:
         dev = msm_torch.rlc_check_cached_submit(
-            _a_block(rows, cols, store, na, device), pts_r, perm, ends)
+            _a_block(rows, cols, store, na, device), pts[na:], perm, ends)
         return _RlcCall(precheck, n, na, "cached", dev, None, None, prep_s, t0)
-    pts_a = np.tile(b_enc, (na, 1))
-    pts_a[:n][precheck] = a_rows[precheck]
-    dev, pts = msm_torch.rlc_check_submit(
-        np.concatenate([pts_a, pts_r], axis=0), perm, ends, device)
-    return _RlcCall(precheck, n, na, "plain", dev, pts, a_rows, prep_s, t0)
+    dev, dpts = msm_torch.rlc_check_submit(pts, perm, ends, device)
+    return _RlcCall(precheck, n, na, "plain", dev, dpts, a_rows, prep_s, t0)
 
 
 def _rlc_finish(call: _RlcCall) -> Optional[np.ndarray]:
     """ONE device-to-host copy; the mask when the combined check passes, None
     when the caller must recover per signature."""
+    from tendermint_tpu_torch.ops import msm_torch
+
     out = call.dev.cpu().numpy()  # [batch_ok, lane_ok...]
     precheck, n, na = call.precheck, call.n, call.na
     ok = out[1:]
@@ -316,7 +394,7 @@ def _rlc_finish(call: _RlcCall) -> Optional[np.ndarray]:
             fill_a_cache(call.a_rows[rows], call.pts[..., torch.from_numpy(rows).to(call.pts.device)],
                          ok[rows])
     LAST_FLUSH.update(mode=call.mode, prep_s=call.prep_s, total_s=time.perf_counter() - call.t0,
-                      lanes=2 * na)
+                      lanes=2 * na, fused=msm_torch.fused_for_lanes(2 * na))
     return precheck if (bool(out[0]) and lanes_ok) else None
 
 
@@ -328,6 +406,97 @@ def _persig_flush(pubkeys, msgs, sigs, device) -> np.ndarray:
     t = [torch.from_numpy(x).to(device) for x in (a, r, s_d, h_d)]
     mask = verify_prepared(*t).cpu().numpy()[:n]
     return mask & precheck
+
+
+def _prep_stream_chunk(pubkeys, msgs, sigs, lo: int, hi: int, na_c: int):
+    """Host prep of one planner chunk on the prep worker: rows [lo, hi) in
+    the plain-kernel lane layout with the chunk's own B lane. Returns
+    (precheck (hi-lo,), pts (2 na_c, 32), perm, ends, prep seconds)."""
+    t0 = time.perf_counter()
+    precheck, a_rows, r_rows, s_rows, h_rows = _precheck_and_hash_fast(
+        pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi])
+    pts, perm, ends = _rlc_lanes(precheck, a_rows, r_rows, s_rows, h_rows, na_c)
+    return precheck, pts, perm, ends, time.perf_counter() - t0
+
+
+def _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device) -> Optional[np.ndarray]:
+    """The streamed combined check: chunk k+1's host prep runs on the prep
+    worker while chunk k's kernels run; each chunk's partial point is added
+    to a device accumulator with one padd; at most 2 chunks are in flight
+    (the older chunk's lane flags are synced before a third is submitted);
+    one identity check at the end. Returns the mask when the check passes,
+    None when the caller must recover the exact mask."""
+    from tendermint_tpu_torch.ops import msm_torch
+
+    t0 = time.perf_counter()
+    n = len(pubkeys)
+    na_c = planner_budget() // 2
+    chunks = _planner_chunks(n)
+    pool = _prep_pool()
+    prechecks: list = [None] * len(chunks)
+    inflight: deque = deque()  # (chunk index, lane flags, event or None)
+    acc = None
+    lanes_ok = True
+    prep_s = wait_s = 0.0
+    peak = 0
+
+    def sync_oldest():
+        k, flags, ev = inflight.popleft()
+        if ev is not None:
+            ev.synchronize()  # this chunk's kernels and flag copy, not later ones
+        ok = flags.numpy()
+        pc = prechecks[k]
+        c = chunks[k][1] - chunks[k][0]
+        return not pc.any() or bool(ok[:c][pc].all() and ok[na_c : na_c + c][pc].all())
+
+    fut = pool.submit(_prep_stream_chunk, pubkeys, msgs, sigs, *chunks[0], na_c)
+    for k in range(len(chunks)):
+        tw = time.perf_counter()
+        precheck, pts, perm, ends, chunk_prep_s = fut.result()
+        wait_s += time.perf_counter() - tw
+        prep_s += chunk_prep_s
+        prechecks[k] = precheck
+        if k + 1 < len(chunks):
+            fut = pool.submit(_prep_stream_chunk, pubkeys, msgs, sigs, *chunks[k + 1], na_c)
+        part, ok = msm_torch.rlc_partial_submit(pts, perm, ends, device)
+        acc = part if acc is None else msm_torch.partial_fold_submit(acc, part)
+        if device.type == "cuda":
+            flags = torch.empty(ok.shape, dtype=torch.bool, pin_memory=True)
+            flags.copy_(ok, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record()
+        else:
+            flags, ev = ok, None
+        inflight.append((k, flags, ev))
+        peak = max(peak, len(inflight) * 2 * na_c)
+        if len(inflight) >= 2:
+            lanes_ok &= sync_oldest()
+    while inflight:
+        lanes_ok &= sync_oldest()
+    batch_ok = bool(msm_torch.partial_identity_submit(acc).item())
+    LAST_FLUSH.update(mode="streamed", fused=msm_torch.fused_for_lanes(2 * na_c),
+                      chunks=len(chunks), chunk_lanes=2 * na_c, peak_lanes_in_flight=peak,
+                      lanes=len(chunks) * 2 * na_c, prep_s=prep_s, prep_wait_s=wait_s,
+                      total_s=time.perf_counter() - t0)
+    if batch_ok and lanes_ok:
+        return np.concatenate(prechecks)
+    return None
+
+
+def _verify_batch_streamed(pubkeys, msgs, sigs, device) -> np.ndarray:
+    """Planner-engaged verification: the streamed combined check; when it
+    fails, the exact mask chunk by chunk through the in-budget path (each
+    chunk at most the budget, so recovery never exceeds it either)."""
+    mask = _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device)
+    if mask is not None:
+        return mask
+    detail = dict(LAST_FLUSH)
+    t0 = time.perf_counter()
+    parts = [verify_batch(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], device=device)
+             for lo, hi in _planner_chunks(len(pubkeys))]
+    LAST_FLUSH.clear()
+    LAST_FLUSH.update(detail, recovery_s=time.perf_counter() - t0)
+    return np.concatenate(parts)
 
 
 def verify_batch(
@@ -344,11 +513,8 @@ def verify_batch(
     if n < RLC_MIN:
         LAST_FLUSH.update(mode="persig")
         return _persig_flush(pubkeys, msgs, sigs, dev)
-    if n + 1 > _LANE_BUCKETS[-1]:
-        raise NotImplementedError(
-            f"{n} rows exceed the largest RLC lane bucket ({_LANE_BUCKETS[-1] - 1} rows); "
-            "flushes that large need the flush-planner slice of the port"
-        )
+    if planner_engaged(n):
+        return _verify_batch_streamed(pubkeys, msgs, sigs, dev)
     mask = _rlc_finish(_rlc_submit(pubkeys, msgs, sigs, dev))
     if mask is not None:
         return mask

@@ -17,8 +17,9 @@ raises if the launch failed, and adds one to `LAUNCHES[name]`. There is no
 fallback from a CUDA tensor to the plain version.
 
 The kernels are built with nvcc for sm_90a at first use into `_build/` (keyed
-by a hash of the sources and flags) and bound with ctypes. A failed build
-raises with nvcc's stderr.
+by a hash of the sources and flags) and bound with ctypes (`build_library`,
+which ops/cuda_msm.py uses for its own library too). A failed build raises
+with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -47,11 +48,6 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-
-_LIB = None
-_LOCK = threading.Lock()
-BUILD_LOG = {"seconds": None, "ptxas": ""}
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -104,12 +100,14 @@ def fsquare_chain_plain(x: torch.Tensor, k: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Build and bind.
+# Build and bind. One nvcc per kernel source, each into its own library in
+# _build/, named by a hash of its sources and the flags; builds of different
+# libraries may run at the same time (chip_smoke.py starts them together).
 
 
-def _source_tag() -> str:
+def _source_tag(sources) -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in sources:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -123,46 +121,61 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set NVCC or put the CUDA toolkit on PATH)")
 
 
-def build() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    global _LIB
-    if _LIB is not None:
-        return _LIB
-    with _LOCK:
-        if _LIB is not None:
-            return _LIB
+_LIBS: dict = {}
+_LOCKS = {"point_kernels": threading.Lock(), "msm_kernels": threading.Lock()}
+BUILD_LOG: dict = {}  # stem -> {"seconds": build + load time, "ptxas": nvcc's -Xptxas -v}
+
+
+def build_library(stem: str, sources, bind) -> ctypes.CDLL:
+    """Build (once per source hash) and load `csrc/<stem>.cu` (its headers in
+    `sources` count toward the hash); `bind(lib)` sets the ctypes signatures.
+    A failed build raises with nvcc's stderr."""
+    lib = _LIBS.get(stem)
+    if lib is not None:
+        return lib
+    with _LOCKS[stem]:
+        if stem in _LIBS:
+            return _LIBS[stem]
         import time
 
-        so_path = os.path.join(BUILD_DIR, f"point_kernels-{_source_tag()}.so")
+        so_path = os.path.join(BUILD_DIR, f"{stem}-{_source_tag(sources)}.so")
         log_path = so_path + ".log"
         t0 = time.perf_counter()
         if not os.path.exists(so_path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=".so-", suffix=".so")
             os.close(fd)
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, "point_kernels.cu")]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, stem + ".cu")]
             res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
             if res.returncode != 0:
                 os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc build of the point kernels failed: {' '.join(cmd)}\n{res.stderr}"
-                )
+                raise RuntimeError(f"nvcc build of {stem} failed: {' '.join(cmd)}\n{res.stderr}")
             with open(log_path, "w") as f:
                 f.write(res.stderr)
             os.replace(tmp, so_path)
-        BUILD_LOG["seconds"] = time.perf_counter() - t0
+        lib = ctypes.CDLL(so_path)
+        bind(lib)
+        ptxas = ""
         if os.path.exists(log_path):
             with open(log_path) as f:
-                BUILD_LOG["ptxas"] = f.read()
-        lib = ctypes.CDLL(so_path)
-        vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.tm_padd.argtypes = [vp, vp, vp, i64, vp]
-        lib.tm_pdbl.argtypes = [vp, vp, i64, ci, vp]
-        lib.tm_fsquare_chain.argtypes = [vp, vp, i64, ci, vp]
-        for fn in (lib.tm_padd, lib.tm_pdbl, lib.tm_fsquare_chain):
-            fn.restype = ci
-        _LIB = lib
+                ptxas = f.read()
+        BUILD_LOG[stem] = {"seconds": time.perf_counter() - t0, "ptxas": ptxas}
+        _LIBS[stem] = lib
         return lib
+
+
+def _bind(lib) -> None:
+    vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.tm_padd.argtypes = [vp, vp, vp, i64, vp]
+    lib.tm_pdbl.argtypes = [vp, vp, i64, ci, vp]
+    lib.tm_fsquare_chain.argtypes = [vp, vp, i64, ci, vp]
+    for fn in (lib.tm_padd, lib.tm_pdbl, lib.tm_fsquare_chain):
+        fn.restype = ci
+
+
+def build() -> ctypes.CDLL:
+    """The point-kernel library (csrc/point_kernels.cu)."""
+    return build_library("point_kernels", SOURCES, _bind)
 
 
 def _check(x: torch.Tensor, lead: tuple, what: str) -> int:
@@ -178,10 +191,10 @@ def _check(x: torch.Tensor, lead: tuple, what: str) -> int:
     return n
 
 
-def _launched(name: str, err: int) -> None:
+def _launched(name: str, err: int, launches: dict = LAUNCHES) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA launch of {name} failed: cudaError {err}")
-    LAUNCHES[name] += 1
+    launches[name] += 1
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -220,7 +233,7 @@ def fsquare_chain(x: torch.Tensor, k: int) -> torch.Tensor:
     """x^(2^k) for a field batch (20, ...batch)."""
     if x.device.type == "cpu":
         return fsquare_chain_plain(x, k)
-    n =_check(x, (NL,), "fsquare_chain x")
+    n = _check(x, (NL,), "fsquare_chain x")
     if k < 1:
         raise ValueError("fsquare_chain: k must be >= 1")
     out = torch.empty_like(x)

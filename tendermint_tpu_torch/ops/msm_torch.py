@@ -1,26 +1,33 @@
-"""Random-linear-combination (RLC) batch check: the unfused Pippenger MSM.
+"""Random-linear-combination (RLC) batch check: the Pippenger MSM.
 
-The counterpart of the unfused schedule of tendermint_tpu/ops/msm_jax.py
-(`_msm_total`, the reference's differential reference and its
-`TMTPU_FUSED_MSM=0` configuration). One group equation over random
-coefficients z_i (multiples of 8, scalars mod 8L) replaces N ladders:
+The counterpart of tendermint_tpu/ops/msm_jax.py. One group equation over
+random coefficients z_i (multiples of 8, scalars mod 8L) replaces N ladders:
 
     sum [w_i] A_i + [(L - u) mod L] B + sum [z_i] R_i == identity
 
 Host: per 8-bit window, stable-sort lane indices by digit and take the
-bucket boundaries (`sort_windows`). Device: decompress points; gather lanes
-into sorted order per window; pair-tree up-sweep (level l node k = sum of
-sorted lanes [k 2^l, (k+1) 2^l)); gather <= 17 Fenwick tree nodes per bucket
-boundary and sum them into prefix points P_v; the telescoped weighted bucket
-sum 255 P_255 - sum_{v<255} P_v; the pairwise window fold. Every point
-operation goes through ops/cuda_fe.padd / pdbl (the CUDA kernels on the card).
+bucket boundaries (`sort_windows`). Device, two schedules of one sum:
 
-The tree levels are plain Python loops (no scan forms: those existed for the
-XLA:CPU compiler). `_halve`'s even/odd lane views are made contiguous before
-the padd kernel; that copy is part of this slice's cost (PERF.md).
+- fused (`_msm_total_fused`, every flush whose lane count a 1024- or
+  2048-lane chunk tiles: `fused_for_lanes`): gather lanes into sorted order,
+  bit-reversed within each chunk; one `uptree` kernel builds every chunk's
+  pair tree; a small top tree over the chunk roots; one `fenwick_reduce`
+  kernel sums each bucket boundary's tree nodes into prefix points P_v; one
+  `bucket_fold` kernel gives sum_{v<255} P_v and P_255 per window
+  (ops/cuda_msm.py);
+- unfused (`_msm_total`, the reference's differential reference): one tree
+  level per padd launch over the concatenated levels, a gathered
+  (T, 256, 17) node tensor, pair-tree sums.
+
+Both end in the telescoped weighted bucket sum 255 P_255 - sum_{v<255} P_v
+and the pairwise window fold, on ops/cuda_fe.padd / pdbl. The tree levels are
+plain Python loops (no scan forms: those existed for the XLA:CPU compiler).
 
 The submit functions return one packed bool tensor `[batch_ok, lane_ok...]`
-on the device, so the caller's finish does one device-to-host copy.
+on the device, so the caller's finish does one device-to-host copy. The
+streamed flush planner (crypto/batch.py) uses the partial trio instead:
+`rlc_partial_submit` (the MSM without its identity check),
+`partial_fold_submit` and `partial_identity_submit`.
 """
 
 from __future__ import annotations
@@ -31,9 +38,11 @@ import numpy as np
 import torch
 
 from tendermint_tpu_torch import native
-from tendermint_tpu_torch.ops import cuda_fe
+from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
 from tendermint_tpu_torch.ops import fe25519 as fe
 from tendermint_tpu_torch.ops.ed25519_torch import decompress, identity, point_neg, point_select
+from tendermint_tpu_torch.ops.msm_geometry import (
+    LANE, brev, brev_positions, chunk_for_lanes, chunk_geometry)
 
 WINDOW_BITS = 8
 NWIN = 32  # 256 bits / 8
@@ -80,6 +89,20 @@ def fenwick_node_indices(ends: np.ndarray, n_lanes: int) -> np.ndarray:
     return out
 
 
+_INDEX_CONSTS: dict = {}
+
+
+def _index_const(key, device, make) -> torch.Tensor:
+    """A host-built index table on `device`, uploaded once per process. A
+    blocking host-to-device copy in the middle of a flush waits for every
+    kernel queued before it, so none is made there."""
+    k = (key, str(device))
+    t = _INDEX_CONSTS.get(k)
+    if t is None:
+        t = _INDEX_CONSTS[k] = make().to(device)
+    return t
+
+
 def fenwick_nodes_device(ends: torch.Tensor, n_lanes: int) -> torch.Tensor:
     """fenwick_node_indices on the device: ends (T, NBUCKETS) int32 tensor ->
     (T, NBUCKETS, FENWICK_K) int64."""
@@ -88,7 +111,9 @@ def fenwick_nodes_device(ends: torch.Tensor, n_lanes: int) -> torch.Tensor:
     e = ends.to(torch.int64).unsqueeze(-1)
     lvl = torch.arange(lvls, dtype=torch.int64, device=ends.device)
     bit = (e >> lvl) & 1
-    idx = torch.tensor(offs[:lvls], dtype=torch.int64, device=ends.device) + ((e >> (lvl + 1)) << 1)
+    offs_t = _index_const(("offs", n_lanes), ends.device,
+                          lambda: torch.tensor(offs[:lvls], dtype=torch.int64))
+    idx = offs_t + ((e >> (lvl + 1)) << 1)
     out = torch.where(bit == 1, idx, torch.full_like(idx, total))
     if lvls < FENWICK_K:
         pad = torch.full((*out.shape[:-1], FENWICK_K - lvls), total, dtype=torch.int64,
@@ -197,16 +222,21 @@ def _reduce_last_axis(p: torch.Tensor) -> torch.Tensor:
     return p[..., 0]
 
 
+def _bucket_tail(s: torch.Tensor, p_last: torch.Tensor) -> torch.Tensor:
+    """Per-window W = 255 P_255 - sum_{v<255} P_v from s = sum_{v<255} P_v
+    and p_last = P_255, each (4, 20, T)."""
+    m = _pdbl_n(p_last, WINDOW_BITS)  # [256] P_255
+    m = cuda_fe.padd(m, point_neg(p_last).contiguous())  # [255] P_255
+    return cuda_fe.padd(m, point_neg(s).contiguous())
+
+
 def _weighted_bucket_sum(prefix: torch.Tensor) -> torch.Tensor:
     """prefix (4, 20, T, NBUCKETS): P_v = sum of sorted lanes with digit <= v.
     Returns per-window W = sum_{v>=1} v (P_v - P_{v-1}) = 255 P_255 -
     sum_{v<255} P_v, shape (4, 20, T). Bucket 0 (zero scalars, pads) cancels."""
-    v_max = prefix.shape[-1] - 1
     p_last = prefix[..., -1].contiguous()
     s = _reduce_last_axis(prefix[..., :-1])  # the reference's _sum_last_axis
-    m = _pdbl_n(p_last, v_max.bit_length())  # [256] P_255
-    m = cuda_fe.padd(m, point_neg(p_last).contiguous())  # [255] P_255
-    return cuda_fe.padd(m, point_neg(s).contiguous())
+    return _bucket_tail(s, p_last)
 
 
 def _fold_windows(w_pts: torch.Tensor) -> torch.Tensor:
@@ -241,29 +271,136 @@ def point_is_identity(total: torch.Tensor) -> torch.Tensor:
     return fe.is_zero(total[0]) & fe.eq(total[1], total[2]) & ~fe.is_zero(total[2])
 
 
-def _msm_check(pts: torch.Tensor, perm: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+# --------------------------------------------------------------------------
+# Fused schedule. Storage map (global node indices, one index space):
+#   [0, T*N)                       level-0 lanes, bit-reversed within chunks
+#   [G1, G1 + T*ncw*rows_out*128)  chunk trees (levels 1..lc, chunk-major)
+#   [G2, G2 + T*(Wtop+1))          top tree over chunk roots + identity lane
+# A bucket boundary e decomposes into the full chunks [0, e >> lc), as
+# Fenwick nodes of the top tree, plus the set bits of e & (ch-1), as level-0
+# or chunk-tree nodes of the partial chunk at bit-reversed positions.
+
+
+def fused_for_lanes(n_lanes: int) -> bool:
+    """Route this lane count through the fused schedule: a chunk tiles it."""
+    return chunk_for_lanes(n_lanes) is not None
+
+
+def fused_node_indices_device(ends: torch.Tensor, n_lanes: int, ch: int) -> torch.Tensor:
+    """ends (T, NBUCKETS) -> (NBUCKETS, T, Kf) int32 global node indices,
+    bucket-major (v-major), so the prefix points come out at lane v*T + t."""
+    g = chunk_geometry(ch)
+    ncw = n_lanes // ch
+    t_ = ends.shape[0]
+    dev = ends.device
+    toffs, ttot = level_offsets(ncw)
+    wtop1 = ttot + 1
+    g1 = t_ * n_lanes
+    g2 = g1 + t_ * ncw * g.rows_out * LANE
+
+    e = ends.to(torch.int32).T.unsqueeze(-1)  # (NB, T, 1)
+    w = torch.arange(t_, dtype=torch.int32, device=dev).reshape(1, t_, 1)
+    ce = e >> g.lc
+    r = e & (ch - 1)
+    idn = g2 + w * wtop1 + ttot  # per-window identity lane
+
+    # partial-chunk part: levels 0..lc-1, present iff bit l of r
+    lvl = torch.arange(g.lc, dtype=torch.int32, device=dev)
+    bit = (r >> lvl) & 1
+    j = (r >> (lvl + 1)) << 1
+    q = brev(j, g.lc - lvl)  # in-level bit-reversed position
+    roff = _index_const(("row_off", ch), dev, lambda: torch.tensor(g.row_off, dtype=torch.int32))
+    idx0 = w * n_lanes + ce * ch + q
+    idxl = g1 + (w * ncw + ce) * (g.rows_out * LANE) + (roff[lvl] + (q >> 7)) * LANE + (q & 127)
+    cidx = torch.where(lvl == 0, idx0, idxl)
+    cidx = torch.where(bit == 1, cidx, idn)
+
+    # full-chunks part: the Fenwick decomposition over the ncw chunk totals
+    lvl2 = torch.arange(len(toffs), dtype=torch.int32, device=dev)
+    bit2 = (ce >> lvl2) & 1
+    jt = (ce >> (lvl2 + 1)) << 1
+    toffs_t = _index_const(("top_offs", ncw), dev, lambda: torch.tensor(toffs, dtype=torch.int32))
+    tidx = g2 + w * wtop1 + toffs_t[lvl2] + jt
+    tidx = torch.where(bit2 == 1, tidx, idn)
+    return torch.cat([cidx, tidx], dim=-1).to(torch.int32)
+
+
+def _fused_stages(pts: torch.Tensor, perm: torch.Tensor, ends: torch.Tensor):
+    """The fused schedule up to its Fenwick sums: pts (4, 20, N); perm (T, N)
+    in natural sorted order (the bit reversal is composed in here); ends
+    (T, NBUCKETS). Returns the storage map's three segments, level 0
+    (4, 20, T*N), chunk trees and top tree, and the v-major node indices
+    (NBUCKETS*T, Kf)."""
+    t_, n = perm.shape
+    ch = chunk_for_lanes(n)
+    g = chunk_geometry(ch)
+    ncw = n // ch
+    pos = _index_const(("brev", n, ch), perm.device,
+                       lambda: torch.from_numpy(brev_positions(n, ch)).to(torch.int64))
+    lvl0 = _gather_lanes(pts, perm.to(torch.int64)[:, pos]).reshape(4, fe.NLIMBS, t_ * n)
+    ctree = cuda_msm.uptree(lvl0, ch)
+    roots = ctree.reshape(4, fe.NLIMBS, t_ * ncw, g.rows_out * LANE)[..., g.row_off[g.lc] * LANE]
+    top = _tree_levels(roots.reshape(4, fe.NLIMBS, t_, ncw).contiguous())  # (4, 20, T, Wtop+1)
+    node_idx = fused_node_indices_device(ends, n, ch)  # (NB, T, Kf)
+    return (lvl0, ctree, top.reshape(4, fe.NLIMBS, -1),
+            node_idx.reshape(NBUCKETS * t_, -1))
+
+
+def _msm_total_fused(pts: torch.Tensor, perm: torch.Tensor, ends: torch.Tensor) -> torch.Tensor:
+    """The fused schedule of _msm_total: the same group element, another
+    evaluation order (arguments as _fused_stages)."""
+    prefix = cuda_msm.fenwick_reduce(*_fused_stages(pts, perm, ends))
+    s, p_last = cuda_msm.bucket_fold(prefix, perm.shape[0])
+    return _fold_windows(_bucket_tail(s, p_last))
+
+
+def _msm_check(pts: torch.Tensor, perm: torch.Tensor, ends: torch.Tensor,
+               fused: bool) -> torch.Tensor:
+    if fused:
+        return point_is_identity(_msm_total_fused(pts, perm, ends))
     node_idx = fenwick_nodes_device(ends, pts.shape[-1])
     return point_is_identity(_msm_total(pts, perm, node_idx))
 
 
-def _rlc_core(pts_bytes: torch.Tensor, perm: torch.Tensor, ends: torch.Tensor):
+def _rlc_core(pts_bytes: torch.Tensor, perm: torch.Tensor, ends: torch.Tensor, fused: bool):
     """pts_bytes (32, N) uint8 [A block | R block]. Returns (packed bool
     (1+N,) [batch_ok, lane_ok...], decompressed points (4, 20, N) with
     invalid lanes as the identity)."""
     p, ok = decompress(pts_bytes)
     p = point_select(ok, p, identity(ok.shape, ok.device))
-    bok = _msm_check(p, perm, ends)
+    bok = _msm_check(p, perm, ends, fused)
     return torch.cat([bok.reshape(1), ok]), p
 
 
 def _rlc_core_cached(a_pts: torch.Tensor, r_bytes: torch.Tensor, perm: torch.Tensor,
-                     ends: torch.Tensor) -> torch.Tensor:
+                     ends: torch.Tensor, fused: bool) -> torch.Tensor:
     """Cached-A variant: lanes = [A block (predecompressed) | R block].
     Returns packed bool (1+Nr,): [batch_ok, r_ok...]."""
     r, r_ok = decompress(r_bytes)
     r = point_select(r_ok, r, identity(r_ok.shape, r_ok.device))
-    bok = _msm_check(torch.cat([a_pts, r], dim=-1), perm, ends)
+    bok = _msm_check(torch.cat([a_pts, r], dim=-1), perm, ends, fused)
     return torch.cat([bok.reshape(1), r_ok])
+
+
+def _rlc_partial_core(pts_bytes: torch.Tensor, perm: torch.Tensor, ends: torch.Tensor,
+                      fused: bool):
+    """One streamed-planner chunk: the MSM over this chunk's lanes without
+    its identity check. Returns (partial point (4, 20), lane ok (N,))."""
+    p, ok = decompress(pts_bytes)
+    p = point_select(ok, p, identity(ok.shape, ok.device))
+    if fused:
+        return _msm_total_fused(p, perm, ends), ok
+    return _msm_total(p, perm, fenwick_nodes_device(ends, p.shape[-1])), ok
+
+
+def _partial_fold_core(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Fold two (4, 20) partial points: one unified add."""
+    return cuda_fe.padd(a.contiguous(), b.contiguous())
+
+
+def _partial_identity_core(a: torch.Tensor) -> torch.Tensor:
+    """The streamed flush's combined-check verdict on the accumulated point."""
+    return point_is_identity(a)
 
 
 def basepoint_coords() -> np.ndarray:
@@ -283,13 +420,17 @@ def decompress_rows(rows: np.ndarray, device=None):
     return decompress(b)
 
 
+def _upload(perm: np.ndarray, ends: np.ndarray, device):
+    return (torch.from_numpy(perm.astype(np.int32)).to(device),
+            torch.from_numpy(ends).to(device))
+
+
 def rlc_check_submit(pts_bytes: np.ndarray, perm: np.ndarray, ends: np.ndarray, device):
     """Plain flush: pts_bytes (N, 32) [A block | R block]; perm/ends from
     sort_windows. Returns (packed bool (1+N,), decompressed points) on the
     device, unsynced."""
     b = torch.from_numpy(np.ascontiguousarray(pts_bytes.T)).to(device)
-    return _rlc_core(b, torch.from_numpy(perm.astype(np.int32)).to(device),
-                     torch.from_numpy(ends).to(device))
+    return _rlc_core(b, *_upload(perm, ends, device), fused_for_lanes(pts_bytes.shape[0]))
 
 
 def rlc_check_cached_submit(a_pts: torch.Tensor, r_bytes: np.ndarray, perm: np.ndarray,
@@ -298,5 +439,23 @@ def rlc_check_cached_submit(a_pts: torch.Tensor, r_bytes: np.ndarray, perm: np.n
     Returns packed bool (1+Nr,) on the device, unsynced."""
     dev = a_pts.device
     b = torch.from_numpy(np.ascontiguousarray(r_bytes.T)).to(dev)
-    return _rlc_core_cached(a_pts, b, torch.from_numpy(perm.astype(np.int32)).to(dev),
-                            torch.from_numpy(ends).to(dev))
+    return _rlc_core_cached(a_pts, b, *_upload(perm, ends, dev),
+                            fused_for_lanes(a_pts.shape[-1] + r_bytes.shape[0]))
+
+
+def rlc_partial_submit(pts_bytes: np.ndarray, perm: np.ndarray, ends: np.ndarray, device):
+    """One streamed chunk: pts_bytes (N, 32) [A block | R block]. Returns
+    (partial point (4, 20), lane ok (N,)) on the device, unsynced."""
+    b = torch.from_numpy(np.ascontiguousarray(pts_bytes.T)).to(device)
+    return _rlc_partial_core(b, *_upload(perm, ends, device),
+                             fused_for_lanes(pts_bytes.shape[0]))
+
+
+def partial_fold_submit(acc: torch.Tensor, part: torch.Tensor) -> torch.Tensor:
+    """Device-resident accumulation of streamed-chunk partials (no sync)."""
+    return _partial_fold_core(acc, part)
+
+
+def partial_identity_submit(acc: torch.Tensor) -> torch.Tensor:
+    """The streamed flush's verdict as an unsynced device bool scalar."""
+    return _partial_identity_core(acc)

@@ -100,7 +100,7 @@ def test_rlc_honest_then_cached_matches_jax():
     rows = _case("honest", 600)
     assert _check(*rows).all()
     assert tbatch.LAST_FLUSH["mode"] == "plain" and tbatch.LAST_FLUSH["lanes"] == 2048
-    assert "recovery_s" not in tbatch.LAST_FLUSH
+    assert tbatch.LAST_FLUSH["fused"] is True and "recovery_s" not in tbatch.LAST_FLUSH
     assert _check(*rows).all()  # second call on the same set: cached A
     assert tbatch.LAST_FLUSH["mode"] == "cached" and "recovery_s" not in tbatch.LAST_FLUSH
 
@@ -164,7 +164,17 @@ def test_empty_and_mismatched_inputs():
         tbatch.verify_batch([b"x" * 32], [], [], device="cpu")
 
 
-def test_oversized_flush_is_refused():
+def test_oversized_flush_is_refused(monkeypatch):
+    """A flush above the largest lane bucket is no longer refused: it goes to
+    the streamed flush planner (tests/test_torch_planner.py checks its masks)."""
     n = tbatch._LANE_BUCKETS[-1]
-    with pytest.raises(NotImplementedError, match="flush-planner"):
-        tbatch.verify_batch([b"\0" * 32] * n, [b""] * n, [b"\0" * 64] * n, device="cpu")
+    assert tbatch.planner_engaged(n)
+    seen = []
+
+    def streamed(pks, msgs, sigs, dev):
+        seen.append((len(pks), dev.type))
+        return np.ones(len(pks), dtype=bool)
+
+    monkeypatch.setattr(tbatch, "_verify_batch_streamed", streamed)
+    mask = tbatch.verify_batch([b"\0" * 32] * n, [b""] * n, [b"\0" * 64] * n, device="cpu")
+    assert mask.shape == (n,) and seen == [(n, "cpu")]
