@@ -28,10 +28,24 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      lanes, once to warm and three timed runs, one more under torch.profiler;
      then "streamed_tampered": two tampered rows in different chunks, the
      chunk-wise recovery, a mask False exactly there;
-  7. a `kernels` JSON line, the card line, and last the `ok` JSON line.
+  7. the BLS kernels fp381_mul and fp12_sparse_mul against their plain
+     versions at the BLS paths' shapes (the fold's widest stacked launch, a
+     Miller step's widest, the Miller loop's 2 lanes, and one wide row off
+     the path);
+  8. a 10,000-validator BLS set (keys sk0 + i, one aggregate signature over
+     the full bitmap, built before the card is touched) through
+     ValidatorSet.verify_aggregate_commit on three paths: "bls_cold" (the
+     host decode of 10k keys fills the key cache), "bls_warm" (5 timed calls,
+     then one under torch.profiler; host time split by stage) and
+     "bls_rejected" (a valid G2 point that is the wrong signature, and a
+     correctly signed bitmap at <= 2/3 of the power); the card's aggregate
+     pubkey and pairing verdicts are held against the host bls_ref, whose
+     Miller loops on the warm call's pairs are timed beside the card's;
+  9. a `kernels` JSON line (a row off every path counts 0 launches), the card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
-(the warm and streamed paths per call); every kernel must launch on every
-path. Exits non-zero without a result when no CUDA device is available.
+(the warm and streamed paths per call); every kernel of a path must launch on
+it: the six Ed25519 kernels on the Ed25519 paths, the two BLS kernels on the
+BLS paths. Exits non-zero without a result when no CUDA device is available.
 """
 
 from __future__ import annotations
@@ -72,6 +86,18 @@ def pdbl_mads(times: int) -> int:
     return times * (4 * SQR + 3 * MUL + SMALL) + MUL
 
 
+# fp381 Montgomery product, counted from csrc/fp381.cuh: the 33 x 33
+# schoolbook product, 33 x 33 reduction multiply-adds and the 33 m_i (the
+# top-limb folds of sub, 33 constant multiplies each, are not counted).
+FP381_MUL = 2 * 33 * 33 + 33
+FP_BYTES = 33 * 4
+# fp12_sparse_mul: 6 threads per lane, 3 Fp2 products (9 base products) each.
+SPARSE_THREAD_MADS = 9 * FP381_MUL
+# BLS path constants
+BLS_HEIGHT = 5
+BLS_TS = 1_700_000_000_123_456_789
+BLS_SUB_SIGNERS = 6_666  # 66,660 of 100,000 power: <= 2/3
+
 REPLACES = {
     "padd": "tendermint_tpu/ops/pallas_fe.py:249",
     "pdbl": "tendermint_tpu/ops/pallas_fe.py:262",
@@ -79,7 +105,17 @@ REPLACES = {
     "uptree": "tendermint_tpu/ops/pallas_msm.py:302",
     "fenwick_reduce": "tendermint_tpu/ops/pallas_msm.py:384",
     "bucket_fold": "tendermint_tpu/ops/pallas_msm.py:490",
+    "fp381_mul": "tendermint_tpu/ops/pallas_bls.py:331",
+    "fp12_sparse_mul": "tendermint_tpu/ops/pallas_bls.py:374",
 }
+SOURCE = {
+    **dict.fromkeys(("padd", "pdbl", "fsquare_chain"), "tendermint_tpu_torch/csrc/point_kernels.cu"),
+    **dict.fromkeys(("uptree", "fenwick_reduce", "bucket_fold"),
+                    "tendermint_tpu_torch/csrc/msm_kernels.cu"),
+    **dict.fromkeys(("fp381_mul", "fp12_sparse_mul"), "tendermint_tpu_torch/csrc/bls_kernels.cu"),
+}
+ED25519_KERNELS = ("padd", "pdbl", "fsquare_chain", "uptree", "fenwick_reduce", "bucket_fold")
+BLS_KERNELS = ("fp381_mul", "fp12_sparse_mul")
 NO_LIBRARY = {
     "padd": "no PyTorch call adds curve points",
     "pdbl": "no PyTorch call doubles curve points",
@@ -87,6 +123,8 @@ NO_LIBRARY = {
     "uptree": "no PyTorch call builds a curve-point pair tree",
     "fenwick_reduce": "no PyTorch call sums gathered curve points",
     "bucket_fold": "no PyTorch call folds curve-point buckets",
+    "fp381_mul": "no PyTorch call computes a Montgomery product in GF(p381)",
+    "fp12_sparse_mul": "no PyTorch call multiplies in Fp12",
 }
 
 
@@ -238,6 +276,12 @@ def kernel_checks(dev, rng, card: dict) -> list:
         fsq_case("tampered", 16_384, "per-signature A or R decompression"),
     ]
 
+    return check_cases(cases, card), base
+
+
+def check_cases(cases, card: dict) -> list:
+    """Each case's kernel against its plain version (max |err| must be 0),
+    then both timed, with the bound of the case's work."""
     rows = []
     for c in cases:
         view = c.get("view", lambda t: t)
@@ -252,11 +296,9 @@ def kernel_checks(dev, rng, card: dict) -> list:
         plain_ms = timed(c["plain"], reps=3)
         t_ops = imad_seconds(c["mads"], c["items"], card) * 1e3
         t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
-        source = ("tendermint_tpu_torch/csrc/msm_kernels.cu" if c["name"] in cuda_msm.LAUNCHES
-                  else "tendermint_tpu_torch/csrc/point_kernels.cu")
         row = dict(
             name=c["name"], path=c["path"], variant=c["variant"], lanes=c["lanes"], route="cuda",
-            source=source, replaces=REPLACES[c["name"]], max_abs_err=err, ms=ms,
+            source=SOURCE[c["name"]], replaces=REPLACES[c["name"]], max_abs_err=err, ms=ms,
             plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
             library_note=NO_LIBRARY[c["name"]],
@@ -265,7 +307,48 @@ def kernel_checks(dev, rng, card: dict) -> list:
         print(f"kernel {row['name']} [{row['path']}] {row['variant']} lanes={row['lanes']}: "
               f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.5f} "
               f"({row['bound_by']}) max_abs_err={err} library_ms=null", flush=True)
-    return rows, base
+    return rows
+
+
+def carried_limbs(shape, rng) -> torch.Tensor:
+    """Random (*shape[:-1], 33, n) fp381 operands in the product's input
+    discipline: limbs 0..31 in [0, 4096] (carried limbs may sit at 4096),
+    the top limb < 16, so every value is < 2^388."""
+    lead, n = shape[:-1], shape[-1]
+    x = rng.integers(0, 4097, size=(*lead, 33, n), dtype=np.int32)
+    x[..., 32, :] = rng.integers(0, 16, size=(*lead, n), dtype=np.int32)
+    return torch.from_numpy(x)
+
+
+def bls_kernel_checks(dev, rng, card: dict) -> list:
+    """B7 at the fold's widest stacked launch (the first of 14 levels over
+    the 16,384-lane padded set: 6 products x 8,192 pairs) and at a Miller
+    step's widest (square12: 36 Fp2 x 3 products x 2 lanes); B8 at the Miller
+    loop's 2 lanes and at 16,384 lanes (off the path: throughput)."""
+    from tendermint_tpu_torch.ops import cuda_bls
+
+    def mul_case(shape, variant):
+        a, b = carried_limbs(shape, rng).to(dev), carried_limbs(shape, rng).to(dev)
+        products = int(np.prod(shape))
+        return dict(name="fp381_mul", path="bls_warm", variant=variant, lanes=products,
+                    kern=lambda: cuda_bls.fp381_mul(a, b),
+                    plain=lambda: cuda_bls.fp381_mul_plain(a, b),
+                    mads=FP381_MUL, items=products, bytes=3 * FP_BYTES * products)
+
+    def sparse_case(n, variant, path):
+        f = carried_limbs((6, 2, n), rng).to(dev)
+        line = carried_limbs((3, 2, n), rng).to(dev)
+        return dict(name="fp12_sparse_mul", path=path, variant=variant, lanes=n,
+                    kern=lambda: cuda_bls.fp12_sparse_mul(f, line),
+                    plain=lambda: cuda_bls.fp12_sparse_mul_plain(f, line),
+                    mads=SPARSE_THREAD_MADS, items=6 * n, bytes=(18 + 12) * FP_BYTES * n)
+
+    return check_cases([
+        mul_case((6, 8_192), "fold level 1: 6 products x 8,192 pairs"),
+        mul_case((36, 3, 2), "Miller step square12: 36 Fp2 x 3 products x 2 lanes"),
+        sparse_case(2, "Miller step: 2 lanes", "bls_warm"),
+        sparse_case(16_384, "16,384 lanes, off the path (throughput)", None),
+    ], card)
 
 
 def msm_reference_check(dev, rng, base) -> None:
@@ -387,20 +470,21 @@ def profile_path(path: str, fn, median_ms: float) -> None:
 
 
 def reset_launches() -> None:
-    from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
+    from tendermint_tpu_torch.ops import cuda_bls, cuda_fe, cuda_msm
 
     cuda_fe.reset_launches()
     cuda_msm.reset_launches()
+    cuda_bls.reset_launches()
 
 
-def read_launches(path: str) -> dict:
-    """The launch counts of all six kernels since the last reset; every
-    kernel must have run."""
-    from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
+def read_launches(path: str, kernels=ED25519_KERNELS) -> dict:
+    """The launch counts of all eight kernels since the last reset; every
+    kernel of the path (`kernels`) must have run."""
+    from tendermint_tpu_torch.ops import cuda_bls, cuda_fe, cuda_msm
 
-    counts = {**cuda_fe.LAUNCHES, **cuda_msm.LAUNCHES}
-    for name, count in counts.items():
-        if count <= 0:
+    counts = {**cuda_fe.LAUNCHES, **cuda_msm.LAUNCHES, **cuda_bls.LAUNCHES}
+    for name in kernels:
+        if counts[name] <= 0:
             raise SystemExit(f"kernel {name} was not launched on the {path} path")
     return counts
 
@@ -555,15 +639,167 @@ def streamed_phase(dev, corpus, launches: dict) -> None:
           f"launches={launches['streamed_tampered']}", flush=True)
 
 
+def build_bls_set():
+    """10,000 BLS validators built as bench.py's _bls_bench_valset builds them
+    (keys sk_i = sk0 + i, so pk_{i+1} = pk_i + G1), power 10 each, and three
+    aggregate commits over one message: the full bitmap signed with
+    (sum sk_i) H(m), the same bitmap with the wrong signature
+    (sum sk_i + 1) H(m) (a valid G2 point), and the first 6,666 validators
+    (<= 2/3 of the power) correctly signed."""
+    from tendermint_tpu_torch.crypto import bls_ref as B
+    from tendermint_tpu_torch.crypto import keys as K
+    from tendermint_tpu_torch.types.basic import BlockID, PartSetHeader
+    from tendermint_tpu_torch.types.block import AggregateCommit
+    from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    t0 = time.perf_counter()
+    sk0 = B.keygen(b"\x5a" * 32)
+    sks, pubs, pt = [], [], B._jac_mul(B.G1_GEN, sk0)
+    for i in range(N_VALIDATORS):
+        sks.append((sk0 + i) % B.R)
+        pubs.append(B.g1_to_bytes(pt))
+        pt = B._jac_add(pt, B.G1_GEN)
+    vals = ValidatorSet([Validator(K.Bls12381PubKey(pk), 10) for pk in pubs])
+    # A proof-of-possession check is a pairing per key (hours for 10k keys in
+    # Python); registration happens once per validator lifetime, so the
+    # entries go straight into the registry, as ingestion would leave them.
+    K._POP_VERIFIED.update(pubs)
+    by_pk = dict(zip(pubs, sks))
+    ordered = [by_pk[v.pub_key.bytes()] for v in vals.validators]
+    bid = BlockID(b"\x07" * 32, PartSetHeader(1, b"\x08" * 32))
+    full = range(N_VALIDATORS)
+    msg = AggregateCommit(BLS_HEIGHT, 0, bid, BLS_TS, b"", b"").sign_bytes(CHAIN_ID)
+    h = B.hash_to_g2(msg)
+
+    def signed(signers, scalar):
+        return AggregateCommit(BLS_HEIGHT, 0, bid, BLS_TS,
+                               AggregateCommit.bitmap_of(signers, N_VALIDATORS),
+                               B.g2_to_bytes(B._jac_mul(h, scalar % B.R)))
+
+    total = sum(ordered)
+    out = dict(vals=vals, bid=bid, good=signed(full, total), wrong=signed(full, total + 1),
+               sub=signed(range(BLS_SUB_SIGNERS), sum(ordered[:BLS_SUB_SIGNERS])))
+    print(f"bls corpus: {N_VALIDATORS} BLS validators and 3 aggregate signatures in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def bls_host_checks(stages: dict, want_ok: bool) -> float:
+    """The card's pairing verdict against bls_ref.pairings_are_one on the
+    same pairs (its Miller loops, then one final exponentiation), and both
+    against the expected verdict. Returns the host Miller loops' ms: the
+    host routing that the card's Miller loop replaces."""
+    from tendermint_tpu_torch.crypto import bls_ref as B
+
+    t0 = time.perf_counter()
+    f = B.FP12_ONE
+    for p, q in stages["pairs"]:
+        f = f * B.miller_loop(q, p)
+    host_miller_ms = (time.perf_counter() - t0) * 1e3
+    if stages["pairing_ok"] is not want_ok or B.final_exponentiation(f).is_one() is not want_ok:
+        raise SystemExit(f"pairing verdict: card {stages['pairing_ok']}, expected {want_ok}")
+    return host_miller_ms
+
+
+def bls_apk_check(vals, stages: dict) -> None:
+    """The card's apk against the host Jacobian sum of the signers' cached
+    affine keys, by compressed encoding (the signers are a prefix of the
+    set on every path here)."""
+    from tendermint_tpu_torch.crypto import bls_ref as B
+    from tendermint_tpu_torch.types.validator_set import _bls_pubkey_coords
+
+    acc = B.G1_IDENTITY
+    for v in vals.validators[: stages["signers"]]:
+        x, y = _bls_pubkey_coords(v.pub_key.bytes())
+        acc = B._jac_add(acc, (B._G1Field(x), B._G1Field(y), B._G1Field(1)))
+    apk = stages["apk"]
+    if B.g1_to_bytes((B._G1Field(apk[0]), B._G1Field(apk[1]), B._G1Field(1))) != B.g1_to_bytes(acc):
+        raise SystemExit("the card's aggregate pubkey differs from the host Jacobian sum")
+
+
+STAGES = ("keys_s", "fold_s", "sig_decode_s", "hash_to_g2_s", "miller_s", "final_exp_s")
+
+
+def bls_phase(dev, bls: dict, launches: dict) -> None:
+    """The three BLS paths, each with its own launch counts."""
+    from tendermint_tpu_torch.types import validator_set as VS
+
+    vals, bid = bls["vals"], bls["bid"]
+
+    def call(commit):
+        vals.verify_aggregate_commit(CHAIN_ID, bid, BLS_HEIGHT, commit, device=dev)
+        torch.cuda.synchronize()
+
+    # Cold: the host decodes every key (sqrt and subgroup check) into the cache.
+    VS._BLS_COORD_CACHE.clear()
+    reset_launches()
+    t0 = time.perf_counter()
+    call(bls["good"])
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    launches["bls_cold"] = read_launches("bls_cold", BLS_KERNELS)
+    cold = dict(VS.LAST_AGGREGATE)
+    bls_host_checks(cold, True)
+    bls_apk_check(vals, cold)
+    print(f"bls_cold {N_VALIDATORS}: ms={cold_ms:.1f} (key decode and checks "
+          f"{cold['keys_s'] * 1e3:.1f} ms) launches={launches['bls_cold']}", flush=True)
+
+    warm, stages = [], []
+    for _ in range(5):
+        reset_launches()
+        t0 = time.perf_counter()
+        call(bls["good"])
+        warm.append((time.perf_counter() - t0) * 1e3)
+        same_counts(launches, "bls_warm", read_launches("bls_warm", BLS_KERNELS))
+        stages.append(dict(VS.LAST_AGGREGATE))
+    host_miller_ms = bls_host_checks(stages[-1], True)
+    bls_apk_check(vals, stages[-1])
+    split = " ".join(f"{k[:-2]}_ms={statistics.median(st[k] for st in stages) * 1e3:.1f}"
+                     for k in STAGES)
+    print(f"bls_warm {N_VALIDATORS}: median_ms={statistics.median(warm):.1f} "
+          f"ms={[round(w, 1) for w in warm]} {split} "
+          f"host_bls_ref_miller_ms={host_miller_ms:.1f} (the same pairs) "
+          f"launches per call={launches['bls_warm']}", flush=True)
+    print("bls apk equals the host Jacobian sum (compressed); card pairing verdicts equal "
+          "bls_ref.pairings_are_one", flush=True)
+    profile_path("bls_warm", lambda: call(bls["good"]), statistics.median(warm))
+
+    # Rejected: the wrong signature, then a correctly signed bitmap at <= 2/3.
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        call(bls["wrong"])
+    except VS.CommitVerifyError as e:
+        if "aggregate signature mismatch" not in str(e):
+            raise
+        print(f"bls wrong signature rejected: {e}", flush=True)
+    else:
+        raise SystemExit("a wrong aggregate signature was accepted")
+    bls_host_checks(VS.LAST_AGGREGATE, False)
+    try:
+        call(bls["sub"])
+    except VS.NotEnoughVotingPowerError as e:
+        print(f"bls subthreshold bitmap rejected: {e}", flush=True)
+    else:
+        raise SystemExit("a subthreshold aggregate commit was accepted")
+    rejected_ms = (time.perf_counter() - t0) * 1e3
+    sub = dict(VS.LAST_AGGREGATE)
+    launches["bls_rejected"] = read_launches("bls_rejected", BLS_KERNELS)
+    bls_host_checks(sub, True)
+    bls_apk_check(vals, sub)
+    print(f"bls_rejected (2 calls): ms={rejected_ms:.1f} launches={launches['bls_rejected']}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from tendermint_tpu_torch import native
-    from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
+    from tendermint_tpu_torch.ops import cuda_bls, cuda_fe, cuda_msm
 
     # The signing pool forks before this process first touches the card.
     corpus = build_commit(np.random.default_rng(SEED + 1))
+    bls = build_bls_set()
     dev = torch.device("cuda")
     card_line = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     card_line = card_line.splitlines()[0]
@@ -577,8 +813,9 @@ def main() -> int:
           f"{sh([cuda_fe._nvcc(), '--version']).splitlines()[-1]}", flush=True)
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:  # one nvcc per library, and gcc, at once
-        for f in [ex.submit(fn) for fn in (cuda_fe.build, cuda_msm.build, native._lib)]:
+    with ThreadPoolExecutor(4) as ex:  # one nvcc per library, and gcc, at once
+        for f in [ex.submit(fn) for fn in (cuda_fe.build, cuda_msm.build, cuda_bls.build,
+                                           native._lib)]:
             f.result()
     print(f"build: {time.perf_counter() - t0:.1f} s (" + ", ".join(
         f"{k} {v['seconds']:.1f} s" for k, v in cuda_fe.BUILD_LOG.items()) + ")", flush=True)
@@ -589,11 +826,13 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     rows, base = kernel_checks(dev, rng, card)
+    rows += bls_kernel_checks(dev, rng, card)
     msm_reference_check(dev, rng, base)
     launches = commit_phase(dev, corpus)
     streamed_phase(dev, corpus, launches)
-    for r in rows:  # the count on the path whose shape the row checks
-        r["launches"] = launches[r["path"]][r["name"]]
+    bls_phase(dev, bls, launches)
+    for r in rows:  # the count on the path whose shape the row checks; none off the path
+        r["launches"] = 0 if r["path"] is None else launches[r["path"]][r["name"]]
     print(json.dumps({"kernels": rows, "launches_by_path": launches}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

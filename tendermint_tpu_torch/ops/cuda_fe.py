@@ -122,7 +122,7 @@ def _nvcc() -> str:
 
 
 _LIBS: dict = {}
-_LOCKS = {"point_kernels": threading.Lock(), "msm_kernels": threading.Lock()}
+_LOCKS = {stem: threading.Lock() for stem in ("point_kernels", "msm_kernels", "bls_kernels")}
 BUILD_LOG: dict = {}  # stem -> {"seconds": build + load time, "ptxas": nvcc's -Xptxas -v}
 
 
