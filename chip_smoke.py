@@ -10,10 +10,14 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   2. build the CUDA kernel libraries (one nvcc each, started together, sm_90a)
      and the native host prep (gcc);
   3. each of the six kernels against its plain torch version on the card at
-     the shapes the paths below give it, tolerance zero (integer arithmetic),
-     with its time, the plain version's time and its bound; the unfused MSM
-     total against the integer reference on a small input, and the fused
-     total against the unfused one at the 10k commit's 20,480 lanes;
+     the shapes the paths below give it (uptree at 2,048-lane chunks on the
+     warm and streamed paths and at 1,024; pdbl at all six window-fold
+     shapes and on the ladder), tolerance zero (integer arithmetic), with
+     its device time (the profiler's kernel records, median per launch),
+     its call time by CUDA events, the plain version's time and its bound;
+     the unfused MSM total against the integer reference on a small input,
+     and the fused total against the unfused one at the 10k commit's 20,480
+     lanes;
   4. a 10,000-validator commit (random keys from a seed, real signatures over
      each row's precommit sign bytes) through ValidatorSet.verify_commit on
      two paths: "cold" (plain kernel: A and R decompressed together, fills
@@ -28,11 +32,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      lanes, once to warm and three timed runs, one more under torch.profiler;
      then "streamed_tampered": two tampered rows in different chunks, the
      chunk-wise recovery, a mask False exactly there;
-  7. the BLS kernels fp381_mul and fp12_sparse_mul against their plain
+  7. "mixed_commit": a 10,000-validator set holding 4 BLS validators, a
+     plain Commit through verify_commit honest, with one bad BLS row and with
+     one bad Ed25519 row (Ed25519 rows on the card, BLS rows by bls_ref on
+     the host), verdicts held against bls_ref / ed25519_ref;
+  8. the BLS kernels fp381_mul and fp12_sparse_mul against their plain
      versions at the BLS paths' shapes (the fold's widest stacked launch, a
      Miller step's widest, the Miller loop's 2 lanes, and one wide row off
      the path);
-  8. a 10,000-validator BLS set (keys sk0 + i, one aggregate signature over
+  9. a 10,000-validator BLS set (keys sk0 + i, one aggregate signature over
      the full bitmap, built before the card is touched) through
      ValidatorSet.verify_aggregate_commit on three paths: "bls_cold" (the
      host decode of 10k keys fills the key cache), "bls_warm" (5 timed calls,
@@ -41,11 +49,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      correctly signed bitmap at <= 2/3 of the power); the card's aggregate
      pubkey and pairing verdicts are held against the host bls_ref, whose
      Miller loops on the warm call's pairs are timed beside the card's;
-  9. a `kernels` JSON line (a row off every path counts 0 launches), the card line, and last the `ok` JSON line.
+  10. a `kernels` JSON line (a row off every path counts 0 launches), the
+     card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
 (the warm and streamed paths per call); every kernel of a path must launch on
-it: the six Ed25519 kernels on the Ed25519 paths, the two BLS kernels on the
-BLS paths. Exits non-zero without a result when no CUDA device is available.
+it: the six Ed25519 kernels on the Ed25519 paths (mixed_commit included),
+the two BLS kernels on the BLS paths. Exits non-zero without a result when
+no CUDA device is available.
 """
 
 from __future__ import annotations
@@ -97,6 +107,7 @@ SPARSE_THREAD_MADS = 9 * FP381_MUL
 BLS_HEIGHT = 5
 BLS_TS = 1_700_000_000_123_456_789
 BLS_SUB_SIGNERS = 6_666  # 66,660 of 100,000 power: <= 2/3
+N_MIXED_BLS = 4  # BLS validators in the mixed plain commit (each costs a host pairing check)
 
 REPLACES = {
     "padd": "tendermint_tpu/ops/pallas_fe.py:249",
@@ -144,7 +155,9 @@ def sh(cmd) -> str:
 
 
 def timed(fn, reps: int = 5):
-    """Warm median of `reps` runs in ms, by CUDA events."""
+    """Warm median of `reps` calls in ms, by CUDA events around each call:
+    the wrapper's host time is inside the window, so a launch of a few
+    microseconds reads as its call time (`call_ms`), not its device time."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -157,6 +170,53 @@ def timed(fn, reps: int = 5):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+KERNEL_SYMBOL = {  # the __global__ function each wrapper launches
+    "padd": ("padd_kernel",), "pdbl": ("pdbl_kernel", "pdbl_lanes_kernel"),
+    "fsquare_chain": ("fsquare_chain_kernel",), "uptree": ("uptree_kernel",),
+    "fenwick_reduce": ("fenwick_kernel",), "bucket_fold": ("bucket_fold_kernel",),
+    "fp381_mul": ("fp381_mul_kernel",), "fp12_sparse_mul": ("fp12_sparse_mul_kernel",),
+}
+
+
+def device_ms(fn, name: str, reps: int = 10):
+    """Device time of one launch of kernel `name` in ms: the median of the
+    profiler's per-launch kernel records over `reps` warm calls of `fn`;
+    the symbol that ran; and the device time per call of the other work the
+    wrapper launches (uptree's layout copy and counter memset), which the
+    first number does not count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+
+    def which(label: str):
+        return next((sym for sym in KERNEL_SYMBOL[name] if sym in label), None)
+
+    durs, syms, other_us = [], set(), 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        sym = which(e.name)
+        if sym is not None:
+            durs.append(e.time_range.elapsed_us() / 1e3)
+            syms.add(sym)
+        else:
+            other_us += e.time_range.elapsed_us()
+    # CUPTI may drop a few records of microsecond launches: the median is
+    # over those it kept, at least half
+    if reps // 2 <= len(durs) <= reps and len(syms) == 1:
+        return statistics.median(durs), syms.pop(), other_us / 1e3 / reps
+    seen = sorted({(e.key[:60], e.count) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA})
+    raise SystemExit(f"profiler kept {len(durs)} records of {name} ({syms}) in {reps} calls; "
+                     f"device kernels seen: {seen}")
 
 
 def seeded_points(m: int, rng: np.random.Generator):
@@ -221,10 +281,16 @@ def kernel_checks(dev, rng, card: dict) -> list:
 
     def pdbl_case(path, lanes, times, where):
         p = pick(lanes)
-        return dict(name="pdbl", path=path, variant=f"times={times}, {where}", lanes=lanes,
+        few = cuda_fe.pdbl_entry(lanes) == "tm_pdbl_lanes"
+        case = dict(name="pdbl", path=path, variant=f"times={times}, {where}", lanes=lanes,
                     kern=lambda: cuda_fe.pdbl(p, times), plain=lambda: cuda_fe.pdbl_plain(p, times),
                     mads=pdbl_mads(times), items=lanes,
                     bytes=(3 * 80 + POINT_BYTES) * lanes)  # x, y, z in (t is not read), 4 out
+        if few:  # a warp per lane: the lane's work spread over its warp's 32 threads
+            case.update(mads=-(-pdbl_mads(times) // 32), items=32 * lanes,
+                        bound_note=f"operations: pdbl_mads({times}) per lane over the {lanes} "
+                                   f"sub-partitions the launch occupies (a warp per lane)")
+        return case
 
     def fsq_case(path, lanes, where):
         x = pick(lanes)[1].contiguous()
@@ -233,27 +299,32 @@ def kernel_checks(dev, rng, card: dict) -> list:
                     plain=lambda: cuda_fe.fsquare_chain_plain(x, 50),
                     mads=50 * SQR, items=lanes, bytes=2 * 80 * lanes)
 
-    def uptree_case(path, lanes, where):
-        ch = 2048
-        x = pick(lanes)
-        nchunks = lanes // ch
+    def uptree_case(path, n, ch, where):
+        t_ = 32
+        x = pick(n)
+        perm = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(t_)])
+                                .astype(np.int32)).to(dev)
+        nchunks = t_ * n // ch
         pos = torch.from_numpy(tree_written_positions(ch)).to(dev)
 
-        def written(t):  # the positions that hold a node
-            return t.reshape(4, 20, nchunks, chunk_geometry(ch).rows_out * 128)[..., pos]
+        def written(t):  # level 0, and the chunk-tree positions that hold a node
+            return t[0], t[1].reshape(4, 20, nchunks, chunk_geometry(ch).rows_out * 128)[..., pos]
 
-        return dict(name="uptree", path=path, variant=f"ch={ch}, {where}", lanes=lanes,
-                    kern=lambda: cuda_msm.uptree(x, ch), plain=lambda: cuda_msm.uptree_plain(x, ch),
+        return dict(name="uptree", path=path, variant=f"ch={ch}, {where}", lanes=t_ * n,
+                    kern=lambda: cuda_msm.uptree(x, perm, ch),
+                    plain=lambda: cuda_msm.uptree_plain(x, perm, ch),
                     view=written, mads=PADD_MADS, items=nchunks * (ch - 1),
-                    bytes=(lanes + nchunks * (ch - 1)) * POINT_BYTES)
+                    # table and perm read once; level 0 and the chunk trees written once
+                    bytes=n * POINT_BYTES + t_ * n * 4 + (t_ * n + nchunks * (ch - 1)) * POINT_BYTES)
 
     fs = fused_storage(pick(20_480), rng, 20_480)
     m, kf = fs["idx"].shape
     fw_args = (fs["lvl0"], fs["ctree"], fs["top"], fs["idx"])
     t_ = fs["t"]
     cases = [
-        uptree_case("warm", 32 * 20_480, "10k commit: 32 windows x 10 chunks"),
-        uptree_case("streamed", 32 * 24_576, "planner chunk: 32 windows x 12 chunks"),
+        uptree_case("warm", 20_480, 2048, "10k commit: 32 windows x 10 chunks"),
+        uptree_case("streamed", 24_576, 2048, "planner chunk: 32 windows x 12 chunks"),
+        uptree_case(None, 3_072, 1024, "1,536-lane A bucket: 32 windows x 3 chunks, off the path"),
         dict(name="fenwick_reduce", path="warm", variant=f"Kf={kf}, 256 buckets x {t_} windows",
              lanes=m, kern=lambda: cuda_msm.fenwick_reduce(*fw_args),
              plain=lambda: cuda_msm.fenwick_reduce_plain(*fw_args),
@@ -268,6 +339,10 @@ def kernel_checks(dev, rng, card: dict) -> list:
         padd_case("warm", 32, "[255] P_255 and W per window"),
         padd_case("tampered", 16_384, "per-signature ladder"),
         pdbl_case("warm", 32, 8, "[256] P_255 per window"),
+        pdbl_case("warm", 16, 8, "window fold level 1"),
+        pdbl_case("warm", 8, 16, "window fold level 2"),
+        pdbl_case("warm", 4, 32, "window fold level 3"),
+        pdbl_case("warm", 2, 64, "window fold level 4"),
         pdbl_case("warm", 1, 128, "last window-fold level"),
         pdbl_case("tampered", 16_384, 4, "per-signature ladder"),
         fsq_case("warm", 10_240, "R decompression"),
@@ -292,21 +367,28 @@ def check_cases(cases, card: dict) -> list:
         if err != 0:  # limb-identical, so equal after freeze too
             raise SystemExit(f"kernel {c['name']} {c['variant']} disagrees with its "
                              f"plain version: max |err| {err}")
-        ms = timed(c["kern"])
+        ms, symbol, other_ms = device_ms(c["kern"], c["name"])
+        call_ms = timed(c["kern"])
         plain_ms = timed(c["plain"], reps=3)
         t_ops = imad_seconds(c["mads"], c["items"], card) * 1e3
         t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
         row = dict(
             name=c["name"], path=c["path"], variant=c["variant"], lanes=c["lanes"], route="cuda",
-            source=SOURCE[c["name"]], replaces=REPLACES[c["name"]], max_abs_err=err, ms=ms,
-            plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
+            source=SOURCE[c["name"]], replaces=REPLACES[c["name"]], symbol=symbol,
+            max_abs_err=err, ms=ms, wrapper_other_ms=other_ms, call_ms=call_ms, plain_ms=plain_ms,
+            bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
             library_note=NO_LIBRARY[c["name"]],
         )
+        if "bound_note" in c:
+            row["bound_note"] = c["bound_note"]
         rows.append(row)
-        print(f"kernel {row['name']} [{row['path']}] {row['variant']} lanes={row['lanes']}: "
-              f"ms={ms:.4f} plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.5f} "
-              f"({row['bound_by']}) max_abs_err={err} library_ms=null", flush=True)
+        print(f"kernel {row['name']} [{row['path']}] {row['variant']} lanes={row['lanes']} "
+              f"{symbol}: ms={ms:.4f} (profiler, median per launch) "
+              f"wrapper_other_ms={other_ms:.4f} call_ms={call_ms:.4f} "
+              f"(events) plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.5f} "
+              f"({row['bound_by']}{', per occupied sub-partition' if 'bound_note' in c else ''}) "
+              f"max_abs_err={err} library_ms=null", flush=True)
     return rows
 
 
@@ -639,6 +721,101 @@ def streamed_phase(dev, corpus, launches: dict) -> None:
           f"launches={launches['streamed_tampered']}", flush=True)
 
 
+def build_mixed_commit(corpus):
+    """A 10,000-validator set of N_MIXED_BLS BLS validators and the commit's
+    first 10,000 - N_MIXED_BLS Ed25519 validators (power 10 each), with a
+    plain Commit: each Ed25519 row keeps its signed CommitSig (sign bytes
+    depend on the row's timestamp, not its index), each BLS row signs its own
+    precommit sign bytes with bls_ref. Built before the card is touched."""
+    from tendermint_tpu_torch.crypto import keys as K
+    from tendermint_tpu_torch.types.basic import BlockIDFlag
+    from tendermint_tpu_torch.types.block import Commit, CommitSig
+    from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    t0 = time.perf_counter()
+    vals, block_id, commit, _ = corpus
+    privs = [K.gen_bls12_381(bytes([0x70 + i]) * 32) for i in range(N_MIXED_BLS)]
+    ed = vals.validators[: N_VALIDATORS - N_MIXED_BLS]
+    mixed = ValidatorSet(ed + [Validator(p.pub_key(), 10) for p in privs])
+    by_addr = {cs.validator_address: cs for cs in commit.signatures}
+    bls_by_addr = {p.pub_key().address(): p for p in privs}
+    ts0 = 1_700_000_100_000_000_000
+    rows = [by_addr.get(v.address) or CommitSig(BlockIDFlag.COMMIT, v.address, ts0 + i, b"")
+            for i, v in enumerate(mixed.validators)]
+    stub = Commit(HEIGHT, 0, block_id, rows)
+    bls_idx = [i for i, v in enumerate(mixed.validators) if v.address in bls_by_addr]
+    for i in bls_idx:
+        cs = rows[i]
+        rows[i] = CommitSig(cs.block_id_flag, cs.validator_address, cs.timestamp_ns,
+                            bls_by_addr[cs.validator_address].sign(stub.vote_sign_bytes(CHAIN_ID, i)))
+    print(f"mixed corpus: {N_VALIDATORS} validators ({N_MIXED_BLS} BLS at rows {bls_idx}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return dict(vals=mixed, block_id=block_id, rows=rows, bls_idx=bls_idx)
+
+
+def mixed_commit_phase(dev, mixed: dict, launches: dict) -> None:
+    """verify_commit on the mixed set: honest, one bad BLS row, one bad
+    Ed25519 row. The Ed25519 rows run the card path (all six kernels), the
+    BLS rows bls_ref.verify on the host; the per-row verdicts
+    (verify_batch(key_types=...)) are held against bls_ref on every BLS row
+    and ed25519_ref on the tampered Ed25519 row and a sample of 64 others."""
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto import bls_ref as B
+    from tendermint_tpu_torch.crypto import ed25519_ref as E
+    from tendermint_tpu_torch.types.block import Commit, CommitSig
+    from tendermint_tpu_torch.types.validator_set import CommitVerifyError
+
+    vals, bid, bls_idx = mixed["vals"], mixed["block_id"], mixed["bls_idx"]
+    ed_bad = next(i for i in range(N_VALIDATORS // 2, N_VALIDATORS) if i not in bls_idx)
+    bls_bad = bls_idx[1]
+
+    def commit_with(bad=None):
+        rows = [CommitSig(cs.block_id_flag, cs.validator_address, cs.timestamp_ns,
+                          flip(cs.signature) if i == bad else cs.signature)
+                for i, cs in enumerate(mixed["rows"])]
+        return Commit(HEIGHT, 0, bid, rows)
+
+    def host_verdicts(c, rows):
+        msgs = c.vote_sign_bytes_many(CHAIN_ID, rows)
+        out = []
+        for i, m in zip(rows, msgs):
+            pk, sig = vals.validators[i].pub_key.bytes(), c.signatures[i].signature
+            out.append(B.verify(pk, m, sig) if i in bls_idx else E.verify_cofactored(pk, m, sig))
+        return out
+
+    rng = np.random.default_rng(SEED + 3)
+    sample = sorted(set(bls_idx) | {ed_bad} | set(int(i) for i in rng.integers(0, N_VALIDATORS, 64)))
+    times = {}
+    for case, bad in (("honest", None), ("bad_bls", bls_bad), ("bad_ed25519", ed_bad)):
+        c = commit_with(bad)
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            vals.verify_commit(CHAIN_ID, bid, HEIGHT, c, device=dev)
+            got = "ok"
+        except CommitVerifyError as e:
+            got = str(e)
+        torch.cuda.synchronize()
+        times[case] = (time.perf_counter() - t0) * 1e3
+        counts = read_launches(f"mixed_commit {case}")
+        if case == "honest":
+            launches["mixed_commit"] = counts
+        want = "ok" if bad is None else f"wrong signature (#{bad})"
+        if got != want:
+            raise SystemExit(f"mixed_commit {case}: {got!r}, expected {want!r}")
+        keys = [v.pub_key for v in vals.validators]
+        mask = batch.verify_batch([k.bytes() for k in keys], c.vote_sign_bytes_many(
+            CHAIN_ID, range(N_VALIDATORS)), [cs.signature for cs in c.signatures], device=dev,
+            key_types=[k.type_name() for k in keys])
+        host = host_verdicts(c, sample)
+        if [bool(mask[i]) for i in sample] != host or int((~mask).sum()) != (bad is not None):
+            raise SystemExit(f"mixed_commit {case}: card mask disagrees with bls_ref/ed25519_ref")
+    print(f"mixed_commit {N_VALIDATORS} ({N_MIXED_BLS} BLS): verify_commit ms "
+          + " ".join(f"{k}={v:.1f}" for k, v in times.items())
+          + f"; verdicts equal bls_ref on every BLS row and ed25519_ref on {len(sample)} rows; "
+          f"launches honest={launches['mixed_commit']}", flush=True)
+
+
 def build_bls_set():
     """10,000 BLS validators built as bench.py's _bls_bench_valset builds them
     (keys sk_i = sk0 + i, so pk_{i+1} = pk_i + G1), power 10 each, and three
@@ -799,6 +976,7 @@ def main() -> int:
 
     # The signing pool forks before this process first touches the card.
     corpus = build_commit(np.random.default_rng(SEED + 1))
+    mixed = build_mixed_commit(corpus)
     bls = build_bls_set()
     dev = torch.device("cuda")
     card_line = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -830,6 +1008,7 @@ def main() -> int:
     msm_reference_check(dev, rng, base)
     launches = commit_phase(dev, corpus)
     streamed_phase(dev, corpus, launches)
+    mixed_commit_phase(dev, mixed, launches)
     bls_phase(dev, bls, launches)
     for r in rows:  # the count on the path whose shape the row checks; none off the path
         r["launches"] = 0 if r["path"] is None else launches[r["path"]][r["name"]]

@@ -499,16 +499,46 @@ def _verify_batch_streamed(pubkeys, msgs, sigs, device) -> np.ndarray:
     return np.concatenate(parts)
 
 
+def _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device) -> np.ndarray:
+    """Per-type routing of a set that holds non-ed25519 rows (the reference's
+    _verify_batch_mixed_exact): ed25519 rows through verify_batch on the
+    card, bls12_381 rows through bls_ref.verify on the host (a signature that
+    is not 96 bytes is False), any unknown type False. sr25519 rows raise:
+    the reference verifies them, and the port has no sr25519 lane yet."""
+    if "sr25519" in key_types:
+        raise NotImplementedError(
+            "verify_batch: sr25519 rows are not ported yet (ROADMAP queue item 5)")
+    out = np.zeros(len(pubkeys), dtype=bool)
+    bls_idx = [i for i, t in enumerate(key_types) if t == "bls12_381"]
+    ed_idx = [i for i, t in enumerate(key_types) if t == "ed25519"]
+    if bls_idx:
+        from tendermint_tpu_torch.crypto import bls_ref
+
+        for i in bls_idx:
+            sig = bytes(sigs[i])
+            out[i] = len(sig) == bls_ref.SIGNATURE_SIZE and bls_ref.verify(
+                bytes(pubkeys[i]), bytes(msgs[i]), sig)
+    if ed_idx:
+        out[ed_idx] = verify_batch([pubkeys[i] for i in ed_idx], [msgs[i] for i in ed_idx],
+                                   [sigs[i] for i in ed_idx], device=device)
+    return out
+
+
 def verify_batch(
-    pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Sequence[bytes], device=None
+    pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Sequence[bytes], device=None,
+    key_types: Optional[Sequence[str]] = None,
 ) -> np.ndarray:
-    """Verify N (pubkey, msg, sig) ed25519 triples; returns bool[N]."""
+    """Verify N (pubkey, msg, sig) triples; returns bool[N]. key_types: per-row
+    key type, None meaning all ed25519; a set with other types takes the
+    per-type routing of _verify_batch_mixed_exact."""
     if not (len(pubkeys) == len(msgs) == len(sigs)):
         raise ValueError("pubkeys/msgs/sigs length mismatch")
     dev = resolve(device)
     n = len(pubkeys)
     if n == 0:
         return np.zeros(0, dtype=bool)
+    if key_types is not None and any(t != "ed25519" for t in key_types):
+        return _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, dev)
     LAST_FLUSH.clear()
     if n < RLC_MIN:
         LAST_FLUSH.update(mode="persig")

@@ -17,21 +17,36 @@
 // 655 KB, three times an SM's shared memory, and nothing carries across
 // blocks, so each kernel is written for what it computes:
 //
-// - uptree: one block per chunk tree (320 at a 10k commit, 384 per planner
-//   chunk). Level l position q < width = ch >> l gets prev[q] + prev[q+width],
-//   where prev is the bit-reversed level-0 input for l = 1 and level l-1
-//   otherwise; this one rule is both the row folds and the lane folds of
-//   _uptree_block. Position q of level l goes to chunk-local offset
-//   row_off[l] * 128 + q (msm_geometry.chunk_geometry). The output tensor is
-//   the level store: level l-1 is read back from it after __syncthreads(),
-//   with L2-only loads (__ldcg), since the block wrote it in this launch.
-//   Positions the reference fills with roll-fold garbage or zero pad are
-//   never indexed and are left unwritten here.
+// - uptree: the level-0 gather, in-chunk bit reversal and all chunk-tree
+//   levels in one launch. Node rule: level l position q < width = ch >> l
+//   gets prev[q] + prev[q + width], prev being level l-1; position q of
+//   level l goes to chunk-local offset row_off[l] * 128 + q
+//   (msm_geometry.chunk_geometry). Level 0 position p holds sorted lane
+//   rev(p) of the chunk, read through the natural permutation from a
+//   row-major (N, 80) copy of the point table (320 contiguous bytes per
+//   point; the table is 6.5 MB at a 10k commit and stays in L2), and is
+//   written to lvl0 once.
 //   Bound: operations. At 10k, 655,040 adds of 3,620 multiply-adds each
-//   (2.37 G) against ~210 MB read and ~210 MB written: ~0.14 ms of IMAD
-//   issue. The upper levels leave most of a block's threads idle (level 5 of
-//   a 2048-lane chunk has 64 nodes for 128 threads), the known cost of this
-//   simple form.
+//   (2.37 G, ~0.142 ms at the IMAD rate) against ~420 MB written (lvl0 and
+//   the chunk trees, ~0.125 ms). Design:
+//   * Four warps per 32 adds: warp w computes a, b, c or d, then e, f, g
+//     or h, then output coordinate w (shared memory between the steps), so
+//     a thread holds two operands and one accumulator, not two points:
+//     128 registers give 4 blocks, 16 warps, an SM (168 and 3 warps a
+//     scheduler before). Every product of the kernel runs through one
+//     fe_mul in a loop, and every add through one block_add call with a
+//     runtime operand descriptor, so the code is one copy of each.
+//   * Wide levels across the card: a work item is 32 level-2 nodes (3 adds
+//     of 32 from 128 leaves, 75% of the tree; 5,120 items at 10k) with no
+//     barrier across blocks; persistent blocks, as many as fit, take items
+//     from an atomic queue, so no partial last wave idles most SMs.
+//   * Upper levels climb: a per-group arrival counter after __threadfence
+//     (the threadFenceReduction pattern) lets the second child's block
+//     compute each 32-node group of levels 3.., so a chunk's upper levels
+//     run on several blocks, and only the levels narrower than 32 (5 adds)
+//     run in one block. A level store in shared memory would cost every
+//     block 80 KB and cap the SM at 2 blocks.
+//   Positions that hold no node are never indexed and stay unwritten.
 // - fenwick_reduce: one thread per (bucket, window) lane (8,192). It reads
 //   its Kf node indices and sums acc = node[0], acc += node[k] for k = 1..Kf-1
 //   in registers, identity slots included, in the reference's order. The
@@ -51,31 +66,33 @@
 //   Bound: a chain of 8 dependent adds on at most 128 lanes per window:
 //   latency, far from both the byte and the operation bound.
 //
-// Later work (not done here): fuse the perm gather of level 0 into uptree so
-// the 210 MB level-0 copy disappears; keep a chunk's upper levels (256 nodes
-// and fewer, 80 KB) in shared memory; store nodes row-major (80 contiguous
-// words) so fenwick_reduce reads each node in 10 sectors instead of 80.
+// Later work (not done here): store nodes row-major (80 contiguous words)
+// so fenwick_reduce reads each node in 10 sectors instead of 80.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fe25519.cuh"
 
 #define UT_THREADS 128
+#define UT_MIN_BLOCKS 4  // up to 128 registers a thread: 4 blocks (16 warps) an SM
+#define UT_MAX_DEVICES 64
+
+// UT_PROBE_NO_BARRIER is set only by tools/uptree_probe.py (python3 -m
+// tendermint_tpu_torch.tools.uptree_probe): block_add then
+// runs without its three barriers, so its warps never wait for each other.
+// Its nodes are wrong (a warp reads shared slots before they are written);
+// the probe times it beside the real kernel to read what the barriers cost.
+#ifdef UT_PROBE_NO_BARRIER
+#define UT_BARRIER() ((void)0)
+#else
+#define UT_BARRIER() __syncthreads()
+#endif
 #define FW_THREADS 64
 #define BF_THREADS 128  // NB / 2 buckets paired per window
 
 struct pt_t {
   fe_t c[4];
 };
-
-// Limb rows of lane `lane`, loaded through L2 only: coherent with stores this
-// block made earlier in the same launch.
-__device__ __forceinline__ fe_t fe_load_cg(const int32_t *base, int64_t n, int64_t lane) {
-  fe_t r;
-#pragma unroll
-  for (int i = 0; i < FE_NL; i++) r.v[i] = __ldcg(base + (int64_t)i * n + lane);
-  return r;
-}
 
 // Coordinate accessors: pt_add asks for one coordinate at a time, just before
 // its product, so at most two operand coordinates are live with the
@@ -85,14 +102,6 @@ struct MemPt {  // read-only input
   int64_t n, lane;
   __device__ __forceinline__ fe_t operator()(int c) const {
     return fe_load(base + (int64_t)c * FE_NL * n, n, lane);
-  }
-};
-
-struct StorePt {  // the level store this block is writing
-  const int32_t *base;
-  int64_t n, lane;
-  __device__ __forceinline__ fe_t operator()(int c) const {
-    return fe_load_cg(base + (int64_t)c * FE_NL * n, n, lane);
   }
 };
 
@@ -159,28 +168,201 @@ __device__ __forceinline__ void pt_store(int32_t *base, int64_t n, int64_t lane,
   for (int c = 0; c < 4; c++) fe_store(base + (int64_t)c * FE_NL * n, n, lane, p.c[c]);
 }
 
-// in (4, 20, nchunks * ch): bit-reversed level-0 lanes, chunk-major.
-// out (4, 20, nchunks * rows_out * 128): levels 1..lc of each chunk.
-__global__ void __launch_bounds__(UT_THREADS)
-uptree_kernel(const int32_t *__restrict__ in, int32_t *out, int ch, int rows_out,
-              int64_t n_in, int64_t n_out) {
-  const int64_t in0 = (int64_t)blockIdx.x * ch;
-  const int64_t out0 = (int64_t)blockIdx.x * rows_out * 128;
-  int width = ch >> 1;
-  int row = 0;  // row_off of the level being written
-  for (int q = threadIdx.x; q < width; q += blockDim.x) {
-    const pt_t s = pt_add(MemPt{in, n_in, in0 + q}, MemPt{in, n_in, in0 + q + width});
-    pt_store(out, n_out, out0 + q, s);
+// One operand point of a block add: coordinate c, limb i at
+// base[c * cs + i * ls]. Leaves are rows of the (N, 80) table, read through
+// the read-only path and, where `copy` is set, stored to level 0 as they
+// are read (copy[c * ccs + i * cls]); nodes written earlier in this launch
+// are read with volatile loads, so from memory after the stores that made
+// them. A runtime descriptor, not a type: every add of the kernel is one
+// instance of the same code.
+struct Opnd {
+  const int32_t *base;
+  int64_t cs, ls;
+  int32_t *copy;
+  int64_t ccs, cls;
+  bool written;
+  __device__ __forceinline__ fe_t get(int c) const {
+    fe_t r;
+    if (written) {
+      const volatile int32_t *p = base + c * cs;
+#pragma unroll
+      for (int i = 0; i < FE_NL; i++) r.v[i] = p[i * ls];
+    } else {
+      const int32_t *p = base + c * cs;
+#pragma unroll
+      for (int i = 0; i < FE_NL; i++) r.v[i] = __ldg(p + i * ls);
+    }
+    if (copy != nullptr) {
+#pragma unroll
+      for (int i = 0; i < FE_NL; i++) copy[c * ccs + i * cls] = r.v[i];
+    }
+    return r;
   }
-  while (width > 1) {
-    const int prev = row;
-    row += width >= 128 ? width / 128 : 1;
-    width >>= 1;
-    __syncthreads();  // level l-1 complete and visible to the block
-    const int64_t src = out0 + (int64_t)prev * 128, dst = out0 + (int64_t)row * 128;
-    for (int q = threadIdx.x; q < width; q += blockDim.x) {
-      const pt_t s = pt_add(StorePt{out, n_out, src + q}, StorePt{out, n_out, src + q + width});
-      pt_store(out, n_out, dst + q, s);
+};
+
+__device__ __forceinline__ Opnd node_opnd(const int32_t *out, int64_t n_out, int64_t pos) {
+  return Opnd{out + pos, (int64_t)FE_NL * n_out, n_out, nullptr, 0, 0, true};
+}
+
+// sh[(slot * 20 + limb) * 32 + lane]: slots 0-3 hold a, b, c, d, slots 4-7
+// e, f, g, h of the block's 32 adds.
+__device__ __forceinline__ void sh_put(int32_t *sh, int slot, int lane, const fe_t &x) {
+#pragma unroll
+  for (int i = 0; i < FE_NL; i++) sh[(slot * FE_NL + i) * 32 + lane] = x.v[i];
+}
+
+__device__ __forceinline__ fe_t sh_get(const int32_t *sh, int slot, int lane) {
+  fe_t r;
+#pragma unroll
+  for (int i = 0; i < FE_NL; i++) r.v[i] = sh[(slot * FE_NL + i) * 32 + lane];
+  return r;
+}
+
+// 32 unified adds p + q (add-2008-hwcd-3, pt_add's operations) by the
+// block's 4 warps: lane l of every warp works on add l (l < nact); warp w
+// computes a, b, c or d (w = 0..3), then e, f, g or h, then output
+// coordinate w, which it stores at `dst + l` of the limb-major batch `out`.
+// The warp's role is uniform, so no warp diverges; a thread holds two
+// operands and one accumulator. All products of the add run through one
+// fe_mul in a loop, so the kernel holds one copy of the product code.
+__device__ __forceinline__ void block_add(const Opnd &p, const Opnd &q, int nact, int32_t *sh,
+                                          int32_t *out, int64_t n_out, int64_t dst) {
+  const int lane = threadIdx.x & 31, role = threadIdx.x >> 5;
+  const bool act = lane < nact;
+  fe_t a, b, m;
+  if (act) {
+    if (role < 2) {  // (py -/+ px), (qy -/+ qx)
+      const fe_t py = p.get(1), px = p.get(0);
+      a = role == 0 ? fe_sub(py, px) : fe_add(py, px);
+      const fe_t qy = q.get(1), qx = q.get(0);
+      b = role == 0 ? fe_sub(qy, qx) : fe_add(qy, qx);
+    } else {  // pt qt, pz qz
+      a = p.get(role == 2 ? 3 : 2);
+      b = q.get(role == 2 ? 3 : 2);
+    }
+  }
+#pragma unroll 1
+  for (int step = 0; step < 3; step++) {
+    if (act && (step != 1 || role == 2)) m = fe_mul(a, b);
+    if (step == 0) {
+      if (act && role == 2) {  // c = (pt qt) 2d
+        a = m;
+#pragma unroll
+        for (int i = 0; i < FE_NL; i++) b.v[i] = FE_D2[i];
+      } else if (act && role == 3) {  // d = 2 (pz qz)
+        m = fe_mul_small(m, 2);
+      }
+    } else if (step == 1) {
+      if (act) sh_put(sh, role, lane, m);
+      UT_BARRIER();
+      if (act) {  // e = b - a, f = d - c, g = d + c, h = b + a
+        const int su = role == 0 || role == 3 ? 1 : 3;
+        const fe_t u = sh_get(sh, su, lane), v = sh_get(sh, su - 1, lane);
+        sh_put(sh, 4 + role, lane, role < 2 ? fe_sub(u, v) : fe_add(u, v));
+      }
+      UT_BARRIER();
+      if (act) {  // x = e f, y = g h, z = f g, t = e h
+        a = sh_get(sh, role == 1 ? 6 : role == 2 ? 5 : 4, lane);
+        b = sh_get(sh, role == 0 ? 5 : role == 2 ? 6 : 7, lane);
+      }
+    } else if (act) {
+      fe_store(out + (int64_t)role * FE_NL * n_out, n_out, dst + lane, m);
+    }
+  }
+  UT_BARRIER();  // the outputs are visible to the block; sh is free again
+}
+
+// rev_lc(x): the low lc bits of x reversed.
+__device__ __forceinline__ int brev_bits(int x, int lc) {
+  return (int)(__brev((unsigned)x) >> (32 - lc));
+}
+
+// rows (N, 80): the decompressed point table, one point per row.
+// perm (T, N): each window's lanes in natural sorted order.
+// lvl0 (4, 20, T * N): out, sorted lane j of a chunk at position rev(j).
+// out (4, 20, nchunks * rows_out * 128): levels 1..lc of each chunk.
+// counters (nchunks * ch / 128 + 1): zero on entry; per chunk, one arrival
+// count per 32-node group of each level >= 3 that is 32 nodes or wider;
+// last, the work queue's head.
+// A group is 32 consecutive positions of one level; a level-l group g
+// (width w = ch >> l >= 32) needs groups g and g + w / 32 of level l-1.
+// Work item i is level-2 group i % ipc of chunk i / ipc. Its add l folds
+// the level-0 positions q + k ch/4, k = 0..3 (q = 32 g + l: sorted lanes
+// 4m, 4m+2, 4m+1, 4m+3 with m = rev(q) / 4), into level-1 nodes q and
+// q + ch/4 and those into level-2 node q, writing the leaves to lvl0 as it
+// reads them. Then the block climbs: the second of a group's two children to
+// arrive computes the group, up to the chunk's 32-node level, whose block
+// adds the narrower levels one after another. Blocks are persistent: each
+// takes the next item from the queue. Every add is one block_add call in
+// the job loop below.
+__global__ void __launch_bounds__(UT_THREADS, UT_MIN_BLOCKS)
+uptree_kernel(const int32_t *__restrict__ rows, const int32_t *__restrict__ perm, int ch,
+              int lc, int rows_out, int ipc, int items, int32_t *lvl0, int32_t *out,
+              int *counters, int64_t n0, int64_t n_out) {
+  __shared__ int32_t sh[8 * FE_NL * 32];
+  __shared__ int item, last;
+  const int lane = threadIdx.x & 31, role = threadIdx.x >> 5;
+  const int quarter = ch >> 2;
+  int *head = counters + (int64_t)(items / ipc) * (ch >> 7);
+  for (;;) {
+    if (threadIdx.x == 0) item = atomicAdd(head, 1);
+    __syncthreads();
+    const int it = item;
+    if (it >= items) return;
+    const int chunk = it / ipc;
+    const int q0 = (it % ipc) * 32, q = q0 + lane;
+    const int64_t p0 = (int64_t)chunk * ch;  // chunk start in lvl0 and in perm
+    const int64_t out0 = (int64_t)chunk * rows_out * 128;
+    const int j0 = brev_bits(q, lc);  // a multiple of 4: q < ch / 4
+    const int4 lanes = __ldg(reinterpret_cast<const int4 *>(perm + p0 + j0));
+    // position q + k ch/4 holds sorted lane j0 + rev_2(k): leaf k is row
+    // lanes.{x, z, y, w}[k]; warp 0 copies x and y of each leaf to level 0,
+    // warp 2 t, warp 3 z (the coordinates each reads)
+    auto leaf = [&](int lane_id, int k) {
+      return Opnd{rows + (int64_t)lane_id * 4 * FE_NL, FE_NL, 1,
+                  role == 1 ? nullptr : lvl0 + p0 + q + k * quarter, (int64_t)FE_NL * n0, n0,
+                  false};
+    };
+    // jobs 0-2: level-1 nodes q and q + ch/4, level-2 node q; job 3: a
+    // 32-node group of a level >= 3; job 4: a level narrower than 32
+    int *cnt = counters + (int64_t)chunk * (ch >> 7);
+    int job = 0, g = q0 / 32, width = quarter, row = ch >> 8, prev = 0, coff = 0;
+    for (;;) {
+      Opnd pa, pb;
+      int nact = 32;
+      int64_t dst;
+      if (job == 0) {
+        pa = leaf(lanes.x, 0), pb = leaf(lanes.y, 2), dst = out0 + q0;
+      } else if (job == 1) {
+        pa = leaf(lanes.z, 1), pb = leaf(lanes.w, 3), dst = out0 + q0 + quarter;
+      } else if (job == 2) {  // row_off[2] = ch / 256
+        pa = node_opnd(out, n_out, out0 + q), pb = node_opnd(out, n_out, out0 + q + quarter);
+        dst = out0 + (ch >> 8) * 128 + q0;
+      } else {
+        const int64_t src = out0 + (int64_t)prev * 128 + (job == 3 ? g * 32 : 0);
+        pa = node_opnd(out, n_out, src + lane), pb = node_opnd(out, n_out, src + lane + width);
+        nact = job == 3 ? 32 : width;
+        dst = out0 + (int64_t)row * 128 + (job == 3 ? g * 32 : 0);
+      }
+      block_add(pa, pb, nact, sh, out, n_out, dst);
+      if (job < 2) {
+        job++;
+        continue;
+      }
+      if (width <= 32) {  // the chunk's 32-node level or narrower: this block's own
+        if (width == 1) break;
+        prev = row, row += 1, width >>= 1, job = 4;
+        continue;
+      }
+      const int half = width >> 1, pg = g % (half >> 5);
+      __threadfence();  // this group visible to the block that computes its parent
+      __syncthreads();
+      if (threadIdx.x == 0) last = atomicAdd(cnt + coff + pg, 1) == 1;
+      __syncthreads();
+      if (!last) break;
+      __threadfence();
+      prev = row, row += width >= 128 ? width / 128 : 1;
+      coff += half >> 5, width = half, g = pg, job = 3;
     }
   }
 }
@@ -246,10 +428,29 @@ bucket_fold_kernel(const int32_t *__restrict__ prefix, int t_windows, int32_t *_
 }
 
 // C interface (ctypes): launch on `stream`, return cudaGetLastError().
-extern "C" int tm_uptree(const int32_t *in, int32_t *out, int64_t nchunks, int ch, int rows_out,
-                         void *stream) {
-  uptree_kernel<<<(unsigned)nchunks, UT_THREADS, 0, (cudaStream_t)stream>>>(
-      in, out, ch, rows_out, nchunks * ch, nchunks * rows_out * 128);
+extern "C" int tm_uptree(const int32_t *rows, const int32_t *perm, int64_t n_lanes,
+                         int64_t t_windows, int ch, int rows_out, int32_t *lvl0, int32_t *out,
+                         int *counters, void *stream) {
+  const int64_t nchunks = t_windows * n_lanes / ch;
+  const int ipc = (ch / 4) / 32;  // items per chunk: 32 level-2 nodes each
+  const int lc = 31 - __builtin_clz((unsigned)ch);
+  const int items = (int)(nchunks * ipc);
+  // resident blocks the card holds, read once per device (a race writes the same value)
+  static int resident[UT_MAX_DEVICES];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= UT_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, uptree_kernel, UT_THREADS, 0);
+    resident[dev] = sms * per_sm;
+  }
+  const int blocks = items < resident[dev] ? items : resident[dev];
+  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  uptree_kernel<<<(unsigned)blocks, UT_THREADS, 0, (cudaStream_t)stream>>>(
+      rows, perm, ch, lc, rows_out, ipc, items, lvl0, out, counters, t_windows * n_lanes,
+      nchunks * rows_out * 128);
   return (int)cudaGetLastError();
 }
 

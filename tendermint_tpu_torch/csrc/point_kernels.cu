@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernels of tendermint_tpu/ops/pallas_fe.py:
 //   tm_padd          <- _padd_kernel / _padd_call  (public pallas_fe.padd)
-//   tm_pdbl          <- _pdbl_kernel, _pdbl_n_kernel / _pdbl_call (pallas_fe.pdbl)
+//   tm_pdbl, tm_pdbl_lanes <- _pdbl_kernel, _pdbl_n_kernel / _pdbl_call (pallas_fe.pdbl)
 //   tm_fsquare_chain <- _fsq_n_kernel / _fsq_call  (pallas_fe.fsquare_chain)
 //
 // Layout: a point batch is int32 (4, 20, n) — coordinate c, limb i, lane j at
@@ -20,12 +20,15 @@
 //   touches memory; the point of the design is that no 39-row product
 //   accumulator ever leaves registers (the TPU kernel's reason to exist,
 //   pallas_fe.py:1-12).
-// - pdbl runs the MSM's window fold and bucket sum on 32 lanes or fewer with
-//   up to 128 chained doublings (a latency-bound dependent chain on a warp or
-//   less), and the per-signature ladder's 1-4 doublings on up to 16,384
-//   lanes. The run-time loop keeps x, y, z in registers across doublings (t
-//   is only produced on the last one, since dbl-2008-hwcd never reads it)
-//   and replaces the TPU's 8-deep cap.
+// - pdbl has two kernels behind one wrapper. The MSM's window fold and
+//   [256]P_255 run up to 128 chained doublings on 32 lanes or fewer: a
+//   dependent chain, bound by latency, not by the card's rate. There
+//   pdbl_lanes_kernel gives each lane a warp and splits every field op
+//   across the limbs (below), ~1/6 of one thread's chain per doubling. The
+//   per-signature ladder's 1-4 doublings on up to 16,384 lanes are
+//   throughput-bound: pdbl_kernel keeps one thread per lane. Both keep x, y,
+//   z in registers across doublings (t is only produced on the last one,
+//   since dbl-2008-hwcd never reads it) and take `times` at run time.
 // - fsquare_chain (10,240-20,480 lanes, k up to 100) is bound by its
 //   multiply-adds (210 per squaring per lane); the element stays in registers
 //   for all k squarings, k is a run-time count (no 16-deep cap).
@@ -105,6 +108,133 @@ pdbl_kernel(const int32_t *__restrict__ p, int32_t *__restrict__ out, int64_t n,
   fe_store(out + 3 * cs, n, lane, t);
 }
 
+// ---------------------------------------------------------------------------
+// pdbl on few lanes: one warp per lane, limb-parallel. Lane k < 20 of the
+// warp holds limb k of every field element (lanes 20-31 shadow lanes 0-11
+// and write nothing). A product's 39 columns are integer sums whose order
+// does not matter (each stays below 2^31): lane k sums column k
+// (a_i b_{k-i}, i <= k) and column k + 20 (a_i b_{k+20-i}, i > k), 20
+// multiply-adds, reading a_i as a shared-memory broadcast and b from a
+// doubled copy (b[m] = b[m mod 20]). Every carry pass of fe25519.cuh is one
+// __shfl_sync from lane k - 1 (lane 0 takes lane 19's carry x 608); in the
+// 39-row reduction row 38's carry (lane 18's high column) folds onto row 19
+// with 608, as fe_reduce39 does. The doubling's independent field ops run
+// side by side in one instruction stream (4 squares, then 3 and 3 sums,
+// then 4 products), so their latencies overlap; no block barrier, only
+// __syncwarp around the shared-memory operands.
+
+#define PDW_FULL 0xffffffffu
+
+template <int NV>
+__device__ __forceinline__ void w_carry(int32_t (&v)[NV], int wrap_mul, int src) {
+#pragma unroll
+  for (int pass = 0; pass < 4; pass++) {
+    int32_t up[NV];
+#pragma unroll
+    for (int j = 0; j < NV; j++) up[j] = __shfl_sync(PDW_FULL, v[j] >> FE_RADIX, src);
+#pragma unroll
+    for (int j = 0; j < NV; j++) v[j] = (v[j] & FE_MASK) + wrap_mul * up[j];
+  }
+}
+
+// Columns (k, k + 20) of a[j] * b[j]; a and b point at doubled copies.
+template <int NV>
+__device__ __forceinline__ void w_products(const int32_t *const (&a)[NV],
+                                           const int32_t *const (&b)[NV], int k,
+                                           int32_t (&lo)[NV], int32_t (&hi)[NV]) {
+#pragma unroll
+  for (int j = 0; j < NV; j++) lo[j] = hi[j] = 0;
+#pragma unroll
+  for (int i = 0; i < FE_NL; i++) {
+    const bool low = i <= k;
+#pragma unroll
+    for (int j = 0; j < NV; j++) {
+      const int32_t t = a[j][i] * b[j][k - i + FE_NL];
+      if (low)
+        lo[j] += t;
+      else
+        hi[j] += t;
+    }
+  }
+}
+
+// fe_reduce39 on rows (k, k + 20) per lane; the result is left in lo.
+template <int NV>
+__device__ __forceinline__ void w_reduce39(int32_t (&lo)[NV], int32_t (&hi)[NV], int k, int src) {
+  const int32_t lo_in = k >= 1 ? 1 : 0;           // row k takes row k-1's carry
+  const int32_t top_in = k == FE_NL - 1 ? FE_WRAP : 0;  // row 19 takes 608 x row 38's
+  const int32_t hi_keep = k == FE_NL - 1 ? 0 : -1;      // row 39 does not exist
+#pragma unroll
+  for (int pass = 0; pass < 2; pass++) {
+    int32_t ulo[NV], uhi[NV];
+#pragma unroll
+    for (int j = 0; j < NV; j++) {
+      ulo[j] = __shfl_sync(PDW_FULL, lo[j] >> FE_RADIX, src);
+      uhi[j] = __shfl_sync(PDW_FULL, hi[j] >> FE_RADIX, src);
+    }
+#pragma unroll
+    for (int j = 0; j < NV; j++) {
+      const int32_t nlo = (lo[j] & FE_MASK) + lo_in * ulo[j] + top_in * uhi[j];
+      hi[j] = ((hi[j] & FE_MASK) + (k == 0 ? ulo[j] : uhi[j])) & hi_keep;
+      lo[j] = nlo;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NV; j++) lo[j] += FE_WRAP * hi[j];
+  w_carry<NV>(lo, k == 0 ? FE_WRAP : 1, src);
+}
+
+__device__ __forceinline__ void w_put(int32_t *buf, int lane, int32_t v) {
+  if (lane < FE_NL) {
+    buf[lane] = v;
+    buf[lane + FE_NL] = v;
+  }
+}
+
+__global__ void __launch_bounds__(32)
+pdbl_lanes_kernel(const int32_t *__restrict__ p, int32_t *__restrict__ out, int64_t n, int times) {
+  __shared__ __align__(16) int32_t buf[8][2 * FE_NL];
+  const int lane = threadIdx.x, k = lane % FE_NL, src = (k + FE_NL - 1) % FE_NL;
+  const int wrap_mul = k == 0 ? FE_WRAP : 1;
+  const int64_t j = blockIdx.x, cs = (int64_t)FE_NL * n, at = (int64_t)k * n + j;
+  const int32_t comp = FE_COMP[k], corr = FE_CORR[k];
+  int32_t x = __ldg(p + at), y = __ldg(p + cs + at), z = __ldg(p + 2 * cs + at), t = 0;
+  for (int it = 0; it < times; it++) {
+    int32_t w[1] = {x + y};
+    w_carry<1>(w, wrap_mul, src);
+    w_put(buf[0], lane, x);
+    w_put(buf[1], lane, y);
+    w_put(buf[2], lane, z);
+    w_put(buf[3], lane, w[0]);
+    __syncwarp();
+    int32_t lo[4], hi[4];
+    w_products<4>({buf[0], buf[1], buf[2], buf[3]}, {buf[0], buf[1], buf[2], buf[3]}, k, lo, hi);
+    w_reduce39<4>(lo, hi, k, src);  // xx, yy, zz, xy2
+    int32_t v[3] = {lo[2] * 2, lo[0] + lo[1], lo[1] + (comp - lo[0]) + corr};
+    w_carry<3>(v, wrap_mul, src);  // zz2, s = xx + yy, g = yy - xx
+    int32_t u[3] = {lo[3] + (comp - v[1]) + corr, v[2] + (comp - v[0]) + corr,
+                    (comp - v[1]) + corr};
+    w_carry<3>(u, wrap_mul, src);  // e = xy2 - s, f = g - zz2, h = -s
+    w_put(buf[4], lane, u[0]);
+    w_put(buf[5], lane, u[1]);
+    w_put(buf[6], lane, v[2]);
+    w_put(buf[7], lane, u[2]);
+    __syncwarp();
+    w_products<4>({buf[4], buf[6], buf[5], buf[4]}, {buf[5], buf[7], buf[6], buf[7]}, k, lo, hi);
+    w_reduce39<4>(lo, hi, k, src);  // e f, g h, f g, e h
+    x = lo[0];
+    y = lo[1];
+    z = lo[2];
+    t = lo[3];  // dbl-2008-hwcd never reads t: only the last one is kept
+  }
+  if (lane < FE_NL) {
+    out[at] = x;
+    out[cs + at] = y;
+    out[2 * cs + at] = z;
+    out[3 * cs + at] = t;
+  }
+}
+
 // x -> x^(2^k) (pallas_fe._fsq_n_kernel).
 __global__ void __launch_bounds__(PK_THREADS)
 fsquare_chain_kernel(const int32_t *__restrict__ x, int32_t *__restrict__ out, int64_t n,
@@ -129,6 +259,12 @@ extern "C" int tm_padd(const int32_t *p, const int32_t *q, int32_t *out, int64_t
 
 extern "C" int tm_pdbl(const int32_t *p, int32_t *out, int64_t n, int times, void *stream) {
   pdbl_kernel<<<pk_blocks(n), PK_THREADS, 0, (cudaStream_t)stream>>>(p, out, n, times);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tm_pdbl_lanes(const int32_t *p, int32_t *out, int64_t n, int times,
+                             void *stream) {
+  pdbl_lanes_kernel<<<(unsigned)n, 32, 0, (cudaStream_t)stream>>>(p, out, n, times);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,10 @@ The counterpart of tendermint_tpu/ops/pallas_fe.py. Three hand-written
 Hopper kernels (csrc/point_kernels.cu, field arithmetic in csrc/fe25519.cuh):
 
 - `padd(p, q)`            unified a=-1 extended add (add-2008-hwcd-3)
-- `pdbl(p, times)`        `times` chained dbl-2008-hwcd doublings
+- `pdbl(p, times)`        `times` chained dbl-2008-hwcd doublings: a warp per
+                          lane on PDBL_FEW_LANES lanes or fewer (the window
+                          fold's latency-bound chains), a thread per lane
+                          above (the per-signature ladder)
 - `fsquare_chain(x, k)`   x^(2^k), k squarings
 
 A point batch is one contiguous int32 tensor `(4, 20, ...batch)` (x, y, z, t
@@ -168,8 +171,9 @@ def _bind(lib) -> None:
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.tm_padd.argtypes = [vp, vp, vp, i64, vp]
     lib.tm_pdbl.argtypes = [vp, vp, i64, ci, vp]
+    lib.tm_pdbl_lanes.argtypes = [vp, vp, i64, ci, vp]
     lib.tm_fsquare_chain.argtypes = [vp, vp, i64, ci, vp]
-    for fn in (lib.tm_padd, lib.tm_pdbl, lib.tm_fsquare_chain):
+    for fn in (lib.tm_padd, lib.tm_pdbl, lib.tm_pdbl_lanes, lib.tm_fsquare_chain):
         fn.restype = ci
 
 
@@ -215,6 +219,15 @@ def padd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return out
 
 
+PDBL_FEW_LANES = 32
+
+
+def pdbl_entry(n: int) -> str:
+    """The pdbl kernel that n lanes launch: the warp-per-lane kernel on
+    PDBL_FEW_LANES lanes or fewer, the thread-per-lane kernel above."""
+    return "tm_pdbl_lanes" if n <= PDBL_FEW_LANES else "tm_pdbl"
+
+
 def pdbl(p: torch.Tensor, times: int = 1) -> torch.Tensor:
     """[2^times] p for a point batch (4, 20, ...batch); `times` is a run-time
     count of the kernel's loop."""
@@ -225,7 +238,8 @@ def pdbl(p: torch.Tensor, times: int = 1) -> torch.Tensor:
         raise ValueError("pdbl: times must be >= 1")
     out = torch.empty_like(p)
     if n:
-        _launched("pdbl", build().tm_pdbl(p.data_ptr(), out.data_ptr(), n, int(times), _stream(p)))
+        fn = getattr(build(), pdbl_entry(n))
+        _launched("pdbl", fn(p.data_ptr(), out.data_ptr(), n, int(times), _stream(p)))
     return out
 
 

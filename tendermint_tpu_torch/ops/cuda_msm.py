@@ -3,7 +3,8 @@
 The counterpart of tendermint_tpu/ops/pallas_msm.py. Three hand-written
 Hopper kernels (csrc/msm_kernels.cu, field arithmetic in csrc/fe25519.cuh):
 
-- `uptree(lvl0, ch)`        every pair-tree level 1..lc of each bit-reversed
+- `uptree(pts, perm, ch)`   the level-0 gather into chunk-wise bit-reversed
+                            order and every pair-tree level 1..lc of each
                             chunk, written once at the storage map's positions
 - `fenwick_reduce(...)`     per (bucket, window): the sum of its Kf gathered
                             tree nodes, in order k = 0..Kf-1
@@ -25,7 +26,7 @@ import torch
 
 from tendermint_tpu_torch.ops import cuda_fe
 from tendermint_tpu_torch.ops.ed25519_torch import identity
-from tendermint_tpu_torch.ops.msm_geometry import LANE, chunk_geometry
+from tendermint_tpu_torch.ops.msm_geometry import LANE, brev_positions, chunk_geometry
 
 NL = cuda_fe.NL
 NBUCKETS = 256
@@ -44,7 +45,17 @@ def reset_launches() -> None:
 # Plain versions.
 
 
-def uptree_plain(lvl0: torch.Tensor, ch: int) -> torch.Tensor:
+def gather_level0(pts: torch.Tensor, perm: torch.Tensor, ch: int) -> torch.Tensor:
+    """pts (4, 20, N); perm (T, N) natural sorted order -> level 0
+    (4, 20, T * N): position p of each ch-lane chunk holds the chunk's
+    sorted lane rev(p) (msm_geometry.brev_positions)."""
+    t_, n = perm.shape
+    pos = torch.from_numpy(brev_positions(n, ch)).to(device=perm.device, dtype=torch.int64)
+    lanes = perm.to(torch.int64)[:, pos].reshape(-1)
+    return pts.permute(2, 0, 1)[lanes].permute(1, 2, 0).contiguous()
+
+
+def chunk_trees_plain(lvl0: torch.Tensor, ch: int) -> torch.Tensor:
     """lvl0 (4, 20, nchunks * ch) bit-reversed level-0 lanes -> (4, 20,
     nchunks * rows_out * 128): level l position q < ch >> l at chunk-local
     offset row_off[l] * 128 + q is level l-1's q + (q + ch >> l). Positions
@@ -60,6 +71,13 @@ def uptree_plain(lvl0: torch.Tensor, ch: int) -> torch.Tensor:
         off = g.row_off[lvl] * LANE
         out[..., off : off + width] = cur
     return out.reshape(4, NL, nchunks * g.rows_out * LANE)
+
+
+def uptree_plain(pts: torch.Tensor, perm: torch.Tensor, ch: int):
+    """(level 0, chunk trees) of the fused MSM: gather_level0, then
+    chunk_trees_plain."""
+    lvl0 = gather_level0(pts, perm, ch)
+    return lvl0, chunk_trees_plain(lvl0, ch)
 
 
 def fenwick_reduce_plain(lvl0: torch.Tensor, ctree: torch.Tensor, top: torch.Tensor,
@@ -95,7 +113,7 @@ def bucket_fold_plain(prefix: torch.Tensor, t_windows: int):
 
 def _bind(lib) -> None:
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.tm_uptree.argtypes = [vp, vp, i64, ci, ci, vp]
+    lib.tm_uptree.argtypes = [vp, vp, i64, i64, ci, ci, vp, vp, vp, vp]
     lib.tm_fenwick_reduce.argtypes = [vp, i64, vp, i64, vp, i64, vp, ci, vp, i64, vp]
     lib.tm_bucket_fold.argtypes = [vp, ci, vp, vp, vp]
     for fn in (lib.tm_uptree, lib.tm_fenwick_reduce, lib.tm_bucket_fold):
@@ -119,24 +137,33 @@ def _same_device(dev, *xs) -> None:
             raise ValueError(f"tensor on {x.device}, expected {dev}")
 
 
-def uptree(lvl0: torch.Tensor, ch: int) -> torch.Tensor:
-    """Bit-reversed level-0 lanes (4, 20, nchunks * ch) -> chunk trees
-    (4, 20, nchunks * rows_out * 128). Positions that hold no node are left
-    unwritten on the card."""
-    if lvl0.device.type == "cpu":
-        return uptree_plain(lvl0, ch)
+def uptree(pts: torch.Tensor, perm: torch.Tensor, ch: int):
+    """Point table (4, 20, N) and natural sorted permutation (T, N) int32 ->
+    (level 0 (4, 20, T * N), chunk trees (4, 20, T * N / ch * rows_out * 128)).
+    On the card one kernel gathers level 0 and builds every chunk tree;
+    positions of the chunk trees that hold no node are left unwritten."""
+    if pts.device.type == "cpu":
+        return uptree_plain(pts, perm, ch)
     g = chunk_geometry(ch)
-    n = _points(lvl0, "uptree lvl0")
-    if n % ch:
-        raise ValueError(f"uptree: {n} lanes are not a multiple of the chunk {ch}")
-    nchunks = n // ch
+    n = _points(pts, "uptree pts")
+    _same_device(pts.device, perm)
+    if perm.dtype != torch.int32 or perm.dim() != 2 or not perm.is_contiguous():
+        raise ValueError("uptree: perm must be a contiguous (T, N) int32 tensor")
+    t_, n_p = perm.shape
+    if n_p != n or ch not in (1024, 2048) or n % ch:
+        raise ValueError(f"uptree: {n_p} sorted lanes of {n} points in chunks of {ch}")
+    nchunks = t_ * n // ch
+    rows = pts.permute(2, 0, 1).reshape(n, 4 * NL).contiguous()  # (N, 80): a point per row
+    lvl0 = torch.empty((4, NL, t_ * n), dtype=torch.int32, device=pts.device)
     out = torch.empty((4, NL, nchunks * g.rows_out * LANE), dtype=torch.int32,
-                      device=lvl0.device)
+                      device=pts.device)
+    # per chunk ch / 128 group arrival counts, then the work queue's head
+    counters = torch.zeros(nchunks * (ch // 128) + 1, dtype=torch.int32, device=pts.device)
     if nchunks:
         cuda_fe._launched("uptree", build().tm_uptree(
-            lvl0.data_ptr(), out.data_ptr(), nchunks, ch, g.rows_out,
-            cuda_fe._stream(lvl0)), LAUNCHES)
-    return out
+            rows.data_ptr(), perm.data_ptr(), n, t_, ch, g.rows_out, lvl0.data_ptr(),
+            out.data_ptr(), counters.data_ptr(), cuda_fe._stream(pts)), LAUNCHES)
+    return lvl0, out
 
 
 def fenwick_reduce(lvl0: torch.Tensor, ctree: torch.Tensor, top: torch.Tensor,

@@ -9,9 +9,9 @@ Host: per 8-bit window, stable-sort lane indices by digit and take the
 bucket boundaries (`sort_windows`). Device, two schedules of one sum:
 
 - fused (`_msm_total_fused`, every flush whose lane count a 1024- or
-  2048-lane chunk tiles: `fused_for_lanes`): gather lanes into sorted order,
-  bit-reversed within each chunk; one `uptree` kernel builds every chunk's
-  pair tree; a small top tree over the chunk roots; one `fenwick_reduce`
+  2048-lane chunk tiles: `fused_for_lanes`): one `uptree` kernel gathers
+  the lanes into sorted order, bit-reversed within each chunk, and builds
+  every chunk's pair tree; a small top tree over the chunk roots; one `fenwick_reduce`
   kernel sums each bucket boundary's tree nodes into prefix points P_v; one
   `bucket_fold` kernel gives sum_{v<255} P_v and P_255 per window
   (ops/cuda_msm.py);
@@ -42,7 +42,7 @@ from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
 from tendermint_tpu_torch.ops import fe25519 as fe
 from tendermint_tpu_torch.ops.ed25519_torch import decompress, identity, point_neg, point_select
 from tendermint_tpu_torch.ops.msm_geometry import (
-    LANE, brev, brev_positions, chunk_for_lanes, chunk_geometry)
+    LANE, brev, chunk_for_lanes, chunk_geometry)
 
 WINDOW_BITS = 8
 NWIN = 32  # 256 bits / 8
@@ -335,10 +335,7 @@ def _fused_stages(pts: torch.Tensor, perm: torch.Tensor, ends: torch.Tensor):
     ch = chunk_for_lanes(n)
     g = chunk_geometry(ch)
     ncw = n // ch
-    pos = _index_const(("brev", n, ch), perm.device,
-                       lambda: torch.from_numpy(brev_positions(n, ch)).to(torch.int64))
-    lvl0 = _gather_lanes(pts, perm.to(torch.int64)[:, pos]).reshape(4, fe.NLIMBS, t_ * n)
-    ctree = cuda_msm.uptree(lvl0, ch)
+    lvl0, ctree = cuda_msm.uptree(pts, perm.to(torch.int32).contiguous(), ch)
     roots = ctree.reshape(4, fe.NLIMBS, t_ * ncw, g.rows_out * LANE)[..., g.row_off[g.lc] * LANE]
     top = _tree_levels(roots.reshape(4, fe.NLIMBS, t_, ncw).contiguous())  # (4, 20, T, Wtop+1)
     node_idx = fused_node_indices_device(ends, n, ch)  # (NB, T, Kf)

@@ -3,7 +3,8 @@
 The verify_commit and verify_aggregate_commit parts of
 tendermint_tpu/types/validator_set.py. verify_commit (reference
 types/validator_set.go:662-714): the reference's serial per-validator verify
-loop becomes one crypto.batch.verify_batch flush on the card.
+loop becomes one crypto.batch.verify_batch flush on the card, with each
+row's key type, so BLS rows of a plain Commit are verified on the host.
 verify_aggregate_commit: one BLS pairing check against a signer bitmap, with
 the aggregate-pubkey fold (ops/bls12_torch.py) and the Miller loop
 (ops/pairing_torch.py) on the card; decoding, hash_to_g2 and the final
@@ -21,7 +22,7 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from tendermint_tpu_torch.crypto.batch import verify_batch
-from tendermint_tpu_torch.crypto.keys import ED25519_KEY_TYPE, Bls12381PubKey, Ed25519PubKey
+from tendermint_tpu_torch.crypto.keys import Bls12381PubKey, Ed25519PubKey
 
 INT64_MAX = 2**63 - 1
 
@@ -90,26 +91,18 @@ class ValidatorSet:
             raise CommitVerifyError(
                 f"invalid commit -- wrong block ID: want {block_id}, got {commit.block_id}"
             )
-        pubkeys, sigs, meta, idxs = [], [], [], []
+        pubkeys, sigs, meta, key_types, idxs = [], [], [], [], []
         for idx, cs in enumerate(commit.signatures):
             if cs.absent():
                 continue
             val = self.validators[idx]
-            if val.pub_key.type_name() != ED25519_KEY_TYPE:
-                # the reference routes such rows per key type through
-                # verify_batch(key_types=...); the port has no mixed-key
-                # routing yet and must never read another key as Ed25519
-                raise NotImplementedError(
-                    f"verify_commit: validator #{idx} holds a {val.pub_key.type_name()} key; "
-                    "per-signature verification of non-ed25519 keys is not ported yet "
-                    "(use verify_aggregate_commit for BLS commits)"
-                )
             pubkeys.append(val.pub_key.bytes())
             idxs.append(idx)
             sigs.append(cs.signature)
             meta.append((idx, val.voting_power, cs.for_block()))
+            key_types.append(val.pub_key.type_name())
         msgs = commit.vote_sign_bytes_many(chain_id, idxs)
-        mask = verify_batch(pubkeys, msgs, sigs, device=device)
+        mask = verify_batch(pubkeys, msgs, sigs, device=device, key_types=key_types)
         tallied = 0
         for ok, (idx, power, for_block) in zip(mask, meta):
             if not ok:

@@ -239,15 +239,16 @@ def test_plain_commit_routes_to_verify_commit():
 
 
 def test_bls_key_in_a_plain_commit_raises():
-    """The reference verifies such rows per key type; the port has no
-    mixed-key routing yet and must raise, never read a 48-byte key as
-    Ed25519 (ROADMAP section C)."""
+    """A plain Commit on a set holding BLS keys: the port verifies its rows
+    per key type, as the reference does, and neither side raises; a bad BLS
+    row raises the same CommitVerifyError on both (the name is kept from
+    when the port raised NotImplementedError here)."""
     jvs, tv, privs = _mixed_sets()
-    _, tc = _plain_commits(jvs, privs)
-    with pytest.raises(NotImplementedError, match="bls12_381 key"):
-        tv.verify_commit(CHAIN, TBID, HEIGHT, tc, device="cpu")
-    with pytest.raises(NotImplementedError):
-        tv.verify_aggregate_commit(CHAIN, TBID, HEIGHT, tc, device="cpu")
+    jc, tc = _plain_commits(jvs, privs)
+    assert _both(jc, tc, jvs=jvs, tv=tv) == ("ok",)  # routed to verify_commit
+    bad = next(i for i, v in enumerate(jvs.validators) if v.pub_key.type_name() == "bls12_381")
+    got = _both(*_plain_commits(jvs, privs, bad_idx=bad), jvs=jvs, tv=tv)
+    assert got == ("CommitVerifyError", f"wrong signature (#{bad})")
 
 
 def test_register_pop_matches_reference():

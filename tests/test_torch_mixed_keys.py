@@ -1,0 +1,189 @@
+"""Port per-key-type routing (tendermint_tpu_torch/crypto/batch.verify_batch
+with key_types, and ValidatorSet.verify_commit on sets mixing Ed25519 and
+BLS12-381 keys) against the JAX package.
+
+Tolerance: zero. The port's masks must be byte-identical to the reference's
+verify_batch(..., backend="cpu", key_types=...); verify_commit must pass, or
+raise the same exception type with the same message, as the reference's.
+A host BLS verify costs about a second here, so each case holds 2 BLS rows
+and the reference's results are computed once per module.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tendermint_tpu.crypto import batch as jbatch
+from tendermint_tpu.crypto import keys as JK
+from tendermint_tpu.types import block as jblock
+from tendermint_tpu.types.basic import BlockID as JBlockID
+from tendermint_tpu.types.basic import BlockIDFlag as JFlag
+from tendermint_tpu.types.basic import PartSetHeader as JPSH
+from tendermint_tpu.types.validator_set import Validator as JValidator
+from tendermint_tpu.types.validator_set import ValidatorSet as JValidatorSet
+from tendermint_tpu_torch.crypto import batch as tbatch
+from tendermint_tpu_torch.crypto import keys as TK
+from tendermint_tpu_torch.types import block as tblock
+from tendermint_tpu_torch.types import validator_set as tvs
+from tendermint_tpu_torch.types.basic import BlockID, BlockIDFlag, PartSetHeader
+
+torch.set_num_threads(2)
+
+CHAIN = "mixed-key-chain"
+HEIGHT = 11
+JBID = JBlockID(b"\x0a" * 32, JPSH(2, b"\x0b" * 32))
+TBID = BlockID(b"\x0a" * 32, PartSetHeader(2, b"\x0b" * 32))
+
+ED = [JK.gen_ed25519(bytes([0x31 + i]) * 32) for i in range(3)]
+BLS = [TK.gen_bls12_381(bytes([0x61 + i]) * 32) for i in range(2)]
+
+
+@pytest.fixture(autouse=True)
+def _cpu_backend(monkeypatch):
+    monkeypatch.setenv("TMTPU_CRYPTO_BACKEND", "cpu")
+
+
+def _flip(sig: bytes) -> bytes:
+    return sig[:-1] + bytes([sig[-1] ^ 1])
+
+
+def _rows():
+    """3 Ed25519 rows then 2 BLS rows, honest: (pubkeys, msgs, sigs, types)."""
+    pks, msgs, sigs, types = [], [], [], []
+    for i, p in enumerate(ED + BLS):
+        msg = b"mixed row %d" % i
+        pks.append(p.pub_key().bytes())
+        msgs.append(msg)
+        sigs.append(p.sign(msg))
+        types.append(p.pub_key().type_name())
+    return pks, msgs, sigs, types
+
+
+HONEST = _rows()
+
+
+def _case(name):
+    pks, msgs, sigs, types = (list(x) for x in HONEST)
+    if name == "ed_only":
+        return pks[:3], msgs[:3], sigs[:3], types[:3]
+    if name == "ed_bls":
+        pass
+    elif name == "bad_rows":  # a bad Ed25519 row and a bad BLS row
+        sigs[1] = _flip(sigs[1])
+        sigs[4] = _flip(sigs[4])
+    elif name == "short_bls_sig":  # 95 bytes: False before any pairing
+        sigs[3] = sigs[3][:95]
+    elif name == "unknown_type":  # an Ed25519-valid triple under another type
+        types[0] = "secp256k1"
+        types[4] = "secp256k1"
+    else:
+        raise KeyError(name)
+    return pks, msgs, sigs, types
+
+
+CASES = ("ed_only", "ed_bls", "bad_rows", "short_bls_sig", "unknown_type")
+
+
+@pytest.fixture(scope="module")
+def reference_masks():
+    """The reference's mask per case, computed on first use."""
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            pks, msgs, sigs, types = _case(name)
+            cache[name] = np.asarray(jbatch.verify_batch(pks, msgs, sigs, backend="cpu",
+                                                         key_types=types))
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_verify_batch_key_types_matches_reference(name, reference_masks):
+    pks, msgs, sigs, types = _case(name)
+    want = reference_masks(name)
+    got = tbatch.verify_batch(pks, msgs, sigs, device="cpu", key_types=types)
+    assert got.dtype == np.bool_ and got.tobytes() == want.tobytes()
+    expect = {"ed_only": [1, 1, 1], "ed_bls": [1] * 5, "bad_rows": [1, 0, 1, 1, 0],
+              "short_bls_sig": [1, 1, 1, 0, 1], "unknown_type": [0, 1, 1, 1, 0]}[name]
+    assert got.tolist() == [bool(x) for x in expect]
+
+
+def test_all_ed25519_key_types_take_the_plain_path(reference_masks):
+    pks, msgs, sigs, types = _case("ed_only")
+    want = reference_masks("ed_only")
+    for kt in (types, None):
+        tbatch.LAST_FLUSH.clear()
+        got = tbatch.verify_batch(pks, msgs, sigs, device="cpu", key_types=kt)
+        assert got.tobytes() == want.tobytes()
+        assert tbatch.LAST_FLUSH == {"mode": "persig"}
+
+
+def test_sr25519_rows_raise():
+    pks, msgs, sigs, types = _case("ed_only")
+    types = ["ed25519", "sr25519", "ed25519"]
+    with pytest.raises(NotImplementedError, match="sr25519.*queue item 5"):
+        tbatch.verify_batch(pks, msgs, sigs, device="cpu", key_types=types)
+
+
+# ---------------------------------------------------------------------------
+# verify_commit on a mixed set.
+
+
+def _sets():
+    jvs = JValidatorSet([JValidator(p.pub_key(), 10) for p in ED]
+                        + [JValidator(JK.Bls12381PubKey(p.pub_key().bytes()), 10) for p in BLS])
+    tv = tvs.ValidatorSet([tvs.Validator(
+        TK.Ed25519PubKey(v.pub_key.bytes()) if v.pub_key.type_name() == "ed25519"
+        else TK.Bls12381PubKey(v.pub_key.bytes()), v.voting_power) for v in jvs.validators])
+    by_addr = {p.pub_key().address(): p for p in ED + BLS}
+    return jvs, tv, [by_addr[v.address] for v in jvs.validators]
+
+
+JVS, TVS, PRIVS = _sets()
+
+
+def _commits(bad_idx=None, nil_idx=()):
+    rows = [(JFlag.NIL if i in nil_idx else JFlag.COMMIT, v.address, 5_000 + i)
+            for i, v in enumerate(JVS.validators)]
+    stub = tblock.Commit(HEIGHT, 0, TBID, [tblock.CommitSig(BlockIDFlag(int(f)), a, ts, b"")
+                                           for f, a, ts in rows])
+    sigs = []
+    for i, p in enumerate(PRIVS):
+        sig = p.sign(stub.vote_sign_bytes(CHAIN, i))
+        sigs.append(_flip(sig) if i == bad_idx else sig)
+    return (jblock.Commit(HEIGHT, 0, JBID, [jblock.CommitSig(f, a, ts, s)
+                                            for (f, a, ts), s in zip(rows, sigs)]),
+            tblock.Commit(HEIGHT, 0, TBID, [tblock.CommitSig(BlockIDFlag(int(f)), a, ts, s)
+                                            for (f, a, ts), s in zip(rows, sigs)]))
+
+
+def _outcome(fn):
+    try:
+        fn()
+    except Exception as e:  # compared by type name and message
+        return type(e).__name__, str(e)
+    return ("ok",)
+
+
+def _first(kind):
+    return next(i for i, v in enumerate(JVS.validators) if v.pub_key.type_name() == kind)
+
+
+@pytest.mark.parametrize("case", ["honest", "bad_bls", "bad_ed", "subthreshold"])
+def test_verify_commit_on_a_mixed_set_matches_reference(case):
+    kw = {"honest": {}, "bad_bls": {"bad_idx": _first("bls12_381")},
+          "bad_ed": {"bad_idx": _first("ed25519")},
+          "subthreshold": {"nil_idx": (_first("ed25519"), _first("bls12_381"))}}[case]
+    jc, tc = _commits(**kw)
+    want = _outcome(lambda: JVS.verify_commit(CHAIN, JBID, HEIGHT, jc))
+    got = _outcome(lambda: TVS.verify_commit(CHAIN, TBID, HEIGHT, tc, device="cpu"))
+    assert got == want
+    if case == "honest":
+        assert got == ("ok",)
+    elif case == "subthreshold":  # 30 of 50 power for the block
+        assert got == ("NotEnoughVotingPowerError",
+                       "invalid commit -- insufficient voting power: got 30, needed more than 33")
+    else:
+        assert got == ("CommitVerifyError", f"wrong signature (#{kw['bad_idx']})")

@@ -18,7 +18,7 @@ from tendermint_tpu.crypto import batch as jbatch
 from tendermint_tpu.crypto import ed25519_ref as ref
 from tendermint_tpu.ops import msm_jax
 from tendermint_tpu.ops import pallas_msm as PM
-from tendermint_tpu_torch.ops import cuda_msm
+from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
 from tendermint_tpu_torch.ops import ed25519_torch as te
 from tendermint_tpu_torch.ops import msm_geometry as G
 from tendermint_tpu_torch.ops import msm_torch as M
@@ -131,11 +131,38 @@ def test_fused_node_indices_match_jax(n, ch):
 def test_uptree_plain_matches_jax(ch):
     g = G.chunk_geometry(ch)
     lvl0 = _picks(ch, 2 * ch)  # 2 windows of one chunk each
-    got = cuda_msm.uptree_plain(lvl0, ch).reshape(4, NL, 2, g.rows_out * G.LANE)
+    got = cuda_msm.chunk_trees_plain(lvl0, ch).reshape(4, NL, 2, g.rows_out * G.LANE)
     want = np.asarray(PM._uptree_jnp(_packed(lvl0), PM.chunk_geometry(ch)))
     want = want.reshape(4, NL, 2, g.rows_out * G.LANE)
     pos = torch.from_numpy(G.tree_written_positions(ch))
     np.testing.assert_array_equal(got[..., pos].numpy(), want[..., pos.numpy()])
+
+
+def _jax_gather_rows(pts: torch.Tensor, perm: np.ndarray, ch: int) -> np.ndarray:
+    """msm_jax._msm_total_fused's level-0 gather: the (T * N, 80) point rows
+    of the composed bit-reversed permutation."""
+    n = pts.shape[-1]
+    perm_f = jnp.take(jnp.asarray(perm), jnp.asarray(PM.brev_positions(n, ch)), axis=1)
+    rowtab = jnp.asarray(pts.reshape(4 * NL, n).T.numpy())
+    return np.asarray(rowtab[perm_f.reshape(-1)])
+
+
+@pytest.mark.parametrize("ch", [1024, 2048])
+def test_uptree_fused_gather_matches_jax_gather(ch):
+    """uptree(pts, perm, ch) on the CPU: level 0 against the JAX package's
+    own gather, the chunk trees against _uptree_jnp on that gather."""
+    n, t_ = 2 * ch, 2  # 2 windows of 2 chunks each
+    g = G.chunk_geometry(ch)
+    pts = _picks(ch + 7, n)
+    perm, _ = _window_sort(ch + 8, n, t_)
+    lvl0, ctree = cuda_msm.uptree(pts, torch.from_numpy(perm.astype(np.int32)), ch)
+    rows = _jax_gather_rows(pts, perm, ch)
+    np.testing.assert_array_equal(_rows(lvl0), rows)
+    want = np.asarray(PM._uptree_jnp(PM.rows_to_packed(jnp.asarray(rows)), PM.chunk_geometry(ch)))
+    want = want.reshape(4, NL, 2 * t_, g.rows_out * G.LANE)
+    pos = torch.from_numpy(G.tree_written_positions(ch))
+    got = ctree.reshape(4, NL, 2 * t_, g.rows_out * G.LANE)[..., pos]
+    np.testing.assert_array_equal(got.numpy(), want[..., pos.numpy()])
 
 
 def _fused_storage(seed: int, n: int, t_: int):
@@ -257,9 +284,14 @@ def test_msm_kernels_equal_plain_on_card(cuda_device):
     lvl0, ctree, top, idx = _fused_storage(21, 2048, t_)
     on = [x.to(cuda_device) for x in (lvl0, ctree, top, idx)]
     cuda_msm.reset_launches()
+    pts = _picks(21, 2048)
+    perm, _ = _window_sort(22, 2048, t_)
+    perm = torch.from_numpy(perm.astype(np.int32))
     pos = torch.from_numpy(G.tree_written_positions(2048))
-    got = cuda_msm.uptree(on[0], 2048).cpu().reshape(4, NL, t_, -1)[..., pos]
-    assert torch.equal(got, ctree.reshape(4, NL, t_, -1)[..., pos])
+    got0, got = cuda_msm.uptree(pts.to(cuda_device), perm.to(cuda_device), 2048)
+    assert torch.equal(got0.cpu(), lvl0)
+    assert torch.equal(got.cpu().reshape(4, NL, t_, -1)[..., pos],
+                       ctree.reshape(4, NL, t_, -1)[..., pos])
     assert torch.equal(cuda_msm.fenwick_reduce(*on).cpu(),
                        cuda_msm.fenwick_reduce_plain(lvl0, ctree, top, idx))
     prefix = _picks(33, M.NBUCKETS * M.NWIN)
@@ -267,3 +299,55 @@ def test_msm_kernels_equal_plain_on_card(cuda_device):
     want = cuda_msm.bucket_fold_plain(prefix, M.NWIN)
     assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
     assert cuda_msm.LAUNCHES == {"uptree": 1, "fenwick_reduce": 1, "bucket_fold": 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ch,chunks", [(1024, 6), (2048, 10)])
+def test_uptree_kernel_equals_plain_on_card(cuda_device, ch, chunks):
+    """The fused-gather kernel at several chunks per window (so a chunk's
+    upper levels run in whichever block finishes it last): level 0 and every
+    written chunk-tree position against the plain version."""
+    t_ = 3
+    n = chunks * ch
+    pts = _picks(ch + 1, n)
+    perm = torch.from_numpy(_window_sort(ch + 2, n, t_)[0].astype(np.int32))
+    want0, want = cuda_msm.uptree_plain(pts, perm, ch)
+    got0, got = cuda_msm.uptree(pts.to(cuda_device), perm.to(cuda_device), ch)
+    pos = torch.from_numpy(G.tree_written_positions(ch))
+    assert torch.equal(got0.cpu(), want0)
+    assert torch.equal(got.cpu().reshape(4, NL, t_ * chunks, -1)[..., pos],
+                       want.reshape(4, NL, t_ * chunks, -1)[..., pos])
+
+
+def test_pdbl_routes_by_lane_count(monkeypatch):
+    """The window fold's and [256]P_255's pdbl launches (32 lanes and fewer)
+    take the warp-per-lane kernel, the per-signature ladder's 16,384 lanes
+    the thread-per-lane kernel; on the CPU both are the plain version."""
+    assert cuda_fe.PDBL_FEW_LANES == 32
+    assert [cuda_fe.pdbl_entry(n) for n in (1, 2, 16, 32)] == ["tm_pdbl_lanes"] * 4
+    assert [cuda_fe.pdbl_entry(n) for n in (33, 1024, 16_384)] == ["tm_pdbl"] * 3
+    w = _picks(44, M.NWIN)
+    p_last = _picks(45, M.NWIN)
+    seen = []
+    plain = cuda_fe.pdbl
+
+    def spy(p, times=1):
+        seen.append((p.shape[-1], times, cuda_fe.pdbl_entry(p.shape[-1])))
+        return plain(p, times)
+
+    monkeypatch.setattr(cuda_fe, "pdbl", spy)
+    M._fold_windows(M._bucket_tail(w, p_last))
+    assert seen[0] == (M.NWIN, 8, "tm_pdbl_lanes")
+    assert [s[:2] for s in seen[1:]] == [(16, 8), (8, 16), (4, 32), (2, 64), (1, 128)]
+    assert all(s[2] == "tm_pdbl_lanes" for s in seen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,times", [(1, 128), (2, 64), (32, 8), (33, 3), (16_384, 4)])
+def test_pdbl_kernels_equal_plain_on_card(cuda_device, lanes, times):
+    """Both pdbl kernels, limb for limb against pdbl_plain, one launch each."""
+    p = _picks(lanes + times, lanes)
+    cuda_fe.reset_launches()
+    got = cuda_fe.pdbl(p.to(cuda_device), times).cpu()
+    assert torch.equal(got, cuda_fe.pdbl_plain(p, times))
+    assert cuda_fe.LAUNCHES["pdbl"] == 1
