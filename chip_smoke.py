@@ -13,8 +13,14 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      the shapes the paths below give it (uptree at 2,048-lane chunks on the
      warm and streamed paths and at 1,024; pdbl at all six window-fold
      shapes and on the ladder), tolerance zero (integer arithmetic), with
-     its device time (the profiler's kernel records, median per launch),
-     its call time by CUDA events, the plain version's time and its bound;
+     its device time (the profiler's kernel records, median per launch;
+     where CUPTI keeps none in two sessions, CUDA events around calls
+     queued behind a device sleep, and the row says which),
+     its call time by CUDA events, the plain version's time, its bound
+     (fenwick_reduce's byte count is the distinct 32-B sectors its gather
+     touches, counted on the host from the index table and printed), ptxas's
+     registers and spills, and for the fenwick_reduce and fp12_sparse_mul
+     rows the card ms recorded before their redesigns (text line only);
      the unfused MSM total against the integer reference on a small input,
      and the fused total against the unfused one at the 10k commit's 20,480
      lanes;
@@ -39,7 +45,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   8. the BLS kernels fp381_mul and fp12_sparse_mul against their plain
      versions at the BLS paths' shapes (the fold's widest stacked launch, a
      Miller step's widest, the Miller loop's 2 lanes, and one wide row off
-     the path);
+     the path), printed as in phase 3 (fp12_sparse_mul bound by its 54
+     products a lane over the whole card, or one product's multiply-adds
+     issued one a clock, whichever is longer);
   9. a 10,000-validator BLS set (keys sk0 + i, one aggregate signature over
      the full bitmap, built before the card is touched) through
      ValidatorSet.verify_aggregate_commit on three paths: "bls_cold" (the
@@ -63,6 +71,7 @@ from __future__ import annotations
 import json
 import multiprocessing as mp
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -101,8 +110,8 @@ def pdbl_mads(times: int) -> int:
 # top-limb folds of sub, 33 constant multiplies each, are not counted).
 FP381_MUL = 2 * 33 * 33 + 33
 FP_BYTES = 33 * 4
-# fp12_sparse_mul: 6 threads per lane, 3 Fp2 products (9 base products) each.
-SPARSE_THREAD_MADS = 9 * FP381_MUL
+# fp12_sparse_mul: 18 Karatsuba Fp2 products of 3 base products a lane.
+SPARSE_PRODUCTS = 54
 # BLS path constants
 BLS_HEIGHT = 5
 BLS_TS = 1_700_000_000_123_456_789
@@ -139,15 +148,20 @@ NO_LIBRARY = {
 }
 
 
+def work_seconds(mads: int, warps: int, card: dict) -> float:
+    """Least time for `mads` int32 multiply-adds in all, spread evenly over
+    the sub-partitions that `warps` warps occupy (528 at most)."""
+    parts = min(warps, card["sms"] * SM_PARTITIONS)
+    return mads / (parts * INT32_MAD_PER_SM_PER_CLK / SM_PARTITIONS * card["clock_hz"])
+
+
 def imad_seconds(mads_per_lane: int, lanes: int, card: dict) -> float:
     """Least time for `lanes` threads of `mads_per_lane` int32 multiply-adds
     each. A warp instruction takes a sub-partition's 16 lanes per clock for
     all 32 lanes, active or not, and a launch of a few warps occupies only
     that many sub-partitions, not the whole card."""
     warps = -(-lanes // 32)
-    parts = min(warps, card["sms"] * SM_PARTITIONS)
-    per_part = INT32_MAD_PER_SM_PER_CLK / SM_PARTITIONS
-    return warps * 32 * mads_per_lane / (parts * per_part * card["clock_hz"])
+    return work_seconds(warps * 32 * mads_per_lane, warps, card)
 
 
 def sh(cmd) -> str:
@@ -172,6 +186,32 @@ def timed(fn, reps: int = 5):
     return statistics.median(times)
 
 
+# Card ms recorded before the fenwick_reduce and fp12_sparse_mul redesigns
+# (PERF.md's kernel table, "before" column; NVIDIA H100 80GB HBM3, 700.00 W).
+# Printed on the row's text line only, labelled as recorded: the `kernels`
+# JSON line holds only what this run measured.
+RECORDED_BEFORE_MS = {
+    ("fenwick_reduce", 8_192): 0.3327,
+    ("fp12_sparse_mul", 2): 0.1221, ("fp12_sparse_mul", 16_384): 0.4642,
+}
+
+
+def fenwick_gather_sectors(node_idx, n0: int, n1: int, n2: int) -> int:
+    """The 32-byte sectors that fenwick_reduce's gather must touch: over
+    every node that node_idx names, its 80 limb rows in its segment of the
+    storage map [lvl0 | ctree | top] (limb-major (4, 20, n_seg) int32
+    tensors, each 32-byte aligned), the distinct (segment, sector) pairs. A
+    host count from the index table: the byte floor of the gather."""
+    g = np.unique(np.asarray(node_idx, dtype=np.int64))
+    rows = np.arange(4 * 20, dtype=np.int64)[:, None]
+    total = 0
+    for lo, n in ((0, n0), (n0, n1), (n0 + n1, n2)):
+        j = g[(g >= lo) & (g < lo + n)] - lo
+        if j.size:
+            total += np.unique((rows * n + j) // 8).size  # 8 int32 words a sector
+    return int(total)
+
+
 KERNEL_SYMBOL = {  # the __global__ function each wrapper launches
     "padd": ("padd_kernel",), "pdbl": ("pdbl_kernel", "pdbl_lanes_kernel"),
     "fsquare_chain": ("fsquare_chain_kernel",), "uptree": ("uptree_kernel",),
@@ -180,17 +220,46 @@ KERNEL_SYMBOL = {  # the __global__ function each wrapper launches
 }
 
 
-def device_ms(fn, name: str, reps: int = 10):
-    """Device time of one launch of kernel `name` in ms: the median of the
-    profiler's per-launch kernel records over `reps` warm calls of `fn`;
-    the symbol that ran; and the device time per call of the other work the
-    wrapper launches (uptree's layout copy and counter memset), which the
-    first number does not count."""
+def ptxas_usage() -> dict:
+    """{mangled kernel name: (registers, spill store bytes)} from the builds'
+    `nvcc -Xptxas -v` output (cuda_fe.BUILD_LOG)."""
+    from tendermint_tpu_torch.ops import cuda_fe
+
+    usage, cur, spill = {}, None, 0
+    for log in cuda_fe.BUILD_LOG.values():
+        for line in log["ptxas"].splitlines():
+            if m := re.search(r"Compiling entry function '(\w+)'", line):
+                cur, spill = m.group(1), 0
+            elif cur and (m := re.search(r"(\d+) bytes spill stores", line)):
+                spill = int(m.group(1))
+            elif cur and (m := re.search(r"Used (\d+) registers", line)):
+                usage[cur], cur = (int(m.group(1)), spill), None
+    return usage
+
+
+def kernel_usage(symbol: str, usage: dict):
+    """(registers, spill bytes) of the __global__ function `symbol`, found by
+    its mangled prefix _Z<len><name>."""
+    prefix = f"_Z{len(symbol)}{symbol}"
+    return next((v for k, v in usage.items() if k.startswith(prefix)), (None, None))
+
+
+def launched_symbol(name: str, lanes: int) -> str:
+    """The __global__ function the wrapper of `name` launches on `lanes` lanes."""
+    from tendermint_tpu_torch.ops import cuda_fe
+
+    if name == "pdbl":
+        return "pdbl_lanes_kernel" if cuda_fe.pdbl_entry(lanes) == "tm_pdbl_lanes" else "pdbl_kernel"
+    return KERNEL_SYMBOL[name][0]
+
+
+def profiled_ms(fn, name: str, reps: int):
+    """The profiler's per-launch records of kernel `name` over `reps` warm
+    calls of `fn`: (median ms, symbol, other device ms per call: uptree's
+    layout copy and counter memset), or None where it kept too few."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
@@ -213,10 +282,45 @@ def device_ms(fn, name: str, reps: int = 10):
     # over those it kept, at least half
     if reps // 2 <= len(durs) <= reps and len(syms) == 1:
         return statistics.median(durs), syms.pop(), other_us / 1e3 / reps
-    seen = sorted({(e.key[:60], e.count) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA})
-    raise SystemExit(f"profiler kept {len(durs)} records of {name} ({syms}) in {reps} calls; "
-                     f"device kernels seen: {seen}")
+    print(f"profiler kept {len(durs)} records of {name} ({syms}) in {reps} calls", flush=True)
+    return None
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Device ms per call of `fn`: CUDA events around `reps` calls queued
+    behind a device sleep, so they run back to back and the wrapper's host
+    time stays outside the window. The sleep grows until the window's start
+    was still queued when the last call was enqueued."""
+    cycles = 1 << 22
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued = not a.query()
+        torch.cuda.synchronize()
+        if queued:
+            return a.elapsed_time(b) / reps
+        cycles *= 4
+    raise SystemExit("queued_ms: the calls were not all enqueued behind the device sleep")
+
+
+def device_ms(fn, name: str, lanes: int, reps: int = 10):
+    """Device time of one launch of kernel `name` in ms, the symbol that ran,
+    the device time per call of the other work the wrapper launches, and the
+    method: the profiler's per-launch records (median), asked twice; where
+    CUPTI keeps no records in either session, CUDA events around calls
+    queued behind a device sleep (queued_ms), whose time per call counts the
+    wrapper's other launches too (its other ms is then None)."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        if (got := profiled_ms(fn, name, reps)) is not None:
+            return (*got, "profiler, median per launch")
+    return queued_ms(fn, reps), launched_symbol(name, lanes), None, "events, queued calls"
 
 
 def seeded_points(m: int, rng: np.random.Generator):
@@ -321,6 +425,9 @@ def kernel_checks(dev, rng, card: dict) -> list:
     m, kf = fs["idx"].shape
     fw_args = (fs["lvl0"], fs["ctree"], fs["top"], fs["idx"])
     t_ = fs["t"]
+    # the gather's floor: the distinct 32-B sectors of the nodes' limb rows
+    sectors = fenwick_gather_sectors(fs["idx"].cpu().numpy(), *(
+        fs[k].shape[-1] for k in ("lvl0", "ctree", "top")))
     cases = [
         uptree_case("warm", 20_480, 2048, "10k commit: 32 windows x 10 chunks"),
         uptree_case("streamed", 24_576, 2048, "planner chunk: 32 windows x 12 chunks"),
@@ -328,8 +435,11 @@ def kernel_checks(dev, rng, card: dict) -> list:
         dict(name="fenwick_reduce", path="warm", variant=f"Kf={kf}, 256 buckets x {t_} windows",
              lanes=m, kern=lambda: cuda_msm.fenwick_reduce(*fw_args),
              plain=lambda: cuda_msm.fenwick_reduce_plain(*fw_args),
-             mads=(kf - 1) * PADD_MADS, items=m,
-             bytes=(m * kf + m) * POINT_BYTES + m * kf * 4),
+             t_ops=work_seconds(m * (kf - 1) * PADD_MADS, 4 * m // 32, card),
+             bytes=sectors * 32 + m * kf * 4 + m * POINT_BYTES, sectors=sectors,
+             bound_note=f"operations: (Kf-1) x PADD_MADS a lane over the sub-partitions of "
+                        f"4 warps per 32 lanes; bytes: {sectors} gather sectors x 32 B, the "
+                        f"index table and the output once"),
         dict(name="bucket_fold", path="warm", variant=f"T={t_}", lanes=m,
              kern=lambda: cuda_msm.bucket_fold(fs["prefix"], t_),
              plain=lambda: cuda_msm.bucket_fold_plain(fs["prefix"], t_),
@@ -356,7 +466,11 @@ def kernel_checks(dev, rng, card: dict) -> list:
 
 def check_cases(cases, card: dict) -> list:
     """Each case's kernel against its plain version (max |err| must be 0),
-    then both timed, with the bound of the case's work."""
+    then both timed, with the bound of the case's work (`t_ops` where the
+    case counts its operations itself, else `mads` a thread over `items`
+    threads), ptxas's registers and spills, and on the text line the card ms
+    recorded before the redesign where the row has one (RECORDED_BEFORE_MS)."""
+    usage = ptxas_usage()
     rows = []
     for c in cases:
         view = c.get("view", lambda t: t)
@@ -367,28 +481,37 @@ def check_cases(cases, card: dict) -> list:
         if err != 0:  # limb-identical, so equal after freeze too
             raise SystemExit(f"kernel {c['name']} {c['variant']} disagrees with its "
                              f"plain version: max |err| {err}")
-        ms, symbol, other_ms = device_ms(c["kern"], c["name"])
+        ms, symbol, other_ms, ms_by = device_ms(c["kern"], c["name"], c["lanes"])
         call_ms = timed(c["kern"])
         plain_ms = timed(c["plain"], reps=3)
-        t_ops = imad_seconds(c["mads"], c["items"], card) * 1e3
+        t_ops = (c["t_ops"] if "t_ops" in c else imad_seconds(c["mads"], c["items"], card)) * 1e3
         t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
         row = dict(
             name=c["name"], path=c["path"], variant=c["variant"], lanes=c["lanes"], route="cuda",
             source=SOURCE[c["name"]], replaces=REPLACES[c["name"]], symbol=symbol,
-            max_abs_err=err, ms=ms, wrapper_other_ms=other_ms, call_ms=call_ms, plain_ms=plain_ms,
+            max_abs_err=err, ms=ms, ms_by=ms_by, wrapper_other_ms=other_ms, call_ms=call_ms,
+            plain_ms=plain_ms,
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes", library_ms=None,
             library_note=NO_LIBRARY[c["name"]],
         )
-        if "bound_note" in c:
-            row["bound_note"] = c["bound_note"]
+        row["regs"], row["spill_bytes"] = kernel_usage(symbol, usage)
+        for k in ("bound_note", "sectors"):
+            if k in c:
+                row[k] = c[k]
         rows.append(row)
         print(f"kernel {row['name']} [{row['path']}] {row['variant']} lanes={row['lanes']} "
-              f"{symbol}: ms={ms:.4f} (profiler, median per launch) "
-              f"wrapper_other_ms={other_ms:.4f} call_ms={call_ms:.4f} "
+              f"{symbol}: ms={ms:.4f} ({ms_by}) "
+              f"wrapper_other_ms={'in ms' if other_ms is None else f'{other_ms:.4f}'} "
+              f"call_ms={call_ms:.4f} "
               f"(events) plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.5f} "
-              f"({row['bound_by']}{', per occupied sub-partition' if 'bound_note' in c else ''}) "
-              f"max_abs_err={err} library_ms=null", flush=True)
+              f"({c.get('bound_note', row['bound_by'])}) "
+              f"max_abs_err={err} library_ms=null regs={row['regs']} "
+              f"spill_bytes={row['spill_bytes']}"
+              + (f" sectors={c['sectors']}" if "sectors" in c else "")
+              + (f" recorded_before_ms={RECORDED_BEFORE_MS[c['name'], c['lanes']]} (PERF.md, "
+                 "not this run)" if (c["name"], c["lanes"]) in RECORDED_BEFORE_MS else ""),
+              flush=True)
     return rows
 
 
@@ -420,10 +543,19 @@ def bls_kernel_checks(dev, rng, card: dict) -> list:
     def sparse_case(n, variant, path):
         f = carried_limbs((6, 2, n), rng).to(dev)
         line = carried_limbs((3, 2, n), rng).to(dev)
+        # The function's floor, not the launch's: its 54 products a lane over
+        # the whole card, or the chain of one product as one thread issues
+        # it (FP381_MUL multiply-adds, one a clock), whichever is longer.
+        t_card = work_seconds(n * SPARSE_PRODUCTS * FP381_MUL, card["sms"] * SM_PARTITIONS, card)
+        t_chain = FP381_MUL / card["clock_hz"]
         return dict(name="fp12_sparse_mul", path=path, variant=variant, lanes=n,
                     kern=lambda: cuda_bls.fp12_sparse_mul(f, line),
                     plain=lambda: cuda_bls.fp12_sparse_mul_plain(f, line),
-                    mads=SPARSE_THREAD_MADS, items=6 * n, bytes=(18 + 12) * FP_BYTES * n)
+                    t_ops=max(t_card, t_chain), bytes=(18 + 12) * FP_BYTES * n,
+                    bound_note=(f"operations: one product's FP381_MUL issued one a clock"
+                                if t_chain >= t_card else
+                                f"operations: {SPARSE_PRODUCTS} x FP381_MUL a lane over the "
+                                f"whole card"))
 
     return check_cases([
         mul_case((6, 8_192), "fold level 1: 6 products x 8,192 pairs"),

@@ -112,10 +112,6 @@ __device__ __forceinline__ fp_t fp_mul_stream(A a_at, const fp_t &b) {
   return r;
 }
 
-__device__ __forceinline__ fp_t fp_mul(const fp_t &a, const fp_t &b) {
-  return fp_mul_stream([&](int i) { return a.v[i]; }, b);
-}
-
 // Lane `lane` of limb-major rows: limb i at base[i * n + lane].
 __device__ __forceinline__ fp_t fp_load(const int32_t *__restrict__ base, int64_t n,
                                         int64_t lane) {
@@ -129,29 +125,4 @@ __device__ __forceinline__ void fp_store(int32_t *__restrict__ base, int64_t n, 
                                          const fp_t &x) {
 #pragma unroll
   for (int i = 0; i < FP_NL; i++) base[(int64_t)i * n + lane] = x.v[i];
-}
-
-// Fp2 = Fp[u]/(u^2 + 1), the two components as (c0, c1).
-struct fp2_t {
-  fp_t c0, c1;
-};
-
-__device__ __forceinline__ fp2_t fp2_add(const fp2_t &a, const fp2_t &b) {
-  return {fp_add(a.c0, b.c0), fp_add(a.c1, b.c1)};
-}
-
-// Karatsuba (pallas_bls.mul2): t0 = a0 b0, t1 = a1 b1, t2 = (a0 + a1)(b0 + b1);
-// c0 = t0 - t1, c1 = t2 - (t0 + t1).
-__device__ __forceinline__ fp2_t fp2_mul(const fp2_t &a, const fp2_t &b) {
-  const fp_t t0 = fp_mul(a.c0, b.c0);
-  const fp_t t1 = fp_mul(a.c1, b.c1);
-  const fp_t t2 = fp_mul(fp_add(a.c0, a.c1), fp_add(b.c0, b.c1));
-  return {fp_sub(t0, t1), fp_sub(t2, fp_add(t0, t1))};
-}
-
-// (c0 + c1 u)(1 + u) = (c0 - c1) + (c0 + c1) u, c1 folded (pallas_bls.mul2_by_xi).
-__device__ __forceinline__ fp2_t fp2_mul_by_xi(const fp2_t &a) {
-  fp_t c1 = fp_add(a.c0, a.c1);
-  fp_fold_top(c1);
-  return {fp_sub(a.c0, a.c1), c1};
 }

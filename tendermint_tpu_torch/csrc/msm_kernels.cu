@@ -47,16 +47,30 @@
 //     run in one block. A level store in shared memory would cost every
 //     block 80 KB and cap the SM at 2 blocks.
 //   Positions that hold no node are never indexed and stay unwritten.
-// - fenwick_reduce: one thread per (bucket, window) lane (8,192). It reads
-//   its Kf node indices and sums acc = node[0], acc += node[k] for k = 1..Kf-1
-//   in registers, identity slots included, in the reference's order. The
-//   gather is part of the kernel: a global index selects one of the storage
-//   map's three segments (level-0 lanes, chunk trees, top tree with its
-//   identity lane), so the (buckets x windows x Kf) node tensor is never
-//   materialised. Output is v-major (lane v * T + t).
-//   Bound: operations (8,192 x 15 adds, 0.44 G multiply-adds) on 42 MB of
-//   gathered nodes; each node's limbs are 80 scattered 4-byte reads, so
-//   sector traffic, not the add, is what later work should cut.
+// - fenwick_reduce: per (bucket, window) lane, acc = node[0], acc += node[k]
+//   for k = 1..Kf-1, identity slots included, in the reference's order. A
+//   global index selects one of the storage map's three segments (level-0
+//   lanes, chunk trees, top tree with its identity lane), so the (buckets x
+//   windows x Kf) node tensor is never materialised. Output is v-major (lane
+//   v * T + t). Work: 8,192 x 15 adds at 10k (0.44 G multiply-adds); bytes:
+//   each gathered node is 80 limb rows of the (4, 20, n) storage, 80
+//   scattered 4-byte reads. Design:
+//   * A block of 4 warps runs 32 lanes' adds with block_add (uptree's add,
+//     split over the warps), the 32 sums in shared memory: at 8,192 lanes
+//     256 blocks, 1,024 warps, ~2 a sub-partition (one thread a lane left
+//     272 of the 528 sub-partitions idle, and no warp to hide a chain's
+//     latency).
+//   * A block's lanes are neighbouring buckets of one window: their prefix
+//     ends are neighbours, so they share the Fenwick nodes of the high bits,
+//     and a warp's gather of one limb row hits few sectors. The output store
+//     is scattered (stride T): 320 B a lane, once.
+//   * The gather is off the add chain: node k+1 of the block's lanes is
+//     copied into the second of two shared buffers with cp.async
+//     (__pipeline_memcpy_async) while add k runs. The node indices are read
+//     once per block.
+//   Measured by chip_smoke.py on an H100 SXM (700 W): ~0.15 ms at 8,192
+//   lanes, Kf = 16 (one thread a lane: 0.33 ms), 128 registers, 44 B spill;
+//   the gather touches ~1.4 M sectors (45 MB), so operations bound it.
 // - bucket_fold: one block per window, 128 threads. Thread v forms
 //   x[v] + x[v+128] from device memory with bucket 255 masked to the identity
 //   (_bucket_block's mask), keeps it in shared memory (128 points = 40 KB),
@@ -65,9 +79,7 @@
 //   v-major layout. It also copies the unmasked P_255 of its window.
 //   Bound: a chain of 8 dependent adds on at most 128 lanes per window:
 //   latency, far from both the byte and the operation bound.
-//
-// Later work (not done here): store nodes row-major (80 contiguous words)
-// so fenwick_reduce reads each node in 10 sectors instead of 80.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,7 +99,8 @@
 #else
 #define UT_BARRIER() __syncthreads()
 #endif
-#define FW_THREADS 64
+#define FW_THREADS 128  // 4 warps per 32 lanes
+#define FW_PT (4 * FE_NL * 32)  // words of 32 points in shared memory
 #define BF_THREADS 128  // NB / 2 buckets paired per window
 
 struct pt_t {
@@ -103,11 +116,6 @@ struct MemPt {  // read-only input
   __device__ __forceinline__ fe_t operator()(int c) const {
     return fe_load(base + (int64_t)c * FE_NL * n, n, lane);
   }
-};
-
-struct RegPt {
-  const pt_t &p;
-  __device__ __forceinline__ fe_t operator()(int c) const { return p.c[c]; }
 };
 
 struct SharedPt {  // sh[(c * 20 + i) * BF_THREADS + v]
@@ -163,11 +171,6 @@ __device__ __forceinline__ pt_t pt_add(const P &p, const Q &q) {
   return r;
 }
 
-__device__ __forceinline__ void pt_store(int32_t *base, int64_t n, int64_t lane, const pt_t &p) {
-#pragma unroll
-  for (int c = 0; c < 4; c++) fe_store(base + (int64_t)c * FE_NL * n, n, lane, p.c[c]);
-}
-
 // One operand point of a block add: coordinate c, limb i at
 // base[c * cs + i * ls]. Leaves are rows of the (N, 80) table, read through
 // the read-only path and, where `copy` is set, stored to level 0 as they
@@ -218,15 +221,28 @@ __device__ __forceinline__ fe_t sh_get(const int32_t *sh, int slot, int lane) {
   return r;
 }
 
+// Where block_add stores output coordinate `role` of add `lane`: lane
+// dst + lane of the limb-major batch `out` (n_out lanes).
+struct RowsOut {
+  int32_t *out;
+  int64_t n_out, dst;
+  __device__ __forceinline__ void put(int role, int lane, const fe_t &m) const {
+    fe_store(out + (int64_t)role * FE_NL * n_out, n_out, dst + lane, m);
+  }
+};
+
 // 32 unified adds p + q (add-2008-hwcd-3, pt_add's operations) by the
 // block's 4 warps: lane l of every warp works on add l (l < nact); warp w
 // computes a, b, c or d (w = 0..3), then e, f, g or h, then output
-// coordinate w, which it stores at `dst + l` of the limb-major batch `out`.
-// The warp's role is uniform, so no warp diverges; a thread holds two
-// operands and one accumulator. All products of the add run through one
-// fe_mul in a loop, so the kernel holds one copy of the product code.
-__device__ __forceinline__ void block_add(const Opnd &p, const Opnd &q, int nact, int32_t *sh,
-                                          int32_t *out, int64_t n_out, int64_t dst) {
+// coordinate w, which it hands to `o.put`. Operands are read (p.get, q.get)
+// before the first barrier, outputs stored after the second, so an output
+// may overwrite an operand. The warp's role is uniform, so no warp diverges;
+// a thread holds two operands and one accumulator. All products of the add
+// run through one fe_mul in a loop, so a kernel holds one copy of the
+// product code for each operand and output type it uses.
+template <class P, class Q, class Out>
+__device__ __forceinline__ void block_add(const P &p, const Q &q, int nact, int32_t *sh,
+                                          const Out &o) {
   const int lane = threadIdx.x & 31, role = threadIdx.x >> 5;
   const bool act = lane < nact;
   fe_t a, b, m;
@@ -266,7 +282,7 @@ __device__ __forceinline__ void block_add(const Opnd &p, const Opnd &q, int nact
         b = sh_get(sh, role == 0 ? 5 : role == 2 ? 6 : 7, lane);
       }
     } else if (act) {
-      fe_store(out + (int64_t)role * FE_NL * n_out, n_out, dst + lane, m);
+      o.put(role, lane, m);
     }
   }
   UT_BARRIER();  // the outputs are visible to the block; sh is free again
@@ -344,7 +360,7 @@ uptree_kernel(const int32_t *__restrict__ rows, const int32_t *__restrict__ perm
         nact = job == 3 ? 32 : width;
         dst = out0 + (int64_t)row * 128 + (job == 3 ? g * 32 : 0);
       }
-      block_add(pa, pb, nact, sh, out, n_out, dst);
+      block_add(pa, pb, nact, sh, RowsOut{out, n_out, dst});
       if (job < 2) {
         job++;
         continue;
@@ -367,29 +383,89 @@ uptree_kernel(const int32_t *__restrict__ rows, const int32_t *__restrict__ perm
   }
 }
 
+// 32 points in shared memory, point l's coordinate c, limb i at
+// base[(c * 20 + i) * 32] (base = buffer + l).
+struct ShPt {
+  const int32_t *base;
+  __device__ __forceinline__ fe_t get(int c) const {
+    fe_t r;
+#pragma unroll
+    for (int i = 0; i < FE_NL; i++) r.v[i] = base[(c * FE_NL + i) * 32];
+    return r;
+  }
+};
+
+// A fenwick add's output: coordinate c, limb i at base[(c * 20 + i) * rs +
+// off], the block's sums in shared memory (rs = 32, off = l) or, on the last
+// add, the lane's v-major row of the output.
+struct FwOut {
+  int32_t *base;
+  int64_t rs, off;
+  __device__ __forceinline__ void put(int role, int, const fe_t &m) const {
+#pragma unroll
+    for (int i = 0; i < FE_NL; i++) base[((int64_t)role * FE_NL + i) * rs + off] = m.v[i];
+  }
+};
+
 // Three segments of one global node index space (msm_torch's storage map):
 // [0, n0) level-0 lanes, [n0, n0 + n1) chunk trees, then the top tree.
-__global__ void __launch_bounds__(FW_THREADS)
+// idx (m, kf), row v * T + t; block b takes buckets 32 (b / T) + 0..31 of
+// window b % T. Dynamic shared memory: block_add's 8 slots, the 32 sums,
+// two node buffers (node k >= 1 in buffer k & 1), the 32 x kf indices.
+__global__ void __launch_bounds__(FW_THREADS, UT_MIN_BLOCKS)
 fenwick_kernel(const int32_t *__restrict__ lvl0, int64_t n0, const int32_t *__restrict__ ctree,
                int64_t n1, const int32_t *__restrict__ top, int64_t n2,
-               const int32_t *__restrict__ idx, int kf, int32_t *__restrict__ out, int64_t m) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= m) return;
-  auto node = [&](int k) {
-    int64_t g = __ldg(idx + lane * kf + k);
-    if (g < n0) return MemPt{lvl0, n0, g};
-    g -= n0;
-    if (g < n1) return MemPt{ctree, n1, g};
-    return MemPt{top, n2, g - n1};
-  };
-  pt_t acc;
-  {
-    const MemPt p0 = node(0);
+               const int32_t *__restrict__ idx, int kf, int32_t *__restrict__ out, int64_t m,
+               int t_windows) {
+  extern __shared__ int32_t fw_sh[];
+  int32_t *sh = fw_sh, *acc = sh + 8 * FE_NL * 32, *buf = acc + FW_PT;
+  int *nidx = buf + 2 * FW_PT;
+  const int lane = threadIdx.x & 31, role = threadIdx.x >> 5;
+  const int t = (int)(blockIdx.x % t_windows);
+  const int64_t v0 = (int64_t)(blockIdx.x / t_windows) * 32, nb = m / t_windows;
+  const int nact = nb - v0 < 32 ? (int)(nb - v0) : 32;
+  for (int e = threadIdx.x; e < 32 * kf; e += FW_THREADS)
+    if (e / kf < nact) nidx[e] = __ldg(idx + ((v0 + e / kf) * t_windows + t) * kf + e % kf);
+  __syncthreads();
+  // node k of the block's lanes into dst, one commit group: warp w copies
+  // coordinate w, thread l lane l's 20 limbs
+  auto fetch = [&](int k, int32_t *dst) {
+    if (lane < nact) {
+      int64_t g = nidx[lane * kf + k], ns = n0;
+      const int32_t *src = lvl0;
+      if (g >= n0) {
+        g -= n0;
+        src = ctree, ns = n1;
+        if (g >= n1) g -= n1, src = top, ns = n2;
+      }
+      src += (int64_t)role * FE_NL * ns + g;
 #pragma unroll
-    for (int c = 0; c < 4; c++) acc.c[c] = p0(c);
+      for (int i = 0; i < FE_NL; i++)
+        __pipeline_memcpy_async(dst + (role * FE_NL + i) * 32 + lane, src + (int64_t)i * ns, 4);
+    }
+    __pipeline_commit();
+  };
+  const int64_t row = (v0 + lane) * t_windows + t;
+  fetch(0, acc);
+  if (kf > 1) fetch(1, buf + FW_PT);
+  for (int k = 1; k < kf; k++) {
+    if (k + 1 < kf) {  // node k+1 into the buffer add k-1 read
+      fetch(k + 1, buf + ((k + 1) & 1) * FW_PT);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();  // node k (and the sums) visible to every warp
+    const FwOut o = k + 1 < kf ? FwOut{acc, 32, lane} : FwOut{out, m, row};
+    block_add(ShPt{acc + lane}, ShPt{buf + (k & 1) * FW_PT + lane}, nact, sh, o);
   }
-  for (int k = 1; k < kf; k++) acc = pt_add(RegPt{acc}, node(k));
-  pt_store(out, m, lane, acc);
+  if (kf == 1) {  // the sum is node 0: each thread stores the limbs it copied
+    __pipeline_wait_prior(0);
+    if (lane < nact)
+#pragma unroll
+      for (int i = 0; i < FE_NL; i++)
+        out[(int64_t)(role * FE_NL + i) * m + row] = acc[(role * FE_NL + i) * 32 + lane];
+  }
 }
 
 // prefix (4, 20, 256 * T) v-major; s_out, p255_out (4, 20, T).
@@ -454,12 +530,29 @@ extern "C" int tm_uptree(const int32_t *rows, const int32_t *perm, int64_t n_lan
   return (int)cudaGetLastError();
 }
 
+static size_t fenwick_smem_bytes(int kf) {
+  return (size_t)(8 * FE_NL * 32 + 3 * FW_PT + 32 * kf) * sizeof(int32_t);
+}
+
 extern "C" int tm_fenwick_reduce(const int32_t *lvl0, int64_t n0, const int32_t *ctree, int64_t n1,
                                  const int32_t *top, int64_t n2, const int32_t *idx, int kf,
-                                 int32_t *out, int64_t m, void *stream) {
-  const unsigned blocks = (unsigned)((m + FW_THREADS - 1) / FW_THREADS);
-  fenwick_kernel<<<blocks, FW_THREADS, 0, (cudaStream_t)stream>>>(lvl0, n0, ctree, n1, top, n2,
-                                                                  idx, kf, out, m);
+                                 int32_t *out, int64_t m, int t_windows, void *stream) {
+  if (t_windows < 1 || m % t_windows) return (int)cudaErrorInvalidValue;
+  const size_t smem = fenwick_smem_bytes(kf);
+  // the dynamic shared memory the kernel may take, raised once per device and size
+  static size_t allowed[UT_MAX_DEVICES];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= UT_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem > allowed[dev]) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(fenwick_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed[dev] = smem;
+  }
+  const int64_t groups = (m / t_windows + 31) / 32;
+  fenwick_kernel<<<(unsigned)(groups * t_windows), FW_THREADS, smem, (cudaStream_t)stream>>>(
+      lvl0, n0, ctree, n1, top, n2, idx, kf, out, m, t_windows);
   return (int)cudaGetLastError();
 }
 

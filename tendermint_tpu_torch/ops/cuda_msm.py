@@ -114,7 +114,7 @@ def bucket_fold_plain(prefix: torch.Tensor, t_windows: int):
 def _bind(lib) -> None:
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.tm_uptree.argtypes = [vp, vp, i64, i64, ci, ci, vp, vp, vp, vp]
-    lib.tm_fenwick_reduce.argtypes = [vp, i64, vp, i64, vp, i64, vp, ci, vp, i64, vp]
+    lib.tm_fenwick_reduce.argtypes = [vp, i64, vp, i64, vp, i64, vp, ci, vp, i64, ci, vp]
     lib.tm_bucket_fold.argtypes = [vp, ci, vp, vp, vp]
     for fn in (lib.tm_uptree, lib.tm_fenwick_reduce, lib.tm_bucket_fold):
         fn.restype = ci
@@ -180,13 +180,17 @@ def fenwick_reduce(lvl0: torch.Tensor, ctree: torch.Tensor, top: torch.Tensor,
     if node_idx.dtype != torch.int32 or node_idx.dim() != 2 or not node_idx.is_contiguous():
         raise ValueError("fenwick_reduce: node_idx must be a contiguous (m, Kf) int32 tensor")
     m, kf = node_idx.shape
-    if kf < 1:
-        raise ValueError("fenwick_reduce: Kf must be >= 1")
+    if kf < 1 or m % NBUCKETS:
+        raise ValueError(f"fenwick_reduce: {m} lanes of Kf = {kf}, expected {NBUCKETS} x T "
+                         f"and Kf >= 1")
     out = torch.empty((4, NL, m), dtype=torch.int32, device=lvl0.device)
+    # v-major rows v * T + t: a block of the kernel takes 32 buckets of one window
+    t_windows = m // NBUCKETS
     if m:
         cuda_fe._launched("fenwick_reduce", build().tm_fenwick_reduce(
             lvl0.data_ptr(), n0, ctree.data_ptr(), n1, top.data_ptr(), n2,
-            node_idx.data_ptr(), kf, out.data_ptr(), m, cuda_fe._stream(lvl0)), LAUNCHES)
+            node_idx.data_ptr(), kf, out.data_ptr(), m, t_windows, cuda_fe._stream(lvl0)),
+            LAUNCHES)
     return out
 
 

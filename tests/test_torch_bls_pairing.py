@@ -12,6 +12,9 @@ whole loop with the 26 s numpy twin is slow-lane, like
 tests/test_bls_kernels.py:265.
 """
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -22,7 +25,9 @@ from tendermint_tpu.ops import pallas_bls as PB
 from tendermint_tpu_torch import convert
 from tendermint_tpu_torch.crypto import bls_ref as B
 from tendermint_tpu_torch.ops import cuda_bls
+from tendermint_tpu_torch.ops import fp381 as F
 from tendermint_tpu_torch.ops import pairing_torch as PT
+from tendermint_tpu_torch.ops import tower
 
 torch.set_num_threads(2)
 
@@ -99,6 +104,58 @@ def test_fp12_sparse_mul_plain_equals_pallas_bls():
     cuda_bls.reset_launches()
     same(PT.sparse_mul12(t12(f), t12(line)), want)  # the wrapper, on a CPU tensor
     assert cuda_bls.LAUNCHES == {"fp381_mul": 0, "fp12_sparse_mul": 0}
+
+
+def _kernel_sparse_terms():
+    """SPARSE_TERMS[11][3][2] as written in csrc/bls_kernels.cu: per w^k the
+    (f index, line index) terms, -1 padded."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "tendermint_tpu_torch", "csrc", "bls_kernels.cu")) as fh:
+        src = fh.read()
+    body = re.search(r"SPARSE_TERMS\[11\]\[3\]\[2\] = \{(.*?)\n\};", src, re.S).group(1)
+    vals = [int(v) for v in re.findall(r"-?\d+", re.sub(r"//[^\n]*", "", body))]
+    table = np.array(vals).reshape(11, 3, 2)
+    return [[(int(fi), int(li)) for fi, li in row if fi >= 0] for row in table]
+
+
+def test_sparse_mul_kernel_schedule_table_follows_reference_loop_order(monkeypatch):
+    """Kernel B8 folds its products by the SPARSE_TERMS table of
+    bls_kernels.cu. Traced symbolically, pallas_bls.sparse_mul12's loops
+    (line coefficient j in (0, 3, 5) outer, f index i inner) build each
+    output from the table's terms in the table's order and association; the
+    table equals the plain version's (tower.SPARSE_TERMS, product 6 l + i);
+    and the kernel's phases replayed with the plain field ops over the table
+    (products 3 (6 l + i) + s, Karatsuba finish, then the fold) equal
+    sparse_mul12 limb for limb."""
+    terms = _kernel_sparse_terms()
+    monkeypatch.setattr(PB, "mul2", lambda a, b: ("mul", a, b))
+    monkeypatch.setattr(PB, "add2", lambda a, b: ("add", a, b))
+    monkeypatch.setattr(PB, "mul2_by_xi", lambda a: ("xi", a))
+    traced = PB.sparse_mul12([("f", i) for i in range(6)], tuple(("c", l) for l in range(3)))
+    monkeypatch.undo()
+
+    def acc(k):
+        e = None
+        for fi, li in terms[k]:
+            t = ("mul", ("f", fi), ("c", li))
+            e = t if e is None else ("add", e, t)
+        return e
+
+    assert traced == [("add", acc(k), ("xi", acc(k + 6))) for k in range(5)] + [acc(5)]
+    assert [[6 * li + fi for fi, li in row] for row in terms] == tower.SPARSE_TERMS
+
+    f, line = [r2() for _ in range(6)], tuple(r2() for _ in range(3))
+    tf_, tl = t12(f), t12(line)
+    ops = [torch.stack([x[..., 0, :, :], x[..., 1, :, :], F.add(x[..., 0, :, :], x[..., 1, :, :])], 1)
+           for x in (tf_, tl)]  # staged operands (c0, c1, c0 + c1) per Fp2
+    prods = [cuda_bls.fp381_mul_plain(ops[0][i], ops[1][l]) for l in range(3) for i in range(6)]
+    fin = [torch.stack([F.sub(p[0], p[1]), F.sub(p[2], F.add(p[0], p[1]))]) for p in prods]
+    comp = [None] * 11
+    for k in range(11):
+        for fi, li in terms[k]:
+            comp[k] = fin[6 * li + fi] if comp[k] is None else F.add(comp[k], fin[6 * li + fi])
+    out = [F.add(comp[k], tower.mul2_by_xi(comp[k + 6])) for k in range(5)] + [comp[5]]
+    same(torch.stack(out), t12(PB.sparse_mul12(f, line)))
 
 
 def test_lines_equal_pallas_bls():

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from tendermint_tpu.crypto import batch as jbatch
 from tendermint_tpu.crypto import ed25519_ref as ref
 from tendermint_tpu.ops import msm_jax
@@ -182,6 +183,35 @@ def test_fenwick_reduce_plain_matches_jax():
     gk = np.moveaxis(np.moveaxis(gathered, 1, 0), -1, 1).reshape(kf, 4, NL, -1, G.LANE)
     want = np.asarray(PM.fenwick_reduce(jnp.asarray(gk)))
     np.testing.assert_array_equal(got.numpy(), want.reshape(4, NL, -1))
+
+
+def _sectors_brute(idx: np.ndarray, sizes) -> int:
+    """Every (segment, 32-byte sector) that some limb row of some named node
+    lies in, one address at a time."""
+    seen = set()
+    for g in idx.reshape(-1).tolist():
+        seg = 0
+        while g >= sizes[seg]:
+            g -= sizes[seg]
+            seg += 1
+        for r in range(4 * NL):
+            seen.add((seg, (r * sizes[seg] + g) * 4 // 32))
+    return len(seen)
+
+
+@pytest.mark.parametrize("case", ["fused_storage", "odd_segments"])
+def test_fenwick_gather_sectors_equal_brute_force(case):
+    """The host sector count that bounds kernel B5's gather, on a fused index
+    table (2 windows, Kf = 12, identity slots included) and on random
+    indices into segments whose lengths are not multiples of 8."""
+    if case == "fused_storage":
+        lvl0, ctree, top, idx = _fused_storage(21, 2048, 2)
+        sizes = [x.shape[-1] for x in (lvl0, ctree, top)]
+        idx = idx.numpy()
+    else:
+        sizes = [37, 50, 9]
+        idx = np.random.default_rng(5).integers(0, sum(sizes), size=(40, 3))
+    assert chip_smoke.fenwick_gather_sectors(idx, *sizes) == _sectors_brute(idx, sizes)
 
 
 def test_bucket_fold_plain_matches_jax():
