@@ -12,15 +12,19 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   3. each of the six kernels against its plain torch version on the card at
      the shapes the paths below give it (uptree at 2,048-lane chunks on the
      warm and streamed paths and at 1,024; pdbl at all six window-fold
-     shapes and on the ladder), tolerance zero (integer arithmetic), with
+     shapes and on the ladder; padd on the top tree, the tail and the
+     ladder), and off the paths: both padd kernels at 32, 192, 1,024, 4,096
+     and 16,384 lanes (the sweep that sets cuda_fe.PADD_FEW_LANES) and
+     bucket_fold at T = 1 and 33 windows; tolerance zero (integer arithmetic), with
      its device time (the profiler's kernel records, median per launch;
      where CUPTI keeps none in two sessions, CUDA events around calls
      queued behind a device sleep, and the row says which),
      its call time by CUDA events, the plain version's time, its bound
      (fenwick_reduce's byte count is the distinct 32-B sectors its gather
      touches, counted on the host from the index table and printed), ptxas's
-     registers and spills, and for the fenwick_reduce and fp12_sparse_mul
-     rows the card ms recorded before their redesigns (text line only);
+     registers and spills, and for the rows of the redesigned kernels
+     (padd, fenwick_reduce, bucket_fold, fp12_sparse_mul) the card ms
+     recorded before their redesigns (text line only);
      the unfused MSM total against the integer reference on a small input,
      and the fused total against the unfused one at the 10k commit's 20,480
      lanes;
@@ -57,7 +61,14 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      correctly signed bitmap at <= 2/3 of the power); the card's aggregate
      pubkey and pairing verdicts are held against the host bls_ref, whose
      Miller loops on the warm call's pairs are timed beside the card's;
-  10. a `kernels` JSON line (a row off every path counts 0 launches), the
+  10. "cofactorless": a 300-validator commit holding one torsion-defect
+     signature (a cofactored accept, a cofactorless reject) under verify mode
+     cofactorless (keys.set_verify_mode, the switch TMTPU_ED25519_MODE sets at
+     import): verify_commit must refuse that row on the host serial loop
+     (LAST_FLUSH mode host_serial) with no kernel launched; an explicit
+     backend="cuda" must accept every row on the card; then, back in
+     cofactored mode, the same commit must pass on the card;
+  11. a `kernels` JSON line (a row off every path counts 0 launches), the
      card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
 (the warm and streamed paths per call); every kernel of a path must launch on
@@ -68,6 +79,7 @@ no CUDA device is available.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import multiprocessing as mp
 import os
@@ -91,7 +103,6 @@ STREAM_TAMPERED = (17, 60_000)  # chunks 0 and 4
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 INT32_MAD_PER_SM_PER_CLK = 64  # CUDA C++ Programming Guide, cc 9.0 throughput table
-SM_PARTITIONS = 4  # a warp issues on one of an SM's 4 sub-partitions (16 int32 lanes each)
 # Product multiply-adds per lane, counted from csrc/fe25519.cuh: a field mul
 # is 20 x 20 = 400, a square 20 + 190 = 210, a mul by a small constant 20.
 MUL, SQR, SMALL = 400, 210, 20
@@ -117,6 +128,8 @@ BLS_HEIGHT = 5
 BLS_TS = 1_700_000_000_123_456_789
 BLS_SUB_SIGNERS = 6_666  # 66,660 of 100,000 power: <= 2/3
 N_MIXED_BLS = 4  # BLS validators in the mixed plain commit (each costs a host pairing check)
+N_COFACTORLESS = 300  # the cofactorless commit: its host loop is pure Python where OpenSSL is missing
+PADD_SWEEP = (32, 192, 1_024, 4_096, 16_384)
 
 REPLACES = {
     "padd": "tendermint_tpu/ops/pallas_fe.py:249",
@@ -148,20 +161,17 @@ NO_LIBRARY = {
 }
 
 
-def work_seconds(mads: int, warps: int, card: dict) -> float:
+def work_seconds(mads: int, card: dict) -> float:
     """Least time for `mads` int32 multiply-adds in all, spread evenly over
-    the sub-partitions that `warps` warps occupy (528 at most)."""
-    parts = min(warps, card["sms"] * SM_PARTITIONS)
-    return mads / (parts * INT32_MAD_PER_SM_PER_CLK / SM_PARTITIONS * card["clock_hz"])
+    the whole card (64 a clock per SM)."""
+    return mads / (card["sms"] * INT32_MAD_PER_SM_PER_CLK * card["clock_hz"])
 
 
 def imad_seconds(mads_per_lane: int, lanes: int, card: dict) -> float:
-    """Least time for `lanes` threads of `mads_per_lane` int32 multiply-adds
-    each. A warp instruction takes a sub-partition's 16 lanes per clock for
-    all 32 lanes, active or not, and a launch of a few warps occupies only
-    that many sub-partitions, not the whole card."""
-    warps = -(-lanes // 32)
-    return work_seconds(warps * 32 * mads_per_lane, warps, card)
+    """Least time for `lanes` lanes of `mads_per_lane` int32 multiply-adds
+    each: the function's work over the whole card, whatever shape a kernel
+    gives its launch."""
+    return work_seconds(mads_per_lane * lanes, card)
 
 
 def sh(cmd) -> str:
@@ -186,13 +196,17 @@ def timed(fn, reps: int = 5):
     return statistics.median(times)
 
 
-# Card ms recorded before the fenwick_reduce and fp12_sparse_mul redesigns
+# Card ms recorded before the redesigns of padd and bucket_fold (PR 5's run
+# C), fenwick_reduce and fp12_sparse_mul (PR 4), by (kernel, path, lanes)
 # (PERF.md's kernel table, "before" column; NVIDIA H100 80GB HBM3, 700.00 W).
 # Printed on the row's text line only, labelled as recorded: the `kernels`
 # JSON line holds only what this run measured.
 RECORDED_BEFORE_MS = {
-    ("fenwick_reduce", 8_192): 0.3327,
-    ("fp12_sparse_mul", 2): 0.1221, ("fp12_sparse_mul", 16_384): 0.4642,
+    ("padd", "warm", 160): 0.0203, ("padd", "warm", 32): 0.0205,
+    ("padd", "streamed", 192): 0.0205, ("padd", "tampered", 16_384): 0.0216,
+    ("bucket_fold", "warm", 8_192): 0.1695,
+    ("fenwick_reduce", "warm", 8_192): 0.3327,
+    ("fp12_sparse_mul", "bls_warm", 2): 0.1221, ("fp12_sparse_mul", None, 16_384): 0.4642,
 }
 
 
@@ -213,11 +227,28 @@ def fenwick_gather_sectors(node_idx, n0: int, n1: int, n2: int) -> int:
 
 
 KERNEL_SYMBOL = {  # the __global__ function each wrapper launches
-    "padd": ("padd_kernel",), "pdbl": ("pdbl_kernel", "pdbl_lanes_kernel"),
+    "padd": ("padd_kernel", "padd_lanes_kernel"), "pdbl": ("pdbl_kernel", "pdbl_lanes_kernel"),
     "fsquare_chain": ("fsquare_chain_kernel",), "uptree": ("uptree_kernel",),
     "fenwick_reduce": ("fenwick_kernel",), "bucket_fold": ("bucket_fold_kernel",),
     "fp381_mul": ("fp381_mul_kernel",), "fp12_sparse_mul": ("fp12_sparse_mul_kernel",),
 }
+ENTRY_SYMBOL = {"tm_padd": "padd_kernel", "tm_padd_lanes": "padd_lanes_kernel"}  # cuda_fe.padd's
+# the sweep's PADD_FEW_LANES for each padd kernel: every shape at or under it
+# takes the warp kernel, every shape over it the thread kernel
+SWEEP_FEW_LANES = {"padd_lanes_kernel": 1 << 30, "padd_kernel": 0}
+
+
+@contextlib.contextmanager
+def padd_few_lanes(limit: int):
+    """cuda_fe.PADD_FEW_LANES, which cuda_fe.padd_entry reads at call time,
+    pinned to `limit` inside the block."""
+    from tendermint_tpu_torch.ops import cuda_fe
+
+    saved, cuda_fe.PADD_FEW_LANES = cuda_fe.PADD_FEW_LANES, limit
+    try:
+        yield
+    finally:
+        cuda_fe.PADD_FEW_LANES = saved
 
 
 def ptxas_usage() -> dict:
@@ -250,6 +281,8 @@ def launched_symbol(name: str, lanes: int) -> str:
 
     if name == "pdbl":
         return "pdbl_lanes_kernel" if cuda_fe.pdbl_entry(lanes) == "tm_pdbl_lanes" else "pdbl_kernel"
+    if name == "padd":
+        return ENTRY_SYMBOL[cuda_fe.padd_entry(lanes)]
     return KERNEL_SYMBOL[name][0]
 
 
@@ -308,7 +341,7 @@ def queued_ms(fn, reps: int) -> float:
     raise SystemExit("queued_ms: the calls were not all enqueued behind the device sleep")
 
 
-def device_ms(fn, name: str, lanes: int, reps: int = 10):
+def device_ms(fn, name: str, lanes: int, reps: int = 10, symbol: str | None = None):
     """Device time of one launch of kernel `name` in ms, the symbol that ran,
     the device time per call of the other work the wrapper launches, and the
     method: the profiler's per-launch records (median), asked twice; where
@@ -320,7 +353,7 @@ def device_ms(fn, name: str, lanes: int, reps: int = 10):
     for _ in range(2):
         if (got := profiled_ms(fn, name, reps)) is not None:
             return (*got, "profiler, median per launch")
-    return queued_ms(fn, reps), launched_symbol(name, lanes), None, "events, queued calls"
+    return queued_ms(fn, reps), symbol or launched_symbol(name, lanes), None, "events, queued calls"
 
 
 def seeded_points(m: int, rng: np.random.Generator):
@@ -377,24 +410,39 @@ def kernel_checks(dev, rng, card: dict) -> list:
     def pick(n):
         return base[..., torch.from_numpy(rng.integers(0, nb, size=n)).to(dev)].contiguous()
 
-    def padd_case(path, lanes, where):
+    def padd_case(path, lanes, where, few_lanes=None):
+        """`few_lanes` pins cuda_fe.PADD_FEW_LANES around each call to force
+        one kernel (the sweep); None keeps the routing as shipped."""
         p, q = pick(lanes), pick(lanes)
-        return dict(name="padd", path=path, variant=where, lanes=lanes,
-                    kern=lambda: cuda_fe.padd(p, q), plain=lambda: cuda_fe.padd_plain(p, q),
+        few = cuda_fe.PADD_FEW_LANES if few_lanes is None else few_lanes
+        with padd_few_lanes(few):
+            symbol = ENTRY_SYMBOL[cuda_fe.padd_entry(lanes)]
+
+        def pinned():
+            with padd_few_lanes(few):
+                return cuda_fe.padd(p, q)
+
+        kern = (lambda: cuda_fe.padd(p, q)) if few_lanes is None else pinned
+        return dict(name="padd", path=path, variant=where, lanes=lanes, symbol=symbol, kern=kern,
+                    plain=lambda: cuda_fe.padd_plain(p, q),
                     mads=PADD_MADS, items=lanes, bytes=3 * POINT_BYTES * lanes)
 
     def pdbl_case(path, lanes, times, where):
         p = pick(lanes)
-        few = cuda_fe.pdbl_entry(lanes) == "tm_pdbl_lanes"
-        case = dict(name="pdbl", path=path, variant=f"times={times}, {where}", lanes=lanes,
+        return dict(name="pdbl", path=path, variant=f"times={times}, {where}", lanes=lanes,
                     kern=lambda: cuda_fe.pdbl(p, times), plain=lambda: cuda_fe.pdbl_plain(p, times),
                     mads=pdbl_mads(times), items=lanes,
                     bytes=(3 * 80 + POINT_BYTES) * lanes)  # x, y, z in (t is not read), 4 out
-        if few:  # a warp per lane: the lane's work spread over its warp's 32 threads
-            case.update(mads=-(-pdbl_mads(times) // 32), items=32 * lanes,
-                        bound_note=f"operations: pdbl_mads({times}) per lane over the {lanes} "
-                                   f"sub-partitions the launch occupies (a warp per lane)")
-        return case
+
+    def bucket_fold_case(path, prefix, t_):
+        m = 256 * t_
+        return dict(name="bucket_fold", path=path, variant=f"T={t_}", lanes=m,
+                    kern=lambda: cuda_msm.bucket_fold(prefix, t_),
+                    plain=lambda: cuda_msm.bucket_fold_plain(prefix, t_),
+                    mads=PADD_MADS, items=255 * t_, bytes=(m + 2 * t_) * POINT_BYTES,
+                    bound_note="operations: 255 adds a window x PADD_MADS over the whole card; "
+                               "the adds form a chain 8 levels deep, which this bound does not "
+                               "count")
 
     def fsq_case(path, lanes, where):
         x = pick(lanes)[1].contiguous()
@@ -435,19 +483,19 @@ def kernel_checks(dev, rng, card: dict) -> list:
         dict(name="fenwick_reduce", path="warm", variant=f"Kf={kf}, 256 buckets x {t_} windows",
              lanes=m, kern=lambda: cuda_msm.fenwick_reduce(*fw_args),
              plain=lambda: cuda_msm.fenwick_reduce_plain(*fw_args),
-             t_ops=work_seconds(m * (kf - 1) * PADD_MADS, 4 * m // 32, card),
+             t_ops=work_seconds(m * (kf - 1) * PADD_MADS, card),
              bytes=sectors * 32 + m * kf * 4 + m * POINT_BYTES, sectors=sectors,
-             bound_note=f"operations: (Kf-1) x PADD_MADS a lane over the sub-partitions of "
-                        f"4 warps per 32 lanes; bytes: {sectors} gather sectors x 32 B, the "
-                        f"index table and the output once"),
-        dict(name="bucket_fold", path="warm", variant=f"T={t_}", lanes=m,
-             kern=lambda: cuda_msm.bucket_fold(fs["prefix"], t_),
-             plain=lambda: cuda_msm.bucket_fold_plain(fs["prefix"], t_),
-             mads=PADD_MADS, items=255 * t_, bytes=(m + 2 * t_) * POINT_BYTES),
+             bound_note=f"operations: (Kf-1) x PADD_MADS a lane over the whole card; bytes: "
+                        f"{sectors} gather sectors x 32 B, the index table and the output once"),
+        bucket_fold_case("warm", fs["prefix"], t_),
+        bucket_fold_case(None, pick(256), 1),
+        bucket_fold_case(None, pick(256 * 33), 33),
         padd_case("warm", 32 * 5, "top tree level 1: 32 windows x 5 root pairs"),
         padd_case("streamed", 32 * 6, "top tree level 1: 32 windows x 6 root pairs"),
         padd_case("warm", 32, "[255] P_255 and W per window"),
         padd_case("tampered", 16_384, "per-signature ladder"),
+        *(padd_case(None, n, f"sweep, {symbol}", few)
+          for n in PADD_SWEEP for symbol, few in SWEEP_FEW_LANES.items()),
         pdbl_case("warm", 32, 8, "[256] P_255 per window"),
         pdbl_case("warm", 16, 8, "window fold level 1"),
         pdbl_case("warm", 8, 16, "window fold level 2"),
@@ -464,12 +512,20 @@ def kernel_checks(dev, rng, card: dict) -> list:
     return check_cases(cases, card), base
 
 
+def bound_text(bound_by: str, note) -> str:
+    """What binds a row, with the note on how its work was counted."""
+    if not note or note.startswith(bound_by):
+        return note or bound_by
+    return f"{bound_by}; {note}"
+
+
 def check_cases(cases, card: dict) -> list:
     """Each case's kernel against its plain version (max |err| must be 0),
     then both timed, with the bound of the case's work (`t_ops` where the
-    case counts its operations itself, else `mads` a thread over `items`
-    threads), ptxas's registers and spills, and on the text line the card ms
-    recorded before the redesign where the row has one (RECORDED_BEFORE_MS)."""
+    case counts its operations itself, else `mads` an item over `items`
+    items on the whole card), ptxas's registers and spills, and on the text
+    line the card ms recorded before the redesign where the row has one
+    (RECORDED_BEFORE_MS)."""
     usage = ptxas_usage()
     rows = []
     for c in cases:
@@ -481,7 +537,8 @@ def check_cases(cases, card: dict) -> list:
         if err != 0:  # limb-identical, so equal after freeze too
             raise SystemExit(f"kernel {c['name']} {c['variant']} disagrees with its "
                              f"plain version: max |err| {err}")
-        ms, symbol, other_ms, ms_by = device_ms(c["kern"], c["name"], c["lanes"])
+        ms, symbol, other_ms, ms_by = device_ms(c["kern"], c["name"], c["lanes"],
+                                                symbol=c.get("symbol"))
         call_ms = timed(c["kern"])
         plain_ms = timed(c["plain"], reps=3)
         t_ops = (c["t_ops"] if "t_ops" in c else imad_seconds(c["mads"], c["items"], card)) * 1e3
@@ -505,12 +562,12 @@ def check_cases(cases, card: dict) -> list:
               f"wrapper_other_ms={'in ms' if other_ms is None else f'{other_ms:.4f}'} "
               f"call_ms={call_ms:.4f} "
               f"(events) plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.5f} "
-              f"({c.get('bound_note', row['bound_by'])}) "
+              f"({bound_text(row['bound_by'], c.get('bound_note'))}) "
               f"max_abs_err={err} library_ms=null regs={row['regs']} "
               f"spill_bytes={row['spill_bytes']}"
               + (f" sectors={c['sectors']}" if "sectors" in c else "")
-              + (f" recorded_before_ms={RECORDED_BEFORE_MS[c['name'], c['lanes']]} (PERF.md, "
-                 "not this run)" if (c["name"], c["lanes"]) in RECORDED_BEFORE_MS else ""),
+              + (f" recorded_before_ms={RECORDED_BEFORE_MS[key]} (PERF.md, not this run)"
+                 if (key := (c["name"], c["path"], c["lanes"])) in RECORDED_BEFORE_MS else ""),
               flush=True)
     return rows
 
@@ -546,7 +603,7 @@ def bls_kernel_checks(dev, rng, card: dict) -> list:
         # The function's floor, not the launch's: its 54 products a lane over
         # the whole card, or the chain of one product as one thread issues
         # it (FP381_MUL multiply-adds, one a clock), whichever is longer.
-        t_card = work_seconds(n * SPARSE_PRODUCTS * FP381_MUL, card["sms"] * SM_PARTITIONS, card)
+        t_card = work_seconds(n * SPARSE_PRODUCTS * FP381_MUL, card)
         t_chain = FP381_MUL / card["clock_hz"]
         return dict(name="fp12_sparse_mul", path=path, variant=variant, lanes=n,
                     kern=lambda: cuda_bls.fp12_sparse_mul(f, line),
@@ -948,6 +1005,98 @@ def mixed_commit_phase(dev, mixed: dict, launches: dict) -> None:
           f"launches honest={launches['mixed_commit']}", flush=True)
 
 
+def torsion_defect_row(rng, msg: bytes):
+    """(A, signature) whose only defect is the order-2 point T2 in R:
+    R = [r]B + T2, s = r + h a. Cofactored verification accepts it,
+    cofactorless rejects it. A depends on `rng`'s state only."""
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+
+    a = int.from_bytes(rng.bytes(32), "little") % ref.L
+    r = int.from_bytes(rng.bytes(32), "little") % ref.L
+    a_enc = ref.point_compress(ref.point_mul(a, ref.BASE))
+    r_enc = ref.point_compress(ref.point_add(ref.point_mul(r, ref.BASE), (0, ref.P - 1, 1, 0)))
+    h = ref.sha512_mod_l(r_enc + a_enc + msg)
+    return a_enc, r_enc + ((r + h * a) % ref.L).to_bytes(32, "little")
+
+
+def build_cofactorless_commit(corpus):
+    """A set of the commit's first N_COFACTORLESS - 1 Ed25519 validators and
+    one torsion-defect key (power 10 each), and a plain Commit: each Ed25519
+    row keeps its signed CommitSig, the torsion key's row carries a
+    torsion-defect signature over its own precommit sign bytes."""
+    from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
+    from tendermint_tpu_torch.types.basic import BlockIDFlag
+    from tendermint_tpu_torch.types.block import Commit, CommitSig
+    from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    vals, block_id, commit, _ = corpus
+    seed = SEED + 6
+    a_enc, _ = torsion_defect_row(np.random.default_rng(seed), b"")
+    vset = ValidatorSet(vals.validators[: N_COFACTORLESS - 1] + [Validator(Ed25519PubKey(a_enc), 10)])
+    by_addr = {cs.validator_address: cs for cs in commit.signatures}
+    rows = [by_addr.get(v.address) or CommitSig(BlockIDFlag.COMMIT, v.address,
+                                                1_700_000_200_000_000_000, b"")
+            for v in vset.validators]
+    k = next(i for i, v in enumerate(vset.validators) if v.pub_key.bytes() == a_enc)
+    msg = Commit(HEIGHT, 0, block_id, rows).vote_sign_bytes(CHAIN_ID, k)
+    cs = rows[k]
+    rows[k] = CommitSig(cs.block_id_flag, cs.validator_address, cs.timestamp_ns,
+                        torsion_defect_row(np.random.default_rng(seed), msg)[1])
+    return dict(vals=vset, block_id=block_id, commit=Commit(HEIGHT, 0, block_id, rows), row=k)
+
+
+def cofactorless_phase(dev, cf: dict, launches: dict) -> None:
+    """The torsion-defect commit under verify mode cofactorless: refused on
+    the host serial loop, with no kernel launched; an explicit
+    backend="cuda" call accepts every row on the card (cofactored); then in
+    cofactored mode the same commit passes on the card (the per-signature
+    ladder: fewer than RLC_MIN rows)."""
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto import keys
+    from tendermint_tpu_torch.types.validator_set import CommitVerifyError
+
+    vals, bid, commit, k = cf["vals"], cf["block_id"], cf["commit"], cf["row"]
+    before = keys._VERIFY_MODE
+    try:
+        keys.set_verify_mode("cofactorless")
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            vals.verify_commit(CHAIN_ID, bid, HEIGHT, commit, device=dev)
+            got = "ok"
+        except CommitVerifyError as e:
+            got = str(e)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_launches("cofactorless", ())
+        launches["cofactorless"] = counts
+        flush = dict(batch.LAST_FLUSH)
+        if got != f"wrong signature (#{k})" or flush.get("mode") != "host_serial" or any(
+                counts.values()):
+            raise SystemExit(f"cofactorless: {got!r}, flush {flush}, launches {counts}; expected "
+                             f"row {k} refused on the host serial loop with no launch")
+        msgs = commit.vote_sign_bytes_many(CHAIN_ID, range(len(vals.validators)))
+        mask = batch.verify_batch([v.pub_key.bytes() for v in vals.validators], msgs,
+                                  [cs.signature for cs in commit.signatures], device=dev,
+                                  backend="cuda")
+        if not mask.all() or batch.LAST_FLUSH.get("mode") != "persig":
+            raise SystemExit(f"cofactorless: backend='cuda' refused rows "
+                             f"{np.flatnonzero(~mask).tolist()} on {batch.LAST_FLUSH}")
+        keys.set_verify_mode("cofactored")
+        reset_launches()
+        t0 = time.perf_counter()
+        vals.verify_commit(CHAIN_ID, bid, HEIGHT, commit, device=dev)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        launches["cofactored_300"] = read_launches("cofactored_300",
+                                                   ("padd", "pdbl", "fsquare_chain"))
+    finally:
+        keys.set_verify_mode(before)
+    print(f"cofactorless {len(vals.validators)} validators: torsion row #{k} refused on the host "
+          f"serial loop in {host_ms:.1f} ms with no launch (OpenSSL: {keys._HAVE_OPENSSL}); "
+          f"backend='cuda' accepts every row; cofactored on the card {card_ms:.1f} ms, "
+          f"launches={launches['cofactored_300']}", flush=True)
+
+
 def build_bls_set():
     """10,000 BLS validators built as bench.py's _bls_bench_valset builds them
     (keys sk_i = sk0 + i, so pk_{i+1} = pk_i + G1), power 10 each, and three
@@ -1109,6 +1258,7 @@ def main() -> int:
     # The signing pool forks before this process first touches the card.
     corpus = build_commit(np.random.default_rng(SEED + 1))
     mixed = build_mixed_commit(corpus)
+    cofactorless = build_cofactorless_commit(corpus)
     bls = build_bls_set()
     dev = torch.device("cuda")
     card_line = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -1142,6 +1292,7 @@ def main() -> int:
     streamed_phase(dev, corpus, launches)
     mixed_commit_phase(dev, mixed, launches)
     bls_phase(dev, bls, launches)
+    cofactorless_phase(dev, cofactorless, launches)
     for r in rows:  # the count on the path whose shape the row checks; none off the path
         r["launches"] = 0 if r["path"] is None else launches[r["path"]][r["name"]]
     print(json.dumps({"kernels": rows, "launches_by_path": launches}), flush=True)

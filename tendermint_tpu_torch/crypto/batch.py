@@ -2,7 +2,7 @@
 
 The counterpart of tendermint_tpu/crypto/batch.py's `verify_batch_jax` in the
 single-device configuration with TMTPU_PREP_STREAM=0 and TMTPU_BISECT=0.
-Routing:
+Routing on the card (backend "cuda"):
 
 - fewer than RLC_MIN rows: the per-signature ladder (ops/ed25519_torch.py);
 - RLC_MIN to planner_chunk_rows() rows (12,287 at the default budget): ONE
@@ -20,8 +20,15 @@ Routing:
 A kernel or launch failure raises: there is no retry on another schedule
 and no recovery from a device error (ROADMAP.md section C).
 
-Verification is COFACTORED with canonical encodings and s < L on every path,
-so the mask never depends on the route (crypto/ed25519_ref.verify_cofactored).
+The card path is COFACTORED with canonical encodings and s < L on every
+route, so its mask never depends on the route
+(crypto/ed25519_ref.verify_cofactored). `backend` picks the path, as the
+reference's does: None follows the verify mode (`backend_default`), "cuda"
+is the card path on `device`, "cpu" the host serial loop
+(keys.Ed25519PubKey.verify, one row at a time, under the mode). In
+cofactorless mode (TMTPU_ED25519_MODE, keys.set_verify_mode) the default is
+the host loop, which then gives the Go reference's verdicts; an explicit
+"cuda" stays on the card and cofactored.
 
 Host prep runs in native C (native/): challenge hashes, RLC scalars, the
 window sort. Decompressed public keys are cached ON THE DEVICE across calls
@@ -47,6 +54,17 @@ from tendermint_tpu_torch.crypto.ed25519_ref import BASE, L, point_compress
 from tendermint_tpu_torch.device import resolve
 
 RLC_MIN = 512
+
+BACKENDS = ("cuda", "cpu")
+
+
+def backend_default() -> str:
+    """The path of a verify_batch call that names no backend: the host serial
+    loop in cofactorless mode (the card's kernels are cofactored by
+    construction), else the card path."""
+    from tendermint_tpu_torch.crypto.keys import cofactorless_mode
+
+    return "cpu" if cofactorless_mode() else "cuda"
 
 # RLC lane buckets (A-block size Na; total lanes = 2 Na): ~25% max padding.
 _LANE_BUCKETS = [
@@ -398,6 +416,20 @@ def _rlc_finish(call: _RlcCall) -> Optional[np.ndarray]:
     return precheck if (bool(out[0]) and lanes_ok) else None
 
 
+def _verify_serial_host(pubkeys, msgs, sigs) -> np.ndarray:
+    """The host serial loop (the reference's _verify_serial_host): each row
+    through keys.Ed25519PubKey.verify, under the verify mode."""
+    from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
+
+    out = np.zeros(len(pubkeys), dtype=bool)
+    for i, (pk, msg, sig) in enumerate(zip(pubkeys, msgs, sigs)):
+        try:
+            out[i] = Ed25519PubKey(bytes(pk)).verify(bytes(msg), bytes(sig))
+        except ValueError:  # a key that is not 32 bytes
+            out[i] = False
+    return out
+
+
 def _persig_flush(pubkeys, msgs, sigs, device) -> np.ndarray:
     """The per-signature ladder over all rows: device mask & host precheck."""
     from tendermint_tpu_torch.ops.ed25519_torch import verify_prepared
@@ -492,17 +524,18 @@ def _verify_batch_streamed(pubkeys, msgs, sigs, device) -> np.ndarray:
         return mask
     detail = dict(LAST_FLUSH)
     t0 = time.perf_counter()
-    parts = [verify_batch(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], device=device)
+    parts = [verify_batch(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], device=device,
+                          backend="cuda")
              for lo, hi in _planner_chunks(len(pubkeys))]
     LAST_FLUSH.clear()
     LAST_FLUSH.update(detail, recovery_s=time.perf_counter() - t0)
     return np.concatenate(parts)
 
 
-def _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device) -> np.ndarray:
+def _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend) -> np.ndarray:
     """Per-type routing of a set that holds non-ed25519 rows (the reference's
-    _verify_batch_mixed_exact): ed25519 rows through verify_batch on the
-    card, bls12_381 rows through bls_ref.verify on the host (a signature that
+    _verify_batch_mixed_exact): ed25519 rows through verify_batch on
+    `backend`, bls12_381 rows through bls_ref.verify on the host (a signature that
     is not 96 bytes is False), any unknown type False. sr25519 rows raise:
     the reference verifies them, and the port has no sr25519 lane yet."""
     if "sr25519" in key_types:
@@ -520,26 +553,36 @@ def _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device) -> np.ndar
                 bytes(pubkeys[i]), bytes(msgs[i]), sig)
     if ed_idx:
         out[ed_idx] = verify_batch([pubkeys[i] for i in ed_idx], [msgs[i] for i in ed_idx],
-                                   [sigs[i] for i in ed_idx], device=device)
+                                   [sigs[i] for i in ed_idx], device=device, backend=backend)
     return out
 
 
 def verify_batch(
     pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Sequence[bytes], device=None,
-    key_types: Optional[Sequence[str]] = None,
+    key_types: Optional[Sequence[str]] = None, backend: Optional[str] = None,
 ) -> np.ndarray:
     """Verify N (pubkey, msg, sig) triples; returns bool[N]. key_types: per-row
     key type, None meaning all ed25519; a set with other types takes the
-    per-type routing of _verify_batch_mixed_exact."""
+    per-type routing of _verify_batch_mixed_exact. backend: "cuda" (the card
+    path on `device`), "cpu" (the host serial loop) or None
+    (backend_default(): the verify mode decides)."""
     if not (len(pubkeys) == len(msgs) == len(sigs)):
         raise ValueError("pubkeys/msgs/sigs length mismatch")
-    dev = resolve(device)
+    be = backend_default() if backend is None else backend
+    if be not in BACKENDS:
+        raise ValueError(f"unknown crypto backend {be!r}")
+    dev = resolve(device) if be == "cuda" else None
     n = len(pubkeys)
     if n == 0:
         return np.zeros(0, dtype=bool)
     if key_types is not None and any(t != "ed25519" for t in key_types):
-        return _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, dev)
+        return _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend)
     LAST_FLUSH.clear()
+    if be == "cpu":
+        t0 = time.perf_counter()
+        mask = _verify_serial_host(pubkeys, msgs, sigs)
+        LAST_FLUSH.update(mode="host_serial", total_s=time.perf_counter() - t0)
+        return mask
     if n < RLC_MIN:
         LAST_FLUSH.update(mode="persig")
         return _persig_flush(pubkeys, msgs, sigs, dev)

@@ -7,12 +7,25 @@ code in crypto/ed25519_ref.py and verification is crypto/batch.verify_batch;
 BLS keys (48-byte compressed G1, the minimal-pubkey-size PoP ciphersuite)
 run crypto/bls_ref.py and are verified in aggregate by
 ValidatorSet.verify_aggregate_commit.
+
+`Ed25519PubKey.verify` is the host verifier of one signature, under the
+process-wide verify mode (`TMTPU_ED25519_MODE`, `set_verify_mode`): OpenSSL
+through the `cryptography` package where it is installed, else the
+pure-Python crypto/ed25519_ref.py.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+
+try:
+    from cryptography.exceptions import InvalidSignature
+    from cryptography.hazmat.primitives.asymmetric.ed25519 import Ed25519PublicKey
+
+    _HAVE_OPENSSL = True
+except ImportError:  # hosts without the `cryptography` wheel
+    _HAVE_OPENSSL = False
 
 from tendermint_tpu_torch.crypto import ed25519_ref, tmhash
 
@@ -37,6 +50,46 @@ def _canonical_y(enc: bytes) -> bool:
     return (int.from_bytes(enc, "little") & ((1 << 255) - 1)) < _P25519
 
 
+# The process-wide Ed25519 verification predicate. "cofactored" (the
+# default) is what the card's ladder and RLC flush compute; "cofactorless"
+# is the Go reference's ed25519.Verify, for nodes that validate beside
+# reference peers: cofactored accepts a strict superset (crafted
+# small-torsion signatures), which would fork such a fleet at the 2/3
+# boundary. In cofactorless mode verify_batch's default route is the host
+# serial loop (crypto/batch.backend_default); an explicit backend="cuda"
+# stays on the card and cofactored. Set by TMTPU_ED25519_MODE at import or
+# set_verify_mode().
+_VERIFY_MODE = os.environ.get("TMTPU_ED25519_MODE", "cofactored")
+if _VERIFY_MODE not in ("cofactored", "cofactorless"):
+    # a mistyped mode running the default would be the fork the switch closes
+    raise ValueError(
+        f"TMTPU_ED25519_MODE={_VERIFY_MODE!r} is not 'cofactored' or 'cofactorless'")
+
+# True once cofactorless_mode() has been read: a later change of mode then
+# re-judges signatures under another predicate, which set_verify_mode warns of.
+_MODE_READ = False
+
+
+def set_verify_mode(mode: str) -> None:
+    global _VERIFY_MODE
+    if mode not in ("cofactored", "cofactorless"):
+        raise ValueError(f"unknown ed25519 verify mode {mode!r}")
+    if mode != _VERIFY_MODE and _MODE_READ:
+        import logging
+
+        logging.getLogger("tendermint_tpu_torch.crypto.keys").warning(
+            "ed25519 verify mode changing %r -> %r after signatures were verified under "
+            "the old mode; the mode is process-wide, so every in-process node now uses %r",
+            _VERIFY_MODE, mode, mode)
+    _VERIFY_MODE = mode
+
+
+def cofactorless_mode() -> bool:
+    global _MODE_READ
+    _MODE_READ = True
+    return _VERIFY_MODE == "cofactorless"
+
+
 @dataclass(frozen=True)
 class Ed25519PubKey:
     key_bytes: bytes
@@ -50,6 +103,38 @@ class Ed25519PubKey:
 
     def bytes(self) -> bytes:
         return self.key_bytes
+
+    def verify(self, msg: bytes, sig: bytes) -> bool:
+        """One signature under the verify mode.
+
+        Cofactorless: the Go reference's predicate. OpenSSL takes the key and
+        signature whole, with no canonical precheck: its acceptance set is
+        golang.org/x/crypto's (non-canonical A accepted, non-canonical R
+        rejected by the encoding comparison, s < L enforced). Without
+        OpenSSL, ed25519_ref.verify, which rejects non-canonical A.
+        Cofactored: canonical A and R, then OpenSSL, whose accept is final
+        (cofactorless accepts are a subset); an OpenSSL reject is re-judged
+        by ed25519_ref.verify_cofactored, which differs from it only on
+        small-torsion inputs. Without OpenSSL, verify_cofactored alone."""
+        if len(sig) != SIGNATURE_SIZE:
+            return False
+        if cofactorless_mode():
+            if not _HAVE_OPENSSL:
+                return ed25519_ref.verify(self.key_bytes, msg, sig)
+            try:
+                Ed25519PublicKey.from_public_bytes(self.key_bytes).verify(sig, msg)
+                return True
+            except (InvalidSignature, ValueError):
+                return False
+        if not (_canonical_y(self.key_bytes) and _canonical_y(sig[:32])):
+            return False
+        if _HAVE_OPENSSL:
+            try:
+                Ed25519PublicKey.from_public_bytes(self.key_bytes).verify(sig, msg)
+                return True
+            except (InvalidSignature, ValueError):
+                pass
+        return ed25519_ref.verify_cofactored(self.key_bytes, msg, sig)
 
     def type_name(self) -> str:
         return ED25519_KEY_TYPE

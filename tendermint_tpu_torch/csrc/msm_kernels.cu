@@ -71,19 +71,31 @@
 //   Measured by chip_smoke.py on an H100 SXM (700 W): ~0.15 ms at 8,192
 //   lanes, Kf = 16 (one thread a lane: 0.33 ms), 128 registers, 44 B spill;
 //   the gather touches ~1.4 M sectors (45 MB), so operations bound it.
-// - bucket_fold: one block per window, 128 threads. Thread v forms
-//   x[v] + x[v+128] from device memory with bucket 255 masked to the identity
-//   (_bucket_block's mask), keeps it in shared memory (128 points = 40 KB),
-//   and the block halves in place down to one point: the pairing v + h for
-//   h = 128, 64, ..., 1 that the reference's row and lane folds make over the
-//   v-major layout. It also copies the unmasked P_255 of its window.
-//   Bound: a chain of 8 dependent adds on at most 128 lanes per window:
-//   latency, far from both the byte and the operation bound.
+// - bucket_fold: per window, the sum of 255 prefix points in the reference's
+//   pairing tree (v + 128, then v + 64, ..., v + 1, bucket 255 masked to the
+//   identity) and the unmasked P_255. Bound: a chain of 8 dependent levels,
+//   255 adds a window (0.92 M multiply-adds; the bytes are 2.6 MB at T = 32):
+//   latency, far from both the byte and the operation bound. One thread per
+//   add made the chain 8 one-thread adds (~0.17 ms). Design: every add is
+//   one warp's w_padd (fe25519_warp.cuh), ~1/8 of a one-thread add's
+//   latency, but a warp add issues several times a thread add's
+//   instructions (20 of 32 lanes work; two shared loads per multiply-add),
+//   so 128 warp adds on one SM are bound by its issue rate, not by latency.
+//   So a window runs on BF_BLOCKS = 4 blocks of 32 warps (T = 32 windows
+//   take 128 of the 132 SMs), one add per warp at every level: each block
+//   computes 16 of the 64 level-2 nodes (32 level-1 adds, then 16); two of
+//   the four compute the 32 level-3 nodes, 16 each, and one computes levels
+//   4-8. Nodes pass between a window's blocks through device memory and an
+//   arrival counter: 8 levels of warp adds and two hand-offs in a row. A thread block
+//   cluster (distributed shared memory) would save the round trips, but
+//   clusters of 4 one-SM blocks do not all fit on the card at once at T =
+//   32, and the rest ran in a second wave.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fe25519.cuh"
+#include "fe25519_warp.cuh"
 
 #define UT_THREADS 128
 #define UT_MIN_BLOCKS 4  // up to 128 registers a thread: 4 blocks (16 warps) an SM
@@ -101,75 +113,6 @@
 #endif
 #define FW_THREADS 128  // 4 warps per 32 lanes
 #define FW_PT (4 * FE_NL * 32)  // words of 32 points in shared memory
-#define BF_THREADS 128  // NB / 2 buckets paired per window
-
-struct pt_t {
-  fe_t c[4];
-};
-
-// Coordinate accessors: pt_add asks for one coordinate at a time, just before
-// its product, so at most two operand coordinates are live with the
-// accumulators (the register schedule of point_kernels.cu's padd_kernel).
-struct MemPt {  // read-only input
-  const int32_t *base;
-  int64_t n, lane;
-  __device__ __forceinline__ fe_t operator()(int c) const {
-    return fe_load(base + (int64_t)c * FE_NL * n, n, lane);
-  }
-};
-
-struct SharedPt {  // sh[(c * 20 + i) * BF_THREADS + v]
-  const int32_t *sh;
-  int v;
-  __device__ __forceinline__ fe_t operator()(int c) const {
-    fe_t r;
-#pragma unroll
-    for (int i = 0; i < FE_NL; i++) r.v[i] = sh[(c * FE_NL + i) * BF_THREADS + v];
-    return r;
-  }
-};
-
-struct MaskedPt {  // a prefix point, or the identity (0, 1, 1, 0) when masked
-  MemPt m;
-  bool ident;
-  __device__ __forceinline__ fe_t operator()(int c) const {
-    if (!ident) return m(c);
-    fe_t r;
-#pragma unroll
-    for (int i = 0; i < FE_NL; i++) r.v[i] = 0;
-    r.v[0] = (c == 1 || c == 2) ? 1 : 0;
-    return r;
-  }
-};
-
-// Unified a=-1 extended add, add-2008-hwcd-3 (point_kernels.cu padd_kernel).
-template <class P, class Q>
-__device__ __forceinline__ pt_t pt_add(const P &p, const Q &q) {
-  fe_t a, b, c, d;
-  {
-    const fe_t px = p(0), py = p(1), qx = q(0), qy = q(1);
-    a = fe_mul(fe_sub(py, px), fe_sub(qy, qx));
-    b = fe_mul(fe_add(py, px), fe_add(qy, qx));
-  }
-  {
-    const fe_t pt = p(3), qt = q(3);
-    c = fe_mul_const(fe_mul(pt, qt), FE_D2);
-  }
-  {
-    const fe_t pz = p(2), qz = q(2);
-    d = fe_mul_small(fe_mul(pz, qz), 2);
-  }
-  const fe_t e = fe_sub(b, a);
-  const fe_t f = fe_sub(d, c);
-  const fe_t g = fe_add(d, c);
-  const fe_t h = fe_add(b, a);
-  pt_t r;
-  r.c[0] = fe_mul(e, f);
-  r.c[1] = fe_mul(g, h);
-  r.c[2] = fe_mul(f, g);
-  r.c[3] = fe_mul(e, h);
-  return r;
-}
 
 // One operand point of a block add: coordinate c, limb i at
 // base[c * cs + i * ls]. Leaves are rows of the (N, 80) table, read through
@@ -231,7 +174,7 @@ struct RowsOut {
   }
 };
 
-// 32 unified adds p + q (add-2008-hwcd-3, pt_add's operations) by the
+// 32 unified adds p + q (add-2008-hwcd-3, padd_kernel's operations) by the
 // block's 4 warps: lane l of every warp works on add l (l < nact); warp w
 // computes a, b, c or d (w = 0..3), then e, f, g or h, then output
 // coordinate w, which it hands to `o.put`. Operands are read (p.get, q.get)
@@ -468,38 +411,120 @@ fenwick_kernel(const int32_t *__restrict__ lvl0, int64_t n0, const int32_t *__re
   }
 }
 
-// prefix (4, 20, 256 * T) v-major; s_out, p255_out (4, 20, T).
-__global__ void __launch_bounds__(BF_THREADS)
-bucket_fold_kernel(const int32_t *__restrict__ prefix, int t_windows, int32_t *__restrict__ s_out,
-                   int32_t *__restrict__ p255_out) {
-  __shared__ int32_t sh[4 * FE_NL * BF_THREADS];
-  const int t = blockIdx.x, v = threadIdx.x;
-  const int64_t n = (int64_t)2 * BF_THREADS * t_windows;
-  {
-    const MemPt lo{prefix, n, (int64_t)v * t_windows + t};
-    const MaskedPt hi{MemPt{prefix, n, (int64_t)(v + BF_THREADS) * t_windows + t},
-                      v + BF_THREADS == 2 * BF_THREADS - 1};
-    const pt_t s = pt_add(lo, hi);
+// bucket_fold: BF_BLOCKS = 4 blocks per window. Block s computes the
+// level-2 nodes at positions p in [16 s, 16 s + 16): first the 32 level-1
+// sums x[v] + x[v + 128] that they need (v = p and p + 64; x[255] read as the
+// identity), into shared slots j (v = 16 s + j) and 16 + j (v = 64 + 16 s +
+// j), then slot j += slot 16 + j. Level 3 pairs position p with p + 32, so
+// blocks s and s + 2 hand their nodes to whichever of them arrives last
+// (bf_handoff), which computes level-3 positions [16 q, 16 q + 16), q = s & 1;
+// the last of those two computes levels 4-8: slot j += slot j + h for h =
+// 16, ..., 1, and resets the window's counters for the next launch. Each add
+// is one warp's w_padd, one add per warp at every level. A warp writes only
+// the slot it adds into, which no other warp reads at that level, so a
+// level needs one __syncthreads before the next.
+#define BF_BLOCKS 4
+#define BF_WARPS 32
+#define BF_THREADS (32 * BF_WARPS)
+#define BF_PT (4 * FE_NL)  // words of one point: coordinate c, limb i at c * 20 + i
+#define BF_NODES 96        // a window's handed-over nodes: 64 of level 2, then 32 of level 3
+
+// This lane's limb of the four coordinates of prefix point `col` (lane v T + t).
+__device__ __forceinline__ void bf_load(const int32_t *__restrict__ prefix, int64_t n, int64_t col,
+                                        int k, int32_t (&x)[4]) {
 #pragma unroll
-    for (int c = 0; c < 4; c++)
+  for (int c = 0; c < 4; c++) x[c] = __ldg(prefix + (int64_t)(c * FE_NL + k) * n + col);
+}
+
+// Slot j += slot j + h for the block's h adds, one per warp.
+__device__ __forceinline__ void bf_level(int32_t *pts, int h, int32_t *buf) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, k = lane % FE_NL;
+  if (w < h) {
+    int32_t x[4], y[4], r[4];
 #pragma unroll
-      for (int i = 0; i < FE_NL; i++) sh[(c * FE_NL + i) * BF_THREADS + v] = s.c[c].v[i];
-  }
-  for (int h = BF_THREADS / 2; h >= 1; h >>= 1) {
-    __syncthreads();
-    if (v < h) {  // writes [0, h); other threads read only their own slot and [h, 2h)
-      const pt_t s = pt_add(SharedPt{sh, v}, SharedPt{sh, v + h});
+    for (int c = 0; c < 4; c++) {
+      x[c] = pts[w * BF_PT + c * FE_NL + k];
+      y[c] = pts[(w + h) * BF_PT + c * FE_NL + k];
+    }
+    w_padd(x, y, r, buf);
+    if (lane < FE_NL) {
 #pragma unroll
-      for (int c = 0; c < 4; c++)
-#pragma unroll
-        for (int i = 0; i < FE_NL; i++) sh[(c * FE_NL + i) * BF_THREADS + v] = s.c[c].v[i];
+      for (int c = 0; c < 4; c++) pts[w * BF_PT + c * FE_NL + k] = r[c];
     }
   }
   __syncthreads();
-  if (v < 4 * FE_NL) {  // one limb row per thread: sum and unmasked P_255
-    s_out[(int64_t)v * t_windows + t] = sh[v * BF_THREADS];
-    p255_out[(int64_t)v * t_windows + t] =
-        prefix[(int64_t)v * n + (int64_t)(2 * BF_THREADS - 1) * t_windows + t];
+}
+
+// Write slots 0..15 to `dst` and count the block in `*counter`; true in the
+// second block to arrive, which then finds both blocks' nodes in device
+// memory (the threadFenceReduction pattern: __threadfence before the count).
+__device__ __forceinline__ bool bf_handoff(const int32_t *pts, int32_t *dst, int *counter,
+                                           int *last) {
+  for (int e = threadIdx.x; e < 16 * BF_PT; e += BF_THREADS) dst[e] = pts[e];
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *last = atomicAdd(counter, 1) == 1;
+  __syncthreads();
+  if (*last) __threadfence();
+  return *last;
+}
+
+// Slots 0..31 from nodes a (16 of them) and b (16), written in this launch by
+// other blocks: volatile reads, not through L1.
+__device__ __forceinline__ void bf_gather(int32_t *pts, const volatile int32_t *a,
+                                          const volatile int32_t *b) {
+  for (int e = threadIdx.x; e < 16 * BF_PT; e += BF_THREADS) {
+    pts[e] = a[e];
+    pts[16 * BF_PT + e] = b[e];
+  }
+  __syncthreads();
+}
+
+static size_t bucket_fold_smem_bytes() {
+  return (size_t)(32 * BF_PT + BF_WARPS * WP_WORDS) * sizeof(int32_t);
+}
+
+// prefix (4, 20, 256 * T) v-major; nodes (T, 96, 80) scratch; arrived (3 T)
+// zero on entry; s_out, p255_out (4, 20, T).
+__global__ void __launch_bounds__(BF_THREADS, 1)
+bucket_fold_kernel(const int32_t *__restrict__ prefix, int t_windows, int32_t *nodes, int *arrived,
+                   int32_t *__restrict__ s_out, int32_t *__restrict__ p255_out) {
+  extern __shared__ __align__(16) int32_t bf_sh[];
+  __shared__ int last;
+  int32_t *pts = bf_sh;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, k = lane % FE_NL;
+  int32_t *buf = bf_sh + 32 * BF_PT + w * WP_WORDS;
+  const int s = blockIdx.x % BF_BLOCKS, t = blockIdx.x / BF_BLOCKS, q = s & 1;
+  const int64_t n = (int64_t)256 * t_windows;
+  {  // level 1: warp w adds bucket v + 128 to bucket v
+    const int v = (w < 16 ? 0 : 48) + 16 * s + w;
+    int32_t x[4], y[4], r[4];
+    bf_load(prefix, n, (int64_t)v * t_windows + t, k, x);
+    if (v + 128 == 255) {  // bucket 255 masked: the identity (0, 1, 1, 0)
+#pragma unroll
+      for (int c = 0; c < 4; c++) y[c] = (c == 1 || c == 2) && k == 0 ? 1 : 0;
+    } else {
+      bf_load(prefix, n, (int64_t)(v + 128) * t_windows + t, k, y);
+    }
+    w_padd(x, y, r, buf);
+    if (lane < FE_NL) {
+#pragma unroll
+      for (int c = 0; c < 4; c++) pts[w * BF_PT + c * FE_NL + k] = r[c];
+    }
+    __syncthreads();
+  }
+  bf_level(pts, 16, buf);  // level 2: positions 16 s + j
+  int32_t *win = nodes + (int64_t)t * BF_NODES * BF_PT;  // level 2 at 0..63, level 3 at 64..95
+  if (!bf_handoff(pts, win + 16 * s * BF_PT, arrived + 3 * t + q, &last)) return;
+  bf_gather(pts, win + 16 * q * BF_PT, win + (32 + 16 * q) * BF_PT);
+  bf_level(pts, 16, buf);  // level 3: positions 16 q + j
+  if (!bf_handoff(pts, win + (64 + 16 * q) * BF_PT, arrived + 3 * t + 2, &last)) return;
+  bf_gather(pts, win + 64 * BF_PT, win + 80 * BF_PT);
+  for (int h = 16; h >= 1; h >>= 1) bf_level(pts, h, buf);  // levels 4-8
+  if (threadIdx.x < BF_PT) {  // one limb row per thread: the sum and unmasked P_255
+    s_out[(int64_t)threadIdx.x * t_windows + t] = pts[threadIdx.x];
+    p255_out[(int64_t)threadIdx.x * t_windows + t] =
+        prefix[(int64_t)threadIdx.x * n + (int64_t)255 * t_windows + t];
   }
 }
 
@@ -556,9 +581,22 @@ extern "C" int tm_fenwick_reduce(const int32_t *lvl0, int64_t n0, const int32_t 
   return (int)cudaGetLastError();
 }
 
-extern "C" int tm_bucket_fold(const int32_t *prefix, int t_windows, int32_t *s_out,
-                              int32_t *p255_out, void *stream) {
-  bucket_fold_kernel<<<(unsigned)t_windows, BF_THREADS, 0, (cudaStream_t)stream>>>(
-      prefix, t_windows, s_out, p255_out);
+extern "C" int tm_bucket_fold(const int32_t *prefix, int t_windows, int32_t *nodes, int *arrived,
+                              int32_t *s_out, int32_t *p255_out, void *stream) {
+  if (t_windows < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = bucket_fold_smem_bytes();
+  // the dynamic shared memory the kernel takes, raised once per device
+  static bool allowed[UT_MAX_DEVICES];
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= UT_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!allowed[dev]) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        bucket_fold_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    allowed[dev] = true;
+  }
+  bucket_fold_kernel<<<(unsigned)(t_windows * BF_BLOCKS), BF_THREADS, smem,
+                       (cudaStream_t)stream>>>(prefix, t_windows, nodes, arrived, s_out, p255_out);
   return (int)cudaGetLastError();
 }

@@ -1,30 +1,35 @@
 // Curve-point kernels for Hopper (sm_90a): padd, pdbl(times), fsquare_chain.
 //
 // Replaces the Pallas TPU kernels of tendermint_tpu/ops/pallas_fe.py:
-//   tm_padd          <- _padd_kernel / _padd_call  (public pallas_fe.padd)
+//   tm_padd, tm_padd_lanes <- _padd_kernel / _padd_call  (public pallas_fe.padd)
 //   tm_pdbl, tm_pdbl_lanes <- _pdbl_kernel, _pdbl_n_kernel / _pdbl_call (pallas_fe.pdbl)
 //   tm_fsquare_chain <- _fsq_n_kernel / _fsq_call  (pallas_fe.fsquare_chain)
 //
 // Layout: a point batch is int32 (4, 20, n) — coordinate c, limb i, lane j at
-// c*20*n + i*n + j; a field batch is (20, n). One thread owns one lane: it
-// reads its limbs (neighbouring threads read neighbouring words, so every
-// limb row is one coalesced 128-byte access per warp), does all the field
-// arithmetic in registers, and writes its output limbs once.
+// c*20*n + i*n + j; a field batch is (20, n). In the thread-per-lane kernels
+// one thread owns one lane: it reads its limbs (neighbouring threads read
+// neighbouring words, so every limb row is one coalesced 128-byte access per
+// warp), does all the field arithmetic in registers, and writes its output
+// limbs once.
 //
 // What bounds each kernel on the H100, and what the design does about it:
-// - padd at the MSM's widths (up to 327,680 lanes: the first tree level, 32
-//   windows x 10,240 pairs) moves 960 B per lane (two points in, one out)
-//   against 3,620 int32 multiply-adds per lane: at 3.35 TB/s and ~16.7 T
-//   IMAD/s the two bounds are close, with bytes the larger. The kernel reads
-//   each input limb once and writes each output limb once, nothing else
-//   touches memory; the point of the design is that no 39-row product
-//   accumulator ever leaves registers (the TPU kernel's reason to exist,
-//   pallas_fe.py:1-12).
+// - padd has two kernels behind one wrapper (cuda_fe.padd_entry). On the
+//   MSM's top tree, bucket tail, window fold and the streamed partial sums
+//   it runs on 1-192 lanes: one add per lane, a few warps on the whole card,
+//   so one thread's chain of ~3,620 dependent multiply-adds and their carries
+//   sets the time. There padd_lanes_kernel gives each lane a warp (w_padd,
+//   fe25519_warp.cuh: the limbs split over the warp, each batch of
+//   independent products side by side). The per-signature ladder's 16,384
+//   lanes move 960 B per lane (two points in, one out) against 3,620 int32
+//   multiply-adds, close to both the byte and the operation bound: there
+//   padd_kernel keeps one thread per lane, reads each input limb once and
+//   writes each output limb once, and no 39-row product accumulator ever
+//   leaves registers (the TPU kernel's reason to exist, pallas_fe.py:1-12).
 // - pdbl has two kernels behind one wrapper. The MSM's window fold and
 //   [256]P_255 run up to 128 chained doublings on 32 lanes or fewer: a
 //   dependent chain, bound by latency, not by the card's rate. There
 //   pdbl_lanes_kernel gives each lane a warp and splits every field op
-//   across the limbs (below), ~1/6 of one thread's chain per doubling. The
+//   across the limbs, ~1/6 of one thread's chain per doubling. The
 //   per-signature ladder's 1-4 doublings on up to 16,384 lanes are
 //   throughput-bound: pdbl_kernel keeps one thread per lane. Both keep x, y,
 //   z in registers across doublings (t is only produced on the last one,
@@ -41,6 +46,7 @@
 #include <stdint.h>
 
 #include "fe25519.cuh"
+#include "fe25519_warp.cuh"
 
 #define PK_THREADS 128
 
@@ -109,87 +115,11 @@ pdbl_kernel(const int32_t *__restrict__ p, int32_t *__restrict__ out, int64_t n,
 }
 
 // ---------------------------------------------------------------------------
-// pdbl on few lanes: one warp per lane, limb-parallel. Lane k < 20 of the
-// warp holds limb k of every field element (lanes 20-31 shadow lanes 0-11
-// and write nothing). A product's 39 columns are integer sums whose order
-// does not matter (each stays below 2^31): lane k sums column k
-// (a_i b_{k-i}, i <= k) and column k + 20 (a_i b_{k+20-i}, i > k), 20
-// multiply-adds, reading a_i as a shared-memory broadcast and b from a
-// doubled copy (b[m] = b[m mod 20]). Every carry pass of fe25519.cuh is one
-// __shfl_sync from lane k - 1 (lane 0 takes lane 19's carry x 608); in the
-// 39-row reduction row 38's carry (lane 18's high column) folds onto row 19
-// with 608, as fe_reduce39 does. The doubling's independent field ops run
-// side by side in one instruction stream (4 squares, then 3 and 3 sums,
-// then 4 products), so their latencies overlap; no block barrier, only
-// __syncwarp around the shared-memory operands.
-
-#define PDW_FULL 0xffffffffu
-
-template <int NV>
-__device__ __forceinline__ void w_carry(int32_t (&v)[NV], int wrap_mul, int src) {
-#pragma unroll
-  for (int pass = 0; pass < 4; pass++) {
-    int32_t up[NV];
-#pragma unroll
-    for (int j = 0; j < NV; j++) up[j] = __shfl_sync(PDW_FULL, v[j] >> FE_RADIX, src);
-#pragma unroll
-    for (int j = 0; j < NV; j++) v[j] = (v[j] & FE_MASK) + wrap_mul * up[j];
-  }
-}
-
-// Columns (k, k + 20) of a[j] * b[j]; a and b point at doubled copies.
-template <int NV>
-__device__ __forceinline__ void w_products(const int32_t *const (&a)[NV],
-                                           const int32_t *const (&b)[NV], int k,
-                                           int32_t (&lo)[NV], int32_t (&hi)[NV]) {
-#pragma unroll
-  for (int j = 0; j < NV; j++) lo[j] = hi[j] = 0;
-#pragma unroll
-  for (int i = 0; i < FE_NL; i++) {
-    const bool low = i <= k;
-#pragma unroll
-    for (int j = 0; j < NV; j++) {
-      const int32_t t = a[j][i] * b[j][k - i + FE_NL];
-      if (low)
-        lo[j] += t;
-      else
-        hi[j] += t;
-    }
-  }
-}
-
-// fe_reduce39 on rows (k, k + 20) per lane; the result is left in lo.
-template <int NV>
-__device__ __forceinline__ void w_reduce39(int32_t (&lo)[NV], int32_t (&hi)[NV], int k, int src) {
-  const int32_t lo_in = k >= 1 ? 1 : 0;           // row k takes row k-1's carry
-  const int32_t top_in = k == FE_NL - 1 ? FE_WRAP : 0;  // row 19 takes 608 x row 38's
-  const int32_t hi_keep = k == FE_NL - 1 ? 0 : -1;      // row 39 does not exist
-#pragma unroll
-  for (int pass = 0; pass < 2; pass++) {
-    int32_t ulo[NV], uhi[NV];
-#pragma unroll
-    for (int j = 0; j < NV; j++) {
-      ulo[j] = __shfl_sync(PDW_FULL, lo[j] >> FE_RADIX, src);
-      uhi[j] = __shfl_sync(PDW_FULL, hi[j] >> FE_RADIX, src);
-    }
-#pragma unroll
-    for (int j = 0; j < NV; j++) {
-      const int32_t nlo = (lo[j] & FE_MASK) + lo_in * ulo[j] + top_in * uhi[j];
-      hi[j] = ((hi[j] & FE_MASK) + (k == 0 ? ulo[j] : uhi[j])) & hi_keep;
-      lo[j] = nlo;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NV; j++) lo[j] += FE_WRAP * hi[j];
-  w_carry<NV>(lo, k == 0 ? FE_WRAP : 1, src);
-}
-
-__device__ __forceinline__ void w_put(int32_t *buf, int lane, int32_t v) {
-  if (lane < FE_NL) {
-    buf[lane] = v;
-    buf[lane + FE_NL] = v;
-  }
-}
+// pdbl and padd on few lanes: one warp per lane, limb-parallel
+// (fe25519_warp.cuh). The doubling's independent field ops run side by side
+// in one instruction stream (4 squares, then 3 and 3 sums, then 4 products),
+// so their latencies overlap; no block barrier, only __syncwarp around the
+// shared-memory operands.
 
 __global__ void __launch_bounds__(32)
 pdbl_lanes_kernel(const int32_t *__restrict__ p, int32_t *__restrict__ out, int64_t n, int times) {
@@ -235,6 +165,32 @@ pdbl_lanes_kernel(const int32_t *__restrict__ p, int32_t *__restrict__ out, int6
   }
 }
 
+// padd on few lanes (w_padd): PL_WARPS warps a block, warp w of block b
+// takes lane b * PL_WARPS + w. Lane k of the warp reads and writes limb row k
+// of the lane's four coordinates.
+#define PL_WARPS 4
+
+__global__ void __launch_bounds__(32 * PL_WARPS)
+padd_lanes_kernel(const int32_t *__restrict__ p, const int32_t *__restrict__ q,
+                  int32_t *__restrict__ out, int64_t n) {
+  __shared__ __align__(16) int32_t buf[PL_WARPS][WP_WORDS];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5, k = lane % FE_NL;
+  const int64_t j = (int64_t)blockIdx.x * PL_WARPS + w;
+  if (j >= n) return;  // uniform across the warp
+  const int64_t cs = (int64_t)FE_NL * n, at = (int64_t)k * n + j;
+  int32_t a[4], b[4], r[4];
+#pragma unroll
+  for (int c = 0; c < 4; c++) {
+    a[c] = __ldg(p + c * cs + at);
+    b[c] = __ldg(q + c * cs + at);
+  }
+  w_padd(a, b, r, buf[w]);
+  if (lane < FE_NL) {
+#pragma unroll
+    for (int c = 0; c < 4; c++) out[c * cs + at] = r[c];
+  }
+}
+
 // x -> x^(2^k) (pallas_fe._fsq_n_kernel).
 __global__ void __launch_bounds__(PK_THREADS)
 fsquare_chain_kernel(const int32_t *__restrict__ x, int32_t *__restrict__ out, int64_t n,
@@ -254,6 +210,13 @@ static inline unsigned pk_blocks(int64_t n) {
 extern "C" int tm_padd(const int32_t *p, const int32_t *q, int32_t *out, int64_t n,
                        void *stream) {
   padd_kernel<<<pk_blocks(n), PK_THREADS, 0, (cudaStream_t)stream>>>(p, q, out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tm_padd_lanes(const int32_t *p, const int32_t *q, int32_t *out, int64_t n,
+                             void *stream) {
+  padd_lanes_kernel<<<(unsigned)((n + PL_WARPS - 1) / PL_WARPS), 32 * PL_WARPS, 0,
+                      (cudaStream_t)stream>>>(p, q, out, n);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,13 @@
 """CUDA point kernels and their plain torch versions.
 
-The counterpart of tendermint_tpu/ops/pallas_fe.py. Three hand-written
-Hopper kernels (csrc/point_kernels.cu, field arithmetic in csrc/fe25519.cuh):
+The counterpart of tendermint_tpu/ops/pallas_fe.py. Hand-written Hopper
+kernels behind three wrappers (csrc/point_kernels.cu; field arithmetic in
+csrc/fe25519.cuh, split over a warp in csrc/fe25519_warp.cuh):
 
-- `padd(p, q)`            unified a=-1 extended add (add-2008-hwcd-3)
+- `padd(p, q)`            unified a=-1 extended add (add-2008-hwcd-3): a
+                          warp per lane on PADD_FEW_LANES lanes or fewer (the
+                          MSM's top tree, tail, window fold and partial sums),
+                          a thread per lane above (the per-signature ladder)
 - `pdbl(p, times)`        `times` chained dbl-2008-hwcd doublings: a warp per
                           lane on PDBL_FEW_LANES lanes or fewer (the window
                           fold's latency-bound chains), a thread per lane
@@ -46,7 +50,7 @@ LAUNCHES = {"padd": 0, "pdbl": 0, "fsquare_chain": 0}
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("fe25519.cuh", "point_kernels.cu")
+SOURCES = ("fe25519.cuh", "fe25519_warp.cuh", "point_kernels.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -170,10 +174,12 @@ def build_library(stem: str, sources, bind) -> ctypes.CDLL:
 def _bind(lib) -> None:
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.tm_padd.argtypes = [vp, vp, vp, i64, vp]
+    lib.tm_padd_lanes.argtypes = [vp, vp, vp, i64, vp]
     lib.tm_pdbl.argtypes = [vp, vp, i64, ci, vp]
     lib.tm_pdbl_lanes.argtypes = [vp, vp, i64, ci, vp]
     lib.tm_fsquare_chain.argtypes = [vp, vp, i64, ci, vp]
-    for fn in (lib.tm_padd, lib.tm_pdbl, lib.tm_pdbl_lanes, lib.tm_fsquare_chain):
+    for fn in (lib.tm_padd, lib.tm_padd_lanes, lib.tm_pdbl, lib.tm_pdbl_lanes,
+               lib.tm_fsquare_chain):
         fn.restype = ci
 
 
@@ -205,6 +211,15 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+PADD_FEW_LANES = 4096
+
+
+def padd_entry(n: int) -> str:
+    """The padd kernel that n lanes launch: the warp-per-lane kernel on
+    PADD_FEW_LANES lanes or fewer, the thread-per-lane kernel above."""
+    return "tm_padd_lanes" if n <= PADD_FEW_LANES else "tm_padd"
+
+
 def padd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """p + q for point batches (4, 20, ...batch)."""
     if p.device.type == "cpu":
@@ -215,7 +230,8 @@ def padd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     _check(q, (4, NL), "padd q")
     out = torch.empty_like(p)
     if n:
-        _launched("padd", build().tm_padd(p.data_ptr(), q.data_ptr(), out.data_ptr(), n, _stream(p)))
+        fn = getattr(build(), padd_entry(n))
+        _launched("padd", fn(p.data_ptr(), q.data_ptr(), out.data_ptr(), n, _stream(p)))
     return out
 
 

@@ -1,7 +1,8 @@
 """CUDA kernels of the fused Pippenger MSM and their plain torch versions.
 
 The counterpart of tendermint_tpu/ops/pallas_msm.py. Three hand-written
-Hopper kernels (csrc/msm_kernels.cu, field arithmetic in csrc/fe25519.cuh):
+Hopper kernels (csrc/msm_kernels.cu, field arithmetic in csrc/fe25519.cuh;
+bucket_fold's adds split over a warp by csrc/fe25519_warp.cuh):
 
 - `uptree(pts, perm, ch)`   the level-0 gather into chunk-wise bit-reversed
                             order and every pair-tree level 1..lc of each
@@ -33,7 +34,7 @@ NBUCKETS = 256
 
 LAUNCHES = {"uptree": 0, "fenwick_reduce": 0, "bucket_fold": 0}
 
-SOURCES = ("fe25519.cuh", "msm_kernels.cu")
+SOURCES = ("fe25519.cuh", "fe25519_warp.cuh", "msm_kernels.cu")
 
 
 def reset_launches() -> None:
@@ -115,7 +116,7 @@ def _bind(lib) -> None:
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.tm_uptree.argtypes = [vp, vp, i64, i64, ci, ci, vp, vp, vp, vp]
     lib.tm_fenwick_reduce.argtypes = [vp, i64, vp, i64, vp, i64, vp, ci, vp, i64, ci, vp]
-    lib.tm_bucket_fold.argtypes = [vp, ci, vp, vp, vp]
+    lib.tm_bucket_fold.argtypes = [vp, ci, vp, vp, vp, vp, vp]
     for fn in (lib.tm_uptree, lib.tm_fenwick_reduce, lib.tm_bucket_fold):
         fn.restype = ci
 
@@ -204,7 +205,11 @@ def bucket_fold(prefix: torch.Tensor, t_windows: int):
         raise ValueError(f"bucket_fold: {n} lanes, expected {NBUCKETS} x {t_windows}")
     s = torch.empty((4, NL, t_windows), dtype=torch.int32, device=prefix.device)
     p255 = torch.empty_like(s)
+    # the nodes a window's blocks hand to each other (64 of level 2, 32 of
+    # level 3) and the window's three arrival counters
+    nodes = torch.empty((t_windows, 96, 4 * NL), dtype=torch.int32, device=prefix.device)
+    arrived = torch.zeros(3 * t_windows, dtype=torch.int32, device=prefix.device)
     cuda_fe._launched("bucket_fold", build().tm_bucket_fold(
-        prefix.data_ptr(), int(t_windows), s.data_ptr(), p255.data_ptr(),
-        cuda_fe._stream(prefix)), LAUNCHES)
+        prefix.data_ptr(), int(t_windows), nodes.data_ptr(), arrived.data_ptr(), s.data_ptr(),
+        p255.data_ptr(), cuda_fe._stream(prefix)), LAUNCHES)
     return s, p255

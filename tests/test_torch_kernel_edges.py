@@ -1,5 +1,7 @@
-"""Kernels B5 (fenwick_reduce) and B8 (fp12_sparse_mul) against their plain
-torch versions at edge shapes, on the card.
+"""Port kernels against their plain torch versions at edge shapes, on the
+card: B2 (padd), B5 (fenwick_reduce), B6 (bucket_fold), B8
+(fp12_sparse_mul); and the verify-mode routing of an explicit
+backend="cuda" request.
 
 B8 at 1, 2, 3, 129 and 16,384 lanes: a block holds 2 lanes, so these cover
 a half block, one block, a ragged last block and many blocks. B5 at Kf = 1,
@@ -7,7 +9,13 @@ a half block, one block, a ragged last block and many blocks. B5 at Kf = 1,
 block takes 32 neighbouring buckets of one window, and Kf = 1 and 2 are the
 kernel's no-add and single-add cases. The storage holds seeded carried limbs
 and each window's last top-tree lane is the identity point, which the
-indices name among random nodes of all three segments.
+indices name among random nodes of all three segments. B2 at 1, 31, 32, 33,
+192, PADD_FEW_LANES and PADD_FEW_LANES + 1 lanes: a block of the warp kernel
+holds 4 lanes, and the last two shapes sit on either side of the switch to
+the thread-per-lane kernel; each shape also runs both kernels, forced by
+pinning PADD_FEW_LANES. B6 at T = 1, 32 and 33 windows: 4 blocks a window,
+with nodes handed over through device memory. B2 and B6 inputs are seeded points and their doubles
+(carried limbs).
 
 Tolerance: zero (integer arithmetic, limb for limb). Every test needs a
 CUDA card and skips without one. The file imports neither JAX nor the JAX
@@ -21,7 +29,9 @@ import numpy as np
 import pytest
 import torch
 
-from tendermint_tpu_torch.ops import cuda_bls, cuda_msm
+from tendermint_tpu_torch.crypto import batch, keys
+from tendermint_tpu_torch.crypto import ed25519_ref as ref
+from tendermint_tpu_torch.ops import cuda_bls, cuda_fe, cuda_msm, msm_torch
 from tendermint_tpu_torch.ops.ed25519_torch import identity
 
 NL = cuda_msm.NL
@@ -78,3 +88,70 @@ def test_fenwick_reduce_kernel_equals_plain_at_edge_shapes(cuda_device, kf, t_):
     got = cuda_msm.fenwick_reduce(*(x.to(cuda_device) for x in args)).cpu()
     assert torch.equal(got, cuda_msm.fenwick_reduce_plain(*args))
     assert cuda_msm.LAUNCHES["fenwick_reduce"] == 1
+
+
+_POINTS = {}
+
+
+def carried_points(lanes: int, seed: int) -> torch.Tensor:
+    """(4, 20, lanes) points drawn from 64 seeded multiples of B and their
+    doubles (limbs carried, not reduced), on the CPU."""
+    if "base" not in _POINTS:
+        p, step, enc = ref.point_mul(9_001, ref.BASE), ref.point_mul(313, ref.BASE), []
+        for _ in range(64):
+            enc.append(np.frombuffer(ref.point_compress(p), dtype=np.uint8))
+            p = ref.point_add(p, step)
+        pts, ok = msm_torch.decompress_rows(np.stack(enc), device="cpu")
+        assert bool(ok.all())
+        _POINTS["base"] = torch.cat([pts, cuda_fe.pdbl_plain(pts, 1)], dim=-1)
+    base = _POINTS["base"]
+    rng = np.random.default_rng(seed)
+    return base[..., torch.from_numpy(rng.integers(0, base.shape[-1], size=lanes))].contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 192, "few", "few+1"])
+def test_padd_kernels_equal_plain_at_edge_lanes(cuda_device, monkeypatch, n):
+    n = {"few": cuda_fe.PADD_FEW_LANES, "few+1": cuda_fe.PADD_FEW_LANES + 1}.get(n, n)
+    p, q = carried_points(n, 2 * n), carried_points(n, 2 * n + 1)
+    want = cuda_fe.padd_plain(p, q)
+    # the routing as shipped, then the warp kernel (n <= limit) and the
+    # thread kernel (n > limit) forced
+    for limit in (cuda_fe.PADD_FEW_LANES, n, n - 1):
+        monkeypatch.setattr(cuda_fe, "PADD_FEW_LANES", limit)
+        cuda_fe.reset_launches()
+        got = cuda_fe.padd(p.to(cuda_device), q.to(cuda_device)).cpu()
+        assert torch.equal(got, want), cuda_fe.padd_entry(n)
+        assert cuda_fe.LAUNCHES["padd"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_", [1, 32, 33])
+def test_bucket_fold_kernel_equals_plain_at_edge_windows(cuda_device, t_):
+    prefix = carried_points(256 * t_, 500 + t_)
+    want = cuda_msm.bucket_fold_plain(prefix, t_)
+    cuda_msm.reset_launches()
+    got = cuda_msm.bucket_fold(prefix.to(cuda_device), t_)
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    assert cuda_msm.LAUNCHES["bucket_fold"] == 1
+
+
+@pytest.mark.cuda
+def test_explicit_cuda_backend_stays_cofactored_on_card(cuda_device, monkeypatch):
+    """Under verify mode cofactorless a torsion-defect signature is refused
+    by the default route (the host serial loop) and accepted by an explicit
+    backend="cuda" request, which runs the card's cofactored ladder."""
+    rng = np.random.default_rng(7)
+    a = int.from_bytes(rng.bytes(32), "little") % ref.L
+    r = int.from_bytes(rng.bytes(32), "little") % ref.L
+    msg = b"torsion-on-card"
+    a_enc = ref.point_compress(ref.point_mul(a, ref.BASE))
+    r_enc = ref.point_compress(ref.point_add(ref.point_mul(r, ref.BASE), (0, ref.P - 1, 1, 0)))
+    sig = r_enc + ((r + ref.sha512_mod_l(r_enc + a_enc + msg) * a) % ref.L).to_bytes(32, "little")
+    monkeypatch.setattr(keys, "_VERIFY_MODE", keys._VERIFY_MODE)
+    keys.set_verify_mode("cofactorless")
+    rows = ([a_enc] * 3, [msg] * 3, [sig] * 3)
+    assert not batch.verify_batch(*rows, device=cuda_device).any()
+    assert batch.LAST_FLUSH["mode"] == "host_serial"
+    assert batch.verify_batch(*rows, device=cuda_device, backend="cuda").all()
+    assert batch.LAST_FLUSH["mode"] == "persig"

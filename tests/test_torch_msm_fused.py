@@ -372,6 +372,42 @@ def test_pdbl_routes_by_lane_count(monkeypatch):
     assert all(s[2] == "tm_pdbl_lanes" for s in seen)
 
 
+def test_padd_routes_by_lane_count(monkeypatch):
+    """Every padd launch of the MSM schedule (the chunk-root top tree of a
+    10k commit, the bucket tail, the window fold, the streamed partial sum:
+    1-192 lanes) takes the warp-per-lane kernel, the per-signature ladder's
+    16,384 lanes the thread-per-lane kernel; on the CPU both are the plain
+    version."""
+    assert 192 <= cuda_fe.PADD_FEW_LANES < 16_384
+    few = (1, 2, 4, 8, 16, 32, 64, 96, 160, 192, cuda_fe.PADD_FEW_LANES)
+    assert [cuda_fe.padd_entry(n) for n in few] == ["tm_padd_lanes"] * len(few)
+    assert [cuda_fe.padd_entry(n) for n in (cuda_fe.PADD_FEW_LANES + 1, 16_384)] == ["tm_padd"] * 2
+    seen = []
+    plain = cuda_fe.padd
+
+    def spy(p, q):
+        seen.append(p[0, 0].numel())  # the lanes the wrapper launches
+        return plain(p, q)
+
+    monkeypatch.setattr(cuda_fe, "padd", spy)
+    roots = _picks(46, M.NWIN * 10).reshape(4, NL, M.NWIN, 10)  # 10 chunk roots a window
+    M._tree_levels(roots)
+    assert seen == [M.NWIN * 5, M.NWIN * 3, M.NWIN * 2, M.NWIN]  # 160, 96, 64, 32
+    seen.clear()
+    M._fold_windows(M._bucket_tail(_picks(47, M.NWIN), _picks(48, M.NWIN)))
+    assert seen == [M.NWIN, M.NWIN, 16, 8, 4, 2, 1]
+    seen.clear()
+    M._partial_fold_core(_picks(49, 1)[..., 0], _picks(50, 1)[..., 0])
+    assert seen == [1]
+
+
+def test_padd_wrapper_checks_its_operands():
+    p = _picks(51, 3)
+    assert torch.equal(cuda_fe.padd(p, p), cuda_fe.padd_plain(p, p))  # CPU: the plain version
+    with pytest.raises(ValueError, match="padd: q"):
+        cuda_fe.padd(p.to("meta"), p[..., :2].to("meta"))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("lanes,times", [(1, 128), (2, 64), (32, 8), (33, 3), (16_384, 4)])
 def test_pdbl_kernels_equal_plain_on_card(cuda_device, lanes, times):
