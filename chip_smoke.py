@@ -36,7 +36,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      both run the fused MSM (uptree, fenwick_reduce, bucket_fold);
   5. the "tampered" path: three tampered signatures, so verify_batch's
      combined check fails and the per-signature recovery gives the mask, which
-     must be False exactly there; verify_commit raises CommitVerifyError;
+     must be False exactly there; verify_commit raises CommitVerifyError; one
+     more verify_batch call under torch.profiler;
   6. the "streamed" path: verify_batch over 100,000 rows (the commit's signed
      rows tiled ten times) through the flush planner, 9 chunks of 24,576
      lanes, once to warm and three timed runs, one more under torch.profiler;
@@ -46,13 +47,19 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      plain Commit through verify_commit honest, with one bad BLS row and with
      one bad Ed25519 row (Ed25519 rows on the card, BLS rows by bls_ref on
      the host), verdicts held against bls_ref / ed25519_ref;
-  8. the BLS kernels fp381_mul and fp12_sparse_mul against their plain
+  8. "mixed_sr25519_10k": BASELINE config 5 as bench.py builds it (10,000
+     rows, the last 2,000 sr25519, 110-byte messages) through
+     verify_batch(key_types=...): warm, 3 timed calls (the Ed25519 rows on
+     the card, the sr25519 rows by the native verifier on the host), then an
+     Ed25519 and an sr25519 row tampered (exact mask); 64 rows of each mask
+     held against the port's pure-Python verifiers;
+  9. the BLS kernels fp381_mul and fp12_sparse_mul against their plain
      versions at the BLS paths' shapes (the fold's widest stacked launch, a
      Miller step's widest, the Miller loop's 2 lanes, and one wide row off
      the path), printed as in phase 3 (fp12_sparse_mul bound by its 54
      products a lane over the whole card, or one product's multiply-adds
      issued one a clock, whichever is longer);
-  9. a 10,000-validator BLS set (keys sk0 + i, one aggregate signature over
+  10. a 10,000-validator BLS set (keys sk0 + i, one aggregate signature over
      the full bitmap, built before the card is touched) through
      ValidatorSet.verify_aggregate_commit on three paths: "bls_cold" (the
      host decode of 10k keys fills the key cache), "bls_warm" (5 timed calls,
@@ -61,20 +68,20 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      correctly signed bitmap at <= 2/3 of the power); the card's aggregate
      pubkey and pairing verdicts are held against the host bls_ref, whose
      Miller loops on the warm call's pairs are timed beside the card's;
-  10. "cofactorless": a 300-validator commit holding one torsion-defect
+  11. "cofactorless": a 300-validator commit holding one torsion-defect
      signature (a cofactored accept, a cofactorless reject) under verify mode
      cofactorless (keys.set_verify_mode, the switch TMTPU_ED25519_MODE sets at
      import): verify_commit must refuse that row on the host serial loop
      (LAST_FLUSH mode host_serial) with no kernel launched; an explicit
      backend="cuda" must accept every row on the card; then, back in
      cofactored mode, the same commit must pass on the card;
-  11. a `kernels` JSON line (a row off every path counts 0 launches), the
+  12. a `kernels` JSON line (a row off every path counts 0 launches), the
      card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
 (the warm and streamed paths per call); every kernel of a path must launch on
-it: the six Ed25519 kernels on the Ed25519 paths (mixed_commit included),
-the two BLS kernels on the BLS paths. Exits non-zero without a result when
-no CUDA device is available.
+it: the six Ed25519 kernels on the Ed25519 paths (mixed_commit and
+mixed_sr25519_10k included), the two BLS kernels on the BLS paths. Exits
+non-zero without a result when no CUDA device is available.
 """
 
 from __future__ import annotations
@@ -128,6 +135,11 @@ BLS_HEIGHT = 5
 BLS_TS = 1_700_000_000_123_456_789
 BLS_SUB_SIGNERS = 6_666  # 66,660 of 100,000 power: <= 2/3
 N_MIXED_BLS = 4  # BLS validators in the mixed plain commit (each costs a host pairing check)
+# BASELINE config 5 (bench.py make_batch / bench_mixed_streaming): 10,000
+# validators, the last 20% sr25519, 110-byte messages
+N_SR = 2_000
+SR_MSG_LEN = 110
+SR_TAMPERED = (4_321, 9_876)  # an Ed25519 row and an sr25519 row
 N_COFACTORLESS = 300  # the cofactorless commit: its host loop is pure Python where OpenSSL is missing
 PADD_SWEEP = (32, 192, 1_024, 4_096, 16_384)
 
@@ -196,15 +208,19 @@ def timed(fn, reps: int = 5):
     return statistics.median(times)
 
 
-# Card ms recorded before the redesigns of padd and bucket_fold (PR 5's run
-# C), fenwick_reduce and fp12_sparse_mul (PR 4), by (kernel, path, lanes)
-# (PERF.md's kernel table, "before" column; NVIDIA H100 80GB HBM3, 700.00 W).
+# Card ms recorded by chip_smoke.py runs before each kernel's redesign (the
+# thread-per-lane pdbl and fsquare_chain, padd, bucket_fold, fenwick_reduce,
+# fp12_sparse_mul), by (kernel, path, lanes) (PERF.md's kernel table and
+# findings; NVIDIA H100 80GB HBM3, 700.00 W).
 # Printed on the row's text line only, labelled as recorded: the `kernels`
 # JSON line holds only what this run measured.
 RECORDED_BEFORE_MS = {
     ("padd", "warm", 160): 0.0203, ("padd", "warm", 32): 0.0205,
     ("padd", "streamed", 192): 0.0205, ("padd", "tampered", 16_384): 0.0216,
     ("bucket_fold", "warm", 8_192): 0.1695,
+    ("pdbl", "tampered", 16_384): 0.0378,
+    ("fsquare_chain", "warm", 10_240): 0.0301, ("fsquare_chain", "cold", 20_480): 0.0470,
+    ("fsquare_chain", "streamed", 24_576): 0.0461, ("fsquare_chain", "tampered", 16_384): 0.0292,
     ("fenwick_reduce", "warm", 8_192): 0.3327,
     ("fp12_sparse_mul", "bls_warm", 2): 0.1221, ("fp12_sparse_mul", None, 16_384): 0.4642,
 }
@@ -227,8 +243,9 @@ def fenwick_gather_sectors(node_idx, n0: int, n1: int, n2: int) -> int:
 
 
 KERNEL_SYMBOL = {  # the __global__ function each wrapper launches
-    "padd": ("padd_kernel", "padd_lanes_kernel"), "pdbl": ("pdbl_kernel", "pdbl_lanes_kernel"),
-    "fsquare_chain": ("fsquare_chain_kernel",), "uptree": ("uptree_kernel",),
+    "padd": ("padd_kernel", "padd_lanes_kernel"), "pdbl": ("pdbl_quad_kernel", "pdbl_lanes_kernel"),
+    "fsquare_chain": ("fsquare_chain_kernel", "fsquare_chain_quad_kernel"),
+    "uptree": ("uptree_kernel",),
     "fenwick_reduce": ("fenwick_kernel",), "bucket_fold": ("bucket_fold_kernel",),
     "fp381_mul": ("fp381_mul_kernel",), "fp12_sparse_mul": ("fp12_sparse_mul_kernel",),
 }
@@ -280,9 +297,13 @@ def launched_symbol(name: str, lanes: int) -> str:
     from tendermint_tpu_torch.ops import cuda_fe
 
     if name == "pdbl":
-        return "pdbl_lanes_kernel" if cuda_fe.pdbl_entry(lanes) == "tm_pdbl_lanes" else "pdbl_kernel"
+        return ("pdbl_lanes_kernel" if cuda_fe.pdbl_entry(lanes) == "tm_pdbl_lanes"
+                else "pdbl_quad_kernel")
     if name == "padd":
         return ENTRY_SYMBOL[cuda_fe.padd_entry(lanes)]
+    if name == "fsquare_chain":
+        return ("fsquare_chain_quad_kernel" if cuda_fe.fsquare_chain_entry(lanes)
+                == "tm_fsquare_chain_quad" else "fsquare_chain_kernel")
     return KERNEL_SYMBOL[name][0]
 
 
@@ -503,10 +524,12 @@ def kernel_checks(dev, rng, card: dict) -> list:
         pdbl_case("warm", 2, 64, "window fold level 4"),
         pdbl_case("warm", 1, 128, "last window-fold level"),
         pdbl_case("tampered", 16_384, 4, "per-signature ladder"),
+        pdbl_case("cofactored_300", 512, 4, "per-signature ladder of a 300-row commit"),
         fsq_case("warm", 10_240, "R decompression"),
         fsq_case("cold", 20_480, "A and R decompression"),
         fsq_case("streamed", 24_576, "A and R decompression per chunk"),
         fsq_case("tampered", 16_384, "per-signature A or R decompression"),
+        fsq_case("cofactored_300", 512, "A or R decompression of a 300-row commit"),
     ]
 
     return check_cases(cases, card), base
@@ -839,6 +862,8 @@ def commit_phase(dev, corpus) -> dict:
         raise SystemExit("tampered commit was accepted")
     print(f"tampered rows {bad}: verify_batch ms={batch_ms:.1f} (per-signature recovery "
           f"ms={recovery_ms:.1f}) launches={launches['tampered']}", flush=True)
+    profile_path("tampered", lambda: batch.verify_batch(pubkeys, msgs, sigs, device=dev),
+                 batch_ms)
     return launches
 
 
@@ -908,6 +933,111 @@ def streamed_phase(dev, corpus, launches: dict) -> None:
     print(f"streamed tampered rows {bad}: verify_batch ms={ms:.1f} (chunk-wise recovery "
           f"ms={batch.LAST_FLUSH['recovery_s'] * 1e3:.1f}) "
           f"launches={launches['streamed_tampered']}", flush=True)
+
+
+def _sign_mixed_rows(args):
+    """(pubkey, signature) of each (key type, seed, message): Ed25519 by
+    ed25519_ref, sr25519 by the port's schnorrkel signer."""
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+    from tendermint_tpu_torch.crypto import sr25519
+
+    out = []
+    for kind, seed, msg in args:
+        if kind == "sr25519":
+            priv = sr25519.gen_sr25519(seed)
+            out.append((priv.pub_key().bytes(), priv.sign(msg)))
+        else:
+            a, prefix = ref.secret_expand(seed)
+            pk = ref.point_compress(ref.point_mul(a, ref.BASE))
+            r = ref.sha512_mod_l(prefix + msg)
+            r_enc = ref.point_compress(ref.point_mul(r, ref.BASE))
+            h = ref.sha512_mod_l(r_enc + pk + msg)
+            out.append((pk, r_enc + ((r + h * a) % ref.L).to_bytes(32, "little")))
+    return out
+
+
+def build_mixed_sr25519(rng):
+    """BASELINE config 5 as bench.py's make_batch builds it: N_VALIDATORS
+    rows of distinct seeded keys, the last N_SR sr25519 and the rest
+    Ed25519, each signing its own 110-byte message (a 6-digit index, '|',
+    random bytes). Signed on a process pool before the card is touched."""
+    t0 = time.perf_counter()
+    n_ed = N_VALIDATORS - N_SR
+    types = ["ed25519"] * n_ed + ["sr25519"] * N_SR
+    jobs = [(t, rng.bytes(32), b"%06d|" % i + rng.bytes(SR_MSG_LEN - 7))
+            for i, t in enumerate(types)]
+    workers = os.cpu_count() or 1
+    with mp.get_context("fork").Pool(workers) as pool:
+        parts = pool.map(_sign_mixed_rows, [jobs[i::workers] for i in range(workers)])
+        pool.close()
+        pool.join()
+    rows = [None] * N_VALIDATORS
+    for i, part in enumerate(parts):
+        rows[i::workers] = part
+    print(f"mixed sr25519 corpus: {N_VALIDATORS} rows ({N_SR} sr25519) signed in "
+          f"{time.perf_counter() - t0:.1f} s ({workers} processes)", flush=True)
+    return dict(pubkeys=[pk for pk, _ in rows], msgs=[m for _, _, m in jobs],
+                sigs=[sig for _, sig in rows], types=types)
+
+
+def mixed_sr25519_phase(dev, sr: dict, launches: dict) -> None:
+    """verify_batch(key_types=...) on the mixed Ed25519 + sr25519 set: once
+    to warm (fills the A cache), 3 timed calls (launch counts the same on
+    each), then one Ed25519 row and one sr25519 row tampered, whose mask
+    must be False exactly there (the Ed25519 rows' exact-mask recovery on
+    the card). The Ed25519 rows run the card path, the sr25519 rows the
+    native verifier on the host; a 64-row sample of each mask is held
+    against the port's pure-Python verifiers."""
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto import ed25519_ref as E
+    from tendermint_tpu_torch.crypto import sr25519
+
+    pks, msgs, types = sr["pubkeys"], sr["msgs"], sr["types"]
+
+    def call(sigs):
+        reset_launches()
+        t0 = time.perf_counter()
+        mask = batch.verify_batch(pks, msgs, sigs, device=dev, key_types=types)
+        torch.cuda.synchronize()
+        return mask, (time.perf_counter() - t0) * 1e3, dict(batch.LAST_FLUSH)
+
+    def held(mask, sigs, rows):
+        for i in rows:
+            py = (sr25519._sr25519_verify_py if types[i] == "sr25519" else E.verify_cofactored)
+            if bool(mask[i]) != py(pks[i], msgs[i], sigs[i]):
+                raise SystemExit(f"mixed_sr25519_10k: row {i} ({types[i]}) differs from the "
+                                 f"pure-Python verifier")
+
+    rng = np.random.default_rng(SEED + 7)
+    n_ed = N_VALIDATORS - N_SR
+    sample = sorted(set(int(i) for i in rng.integers(0, n_ed, 32))
+                    | set(int(i) for i in rng.integers(n_ed, N_VALIDATORS, 32)))
+    call(sr["sigs"])  # warm: the A cache of these keys
+    times, sr_ms = [], []
+    for _ in range(3):
+        mask, ms, flush = call(sr["sigs"])
+        same_counts(launches, "mixed_sr25519_10k", read_launches("mixed_sr25519_10k"))
+        if not mask.all() or flush.get("sr25519_rows") != N_SR or flush.get("mode") != "cached":
+            raise SystemExit(f"mixed_sr25519_10k: {int((~mask).sum())} rows False, flush {flush}")
+        times.append(ms)
+        sr_ms.append(flush["sr25519_s"] * 1e3)
+    held(mask, sr["sigs"], sample)
+    bad_sigs = list(sr["sigs"])
+    for i in SR_TAMPERED:
+        bad_sigs[i] = flip(bad_sigs[i])
+    mask, bad_ms, flush = call(bad_sigs)
+    counts = read_launches("mixed_sr25519_10k tampered")
+    bad = tuple(int(i) for i in np.flatnonzero(~mask))
+    if bad != SR_TAMPERED or "recovery_s" not in flush:
+        raise SystemExit(f"mixed_sr25519_10k tampered mask: False at {bad}, expected {SR_TAMPERED}")
+    held(mask, bad_sigs, sorted(set(sample) | set(SR_TAMPERED)))
+    print(f"mixed_sr25519_10k ({N_SR} sr25519 of {N_VALIDATORS}): median_ms="
+          f"{statistics.median(times):.1f} ms={[round(t, 1) for t in times]} "
+          f"sr25519_host_ms={statistics.median(sr_ms):.1f} "
+          f"launches per call={launches['mixed_sr25519_10k']}; tampered rows {bad}: "
+          f"ms={bad_ms:.1f} (recovery ms={flush['recovery_s'] * 1e3:.1f}, sr25519 host ms="
+          f"{flush['sr25519_s'] * 1e3:.1f}) launches={counts}; masks equal the pure-Python "
+          f"verifiers on {len(sample) + len(SR_TAMPERED)} rows", flush=True)
 
 
 def build_mixed_commit(corpus):
@@ -1258,6 +1388,7 @@ def main() -> int:
     # The signing pool forks before this process first touches the card.
     corpus = build_commit(np.random.default_rng(SEED + 1))
     mixed = build_mixed_commit(corpus)
+    mixed_sr = build_mixed_sr25519(np.random.default_rng(SEED + 8))
     cofactorless = build_cofactorless_commit(corpus)
     bls = build_bls_set()
     dev = torch.device("cuda")
@@ -1291,6 +1422,7 @@ def main() -> int:
     launches = commit_phase(dev, corpus)
     streamed_phase(dev, corpus, launches)
     mixed_commit_phase(dev, mixed, launches)
+    mixed_sr25519_phase(dev, mixed_sr, launches)
     bls_phase(dev, bls, launches)
     cofactorless_phase(dev, cofactorless, launches)
     for r in rows:  # the count on the path whose shape the row checks; none off the path

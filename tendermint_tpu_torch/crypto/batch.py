@@ -532,18 +532,37 @@ def _verify_batch_streamed(pubkeys, msgs, sigs, device) -> np.ndarray:
     return np.concatenate(parts)
 
 
+def _verify_sr25519_rows(pubkeys, msgs, sigs, idx) -> np.ndarray:
+    """The rows `idx` by the native schnorrkel verifier, in one call on the
+    prep threads. A row whose signature is not 64 bytes or whose key is not
+    32 is False before packing: the blobs are fixed-stride, and upstream
+    ValidateBasic bounds signatures only at <= 64 bytes."""
+    out = np.zeros(len(idx), dtype=bool)
+    ok = [j for j, i in enumerate(idx)
+          if len(bytes(sigs[i])) == 64 and len(bytes(pubkeys[i])) == 32]
+    if ok:
+        rows = [idx[j] for j in ok]
+        srm = [bytes(msgs[i]) for i in rows]
+        moffs = np.zeros(len(rows) + 1, dtype=np.int64)
+        np.cumsum(np.fromiter(map(len, srm), dtype=np.int64, count=len(srm)), out=moffs[1:])
+        out[ok] = native.sr25519_verify_batch(
+            b"".join(bytes(pubkeys[i]) for i in rows), b"".join(srm), moffs,
+            b"".join(bytes(sigs[i]) for i in rows))
+    return out
+
+
 def _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend) -> np.ndarray:
     """Per-type routing of a set that holds non-ed25519 rows (the reference's
     _verify_batch_mixed_exact): ed25519 rows through verify_batch on
-    `backend`, bls12_381 rows through bls_ref.verify on the host (a signature that
-    is not 96 bytes is False), any unknown type False. sr25519 rows raise:
-    the reference verifies them, and the port has no sr25519 lane yet."""
-    if "sr25519" in key_types:
-        raise NotImplementedError(
-            "verify_batch: sr25519 rows are not ported yet (ROADMAP queue item 5)")
+    `backend`, sr25519 rows by the native schnorrkel verifier on the host,
+    bls12_381 rows through bls_ref.verify on the host (a signature that is
+    not 96 bytes is False), any unknown type False. LAST_FLUSH holds the
+    ed25519 flush's detail (none without ed25519 rows) and the sr25519 row
+    count and host seconds."""
     out = np.zeros(len(pubkeys), dtype=bool)
     bls_idx = [i for i, t in enumerate(key_types) if t == "bls12_381"]
     ed_idx = [i for i, t in enumerate(key_types) if t == "ed25519"]
+    sr_idx = [i for i, t in enumerate(key_types) if t == "sr25519"]
     if bls_idx:
         from tendermint_tpu_torch.crypto import bls_ref
 
@@ -551,9 +570,14 @@ def _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend) -
             sig = bytes(sigs[i])
             out[i] = len(sig) == bls_ref.SIGNATURE_SIZE and bls_ref.verify(
                 bytes(pubkeys[i]), bytes(msgs[i]), sig)
+    LAST_FLUSH.clear()
     if ed_idx:
         out[ed_idx] = verify_batch([pubkeys[i] for i in ed_idx], [msgs[i] for i in ed_idx],
                                    [sigs[i] for i in ed_idx], device=device, backend=backend)
+    if sr_idx:
+        t0 = time.perf_counter()
+        out[sr_idx] = _verify_sr25519_rows(pubkeys, msgs, sigs, sr_idx)
+        LAST_FLUSH.update(sr25519_rows=len(sr_idx), sr25519_s=time.perf_counter() - t0)
     return out
 
 

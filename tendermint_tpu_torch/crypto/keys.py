@@ -1,7 +1,8 @@
 """Ed25519 and BLS12-381 keys, and the BLS proof-of-possession registry.
 
-The port's copy of tendermint_tpu/crypto/keys.py for the two key types it
-verifies. Addresses are the first 20 bytes of SHA-256 of the raw public key
+The port's copy of tendermint_tpu/crypto/keys.py; sr25519 keys live in
+crypto/sr25519.py and enter through pubkey_from_type_and_bytes. Addresses
+are the first 20 bytes of SHA-256 of the raw public key
 (reference: crypto/crypto.go). Ed25519 signing runs the pure-Python RFC 8032
 code in crypto/ed25519_ref.py and verification is crypto/batch.verify_batch;
 BLS keys (48-byte compressed G1, the minimal-pubkey-size PoP ciphersuite)
@@ -277,7 +278,9 @@ def pubkey_from_type_and_bytes(type_name: str, data: bytes):
             raise ValueError("non-canonical ed25519 pubkey encoding (y >= p)")
         return Ed25519PubKey(data)
     if type_name == SR25519_KEY_TYPE:
-        raise ValueError("sr25519 keys are not ported yet (a later slice of the port)")
+        from tendermint_tpu_torch.crypto.sr25519 import Sr25519PubKey
+
+        return Sr25519PubKey(data)  # raises unless 32 bytes
     if type_name == BLS12_381_KEY_TYPE:
         from tendermint_tpu_torch.crypto import bls_ref
 

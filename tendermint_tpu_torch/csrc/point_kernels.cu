@@ -3,7 +3,8 @@
 // Replaces the Pallas TPU kernels of tendermint_tpu/ops/pallas_fe.py:
 //   tm_padd, tm_padd_lanes <- _padd_kernel / _padd_call  (public pallas_fe.padd)
 //   tm_pdbl, tm_pdbl_lanes <- _pdbl_kernel, _pdbl_n_kernel / _pdbl_call (pallas_fe.pdbl)
-//   tm_fsquare_chain <- _fsq_n_kernel / _fsq_call  (pallas_fe.fsquare_chain)
+//   tm_fsquare_chain, tm_fsquare_chain_quad <- _fsq_n_kernel / _fsq_call
+//                                             (pallas_fe.fsquare_chain)
 //
 // Layout: a point batch is int32 (4, 20, n) — coordinate c, limb i, lane j at
 // c*20*n + i*n + j; a field batch is (20, n). In the thread-per-lane kernels
@@ -25,23 +26,37 @@
 //   padd_kernel keeps one thread per lane, reads each input limb once and
 //   writes each output limb once, and no 39-row product accumulator ever
 //   leaves registers (the TPU kernel's reason to exist, pallas_fe.py:1-12).
-// - pdbl has two kernels behind one wrapper. The MSM's window fold and
-//   [256]P_255 run up to 128 chained doublings on 32 lanes or fewer: a
-//   dependent chain, bound by latency, not by the card's rate. There
+// - pdbl has two kernels behind one wrapper (cuda_fe.pdbl_entry). The MSM's
+//   window fold and [256]P_255 run up to 128 chained doublings on 32 lanes or
+//   fewer: a dependent chain, bound by latency, not by the card's rate. There
+//   (and up to PDBL_FEW_LANES = 1,024 lanes, by the card sweep)
 //   pdbl_lanes_kernel gives each lane a warp and splits every field op
 //   across the limbs, ~1/6 of one thread's chain per doubling. The
-//   per-signature ladder's 1-4 doublings on up to 16,384 lanes are
-//   throughput-bound: pdbl_kernel keeps one thread per lane. Both keep x, y,
-//   z in registers across doublings (t is only produced on the last one,
-//   since dbl-2008-hwcd never reads it) and take `times` at run time.
-// - fsquare_chain (10,240-20,480 lanes, k up to 100) is bound by its
-//   multiply-adds (210 per squaring per lane); the element stays in registers
-//   for all k squarings, k is a run-time count (no 16-deep cap).
-// Register pressure is the known cost: two points are 160 words and a
-// product accumulator 39 more; loading each coordinate pair just before its
-// product keeps padd within the register file (`-Xptxas -v` in PERF.md).
-// A wider radix with 64-bit products, shared-memory staging of the second
-// operand and fusing the tree's even/odd lane gather are later work.
+//   per-signature ladder runs 4 doublings on 16,384 lanes. One thread per
+//   lane put one warp on each of the card's 528 warp schedulers, and one
+//   warp alone issues a field op's product phase (~230 IMADs, FMA pipe) and
+//   its carry phase (~340 LOP3 / LEA.HI, ALU pipe) one after the other,
+//   each pipe at half rate: the doubling's ~6,600 instructions ran at ~0.4
+//   a clock. pdbl_quad_kernel gives each lane 4 threads and each thread one
+//   of the doubling's independent field ops: the four squares (x, y, z,
+//   x + y), two rounds of sums, the four products (e f, g h, f g, e h); the
+//   elements pass between the 4 threads in shared memory. A lane issues ~20%
+//   more instructions (the fourth product e h runs on every doubling though
+//   only the last keeps it, and one thread of the 4 sums x + y while the
+//   others wait), but each scheduler holds ~4 warps, whose phases overlap.
+//   x, y, z stay in shared memory across doublings; t is produced on the
+//   last one only, since dbl-2008-hwcd never reads it; `times` is a
+//   run-time count.
+// - fsquare_chain has two kernels behind one wrapper (cuda_fe.fsquare_chain_
+//   entry). A lane is one dependent chain of squarings; a squaring is ~230
+//   IMADs then ~340 ALU instructions (LOP3 + LEA.HI a carry step), each
+//   phase on one pipe at half rate when one warp issues alone. The paths'
+//   10,240-24,576 lanes run fsquare_chain_kernel, one thread a lane (one
+//   or two warps a scheduler). Splitting a lane's squaring over 4 threads
+//   (fsquare_chain_quad_kernel) doubles its instructions: it wins only up to
+//   FSQ_FEW_LANES lanes, where one thread a lane leaves the card idle.
+//   IMAD forms of the carry step, two lanes a thread and column-ordered
+//   products were measured too and lost (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -82,36 +97,114 @@ padd_kernel(const int32_t *__restrict__ p, const int32_t *__restrict__ q,
   fe_store(out + 3 * cs, n, lane, fe_mul(e, h));
 }
 
-// `times` chained dbl-2008-hwcd doublings for a=-1 (pallas_fe._pdbl_rows).
-__global__ void __launch_bounds__(PK_THREADS)
-pdbl_kernel(const int32_t *__restrict__ p, int32_t *__restrict__ out, int64_t n,
-            int times) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const int64_t cs = (int64_t)FE_NL * n;
-  fe_t x = fe_load(p, n, lane);
-  fe_t y = fe_load(p + cs, n, lane);
-  fe_t z = fe_load(p + 2 * cs, n, lane);
-  fe_t t;
-  for (int it = 0; it < times; it++) {
-    const fe_t xx = fe_square(x);
-    const fe_t yy = fe_square(y);
-    const fe_t zz2 = fe_mul_small(fe_square(z), 2);
-    const fe_t xy2 = fe_square(fe_add(x, y));
-    const fe_t s = fe_add(xx, yy);
-    const fe_t e = fe_sub(xy2, s);
-    const fe_t g = fe_sub(yy, xx);
-    const fe_t f = fe_sub(g, zz2);
-    const fe_t h = fe_neg(s);
-    x = fe_mul(e, f);
-    y = fe_mul(g, h);
-    z = fe_mul(f, g);
-    if (it == times - 1) t = fe_mul(e, h);
+// `times` chained dbl-2008-hwcd doublings for a=-1 (pallas_fe._pdbl_rows) on
+// 4 threads a lane, one independent field op each, in fe25519.cuh's
+// operation order; the 4 threads of a lane are neighbours in one warp and
+// meet at __syncwarp. Shared memory holds PQ_SLOTS elements a lane, limb
+// quads [q][lane][slot] (int4). Round 1 computes s = xx + yy, g = yy - xx,
+// 2 zz and s again (as fe_add / fe_sub / fe_mul_small: the same integers,
+// then fe_carry); round 2 e = xy2 - s, f = g - 2 zz, h = 0 - s (fe_sub,
+// fe_neg), thread 1 idle.
+#define PQ_LANES 16
+#define PQ_THREADS (4 * PQ_LANES)
+#define PQ_SLOTS 20  // 17 used; 20 puts lanes l and l + 1 on different banks
+#define PQ_X 0
+#define PQ_W 3
+#define PQ_XX 4
+#define PQ_YY 5
+#define PQ_ZZ 6
+#define PQ_XY2 7
+#define PQ_U 8
+#define PQ_V 12
+#define PQ_ZERO 16
+// COMP + CORR of fe_sub: a + (COMP - b) + CORR == a - b + CC as integers.
+__device__ __constant__ int32_t PQ_CC[FE_NL] = {
+    15757, 16382, 16382, 16382, 16382, 16382, 16382, 16382, 16382, 16382,
+    16382, 16382, 16382, 16382, 16382, 16382, 16382, 16382, 16382, 8446};
+// round 1: u = a + sign * b (+ CC when the sign is -1): s, g, 2 zz, s
+__device__ __constant__ int8_t PQ_R1A[4] = {PQ_YY, PQ_YY, PQ_ZZ, PQ_YY};
+__device__ __constant__ int8_t PQ_R1B[4] = {PQ_XX, PQ_XX, PQ_ZZ, PQ_XX};
+__device__ __constant__ int8_t PQ_R1S[4] = {1, -1, 1, 1};
+// round 2: v = a - u + CC: e = xy2 - s, (unused), f = g - 2 zz, h = 0 - s
+__device__ __constant__ int8_t PQ_R2A[4] = {PQ_XY2, PQ_XY2, PQ_U + 1, PQ_ZERO};
+// products: e f, g h, f g, e h
+__device__ __constant__ int8_t PQ_MA[4] = {PQ_V + 0, PQ_U + 1, PQ_V + 2, PQ_V + 0};
+__device__ __constant__ int8_t PQ_MB[4] = {PQ_V + 2, PQ_V + 3, PQ_U + 1, PQ_V + 3};
+
+__device__ __forceinline__ void pq_put(int4 *el, int slot, const fe_t &v) {
+#pragma unroll
+  for (int q = 0; q < 5; q++)
+    el[q * PQ_LANES * PQ_SLOTS + slot] =
+        make_int4(v.v[4 * q], v.v[4 * q + 1], v.v[4 * q + 2], v.v[4 * q + 3]);
+}
+
+__device__ __forceinline__ fe_t pq_get(const int4 *el, int slot) {
+  fe_t v;
+#pragma unroll
+  for (int q = 0; q < 5; q++) {
+    const int4 w = el[q * PQ_LANES * PQ_SLOTS + slot];
+    v.v[4 * q] = w.x;
+    v.v[4 * q + 1] = w.y;
+    v.v[4 * q + 2] = w.z;
+    v.v[4 * q + 3] = w.w;
   }
-  fe_store(out, n, lane, x);
-  fe_store(out + cs, n, lane, y);
-  fe_store(out + 2 * cs, n, lane, z);
-  fe_store(out + 3 * cs, n, lane, t);
+  return v;
+}
+
+__global__ void __launch_bounds__(PQ_THREADS)
+pdbl_quad_kernel(const int32_t *__restrict__ p, int32_t *__restrict__ out, int64_t n,
+                 int times) {
+  __shared__ int4 sm[5 * PQ_LANES * PQ_SLOTS];
+  const int r = threadIdx.x & 3, l = threadIdx.x >> 2;
+  const int64_t at = (int64_t)blockIdx.x * PQ_LANES + l;
+  const int64_t lane = at < n ? at : n - 1;  // the tail's groups redo lane n - 1, unstored
+  int4 *const el = sm + l * PQ_SLOTS;
+  const int64_t cs = (int64_t)FE_NL * n;
+  {
+    const fe_t a = fe_load(p + (r == 3 ? 0 : r) * cs, n, lane);
+    if (r == 3) {
+      pq_put(el, PQ_W, fe_add(a, fe_load(p + cs, n, lane)));
+    } else {
+      pq_put(el, r, a);
+    }
+    if (r == 0) {
+      fe_t z;
+#pragma unroll
+      for (int i = 0; i < FE_NL; i++) z.v[i] = 0;
+      pq_put(el, PQ_ZERO, z);
+    }
+  }
+  for (int it = 0; it < times; it++) {
+    __syncwarp();
+    pq_put(el, PQ_XX + r, fe_square(pq_get(el, PQ_X + r)));
+    __syncwarp();
+    fe_t u;
+    {
+      const fe_t a = pq_get(el, PQ_R1A[r]), b = pq_get(el, PQ_R1B[r]);
+      const int32_t sg = PQ_R1S[r], cc = sg < 0 ? -1 : 0;
+#pragma unroll
+      for (int i = 0; i < FE_NL; i++) u.v[i] = a.v[i] + sg * b.v[i] + (PQ_CC[i] & cc);
+      fe_carry(u);
+      pq_put(el, PQ_U + r, u);
+    }
+    __syncwarp();
+    {
+      const fe_t a = pq_get(el, PQ_R2A[r]);
+      fe_t v;
+#pragma unroll
+      for (int i = 0; i < FE_NL; i++) v.v[i] = a.v[i] - u.v[i] + PQ_CC[i];
+      fe_carry(v);
+      pq_put(el, PQ_V + r, v);
+    }
+    __syncwarp();
+    pq_put(el, PQ_X + r, fe_mul(pq_get(el, PQ_MA[r]), pq_get(el, PQ_MB[r])));  // x, y, z, t
+    if (it != times - 1) {
+      __syncwarp();
+      if (r == 3) pq_put(el, PQ_W, fe_add(pq_get(el, PQ_X), pq_get(el, PQ_X + 1)));
+    }
+  }
+  __syncwarp();
+  if (at < n) fe_store(out + r * cs, n, lane, pq_get(el, PQ_X + r));
 }
 
 // ---------------------------------------------------------------------------
@@ -202,6 +295,110 @@ fsquare_chain_kernel(const int32_t *__restrict__ x, int32_t *__restrict__ out, i
   fe_store(out, n, lane, v);
 }
 
+// x -> x^(2^k) on 4 threads a lane (FQ_LANES lanes a block of 128), for
+// launches of few lanes, where one thread a lane leaves most of the card's
+// schedulers empty and one warp's chain sets the time. Thread t owns limbs
+// 5t..5t+4 and rows 5t..5t+4 and 5t+20..5t+24 of each product, on
+// fe25519.cuh's carry schedule. The element passes through a doubled shared
+// buffer (limb m at m and m + 20) that thread t reads rotated by 5t, so one
+// instruction stream computes every thread's columns as a cyclic product:
+// the rotated block d of the first factor lands in the low rows when
+// d >= 4 - t (it wrapped), else in the high rows, chosen by prefix sums of
+// the blocks. Carries cross threads by __shfl_sync. The products are the
+// full 20 x 20 (the squaring's symmetry does not survive the rotation), so
+// a lane issues about twice a thread-per-lane squaring (tools/fe_probe.py):
+// it wins where the card is otherwise idle, not above.
+#define FQ_LANES 32
+__global__ void __launch_bounds__(4 * FQ_LANES)
+fsquare_chain_quad_kernel(const int32_t *__restrict__ x, int32_t *__restrict__ out, int64_t n,
+                        int k) {
+  __shared__ int32_t buf[FQ_LANES][41];
+  const int t = threadIdx.x & 3, l = threadIdx.x >> 2, src = (t + 3) & 3;
+  const int64_t at = (int64_t)blockIdx.x * FQ_LANES + l;
+  const int64_t lane = at < n ? at : n - 1;
+  int32_t *const d = buf[l];
+  const int32_t lo_in = t ? 1 : 0, top = t == 3 ? FE_WRAP : 0, keep4 = t == 3 ? 0 : -1;
+  const int32_t wrap = t ? 1 : FE_WRAP;
+  int32_t v[5];
+#pragma unroll
+  for (int m = 0; m < 5; m++) v[m] = __ldg(x + (int64_t)(5 * t + m) * n + lane);
+  for (int it = 0; it < k; it++) {
+    __syncwarp();
+#pragma unroll
+    for (int m = 0; m < 5; m++) {
+      d[5 * t + m] = v[m];
+      d[5 * t + m + FE_NL] = v[m];
+    }
+    __syncwarp();
+    int32_t rot[FE_NL], un[FE_NL];
+#pragma unroll
+    for (int r = 0; r < FE_NL; r++) {
+      rot[r] = d[5 * t + r];
+      un[r] = d[r];
+    }
+    int32_t lo[5], hi[5];
+#pragma unroll
+    for (int j = 0; j < 5; j++) {
+      int32_t a = 0, b = 0;
+#pragma unroll
+      for (int m = 0; m < 5; m++) {
+        const int32_t p = rot[m] * un[(j - m + FE_NL) % FE_NL];
+        if (m <= j) a += p; else b += p;
+      }
+      int32_t s3 = 0;
+#pragma unroll
+      for (int m = 0; m < 5; m++) s3 += rot[15 + m] * un[(j - 15 - m + 2 * FE_NL) % FE_NL];
+      int32_t s23 = s3;
+#pragma unroll
+      for (int m = 0; m < 5; m++) s23 += rot[10 + m] * un[(j - 10 - m + 2 * FE_NL) % FE_NL];
+      int32_t s123 = s23;
+#pragma unroll
+      for (int m = 0; m < 5; m++) s123 += rot[5 + m] * un[(j - 5 - m + 2 * FE_NL) % FE_NL];
+      const int32_t low = t == 0 ? 0 : t == 1 ? s3 : t == 2 ? s23 : s123;
+      lo[j] = a + low;
+      hi[j] = b + (s123 - low);
+    }
+    // fe_reduce39's two passes over rows (5t+j, 5t+20+j)
+#pragma unroll
+    for (int pass = 0; pass < 2; pass++) {
+      int32_t cl[5], ch[5];
+#pragma unroll
+      for (int j = 0; j < 5; j++) {
+        cl[j] = lo[j] >> FE_RADIX;
+        ch[j] = hi[j] >> FE_RADIX;
+      }
+      const int32_t ul = __shfl_sync(0xffffffffu, cl[4], src, 4);
+      const int32_t uh = __shfl_sync(0xffffffffu, ch[4], src, 4);
+      lo[0] = (lo[0] & FE_MASK) + lo_in * ul;
+      hi[0] = (hi[0] & FE_MASK) + (t ? uh : ul);
+#pragma unroll
+      for (int j = 1; j < 5; j++) {
+        lo[j] = (lo[j] & FE_MASK) + cl[j - 1];
+        hi[j] = (hi[j] & FE_MASK) + ch[j - 1];
+      }
+      hi[4] &= keep4;             // row 39 does not exist
+      lo[4] += top * ch[3];       // row 19 takes 608 x row 38's carry
+    }
+#pragma unroll
+    for (int j = 0; j < 5; j++) v[j] = lo[j] + FE_WRAP * hi[j];
+    // fe_carry's four passes
+#pragma unroll
+    for (int pass = 0; pass < 4; pass++) {
+      int32_t c[5];
+#pragma unroll
+      for (int j = 0; j < 5; j++) c[j] = v[j] >> FE_RADIX;
+      const int32_t u = __shfl_sync(0xffffffffu, c[4], src, 4);
+      v[0] = (v[0] & FE_MASK) + wrap * u;
+#pragma unroll
+      for (int j = 1; j < 5; j++) v[j] = (v[j] & FE_MASK) + c[j - 1];
+    }
+  }
+  if (at < n) {
+#pragma unroll
+    for (int m = 0; m < 5; m++) out[(int64_t)(5 * t + m) * n + lane] = v[m];
+  }
+}
+
 static inline unsigned pk_blocks(int64_t n) {
   return (unsigned)((n + PK_THREADS - 1) / PK_THREADS);
 }
@@ -221,7 +418,8 @@ extern "C" int tm_padd_lanes(const int32_t *p, const int32_t *q, int32_t *out, i
 }
 
 extern "C" int tm_pdbl(const int32_t *p, int32_t *out, int64_t n, int times, void *stream) {
-  pdbl_kernel<<<pk_blocks(n), PK_THREADS, 0, (cudaStream_t)stream>>>(p, out, n, times);
+  pdbl_quad_kernel<<<(unsigned)((n + PQ_LANES - 1) / PQ_LANES), PQ_THREADS, 0,
+                     (cudaStream_t)stream>>>(p, out, n, times);
   return (int)cudaGetLastError();
 }
 
@@ -234,5 +432,12 @@ extern "C" int tm_pdbl_lanes(const int32_t *p, int32_t *out, int64_t n, int time
 extern "C" int tm_fsquare_chain(const int32_t *x, int32_t *out, int64_t n, int k,
                                 void *stream) {
   fsquare_chain_kernel<<<pk_blocks(n), PK_THREADS, 0, (cudaStream_t)stream>>>(x, out, n, k);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tm_fsquare_chain_quad(const int32_t *x, int32_t *out, int64_t n, int k,
+                                   void *stream) {
+  fsquare_chain_quad_kernel<<<(unsigned)((n + FQ_LANES - 1) / FQ_LANES), 4 * FQ_LANES, 0,
+                            (cudaStream_t)stream>>>(x, out, n, k);
   return (int)cudaGetLastError();
 }

@@ -1,11 +1,14 @@
-"""Native (C) host prep for the RLC flush, built with gcc at first use.
+"""Native (C) host code, built with gcc at first use.
 
-The port's own copy of the reference package's native/ module, reduced to
-what the ed25519 path needs: challenge hashing (`ed25519_h_batch`), the RLC
-scalar math (`rlc_scalars`) and the per-window counting sort
-(`sort_windows`). batchhost.c is compiled once into `_build/` (keyed by a
-hash of the sources) and bound with ctypes. A failed build raises with the
-compiler's stderr: the port has no pure-Python host prep.
+The port's own copy of the reference package's native/ module: the RLC
+flush's host prep in batchhost.c (challenge hashing `ed25519_h_batch`, the
+RLC scalar math `rlc_scalars`, the per-window counting sort
+`sort_windows`) and the schnorrkel verifier in sr25519.c (`sr25519_verify`,
+`sr25519_verify_batch`). Both sources are compiled once into one shared
+object in `_build/`, keyed by a hash of the two sources and of this file
+(which generates their constant headers), and bound with ctypes. A failed
+build raises with the compiler's stderr: the port has no pure-Python host
+prep and no silent Python path for sr25519 rows.
 """
 
 from __future__ import annotations
@@ -68,26 +71,76 @@ def sha512_constants_header() -> str:
     return "\n".join(lines) + "\n"
 
 
+def _fe_words(x: int, n: int = 4) -> str:
+    return ", ".join(f"0x{(x >> (64 * i)) & (2**64 - 1):016X}ULL" for i in range(n))
+
+
+def _le_bytes(x: int) -> str:
+    return ", ".join(str((x >> (8 * i)) & 0xFF) for i in range(32))
+
+
+def ed25519_constants_header() -> str:
+    """The edwards25519 / ristretto255 field and curve constants sr25519.c
+    uses, computed from their definitions (RFC 8032, the ristretto255 spec)
+    with integer arithmetic."""
+    p = 2**255 - 19
+    d = (-121665 * pow(121666, p - 2, p)) % p
+    sqrt_m1 = pow(2, (p - 1) // 4, p)
+
+    def sqrt_ratio(u: int, v: int) -> int:
+        r = u * pow(v, 3, p) % p * pow(u * pow(v, 7, p) % p, (p - 5) // 8, p) % p
+        if v * r % p * r % p in ((-u) % p * sqrt_m1 % p, (-u) % p):
+            r = r * sqrt_m1 % p
+        return (-r) % p if r & 1 else r
+
+    # base point: y = 4/5, x recovered even (RFC 8032 section 5.1)
+    by = 4 * pow(5, p - 2, p) % p
+    x2 = (by * by - 1) * pow(d * by * by + 1, p - 2, p) % p
+    bx = pow(x2, (p + 3) // 8, p)
+    if bx * bx % p != x2:
+        bx = bx * sqrt_m1 % p
+    if bx & 1:
+        bx = p - bx
+    lines = ["/* generated by native/__init__.py — do not edit */", "#include <stdint.h>", ""]
+    for name, val in [
+        ("FE_D", d), ("FE_D2", 2 * d % p), ("FE_SQRT_M1", sqrt_m1),
+        ("FE_INVSQRT_A_MINUS_D", sqrt_ratio(1, (-1 - d) % p)),
+        ("FE_BASE_X", bx), ("FE_BASE_Y", by), ("FE_BASE_T", bx * by % p), ("FE_P", p),
+    ]:
+        lines.append(f"static const uint64_t {name}[4] = {{{_fe_words(val)}}};")
+    lines.append(f"static const uint64_t FE_4P[5] = {{{_fe_words(4 * p, 5)}}};")
+    # exponent (p-5)/8 of SQRT_RATIO_M1, and the group order L, little-endian bytes
+    lines.append(f"static const uint8_t FE_EXP_P58[32] = {{{_le_bytes((p - 5) // 8)}}};")
+    order = 2**252 + 27742317777372353535851937790883648493
+    lines.append(f"static const uint8_t SC_L_BYTES[32] = {{{_le_bytes(order)}}};")
+    return "\n".join(lines) + "\n"
+
+
+HEADERS = (("sha512_constants.h", sha512_constants_header),
+           ("ed25519_constants.h", ed25519_constants_header))
+
+
 def _build() -> ctypes.CDLL:
-    src = os.path.join(_BASE, "batchhost.c")
+    srcs = [os.path.join(_BASE, name) for name in ("batchhost.c", "sr25519.c")]
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
-    with open(__file__, "rb") as f:  # the header generator lives here
-        h.update(f.read())
+    for path in (*srcs, __file__):  # the header generators live here
+        with open(path, "rb") as f:
+            h.update(f.read())
     build_dir = os.path.join(_BASE, "_build")
     so_path = os.path.join(build_dir, f"batchhost-{h.hexdigest()[:16]}.so")
     if not os.path.exists(so_path):
         os.makedirs(build_dir, exist_ok=True)
-        hdr = os.path.join(build_dir, "sha512_constants.h")
-        fd, tmp = tempfile.mkstemp(dir=build_dir, prefix=".hdr-")
-        with os.fdopen(fd, "w") as f:
-            f.write(sha512_constants_header())
-        os.replace(tmp, hdr)
+        # written anew with every build: a header cached on its own could
+        # outlive a change of its generator
+        for name, gen in HEADERS:
+            fd, tmp = tempfile.mkstemp(dir=build_dir, prefix=".hdr-")
+            with os.fdopen(fd, "w") as f:
+                f.write(gen())
+            os.replace(tmp, os.path.join(build_dir, name))
         fd, tmp = tempfile.mkstemp(dir=build_dir, prefix=".so-", suffix=".so")
         os.close(fd)
         cmd = [os.environ.get("CC", "gcc"), "-O3", "-shared", "-fPIC", "-pthread",
-               "-I", build_dir, src, "-o", tmp]
+               "-I", build_dir, *srcs, "-o", tmp]
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=120)
         if res.returncode != 0:
             os.unlink(tmp)
@@ -100,6 +153,9 @@ def _build() -> ctypes.CDLL:
     lib.tm_ed25519_h_batch.argtypes = [u8p, u8p, u8p, i64p, ctypes.c_int64, u8p, ctypes.c_int]
     lib.tm_rlc_scalars.argtypes = [u8p, u8p, u8p, ctypes.c_int64, u8p, u8p, ctypes.c_int]
     lib.tm_sort_windows.argtypes = [u8p, ctypes.c_int64, i32p, i32p, ctypes.c_int, ctypes.c_int64]
+    lib.tm_sr25519_verify_one.argtypes = [u8p, u8p, ctypes.c_int64, u8p]
+    lib.tm_sr25519_verify_one.restype = ctypes.c_int
+    lib.tm_sr25519_verify_batch.argtypes = [u8p, u8p, i64p, u8p, ctypes.c_int64, u8p, ctypes.c_int]
     lib.tm_prep_pool_configure.argtypes = [ctypes.c_int]
     lib.tm_prep_pool_configure.restype = ctypes.c_int
     if _NTHREADS > 1:
@@ -169,3 +225,38 @@ def sort_windows(digits: np.ndarray, zero16_from: int = 0):
         _NTHREADS, int(zero16_from),
     )
     return perm, ends
+
+
+def sr25519_verify(pub: bytes, msg: bytes, sig: bytes) -> bool:
+    """One schnorrkel verification (sr25519.c; crypto/sr25519._sr25519_verify_py
+    bit for bit). A key that is not 32 bytes or a signature that is not 64
+    is False."""
+    lib = _lib()
+    if len(pub) != 32 or len(sig) != 64:
+        return False
+    p = np.frombuffer(pub, dtype=np.uint8)
+    m = np.frombuffer(msg, dtype=np.uint8) if msg else np.zeros(1, np.uint8)
+    s = np.frombuffer(sig, dtype=np.uint8)
+    return bool(lib.tm_sr25519_verify_one(_u8p(p), _u8p(m), len(msg), _u8p(s)))
+
+
+def sr25519_verify_batch(pks_blob: bytes, msgs_blob: bytes, moffs: np.ndarray,
+                         sigs_blob: bytes) -> np.ndarray:
+    """n schnorrkel verifications on up to 16 threads -> bool (n,). pks_blob
+    n*32 bytes, sigs_blob n*64 (the caller drops rows of other lengths
+    first), msgs_blob concatenated with moffs (n+1,) int64 offsets."""
+    lib = _lib()
+    n = len(moffs) - 1
+    if len(pks_blob) != 32 * n or len(sigs_blob) != 64 * n:
+        raise ValueError(f"sr25519_verify_batch: {len(pks_blob)} key and {len(sigs_blob)} "
+                         f"signature bytes for {n} rows")
+    out = np.empty(n, dtype=np.uint8)
+    pks = np.frombuffer(pks_blob, dtype=np.uint8) if n else np.zeros(1, np.uint8)
+    sigs = np.frombuffer(sigs_blob, dtype=np.uint8) if n else np.zeros(1, np.uint8)
+    msgs = np.frombuffer(msgs_blob, dtype=np.uint8) if msgs_blob else np.zeros(1, np.uint8)
+    moffs = np.ascontiguousarray(moffs, dtype=np.int64)
+    lib.tm_sr25519_verify_batch(
+        _u8p(pks), _u8p(msgs), moffs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        _u8p(sigs), n, _u8p(out), _NTHREADS,
+    )
+    return out.astype(bool)

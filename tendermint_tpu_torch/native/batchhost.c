@@ -1,7 +1,7 @@
 /* Native host-prep kernels for the RLC batch-verification path.
  *
- * The port's own copy of tendermint_tpu/native/batchhost.c without the
- * sr25519 verifier (the port runs ed25519 rows only).
+ * The port's own copy of tendermint_tpu/native/batchhost.c. It is built into
+ * one shared object with sr25519.c, which calls tm_mod_l_512.
  *
  * The reference implementation's hot loop is a serial per-validator
  * VerifySignature (reference: types/validator_set.go:680-702); this
@@ -15,7 +15,7 @@
  * multithreaded C (pthreads), driven via ctypes (native/__init__.py).
  *
  * SHA-512 per FIPS 180-4; round/IV constants are generated at build time
- * (gen_constants.py) from their definitions (fractional parts of cube/square
+ * (native/__init__.py) from their definitions (fractional parts of cube/square
  * roots of the first primes), not copied from any implementation.
  *
  * Scalar arithmetic: 64-bit limbs with __uint128_t products. The curve

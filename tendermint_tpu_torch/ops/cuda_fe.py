@@ -10,9 +10,12 @@ csrc/fe25519.cuh, split over a warp in csrc/fe25519_warp.cuh):
                           a thread per lane above (the per-signature ladder)
 - `pdbl(p, times)`        `times` chained dbl-2008-hwcd doublings: a warp per
                           lane on PDBL_FEW_LANES lanes or fewer (the window
-                          fold's latency-bound chains), a thread per lane
-                          above (the per-signature ladder)
-- `fsquare_chain(x, k)`   x^(2^k), k squarings
+                          fold's latency-bound chains, the ladder of a
+                          small commit), 4 threads a lane above, one
+                          independent field op each (the 10k ladder)
+- `fsquare_chain(x, k)`   x^(2^k), k squarings: 4 threads a lane on
+                          FSQ_FEW_LANES lanes or fewer, a thread per lane
+                          above (every decompression of the 10k paths)
 
 A point batch is one contiguous int32 tensor `(4, 20, ...batch)` (x, y, z, t
 in radix-2^13 limbs, lanes innermost); a field batch is `(20, ...batch)`.
@@ -178,8 +181,9 @@ def _bind(lib) -> None:
     lib.tm_pdbl.argtypes = [vp, vp, i64, ci, vp]
     lib.tm_pdbl_lanes.argtypes = [vp, vp, i64, ci, vp]
     lib.tm_fsquare_chain.argtypes = [vp, vp, i64, ci, vp]
+    lib.tm_fsquare_chain_quad.argtypes = [vp, vp, i64, ci, vp]
     for fn in (lib.tm_padd, lib.tm_padd_lanes, lib.tm_pdbl, lib.tm_pdbl_lanes,
-               lib.tm_fsquare_chain):
+               lib.tm_fsquare_chain, lib.tm_fsquare_chain_quad):
         fn.restype = ci
 
 
@@ -235,12 +239,16 @@ def padd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return out
 
 
-PDBL_FEW_LANES = 32
+# The largest lane count of the card sweep (tools/fe_probe.py: 32, 33, 64,
+# 512, 1,024, 4,096, ... lanes, times = 4) at which the warp-per-lane kernel
+# beat the 4-threads-a-lane kernel (1,024: 0.0102 vs 0.0111 ms; 4,096: 0.0273
+# vs 0.0116; NVIDIA H100 80GB HBM3, 700 W).
+PDBL_FEW_LANES = 1024
 
 
 def pdbl_entry(n: int) -> str:
     """The pdbl kernel that n lanes launch: the warp-per-lane kernel on
-    PDBL_FEW_LANES lanes or fewer, the thread-per-lane kernel above."""
+    PDBL_FEW_LANES lanes or fewer, the 4-threads-a-lane kernel above."""
     return "tm_pdbl_lanes" if n <= PDBL_FEW_LANES else "tm_pdbl"
 
 
@@ -259,6 +267,19 @@ def pdbl(p: torch.Tensor, times: int = 1) -> torch.Tensor:
     return out
 
 
+# The largest lane count of the card sweep (tools/fe_probe.py: 1,024, 4,096,
+# 10,240, ... lanes, k = 50) at which the 4-threads-a-lane kernel beat the
+# thread-per-lane kernel (4,096: 0.0180 vs 0.0301 ms; 10,240: 0.0403 vs
+# 0.0302; NVIDIA H100 80GB HBM3, 700 W).
+FSQ_FEW_LANES = 4096
+
+
+def fsquare_chain_entry(n: int) -> str:
+    """The fsquare_chain kernel that n lanes launch: the 4-threads-a-lane
+    kernel on FSQ_FEW_LANES lanes or fewer, the thread-per-lane kernel above."""
+    return "tm_fsquare_chain_quad" if n <= FSQ_FEW_LANES else "tm_fsquare_chain"
+
+
 def fsquare_chain(x: torch.Tensor, k: int) -> torch.Tensor:
     """x^(2^k) for a field batch (20, ...batch)."""
     if x.device.type == "cpu":
@@ -268,8 +289,6 @@ def fsquare_chain(x: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError("fsquare_chain: k must be >= 1")
     out = torch.empty_like(x)
     if n:
-        _launched(
-            "fsquare_chain",
-            build().tm_fsquare_chain(x.data_ptr(), out.data_ptr(), n, int(k), _stream(x)),
-        )
+        fn = getattr(build(), fsquare_chain_entry(n))
+        _launched("fsquare_chain", fn(x.data_ptr(), out.data_ptr(), n, int(k), _stream(x)))
     return out

@@ -277,8 +277,9 @@ def test_pubkey_ingestion_matches_reference(type_name, data):
     want = _outcome(lambda: JK.pubkey_from_type_and_bytes(type_name, data))
     got = _outcome(lambda: TK.pubkey_from_type_and_bytes(type_name, data))
     assert got == want
-    with pytest.raises(ValueError, match="not ported yet"):
-        TK.pubkey_from_type_and_bytes("sr25519", bytes(32))
+    for sr in (bytes(32), bytes(31)):  # sr25519 ingestion as the reference's
+        assert (_outcome(lambda: TK.pubkey_from_type_and_bytes("sr25519", sr))
+                == _outcome(lambda: JK.pubkey_from_type_and_bytes("sr25519", sr)))
 
 
 def test_bls_keys_match_reference():

@@ -15,7 +15,17 @@ holds 4 lanes, and the last two shapes sit on either side of the switch to
 the thread-per-lane kernel; each shape also runs both kernels, forced by
 pinning PADD_FEW_LANES. B6 at T = 1, 32 and 33 windows: 4 blocks a window,
 with nodes handed over through device memory. B2 and B6 inputs are seeded points and their doubles
-(carried limbs).
+(carried limbs). B1 (fsquare_chain) at 1, 31, 32, 33, FSQ_FEW_LANES,
+FSQ_FEW_LANES + 1, 10,240, 24,576 and 24,577 lanes with k = 1, 50 and 100,
+routed and with each kernel forced: the 4-threads-a-lane kernel holds 32
+lanes a block, the thread-per-lane kernel 128, so these cover part blocks,
+ragged last warps and blocks, the switch between the kernels, and the 10k
+commit's and the planner chunk's widths. B3 (pdbl) at 33,
+PDBL_FEW_LANES, PDBL_FEW_LANES + 1, 16,384 and 16,385 lanes with times =
+1-4, routed and with each kernel forced: the 4-threads-a-lane kernel holds
+16 lanes a block, so 16,385 leaves one group in its last block. B1 and B3
+inputs are the y coordinates and points of the same seeded points and their
+doubles.
 
 Tolerance: zero (integer arithmetic, limb for limb). Every test needs a
 CUDA card and skips without one. The file imports neither JAX nor the JAX
@@ -123,6 +133,40 @@ def test_padd_kernels_equal_plain_at_edge_lanes(cuda_device, monkeypatch, n):
         got = cuda_fe.padd(p.to(cuda_device), q.to(cuda_device)).cpu()
         assert torch.equal(got, want), cuda_fe.padd_entry(n)
         assert cuda_fe.LAUNCHES["padd"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 50, 100])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, "few", "few+1", 10_240, 24_576, 24_577])
+def test_fsquare_chain_kernels_equal_plain_at_edge_lanes(cuda_device, monkeypatch, n, k):
+    n = {"few": cuda_fe.FSQ_FEW_LANES, "few+1": cuda_fe.FSQ_FEW_LANES + 1}.get(n, n)
+    x = carried_points(n, 3 * n + k)[1].contiguous().to(cuda_device)
+    want = cuda_fe.fsquare_chain_plain(x, k)  # the plain version, on the card
+    # the routing as shipped, then the 4-threads-a-lane kernel (n <= limit)
+    # and the thread-per-lane kernel (n > limit) forced
+    for limit in (cuda_fe.FSQ_FEW_LANES, n, n - 1):
+        monkeypatch.setattr(cuda_fe, "FSQ_FEW_LANES", limit)
+        cuda_fe.reset_launches()
+        got = cuda_fe.fsquare_chain(x, k)
+        assert torch.equal(got, want), cuda_fe.fsquare_chain_entry(n)
+        assert cuda_fe.LAUNCHES["fsquare_chain"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("times", [1, 2, 3, 4])
+@pytest.mark.parametrize("n", [33, "few", "few+1", 16_384, 16_385])
+def test_pdbl_kernels_equal_plain_at_edge_lanes(cuda_device, monkeypatch, n, times):
+    n = {"few": cuda_fe.PDBL_FEW_LANES, "few+1": cuda_fe.PDBL_FEW_LANES + 1}.get(n, n)
+    p = carried_points(n, 5 * n + times).to(cuda_device)
+    want = cuda_fe.pdbl_plain(p, times)
+    # the routing as shipped, then the warp kernel (n <= limit) and the
+    # 4-threads-a-lane kernel (n > limit) forced
+    for limit in (cuda_fe.PDBL_FEW_LANES, n, n - 1):
+        monkeypatch.setattr(cuda_fe, "PDBL_FEW_LANES", limit)
+        cuda_fe.reset_launches()
+        got = cuda_fe.pdbl(p, times)
+        assert torch.equal(got, want), cuda_fe.pdbl_entry(n)
+        assert cuda_fe.LAUNCHES["pdbl"] == 1
 
 
 @pytest.mark.cuda

@@ -1,12 +1,15 @@
 """Port per-key-type routing (tendermint_tpu_torch/crypto/batch.verify_batch
-with key_types, and ValidatorSet.verify_commit on sets mixing Ed25519 and
-BLS12-381 keys) against the JAX package.
+with key_types, and ValidatorSet.verify_commit on sets mixing Ed25519 with
+BLS12-381 or sr25519 keys) against the JAX package.
 
 Tolerance: zero. The port's masks must be byte-identical to the reference's
 verify_batch(..., backend="cpu", key_types=...); verify_commit must pass, or
 raise the same exception type with the same message, as the reference's.
-A host BLS verify costs about a second here, so each case holds 2 BLS rows
-and the reference's results are computed once per module.
+A host BLS verify costs about a second here, so each case holds 1 or 2 BLS
+rows and the reference's results are computed once per module. sr25519
+rows (every fifth row from row 1 in the sr25519 cases) are signed once per
+module with the port's signer; both packages verify them natively on the
+host.
 """
 
 import numpy as np
@@ -15,6 +18,7 @@ import torch
 
 from tendermint_tpu.crypto import batch as jbatch
 from tendermint_tpu.crypto import keys as JK
+from tendermint_tpu.crypto import sr25519 as jsr
 from tendermint_tpu.types import block as jblock
 from tendermint_tpu.types.basic import BlockID as JBlockID
 from tendermint_tpu.types.basic import BlockIDFlag as JFlag
@@ -23,6 +27,7 @@ from tendermint_tpu.types.validator_set import Validator as JValidator
 from tendermint_tpu.types.validator_set import ValidatorSet as JValidatorSet
 from tendermint_tpu_torch.crypto import batch as tbatch
 from tendermint_tpu_torch.crypto import keys as TK
+from tendermint_tpu_torch.crypto import sr25519 as tsr
 from tendermint_tpu_torch.types import block as tblock
 from tendermint_tpu_torch.types import validator_set as tvs
 from tendermint_tpu_torch.types.basic import BlockID, BlockIDFlag, PartSetHeader
@@ -120,37 +125,117 @@ def test_all_ed25519_key_types_take_the_plain_path(reference_masks):
         assert tbatch.LAST_FLUSH == {"mode": "persig"}
 
 
-def test_sr25519_rows_raise():
-    pks, msgs, sigs, types = _case("ed_only")
-    types = ["ed25519", "sr25519", "ed25519"]
-    with pytest.raises(NotImplementedError, match="sr25519.*queue item 5"):
-        tbatch.verify_batch(pks, msgs, sigs, device="cpu", key_types=types)
+# ---------------------------------------------------------------------------
+# sr25519 rows: the native schnorrkel verifier on the host.
+
+SR_SIZES = (3, 64, 300)
+SR_CASES = ("ed_sr", "ed_sr_bls", "bad_sr_rows", "short_sr_sig", "sr_unknown_type")
+_SR_ROWS = {}
+
+
+def _sr_rows(n):
+    """n honest rows, sr25519 at i % 5 == 1 and Ed25519 elsewhere, each from
+    its own seeded key: (pubkeys, msgs, sigs, types)."""
+    if n not in _SR_ROWS:
+        rng = np.random.default_rng(n)
+        pks, msgs, sigs, types = [], [], [], []
+        for i in range(n):
+            priv = (tsr.gen_sr25519 if i % 5 == 1 else JK.gen_ed25519)(rng.bytes(32))
+            msg = b"sr row %d " % i + rng.bytes(int(rng.integers(0, 110)))
+            pks.append(priv.pub_key().bytes())
+            msgs.append(msg)
+            sigs.append(priv.sign(msg))
+            types.append(priv.type_name())
+        _SR_ROWS[n] = pks, msgs, sigs, types
+    return tuple(list(x) for x in _SR_ROWS[n])
+
+
+def _sr_case(name, n):
+    """The case's rows and the rows that must be False."""
+    pks, msgs, sigs, types = _sr_rows(n)
+    sr = [i for i, t in enumerate(types) if t == "sr25519"]
+    bad = []
+    if name == "ed_sr_bls":  # the last row a BLS row, honest
+        pks[-1], msgs[-1], sigs[-1], types[-1] = (x[3] for x in HONEST)
+    elif name == "bad_sr_rows":  # a flipped sr25519 signature, the last one's marker unset
+        sigs[sr[0]] = _flip(sigs[sr[0]])
+        s = bytearray(sigs[sr[-1]])
+        s[63] &= 0x7F
+        sigs[sr[-1]] = bytes(s)
+        bad = sorted({sr[0], sr[-1]})
+    elif name == "short_sr_sig":  # 63 bytes: False before packing
+        sigs[sr[0]] = sigs[sr[0]][:63]
+        bad = [sr[0]]
+    elif name == "sr_unknown_type":  # an sr25519 triple under another type, and an
+        types[sr[0]] = "secp256k1"      # Ed25519 triple read as sr25519
+        types[0] = "sr25519"
+        bad = [0, sr[0]]
+    elif name != "ed_sr":
+        raise KeyError(name)
+    return (pks, msgs, sigs, types), bad
+
+
+@pytest.fixture(scope="module")
+def reference_sr_masks():
+    cache = {}
+
+    def get(name, n):
+        if (name, n) not in cache:
+            (pks, msgs, sigs, types), _ = _sr_case(name, n)
+            cache[name, n] = np.asarray(jbatch.verify_batch(pks, msgs, sigs, backend="cpu",
+                                                            key_types=types))
+        return cache[name, n]
+
+    return get
+
+
+@pytest.mark.parametrize("n", SR_SIZES)
+@pytest.mark.parametrize("name", SR_CASES)
+def test_sr25519_rows_match_reference(name, n, reference_sr_masks):
+    (pks, msgs, sigs, types), bad = _sr_case(name, n)
+    want = reference_sr_masks(name, n)
+    got = tbatch.verify_batch(pks, msgs, sigs, device="cpu", key_types=types)
+    assert got.dtype == np.bool_ and got.tobytes() == want.tobytes()
+    assert np.flatnonzero(~got).tolist() == bad
+    assert tbatch.LAST_FLUSH["sr25519_rows"] == types.count("sr25519")
+    assert tbatch.LAST_FLUSH["sr25519_s"] > 0
 
 
 # ---------------------------------------------------------------------------
 # verify_commit on a mixed set.
 
 
-def _sets():
+SR = [tsr.gen_sr25519(bytes([0x91 + i]) * 32) for i in range(2)]
+
+
+def _port_key(pk):
+    kind = pk.type_name()
+    return {"ed25519": TK.Ed25519PubKey, "bls12_381": TK.Bls12381PubKey,
+            "sr25519": tsr.Sr25519PubKey}[kind](pk.bytes())
+
+
+def _sets(others, ref_key):
+    """The 3 Ed25519 keys and `others` as a reference set and a port set
+    (power 10 each), and the private keys in set order."""
     jvs = JValidatorSet([JValidator(p.pub_key(), 10) for p in ED]
-                        + [JValidator(JK.Bls12381PubKey(p.pub_key().bytes()), 10) for p in BLS])
-    tv = tvs.ValidatorSet([tvs.Validator(
-        TK.Ed25519PubKey(v.pub_key.bytes()) if v.pub_key.type_name() == "ed25519"
-        else TK.Bls12381PubKey(v.pub_key.bytes()), v.voting_power) for v in jvs.validators])
-    by_addr = {p.pub_key().address(): p for p in ED + BLS}
+                        + [JValidator(ref_key(p.pub_key().bytes()), 10) for p in others])
+    tv = tvs.ValidatorSet([tvs.Validator(_port_key(v.pub_key), v.voting_power)
+                           for v in jvs.validators])
+    by_addr = {p.pub_key().address(): p for p in ED + others}
     return jvs, tv, [by_addr[v.address] for v in jvs.validators]
 
 
-JVS, TVS, PRIVS = _sets()
+SETS = {"bls12_381": _sets(BLS, JK.Bls12381PubKey), "sr25519": _sets(SR, jsr.Sr25519PubKey)}
 
 
-def _commits(bad_idx=None, nil_idx=()):
+def _commits(bad_idx=None, nil_idx=(), kind="bls12_381"):
+    jvs, _, privs = SETS[kind]
     rows = [(JFlag.NIL if i in nil_idx else JFlag.COMMIT, v.address, 5_000 + i)
-            for i, v in enumerate(JVS.validators)]
+            for i, v in enumerate(jvs.validators)]
     stub = tblock.Commit(HEIGHT, 0, TBID, [tblock.CommitSig(BlockIDFlag(int(f)), a, ts, b"")
                                            for f, a, ts in rows])
     sigs = []
-    for i, p in enumerate(PRIVS):
+    for i, p in enumerate(privs):
         sig = p.sign(stub.vote_sign_bytes(CHAIN, i))
         sigs.append(_flip(sig) if i == bad_idx else sig)
     return (jblock.Commit(HEIGHT, 0, JBID, [jblock.CommitSig(f, a, ts, s)
@@ -167,18 +252,19 @@ def _outcome(fn):
     return ("ok",)
 
 
-def _first(kind):
-    return next(i for i, v in enumerate(JVS.validators) if v.pub_key.type_name() == kind)
+def _first(kind, other="bls12_381"):
+    return next(i for i, v in enumerate(SETS[other][0].validators)
+                if v.pub_key.type_name() == kind)
 
 
-@pytest.mark.parametrize("case", ["honest", "bad_bls", "bad_ed", "subthreshold"])
-def test_verify_commit_on_a_mixed_set_matches_reference(case):
-    kw = {"honest": {}, "bad_bls": {"bad_idx": _first("bls12_381")},
-          "bad_ed": {"bad_idx": _first("ed25519")},
-          "subthreshold": {"nil_idx": (_first("ed25519"), _first("bls12_381"))}}[case]
-    jc, tc = _commits(**kw)
-    want = _outcome(lambda: JVS.verify_commit(CHAIN, JBID, HEIGHT, jc))
-    got = _outcome(lambda: TVS.verify_commit(CHAIN, TBID, HEIGHT, tc, device="cpu"))
+def _check_commit(case, other):
+    kw = {"honest": {}, "bad_other": {"bad_idx": _first(other, other)},
+          "bad_ed": {"bad_idx": _first("ed25519", other)},
+          "subthreshold": {"nil_idx": (_first("ed25519", other), _first(other, other))}}[case]
+    jvs, tv, _ = SETS[other]
+    jc, tc = _commits(kind=other, **kw)
+    want = _outcome(lambda: jvs.verify_commit(CHAIN, JBID, HEIGHT, jc))
+    got = _outcome(lambda: tv.verify_commit(CHAIN, TBID, HEIGHT, tc, device="cpu"))
     assert got == want
     if case == "honest":
         assert got == ("ok",)
@@ -187,3 +273,13 @@ def test_verify_commit_on_a_mixed_set_matches_reference(case):
                        "invalid commit -- insufficient voting power: got 30, needed more than 33")
     else:
         assert got == ("CommitVerifyError", f"wrong signature (#{kw['bad_idx']})")
+
+
+@pytest.mark.parametrize("case", ["honest", "bad_bls", "bad_ed", "subthreshold"])
+def test_verify_commit_on_a_mixed_set_matches_reference(case):
+    _check_commit({"bad_bls": "bad_other"}.get(case, case), "bls12_381")
+
+
+@pytest.mark.parametrize("case", ["honest", "bad_sr", "bad_ed", "subthreshold"])
+def test_verify_commit_on_an_ed_sr_set_matches_reference(case):
+    _check_commit({"bad_sr": "bad_other"}.get(case, case), "sr25519")

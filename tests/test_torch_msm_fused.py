@@ -351,11 +351,12 @@ def test_uptree_kernel_equals_plain_on_card(cuda_device, ch, chunks):
 
 def test_pdbl_routes_by_lane_count(monkeypatch):
     """The window fold's and [256]P_255's pdbl launches (32 lanes and fewer)
-    take the warp-per-lane kernel, the per-signature ladder's 16,384 lanes
-    the thread-per-lane kernel; on the CPU both are the plain version."""
-    assert cuda_fe.PDBL_FEW_LANES == 32
-    assert [cuda_fe.pdbl_entry(n) for n in (1, 2, 16, 32)] == ["tm_pdbl_lanes"] * 4
-    assert [cuda_fe.pdbl_entry(n) for n in (33, 1024, 16_384)] == ["tm_pdbl"] * 3
+    and a small ladder's (up to 1,024 lanes) take the warp-per-lane kernel,
+    the per-signature ladder's 16,384 lanes the 4-threads-a-lane kernel; on
+    the CPU both are the plain version."""
+    assert cuda_fe.PDBL_FEW_LANES == 1024
+    assert [cuda_fe.pdbl_entry(n) for n in (1, 2, 16, 32, 33, 512, 1024)] == ["tm_pdbl_lanes"] * 7
+    assert [cuda_fe.pdbl_entry(n) for n in (1025, 4096, 16_384)] == ["tm_pdbl"] * 3
     w = _picks(44, M.NWIN)
     p_last = _picks(45, M.NWIN)
     seen = []
@@ -370,6 +371,36 @@ def test_pdbl_routes_by_lane_count(monkeypatch):
     assert seen[0] == (M.NWIN, 8, "tm_pdbl_lanes")
     assert [s[:2] for s in seen[1:]] == [(16, 8), (8, 16), (4, 32), (2, 64), (1, 128)]
     assert all(s[2] == "tm_pdbl_lanes" for s in seen)
+
+
+def test_fsquare_chain_routes_by_lane_count(monkeypatch):
+    """A decompression's pow chains (k = 10, 20, 50, 100) on few lanes take
+    the 4-threads-a-lane kernel, the 10k paths' 10,240-24,576 lanes the
+    thread-per-lane kernel; on the CPU both are the plain version, equal to
+    the reference's decompression."""
+    assert cuda_fe.FSQ_FEW_LANES == 4096
+    few = (1, 40, 512, 4096)
+    assert [cuda_fe.fsquare_chain_entry(n) for n in few] == ["tm_fsquare_chain_quad"] * 4
+    wide = (4097, 10_240, 16_384, 20_480, 24_576)
+    assert [cuda_fe.fsquare_chain_entry(n) for n in wide] == ["tm_fsquare_chain"] * 5
+    seen = []
+    plain = cuda_fe.fsquare_chain
+
+    def spy(x, k):
+        seen.append((x.shape[-1], k, cuda_fe.fsquare_chain_entry(x.shape[-1])))
+        return plain(x, k)
+
+    monkeypatch.setattr(cuda_fe, "fsquare_chain", spy)
+    p, enc = ref.BASE, []
+    for _ in range(40):
+        enc.append(np.frombuffer(ref.point_compress(p), dtype=np.uint8))
+        p = ref.point_add(p, ref.BASE)
+    pts, ok = M.decompress_rows(np.stack(enc), device="cpu")
+    assert bool(ok.all())
+    assert sorted({k for _, k, _ in seen}) == [10, 20, 50, 100]
+    assert all(n == 40 and e == "tm_fsquare_chain_quad" for n, _, e in seen)
+    got = te.compress(pts)
+    assert [bytes(got[:, i].numpy()) for i in range(40)] == [e.tobytes() for e in enc]
 
 
 def test_padd_routes_by_lane_count(monkeypatch):
