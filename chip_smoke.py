@@ -13,9 +13,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      the shapes the paths below give it (uptree at 2,048-lane chunks on the
      warm and streamed paths and at 1,024; pdbl at all six window-fold
      shapes and on the ladder; padd on the top tree, the tail and the
-     ladder), and off the paths: both padd kernels at 32, 192, 1,024, 4,096
-     and 16,384 lanes (the sweep that sets cuda_fe.PADD_FEW_LANES) and
-     bucket_fold at T = 1 and 33 windows; tolerance zero (integer arithmetic), with
+     ladder), and off the paths: both padd kernels at 32, 192, 1,024, 4,096,
+     4,097, 16,384 and 24,576 lanes (the sweep that sets
+     cuda_fe.PADD_FEW_LANES) and bucket_fold at T = 1 and 33 windows;
+     tolerance zero (integer arithmetic), with
      its device time (the profiler's kernel records, median per launch;
      where CUPTI keeps none in two sessions, CUDA events around calls
      queued behind a device sleep, and the row says which),
@@ -23,8 +24,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      (fenwick_reduce's byte count is the distinct 32-B sectors its gather
      touches, counted on the host from the index table and printed), ptxas's
      registers and spills, and for the rows of the redesigned kernels
-     (padd, fenwick_reduce, bucket_fold, fp12_sparse_mul) the card ms
-     recorded before their redesigns (text line only);
+     (padd, fenwick_reduce, bucket_fold, fp12_sparse_mul, fp381_mul) the
+     card ms recorded before their redesigns (text line only);
      the unfused MSM total against the integer reference on a small input,
      and the fused total against the unfused one at the 10k commit's 20,480
      lanes;
@@ -54,9 +55,12 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      Ed25519 and an sr25519 row tampered (exact mask); 64 rows of each mask
      held against the port's pure-Python verifiers;
   9. the BLS kernels fp381_mul and fp12_sparse_mul against their plain
-     versions at the BLS paths' shapes (the fold's widest stacked launch, a
-     Miller step's widest, the Miller loop's 2 lanes, and one wide row off
-     the path), printed as in phase 3 (fp12_sparse_mul bound by its 54
+     versions at the BLS paths' shapes (fp381_mul at every Miller-step
+     launch shape, 8-216 products on 2 lanes, and at fold levels 1, 8 and
+     14, as routed, then each shape on both fp381_mul kernels: the sweep
+     that sets cuda_bls.FP_FEW_PRODUCTS; fp12_sparse_mul on the Miller
+     loop's 2 lanes and one wide row off the path), printed as in phase 3
+     (fp12_sparse_mul bound by its 54
      products a lane over the whole card, or one product's multiply-adds
      issued one a clock, whichever is longer);
   10. a 10,000-validator BLS set (keys sk0 + i, one aggregate signature over
@@ -141,7 +145,7 @@ N_SR = 2_000
 SR_MSG_LEN = 110
 SR_TAMPERED = (4_321, 9_876)  # an Ed25519 row and an sr25519 row
 N_COFACTORLESS = 300  # the cofactorless commit: its host loop is pure Python where OpenSSL is missing
-PADD_SWEEP = (32, 192, 1_024, 4_096, 16_384)
+PADD_SWEEP = (32, 192, 1_024, 4_096, 4_097, 16_384, 24_576)
 
 REPLACES = {
     "padd": "tendermint_tpu/ops/pallas_fe.py:249",
@@ -210,19 +214,20 @@ def timed(fn, reps: int = 5):
 
 # Card ms recorded by chip_smoke.py runs before each kernel's redesign (the
 # thread-per-lane pdbl and fsquare_chain, padd, bucket_fold, fenwick_reduce,
-# fp12_sparse_mul), by (kernel, path, lanes) (PERF.md's kernel table and
-# findings; NVIDIA H100 80GB HBM3, 700.00 W).
+# fp12_sparse_mul, fp381_mul's Miller launches), by (kernel, path, lanes)
+# (PERF.md's kernel table and findings; NVIDIA H100 80GB HBM3, 700.00 W).
 # Printed on the row's text line only, labelled as recorded: the `kernels`
 # JSON line holds only what this run measured.
 RECORDED_BEFORE_MS = {
     ("padd", "warm", 160): 0.0203, ("padd", "warm", 32): 0.0205,
-    ("padd", "streamed", 192): 0.0205, ("padd", "tampered", 16_384): 0.0216,
+    ("padd", "streamed", 192): 0.0205, ("padd", "tampered", 16_384): 0.0215,
     ("bucket_fold", "warm", 8_192): 0.1695,
     ("pdbl", "tampered", 16_384): 0.0378,
     ("fsquare_chain", "warm", 10_240): 0.0301, ("fsquare_chain", "cold", 20_480): 0.0470,
     ("fsquare_chain", "streamed", 24_576): 0.0461, ("fsquare_chain", "tampered", 16_384): 0.0292,
     ("fenwick_reduce", "warm", 8_192): 0.3327,
     ("fp12_sparse_mul", "bls_warm", 2): 0.1221, ("fp12_sparse_mul", None, 16_384): 0.4642,
+    ("fp381_mul", "bls_warm", 216): 0.0063,
 }
 
 
@@ -243,29 +248,36 @@ def fenwick_gather_sectors(node_idx, n0: int, n1: int, n2: int) -> int:
 
 
 KERNEL_SYMBOL = {  # the __global__ function each wrapper launches
-    "padd": ("padd_kernel", "padd_lanes_kernel"), "pdbl": ("pdbl_quad_kernel", "pdbl_lanes_kernel"),
+    "padd": ("padd_quad_kernel", "padd_lanes_kernel"),
+    "pdbl": ("pdbl_quad_kernel", "pdbl_lanes_kernel"),
     "fsquare_chain": ("fsquare_chain_kernel", "fsquare_chain_quad_kernel"),
     "uptree": ("uptree_kernel",),
     "fenwick_reduce": ("fenwick_kernel",), "bucket_fold": ("bucket_fold_kernel",),
-    "fp381_mul": ("fp381_mul_kernel",), "fp12_sparse_mul": ("fp12_sparse_mul_kernel",),
+    "fp381_mul": ("fp381_mul_kernel", "fp381_mul_few_kernel"),
+    "fp12_sparse_mul": ("fp12_sparse_mul_kernel",),
 }
-ENTRY_SYMBOL = {"tm_padd": "padd_kernel", "tm_padd_lanes": "padd_lanes_kernel"}  # cuda_fe.padd's
+ENTRY_SYMBOL = {  # cuda_fe.padd's and cuda_bls.fp381_mul's entries
+    "tm_padd": "padd_quad_kernel", "tm_padd_lanes": "padd_lanes_kernel",
+    "tm_fp381_mul": "fp381_mul_kernel", "tm_fp381_mul_few": "fp381_mul_few_kernel",
+}
 # the sweep's PADD_FEW_LANES for each padd kernel: every shape at or under it
-# takes the warp kernel, every shape over it the thread kernel
-SWEEP_FEW_LANES = {"padd_lanes_kernel": 1 << 30, "padd_kernel": 0}
+# takes the warp kernel, every shape over it the 4-threads-a-lane kernel
+SWEEP_FEW_LANES = {"padd_lanes_kernel": 1 << 30, "padd_quad_kernel": 0}
+# the sweep's FP_FEW_PRODUCTS for each fp381_mul kernel, likewise
+SWEEP_FEW_PRODUCTS = {"fp381_mul_few_kernel": 1 << 30, "fp381_mul_kernel": 0}
 
 
 @contextlib.contextmanager
-def padd_few_lanes(limit: int):
-    """cuda_fe.PADD_FEW_LANES, which cuda_fe.padd_entry reads at call time,
-    pinned to `limit` inside the block."""
-    from tendermint_tpu_torch.ops import cuda_fe
-
-    saved, cuda_fe.PADD_FEW_LANES = cuda_fe.PADD_FEW_LANES, limit
+def pinned(module, name: str, limit: int):
+    """A routing threshold (cuda_fe.PADD_FEW_LANES, cuda_bls.FP_FEW_PRODUCTS,
+    which the *_entry functions read at call time) pinned to `limit` inside
+    the block."""
+    saved = getattr(module, name)
+    setattr(module, name, limit)
     try:
         yield
     finally:
-        cuda_fe.PADD_FEW_LANES = saved
+        setattr(module, name, saved)
 
 
 def ptxas_usage() -> dict:
@@ -294,13 +306,15 @@ def kernel_usage(symbol: str, usage: dict):
 
 def launched_symbol(name: str, lanes: int) -> str:
     """The __global__ function the wrapper of `name` launches on `lanes` lanes."""
-    from tendermint_tpu_torch.ops import cuda_fe
+    from tendermint_tpu_torch.ops import cuda_bls, cuda_fe
 
     if name == "pdbl":
         return ("pdbl_lanes_kernel" if cuda_fe.pdbl_entry(lanes) == "tm_pdbl_lanes"
                 else "pdbl_quad_kernel")
     if name == "padd":
         return ENTRY_SYMBOL[cuda_fe.padd_entry(lanes)]
+    if name == "fp381_mul":  # `lanes`: the launch's products
+        return ENTRY_SYMBOL[cuda_bls.fp381_mul_entry(lanes)]
     if name == "fsquare_chain":
         return ("fsquare_chain_quad_kernel" if cuda_fe.fsquare_chain_entry(lanes)
                 == "tm_fsquare_chain_quad" else "fsquare_chain_kernel")
@@ -436,14 +450,14 @@ def kernel_checks(dev, rng, card: dict) -> list:
         one kernel (the sweep); None keeps the routing as shipped."""
         p, q = pick(lanes), pick(lanes)
         few = cuda_fe.PADD_FEW_LANES if few_lanes is None else few_lanes
-        with padd_few_lanes(few):
+        with pinned(cuda_fe, "PADD_FEW_LANES", few):
             symbol = ENTRY_SYMBOL[cuda_fe.padd_entry(lanes)]
 
-        def pinned():
-            with padd_few_lanes(few):
+        def forced():
+            with pinned(cuda_fe, "PADD_FEW_LANES", few):
                 return cuda_fe.padd(p, q)
 
-        kern = (lambda: cuda_fe.padd(p, q)) if few_lanes is None else pinned
+        kern = (lambda: cuda_fe.padd(p, q)) if few_lanes is None else forced
         return dict(name="padd", path=path, variant=where, lanes=lanes, symbol=symbol, kern=kern,
                     plain=lambda: cuda_fe.padd_plain(p, q),
                     mads=PADD_MADS, items=lanes, bytes=3 * POINT_BYTES * lanes)
@@ -605,18 +619,49 @@ def carried_limbs(shape, rng) -> torch.Tensor:
     return torch.from_numpy(x)
 
 
+# B7's launch shapes on the bls_warm path: the Miller loop's stacked products
+# on its 2 lanes (square12, padd2, line_dbl / line_add) and three of the key
+# fold's 14 levels over the 16,384-lane padded set (6 products x 8,192 ... 1
+# pairs)
+FP_MILLER_SHAPES = (
+    ((4, 2), "Miller step: 4 x 2 products (line_dbl / line_add)"),
+    ((6, 2), "Miller step: 6 x 2 products (line_dbl / line_add)"),
+    ((9, 2), "Miller step: 9 x 2 products (line_dbl / line_add)"),
+    ((12, 2), "Miller step: 12 x 2 products (line_dbl / line_add)"),
+    ((18, 2), "Miller step padd2: 6 Fp2 x 3 products x 2 lanes"),
+    ((36, 3, 2), "Miller step square12: 36 Fp2 x 3 products x 2 lanes"),
+)
+FP_FOLD_SHAPES = (
+    ((6, 8_192), "fold level 1: 6 products x 8,192 pairs"),
+    ((6, 64), "fold level 8: 6 products x 64 pairs"),
+    ((6, 1), "fold level 14: 6 products x 1 pair"),
+)
+
+
 def bls_kernel_checks(dev, rng, card: dict) -> list:
-    """B7 at the fold's widest stacked launch (the first of 14 levels over
-    the 16,384-lane padded set: 6 products x 8,192 pairs) and at a Miller
-    step's widest (square12: 36 Fp2 x 3 products x 2 lanes); B8 at the Miller
-    loop's 2 lanes and at 16,384 lanes (off the path: throughput)."""
+    """B7 at every Miller-step shape and at fold levels 1, 8 and 14, as
+    routed, then each shape on both kernels (the sweep that sets
+    cuda_bls.FP_FEW_PRODUCTS); B8 at the Miller loop's 2 lanes and at 16,384
+    lanes (off the path: throughput)."""
     from tendermint_tpu_torch.ops import cuda_bls
 
-    def mul_case(shape, variant):
+    def mul_case(shape, variant, few_products=None):
+        """`few_products` pins cuda_bls.FP_FEW_PRODUCTS around each call to
+        force one kernel (the sweep); None keeps the routing as shipped."""
         a, b = carried_limbs(shape, rng).to(dev), carried_limbs(shape, rng).to(dev)
         products = int(np.prod(shape))
-        return dict(name="fp381_mul", path="bls_warm", variant=variant, lanes=products,
-                    kern=lambda: cuda_bls.fp381_mul(a, b),
+        few = cuda_bls.FP_FEW_PRODUCTS if few_products is None else few_products
+        with pinned(cuda_bls, "FP_FEW_PRODUCTS", few):
+            symbol = ENTRY_SYMBOL[cuda_bls.fp381_mul_entry(products)]
+
+        def forced():
+            with pinned(cuda_bls, "FP_FEW_PRODUCTS", few):
+                return cuda_bls.fp381_mul(a, b)
+
+        return dict(name="fp381_mul", path="bls_warm" if few_products is None else None,
+                    variant=variant if few_products is None else f"sweep, {symbol}: {variant}",
+                    lanes=products, symbol=symbol,
+                    kern=(lambda: cuda_bls.fp381_mul(a, b)) if few_products is None else forced,
                     plain=lambda: cuda_bls.fp381_mul_plain(a, b),
                     mads=FP381_MUL, items=products, bytes=3 * FP_BYTES * products)
 
@@ -637,9 +682,11 @@ def bls_kernel_checks(dev, rng, card: dict) -> list:
                                 f"operations: {SPARSE_PRODUCTS} x FP381_MUL a lane over the "
                                 f"whole card"))
 
+    shapes = FP_MILLER_SHAPES + FP_FOLD_SHAPES
     return check_cases([
-        mul_case((6, 8_192), "fold level 1: 6 products x 8,192 pairs"),
-        mul_case((36, 3, 2), "Miller step square12: 36 Fp2 x 3 products x 2 lanes"),
+        *(mul_case(shape, variant) for shape, variant in shapes),
+        *(mul_case(shape, variant, few) for shape, variant in shapes
+          for few in SWEEP_FEW_PRODUCTS.values()),
         sparse_case(2, "Miller step: 2 lanes", "bls_warm"),
         sparse_case(16_384, "16,384 lanes, off the path (throughput)", None),
     ], card)

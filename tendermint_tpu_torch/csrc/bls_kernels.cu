@@ -1,25 +1,37 @@
 // BLS12-381 kernels for Hopper (sm_90a): fp381_mul and fp12_sparse_mul.
 //
 // Replaces the Pallas TPU kernels of tendermint_tpu/ops/pallas_bls.py:
-//   tm_fp381_mul       <- _fp381_mul_kernel / fp381_mul (pallas_call at :344)
+//   tm_fp381_mul, tm_fp381_mul_few <- _fp381_mul_kernel / fp381_mul (pallas_call at :344)
 //   tm_fp12_sparse_mul <- _fp12_sparse_mul_kernel / fp12_sparse_mul (at :387)
 //
 // Layout: a field batch is int32 (G, 33, n) — group g, limb i, lane j at
 // (g * 33 + i) * n + j; G stacks independent batches (the products of one
 // formula stage), so a stage is one launch. Fp12 values are (6, 2, 33, n):
 // w-basis coefficient m, Fp2 component c; a sparse line (c0, c3, c5) is
-// (3, 2, 33, n). Neighbouring threads own neighbouring lanes, so each limb
-// row is read and written as one coalesced access per warp.
+// (3, 2, 33, n). In the thread-per-product kernels neighbouring threads own
+// neighbouring lanes, so each limb row is read and written as one coalesced
+// access per warp.
 //
 // What bounds each kernel on the H100, and what the design does about it:
-// - fp381_mul is one thread per product: 2,211 int32 multiply-adds (1,089
-//   product, 1,089 reduction, 33 m_i) against 396 bytes (two operands in,
-//   one out), so at every width it is bound by its multiply-adds, not its
-//   bytes (~5.6 multiply-adds per byte against the card's ~5 IMAD/byte
+// - fp381_mul has two kernels behind one wrapper (cuda_bls.fp381_mul_entry).
+//   fp381_mul_kernel is one thread per product: 2,211 int32 multiply-adds
+//   (1,089 product, 1,089 reduction, 33 m_i) against 396 bytes (two operands
+//   in, one out), so on many products it is bound by its multiply-adds, not
+//   its bytes (~5.6 multiply-adds per byte against the card's ~5 IMAD/byte
 //   balance). The 66-word accumulator never leaves registers: the TPU
 //   kernel's reason to exist (65 HBM-materialized accumulator rows in XLA).
 //   One operand is read limb by limb into the product so that the
-//   accumulator and the other operand are all that stays live.
+//   accumulator and the other operand are all that stays live. It keeps the
+//   key fold's wide levels (more than FP_FEW_PRODUCTS products).
+//   The Miller loop's launches hold 8-216 products on 2 lanes: one or two
+//   blocks, so one thread's ~2,900 instructions in a row set the time.
+//   fp381_mul_few_kernel gives each product a warp (fp_mul_group,
+//   fp381.cuh: 32 lanes of 2 limb positions; M's digits from a truncated
+//   product T N', so no chain of 33 dependent digits; carries by
+//   __shfl_sync): ~830 instructions a lane (tools/fp_probe.py), about half
+//   of its time the launch, loads and stores that a kernel with no product
+//   takes. Groups of 3, 4, 8, 11, 16 and 17 threads a product were slower
+//   at the Miller shapes (PERF.md §6).
 // - fp12_sparse_mul is 54 base products a lane (18 Karatsuba Fp2 products of
 //   3) and ~200 adds and subs. On the Miller loop's 2 lanes it is latency-
 //   bound: the work of one lane is what one thread per product can overlap.
@@ -60,6 +72,35 @@ fp381_mul_kernel(const int32_t *__restrict__ a, const int32_t *__restrict__ b,
   const int32_t *__restrict__ ap = a + base;
   const fp_t r = fp_mul_stream([&](int i) { return __ldg(ap + (int64_t)i * n); }, bv);
   fp_store(out + base, n, 0, r);
+}
+
+// fp381_mul on few products: a warp a product (fp_mul_group, fp381.cuh),
+// FP_FEW_WARPS warps a block. Lane t loads limbs 2t, 2t + 1 of its product's
+// operands (zeros past limb 32) and stores the limbs fpg_out_limb names.
+#define FP_FEW_WARPS 4
+
+__global__ void __launch_bounds__(32 * FP_FEW_WARPS)
+fp381_mul_few_kernel(const int32_t *__restrict__ a, const int32_t *__restrict__ b,
+                     int32_t *__restrict__ out, int64_t n, int64_t total) {
+  __shared__ fp_group_smem sm[FP_FEW_WARPS];
+  const int t = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int64_t pr = (int64_t)blockIdx.x * FP_FEW_WARPS + w;
+  if (pr >= total) return;  // a warp past the end
+  const int64_t g = pr / n;
+  const int64_t base = g * FP_NL * n + (pr - g * n);
+  int32_t av[FPG_L], bv[FPG_L], rv[FPG_L];
+#pragma unroll
+  for (int s = 0; s < FPG_L; s++) {
+    const int p = FPG_L * t + s;
+    av[s] = p < FP_NL ? __ldg(a + base + (int64_t)p * n) : 0;
+    bv[s] = p < FP_NL ? __ldg(b + base + (int64_t)p * n) : 0;
+  }
+  fp_mul_group(av, bv, rv, sm[w], t);
+#pragma unroll
+  for (int s = 0; s < FPG_L; s++) {
+    const int k = fpg_out_limb(t, s);
+    if (k >= 0) out[base + (int64_t)k * n] = rv[s];
+  }
 }
 
 // The terms of pallas_bls.sparse_mul12 that land on w^k, in the reference's
@@ -202,6 +243,13 @@ extern "C" int tm_fp381_mul(const int32_t *a, const int32_t *b, int32_t *out, in
                             int64_t groups, void *stream) {
   fp381_mul_kernel<<<bls_blocks(n * groups), BLS_THREADS, 0, (cudaStream_t)stream>>>(
       a, b, out, n, groups);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int tm_fp381_mul_few(const int32_t *a, const int32_t *b, int32_t *out, int64_t n,
+                                int64_t groups, void *stream) {
+  fp381_mul_few_kernel<<<(unsigned)((n * groups + FP_FEW_WARPS - 1) / FP_FEW_WARPS),
+                         32 * FP_FEW_WARPS, 0, (cudaStream_t)stream>>>(a, b, out, n, n * groups);
   return (int)cudaGetLastError();
 }
 

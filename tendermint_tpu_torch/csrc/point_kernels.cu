@@ -22,10 +22,17 @@
 //   fe25519_warp.cuh: the limbs split over the warp, each batch of
 //   independent products side by side). The per-signature ladder's 16,384
 //   lanes move 960 B per lane (two points in, one out) against 3,620 int32
-//   multiply-adds, close to both the byte and the operation bound: there
-//   padd_kernel keeps one thread per lane, reads each input limb once and
-//   writes each output limb once, and no 39-row product accumulator ever
-//   leaves registers (the TPU kernel's reason to exist, pallas_fe.py:1-12).
+//   multiply-adds. One thread per lane (the thread kernel this replaced) put
+//   one warp on each of the card's 528 warp schedulers, and one warp alone
+//   issues a field op's product phase (FMA pipe) and its carry phase (ALU
+//   pipe) one after the other. padd_quad_kernel gives each lane 4 threads
+//   (pdbl_quad_kernel's layout) and each thread one field op of each round:
+//   the four products a, b, pt qt, pz qz, then thread 2's product by 2d and
+//   thread 3's doubling (the round waits for thread 2's second product),
+//   the four sums e, f, g, h, the four output products. A lane issues ~1.5x
+//   the thread kernel's instructions (its sums are carried by two threads
+//   while two wait, and the 2d product runs alone), but each scheduler
+//   holds ~4 warps, whose phases overlap.
 // - pdbl has two kernels behind one wrapper (cuda_fe.pdbl_entry). The MSM's
 //   window fold and [256]P_255 run up to 128 chained doublings on 32 lanes or
 //   fewer: a dependent chain, bound by latency, not by the card's rate. There
@@ -65,38 +72,6 @@
 
 #define PK_THREADS 128
 
-// Unified a=-1 extended add, add-2008-hwcd-3 (pallas_fe._padd_rows).
-__global__ void __launch_bounds__(PK_THREADS)
-padd_kernel(const int32_t *__restrict__ p, const int32_t *__restrict__ q,
-            int32_t *__restrict__ out, int64_t n) {
-  const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  const int64_t cs = (int64_t)FE_NL * n;  // coordinate stride
-  fe_t a, b, c, d;
-  {
-    const fe_t px = fe_load(p, n, lane), py = fe_load(p + cs, n, lane);
-    const fe_t qx = fe_load(q, n, lane), qy = fe_load(q + cs, n, lane);
-    a = fe_mul(fe_sub(py, px), fe_sub(qy, qx));
-    b = fe_mul(fe_add(py, px), fe_add(qy, qx));
-  }
-  {
-    const fe_t pt = fe_load(p + 3 * cs, n, lane), qt = fe_load(q + 3 * cs, n, lane);
-    c = fe_mul_const(fe_mul(pt, qt), FE_D2);
-  }
-  {
-    const fe_t pz = fe_load(p + 2 * cs, n, lane), qz = fe_load(q + 2 * cs, n, lane);
-    d = fe_mul_small(fe_mul(pz, qz), 2);
-  }
-  const fe_t e = fe_sub(b, a);
-  const fe_t f = fe_sub(d, c);
-  const fe_t g = fe_add(d, c);
-  const fe_t h = fe_add(b, a);
-  fe_store(out, n, lane, fe_mul(e, f));
-  fe_store(out + cs, n, lane, fe_mul(g, h));
-  fe_store(out + 2 * cs, n, lane, fe_mul(f, g));
-  fe_store(out + 3 * cs, n, lane, fe_mul(e, h));
-}
-
 // `times` chained dbl-2008-hwcd doublings for a=-1 (pallas_fe._pdbl_rows) on
 // 4 threads a lane, one independent field op each, in fe25519.cuh's
 // operation order; the 4 threads of a lane are neighbours in one warp and
@@ -131,18 +106,22 @@ __device__ __constant__ int8_t PQ_R2A[4] = {PQ_XY2, PQ_XY2, PQ_U + 1, PQ_ZERO};
 __device__ __constant__ int8_t PQ_MA[4] = {PQ_V + 0, PQ_U + 1, PQ_V + 2, PQ_V + 0};
 __device__ __constant__ int8_t PQ_MB[4] = {PQ_V + 2, PQ_V + 3, PQ_U + 1, PQ_V + 3};
 
+// Element `slot` of a lane's shared-memory slots: limb quad q at
+// el[q * STRIDE + slot], STRIDE = lanes a block x slots a lane.
+template <int STRIDE = PQ_LANES * PQ_SLOTS>
 __device__ __forceinline__ void pq_put(int4 *el, int slot, const fe_t &v) {
 #pragma unroll
   for (int q = 0; q < 5; q++)
-    el[q * PQ_LANES * PQ_SLOTS + slot] =
+    el[q * STRIDE + slot] =
         make_int4(v.v[4 * q], v.v[4 * q + 1], v.v[4 * q + 2], v.v[4 * q + 3]);
 }
 
+template <int STRIDE = PQ_LANES * PQ_SLOTS>
 __device__ __forceinline__ fe_t pq_get(const int4 *el, int slot) {
   fe_t v;
 #pragma unroll
   for (int q = 0; q < 5; q++) {
-    const int4 w = el[q * PQ_LANES * PQ_SLOTS + slot];
+    const int4 w = el[q * STRIDE + slot];
     v.v[4 * q] = w.x;
     v.v[4 * q + 1] = w.y;
     v.v[4 * q + 2] = w.z;
@@ -205,6 +184,72 @@ pdbl_quad_kernel(const int32_t *__restrict__ p, int32_t *__restrict__ out, int64
   }
   __syncwarp();
   if (at < n) fe_store(out + r * cs, n, lane, pq_get(el, PQ_X + r));
+}
+
+// Unified a=-1 extended add, add-2008-hwcd-3 (pallas_fe._padd_rows), on 4
+// threads a lane (pdbl_quad_kernel's layout, AQ_SLOTS elements a lane, 8
+// used; 12 keeps the two lanes of a quarter warp on different banks), in
+// fe25519.cuh's operation order:
+//   round 1: thread r computes a = (py - px)(qy - qx), b = (py + px)(qy + qx),
+//            c = pt qt 2d or d = 2 pz qz (the sums as fe_sub / fe_add: the
+//            same integers, then fe_carry); thread 2's c is a second product;
+//   round 2: e = b - a, f = d - c, g = d + c, h = b + a, one a thread;
+//   round 3: thread r computes output coordinate r (e f, g h, f g, e h).
+#define AQ_LANES 16
+#define AQ_SLOTS 12
+#define AQ_STRIDE (AQ_LANES * AQ_SLOTS)
+// round 1: u = p[C] + S p.x (+ CC, carried) for threads 0 and 1, p[C] as
+// loaded for threads 2 and 3; v the same of q
+__device__ __constant__ int8_t AQ_C[4] = {1, 1, 3, 2};
+__device__ __constant__ int8_t AQ_S[4] = {-1, 1, 0, 0};
+// round 2: slot 4 + r = A + S B (+ CC): e, f, g, h from a, b, c, d (0..3)
+__device__ __constant__ int8_t AQ_R2A[4] = {1, 3, 3, 1};
+__device__ __constant__ int8_t AQ_R2B[4] = {0, 2, 2, 0};
+__device__ __constant__ int8_t AQ_R2S[4] = {-1, -1, 1, 1};
+// round 3: e f, g h, f g, e h
+__device__ __constant__ int8_t AQ_MA[4] = {4, 6, 5, 4};
+__device__ __constant__ int8_t AQ_MB[4] = {5, 7, 6, 7};
+
+__global__ void __launch_bounds__(4 * AQ_LANES)
+padd_quad_kernel(const int32_t *__restrict__ p, const int32_t *__restrict__ q,
+                 int32_t *__restrict__ out, int64_t n) {
+  __shared__ int4 sm[5 * AQ_STRIDE];
+  const int r = threadIdx.x & 3, l = threadIdx.x >> 2;
+  const int64_t at = (int64_t)blockIdx.x * AQ_LANES + l;
+  const int64_t lane = at < n ? at : n - 1;  // the tail's groups redo lane n - 1, unstored
+  int4 *const el = sm + l * AQ_SLOTS;
+  const int64_t cs = (int64_t)FE_NL * n;
+  {
+    fe_t u = fe_load(p + AQ_C[r] * cs, n, lane), v = fe_load(q + AQ_C[r] * cs, n, lane);
+    if (r < 2) {
+      const fe_t px = fe_load(p, n, lane), qx = fe_load(q, n, lane);
+      const int32_t sg = AQ_S[r], cc = sg < 0 ? -1 : 0;
+#pragma unroll
+      for (int i = 0; i < FE_NL; i++) {
+        u.v[i] += sg * px.v[i] + (PQ_CC[i] & cc);
+        v.v[i] += sg * qx.v[i] + (PQ_CC[i] & cc);
+      }
+      fe_carry(u);
+      fe_carry(v);
+    }
+    fe_t x = fe_mul(u, v);
+    if (r == 2) x = fe_mul_const(x, FE_D2);
+    if (r == 3) x = fe_mul_small(x, 2);
+    pq_put<AQ_STRIDE>(el, r, x);
+  }
+  __syncwarp();
+  {
+    const fe_t a = pq_get<AQ_STRIDE>(el, AQ_R2A[r]), b = pq_get<AQ_STRIDE>(el, AQ_R2B[r]);
+    const int32_t sg = AQ_R2S[r], cc = sg < 0 ? -1 : 0;
+    fe_t x;
+#pragma unroll
+    for (int i = 0; i < FE_NL; i++) x.v[i] = a.v[i] + sg * b.v[i] + (PQ_CC[i] & cc);
+    fe_carry(x);
+    pq_put<AQ_STRIDE>(el, 4 + r, x);
+  }
+  __syncwarp();
+  const fe_t o = fe_mul(pq_get<AQ_STRIDE>(el, AQ_MA[r]), pq_get<AQ_STRIDE>(el, AQ_MB[r]));
+  if (at < n) fe_store(out + r * cs, n, lane, o);
 }
 
 // ---------------------------------------------------------------------------
@@ -406,7 +451,8 @@ static inline unsigned pk_blocks(int64_t n) {
 // C interface (ctypes): launch on `stream`, return cudaGetLastError().
 extern "C" int tm_padd(const int32_t *p, const int32_t *q, int32_t *out, int64_t n,
                        void *stream) {
-  padd_kernel<<<pk_blocks(n), PK_THREADS, 0, (cudaStream_t)stream>>>(p, q, out, n);
+  padd_quad_kernel<<<(unsigned)((n + AQ_LANES - 1) / AQ_LANES), 4 * AQ_LANES, 0,
+                     (cudaStream_t)stream>>>(p, q, out, n);
   return (int)cudaGetLastError();
 }
 

@@ -6,7 +6,11 @@ csrc/fp381.cuh):
 
 - `fp381_mul(a, b)`           the Montgomery product a * b * 2^-396 mod p of
                               two (..., 33, n) batches, limb for limb as
-                              the reference's fp381._mul_rows_loop
+                              the reference's fp381._mul_rows_loop: a warp
+                              a product on FP_FEW_PRODUCTS products or
+                              fewer (the Miller loop's launches,
+                              the fold's top levels), a thread a product
+                              above (the fold's wide levels)
 - `fp12_sparse_mul(f, line)`  an Fp12 value (6, 2, 33, n) times a sparse
                               Miller line (c0, c3, c5) (3, 2, 33, n), as
                               pallas_bls.sparse_mul12
@@ -89,8 +93,9 @@ def fp12_sparse_mul_plain(f: torch.Tensor, line: torch.Tensor) -> torch.Tensor:
 def _bind(lib) -> None:
     vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.tm_fp381_mul.argtypes = [vp, vp, vp, i64, i64, vp]
+    lib.tm_fp381_mul_few.argtypes = [vp, vp, vp, i64, i64, vp]
     lib.tm_fp12_sparse_mul.argtypes = [vp, vp, vp, i64, vp]
-    for fn in (lib.tm_fp381_mul, lib.tm_fp12_sparse_mul):
+    for fn in (lib.tm_fp381_mul, lib.tm_fp381_mul_few, lib.tm_fp12_sparse_mul):
         fn.restype = ci
 
 
@@ -108,6 +113,22 @@ def _field(x: torch.Tensor, what: str, lead: tuple = None) -> None:
     cuda_fe._check(x, tuple(x.shape[:-2]) + (NL,), what)
 
 
+# The largest product count of the card sweep (tools/fp_probe.py and
+# chip_smoke.py's fp381_mul sweep: the Miller loop's 8-216 products on 2
+# lanes, the fold's levels of 6 x 1 ... 6 x 8,192) at which the few-product
+# kernel beat the thread kernel (1,536:
+# 0.0038 vs 0.0043 ms; 3,072: 0.0052 vs 0.0045; profiler, NVIDIA H100 80GB
+# HBM3, 700 W).
+FP_FEW_PRODUCTS = 1536
+
+
+def fp381_mul_entry(products: int) -> str:
+    """The fp381_mul kernel that `products` products launch: a warp a
+    product on FP_FEW_PRODUCTS products or fewer, a thread a product
+    above."""
+    return "tm_fp381_mul_few" if products <= FP_FEW_PRODUCTS else "tm_fp381_mul"
+
+
 def fp381_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a * b * 2^-396 mod p for two contiguous int32 batches of one shape
     (..., 33, n); every leading index and lane is one independent product."""
@@ -121,9 +142,10 @@ def fp381_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(a)
     lanes = a.shape[-1]
     if a.numel():
-        cuda_fe._launched("fp381_mul", build().tm_fp381_mul(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes, a.numel() // (NL * lanes),
-            cuda_fe._stream(a)), LAUNCHES)
+        groups = a.numel() // (NL * lanes)
+        fn = getattr(build(), fp381_mul_entry(groups * lanes))
+        cuda_fe._launched("fp381_mul", fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes,
+                                          groups, cuda_fe._stream(a)), LAUNCHES)
     return out
 
 

@@ -7,7 +7,8 @@ csrc/fe25519.cuh, split over a warp in csrc/fe25519_warp.cuh):
 - `padd(p, q)`            unified a=-1 extended add (add-2008-hwcd-3): a
                           warp per lane on PADD_FEW_LANES lanes or fewer (the
                           MSM's top tree, tail, window fold and partial sums),
-                          a thread per lane above (the per-signature ladder)
+                          4 threads a lane above, one product of each round
+                          each (the per-signature ladder)
 - `pdbl(p, times)`        `times` chained dbl-2008-hwcd doublings: a warp per
                           lane on PDBL_FEW_LANES lanes or fewer (the window
                           fold's latency-bound chains, the ladder of a
@@ -220,7 +221,7 @@ PADD_FEW_LANES = 4096
 
 def padd_entry(n: int) -> str:
     """The padd kernel that n lanes launch: the warp-per-lane kernel on
-    PADD_FEW_LANES lanes or fewer, the thread-per-lane kernel above."""
+    PADD_FEW_LANES lanes or fewer, the 4-threads-a-lane kernel above."""
     return "tm_padd_lanes" if n <= PADD_FEW_LANES else "tm_padd"
 
 

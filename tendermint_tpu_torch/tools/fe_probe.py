@@ -1,5 +1,5 @@
-"""Pipe mix and lane sweeps of the pdbl and fsquare_chain kernels, beside an
-older tree's.
+"""Pipe mix and lane sweeps of the padd, pdbl and fsquare_chain kernels,
+beside an older tree's.
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
@@ -13,8 +13,8 @@ Run from the repository root on a machine with a CUDA card and nvcc:
    ALU (IADD3, LOP3, SHF, LEA, SEL, ...), memory, other; for the whole
    kernel and for its largest loop, with the loop's product IMADs (IMADs
    of four register operands: the multiply-adds of the field products).
-3. Times: each entry at each lane count of the two sweeps (fsquare_chain
-   k = 50, pdbl times = 4) on the same seeded carried-limb inputs, after
+3. Times: each entry at each lane count of the three sweeps (fsquare_chain
+   k = 50, pdbl times = 4, padd) on the same seeded carried-limb inputs, after
    checking it against the plain torch version (max |err| 0): CUDA events
    around 20 launches queued behind a device sleep, entries in order then
    in reverse, the median of the two rounds.
@@ -44,12 +44,16 @@ from tendermint_tpu_torch.ops import cuda_fe
 
 FSQ_LANES = (1_024, 4_096, 10_240, 16_384, 20_480, 24_576, 33_792, 50_688, 67_584)
 PDBL_LANES = (32, 33, 64, 512, 1_024, 4_096, 10_240, 16_384, 20_480, 24_576)
+PADD_LANES = (32, 192, 1_024, 4_096, 4_097, 8_192, 10_240, 16_384, 20_480, 24_576)
 K, TIMES, REPS = 50, 4, 20
 # entry -> kernel symbol, per build
 SHIPPED = {"tm_fsquare_chain": "fsquare_chain_kernel",
            "tm_fsquare_chain_quad": "fsquare_chain_quad_kernel",
-           "tm_pdbl": "pdbl_quad_kernel", "tm_pdbl_lanes": "pdbl_lanes_kernel"}
-BEFORE = {"tm_fsquare_chain": "fsquare_chain_kernel", "tm_pdbl": "pdbl_kernel"}
+           "tm_pdbl": "pdbl_quad_kernel", "tm_pdbl_lanes": "pdbl_lanes_kernel",
+           "tm_padd": "padd_quad_kernel", "tm_padd_lanes": "padd_lanes_kernel"}
+# the kernels each entry launched in the tree before padd_quad_kernel (--before)
+BEFORE = {"tm_fsquare_chain": "fsquare_chain_kernel", "tm_pdbl": "pdbl_quad_kernel",
+          "tm_padd": "padd_kernel"}
 
 PIPES = (
     ("fma", re.compile(r"^IMAD(\.|$)")),
@@ -60,10 +64,11 @@ PIPES = (
 
 
 def bind(lib, entries) -> None:
+    vp = ctypes.c_void_p
     for entry in entries:
         fn = getattr(lib, entry)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                       ctypes.c_void_p]
+        fn.argtypes = ([vp, vp, vp, ctypes.c_int64, vp] if entry.startswith("tm_padd")
+                       else [vp, vp, ctypes.c_int64, ctypes.c_int, vp])
         fn.restype = ctypes.c_int
 
 
@@ -155,13 +160,15 @@ def queued_ms(fn) -> float:
     raise SystemExit("fe_probe: the launches were not all queued behind the device sleep")
 
 
-def launcher(lib, entry: str, x: torch.Tensor, out: torch.Tensor):
+def launcher(lib, entry: str, x: torch.Tensor, out: torch.Tensor, y: torch.Tensor | None = None):
     n, fn = x.shape[-1], getattr(lib, entry)
     arg = K if "fsquare" in entry else TIMES
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), n) if y is not None else (
+        x.data_ptr(), out.data_ptr(), n, arg)
 
     def run():
-        err = fn(x.data_ptr(), out.data_ptr(), n, arg, stream)
+        err = fn(*args, stream)
         if err:
             raise RuntimeError(f"{entry} launch failed: cudaError {err}")
 
@@ -199,14 +206,18 @@ def main() -> int:
             print(f"sass {tag} {name}: kernel {mix['kernel']} largest loop "
                   f"{mix.get('largest_loop')}", flush=True)
     rng = np.random.default_rng(7)
-    for kind, shapes in (("fsquare_chain", FSQ_LANES), ("pdbl", PDBL_LANES)):
+    def carried(lead, n):
+        host = rng.integers(0, 8193, size=(*lead, n), dtype=np.int32)
+        host[..., 0, :] = rng.integers(0, 8192 + 608, size=host[..., 0, :].shape)
+        return torch.from_numpy(host).to(dev)
+
+    for kind, shapes in (("fsquare_chain", FSQ_LANES), ("pdbl", PDBL_LANES), ("padd", PADD_LANES)):
         for n in shapes:
-            lead = (20,) if kind == "fsquare_chain" else (4, 20)
-            host = rng.integers(0, 8193, size=(*lead, n), dtype=np.int32)
-            host[..., 0, :] = rng.integers(0, 8192 + 608, size=host[..., 0, :].shape)
-            x = torch.from_numpy(host).to(dev)
+            x = carried((20,) if kind == "fsquare_chain" else (4, 20), n)
+            y = carried((4, 20), n) if kind == "padd" else None
             want = (cuda_fe.fsquare_chain_plain(x, K) if kind == "fsquare_chain"
-                    else cuda_fe.pdbl_plain(x, TIMES))
+                    else cuda_fe.pdbl_plain(x, TIMES) if kind == "pdbl"
+                    else cuda_fe.padd_plain(x, y))
             runs = {}
             for tag, (lib, _) in builds.items():
                 for entry in entries[tag]:
@@ -214,7 +225,7 @@ def main() -> int:
                         continue
                     out = torch.empty_like(x)
                     key = f"{tag}:{entry[3:]}"
-                    runs[key] = launcher(lib, entry, x, out)
+                    runs[key] = launcher(lib, entry, x, out, y)
                     runs[key]()
                     torch.cuda.synchronize()
                     if not torch.equal(out, want):

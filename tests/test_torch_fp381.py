@@ -154,3 +154,21 @@ def test_fp381_mul_kernel_equals_plain_on_card(cuda_device):
     assert cuda_bls.LAUNCHES["fp381_mul"] == 1
     with pytest.raises(ValueError):
         cuda_bls.fp381_mul(t(a[0]).to(cuda_device), t(b).to(cuda_device))
+
+
+@pytest.mark.cuda
+def test_fp381_mul_few_kernel_equals_plain_on_card(cuda_device, monkeypatch):
+    """The Miller loop's widest launch (square12: 36 x 3 products on 2
+    lanes) and the fold's last level (6 x 1), routed to the few-product
+    kernel and forced onto the thread kernel, equal the reference limb for
+    limb."""
+    for lead, n in (((36, 3), 2), ((6,), 1)):
+        a = np.stack([carried_block(n) for _ in range(int(np.prod(lead)))]).reshape(*lead, 33, n)
+        b = np.stack([block(n) for _ in range(int(np.prod(lead)))]).reshape(*lead, 33, n)
+        want = JF._mul_np(a.reshape(-1, 33, n).transpose(1, 0, 2).reshape(33, -1),
+                          b.reshape(-1, 33, n).transpose(1, 0, 2).reshape(33, -1))
+        want = want.reshape(33, -1, n).transpose(1, 0, 2).reshape(*lead, 33, n)
+        for limit in (cuda_bls.FP_FEW_PRODUCTS, 0):
+            monkeypatch.setattr(cuda_bls, "FP_FEW_PRODUCTS", limit)
+            got = cuda_bls.fp381_mul(t(a).to(cuda_device), t(b).to(cuda_device)).cpu()
+            assert np.array_equal(got.numpy(), want)

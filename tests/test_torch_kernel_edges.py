@@ -1,7 +1,8 @@
 """Port kernels against their plain torch versions at edge shapes, on the
-card: B2 (padd), B5 (fenwick_reduce), B6 (bucket_fold), B8
-(fp12_sparse_mul); and the verify-mode routing of an explicit
-backend="cuda" request.
+card: B1 (fsquare_chain), B2 (padd), B3 (pdbl), B5 (fenwick_reduce), B6
+(bucket_fold), B7 (fp381_mul), B8 (fp12_sparse_mul); that a malformed CUDA
+input raises rather than taking a plain version; and the verify-mode
+routing of an explicit backend="cuda" request.
 
 B8 at 1, 2, 3, 129 and 16,384 lanes: a block holds 2 lanes, so these cover
 a half block, one block, a ragged last block and many blocks. B5 at Kf = 1,
@@ -10,10 +11,17 @@ block takes 32 neighbouring buckets of one window, and Kf = 1 and 2 are the
 kernel's no-add and single-add cases. The storage holds seeded carried limbs
 and each window's last top-tree lane is the identity point, which the
 indices name among random nodes of all three segments. B2 at 1, 31, 32, 33,
-192, PADD_FEW_LANES and PADD_FEW_LANES + 1 lanes: a block of the warp kernel
-holds 4 lanes, and the last two shapes sit on either side of the switch to
-the thread-per-lane kernel; each shape also runs both kernels, forced by
-pinning PADD_FEW_LANES. B6 at T = 1, 32 and 33 windows: 4 blocks a window,
+192, PADD_FEW_LANES, PADD_FEW_LANES + 1, 16,384, 16,385 and 16,391 lanes: a
+block of the warp kernel holds 4 lanes, one of the 4-threads-a-lane kernel
+16, so PADD_FEW_LANES + 1, 16,385 and 16,391 end in a part block; two shapes
+sit on either side of the switch between the kernels; each shape also runs
+both kernels, forced by pinning PADD_FEW_LANES. B7 at 1, 2, 31, 32, 33,
+FP_FEW_PRODUCTS, FP_FEW_PRODUCTS + 1 and 49,152 products (groups x lanes: 2
+lanes where the count is even, as on the Miller loop, else 1; 6 x 8,192 for
+the fold's first level), routed and with each kernel forced by pinning
+FP_FEW_PRODUCTS: the few-product kernel holds 4 products a block, one a
+warp; and B7 on five products whose M keeps a digit of 4096 after 3 carry
+passes, which the few-product kernel's vote loop settles. B6 at T = 1, 32 and 33 windows: 4 blocks a window,
 with nodes handed over through device memory. B2 and B6 inputs are seeded points and their doubles
 (carried limbs). B1 (fsquare_chain) at 1, 31, 32, 33, FSQ_FEW_LANES,
 FSQ_FEW_LANES + 1, 10,240, 24,576 and 24,577 lanes with k = 1, 50 and 100,
@@ -120,19 +128,90 @@ def carried_points(lanes: int, seed: int) -> torch.Tensor:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 31, 32, 33, 192, "few", "few+1"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 192, "few", "few+1", 16_384, 16_385, 16_391])
 def test_padd_kernels_equal_plain_at_edge_lanes(cuda_device, monkeypatch, n):
     n = {"few": cuda_fe.PADD_FEW_LANES, "few+1": cuda_fe.PADD_FEW_LANES + 1}.get(n, n)
     p, q = carried_points(n, 2 * n), carried_points(n, 2 * n + 1)
     want = cuda_fe.padd_plain(p, q)
     # the routing as shipped, then the warp kernel (n <= limit) and the
-    # thread kernel (n > limit) forced
+    # 4-threads-a-lane kernel (n > limit) forced
     for limit in (cuda_fe.PADD_FEW_LANES, n, n - 1):
         monkeypatch.setattr(cuda_fe, "PADD_FEW_LANES", limit)
         cuda_fe.reset_launches()
         got = cuda_fe.padd(p.to(cuda_device), q.to(cuda_device)).cpu()
         assert torch.equal(got, want), cuda_fe.padd_entry(n)
         assert cuda_fe.LAUNCHES["padd"] == 1
+
+
+# Products whose M keeps a digit of 4096 after 3 carry passes: (seed,
+# column) of a draw of 200,000 carried operand pairs (RIPPLE_DRAW_N); the
+# last three leave it in the top digit. tests/test_torch_kernel_schedules.py
+# holds their limbs.
+RIPPLE_DRAWS = ((1, 173_109), (1, 184_620), (2, 45_235), (4, 74_824), (24, 10_511))
+RIPPLE_DRAW_N = 200_000
+
+
+def ripple_fp() -> tuple:
+    """(a, b), each (33, 5) int32: the RIPPLE_DRAWS columns of
+    default_rng(seed)'s a, then b, each integers(0, 4097, (33, n)) with its
+    top row replaced by integers(0, 16, n)."""
+    cols = ([], [])
+    for seed, k in RIPPLE_DRAWS:
+        rng = np.random.default_rng(seed)
+        a = rng.integers(0, 4097, size=(33, RIPPLE_DRAW_N))
+        b = rng.integers(0, 4097, size=(33, RIPPLE_DRAW_N))
+        a[32] = rng.integers(0, 16, RIPPLE_DRAW_N)
+        b[32] = rng.integers(0, 16, RIPPLE_DRAW_N)
+        cols[0].append(a[:, k])
+        cols[1].append(b[:, k])
+    return tuple(torch.from_numpy(np.stack(c, 1).astype(np.int32)) for c in cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("products", [1, 2, 31, 32, 33, "few", "few+1", 49_152, "ripple"])
+def test_fp381_mul_kernels_equal_plain_at_edge_products(cuda_device, monkeypatch, products):
+    if products == "ripple":
+        a, b = ripple_fp()
+        k = a.shape[-1]
+    else:
+        k = {"few": cuda_bls.FP_FEW_PRODUCTS, "few+1": cuda_bls.FP_FEW_PRODUCTS + 1}.get(
+            products, products)
+        shape = (6, 8_192) if k == 49_152 else (k // 2, 2) if k % 2 == 0 else (k, 1)
+        rng = np.random.default_rng(k)
+        a, b = carried_fp(shape, rng), carried_fp(shape, rng)
+    want = cuda_bls.fp381_mul_plain(a, b)
+    a, b = a.to(cuda_device), b.to(cuda_device)
+    # the routing as shipped, then the few-product kernel (k <= limit) and
+    # the thread-per-product kernel (k > limit) forced
+    for limit in (cuda_bls.FP_FEW_PRODUCTS, k, k - 1):
+        monkeypatch.setattr(cuda_bls, "FP_FEW_PRODUCTS", limit)
+        cuda_bls.reset_launches()
+        got = cuda_bls.fp381_mul(a, b).cpu()
+        assert torch.equal(got, want), cuda_bls.fp381_mul_entry(k)
+        assert cuda_bls.LAUNCHES["fp381_mul"] == 1
+
+
+@pytest.mark.cuda
+def test_malformed_cuda_inputs_raise_not_fall_back(cuda_device):
+    """A CUDA tensor of the wrong type or layout raises in fp381_mul and
+    padd, on either kernel's side of the routing; nothing is launched and no
+    plain version is taken."""
+    rng = np.random.default_rng(3)
+    cuda_bls.reset_launches()
+    cuda_fe.reset_launches()
+    for shape in ((4, 2), (6, 8_192)):
+        a = carried_fp(shape, rng).to(cuda_device)
+        with pytest.raises(TypeError):
+            cuda_bls.fp381_mul(a.long(), a.long())
+        with pytest.raises(ValueError):
+            cuda_bls.fp381_mul(a[..., ::2], a[..., ::2])
+    for n in (32, 16_384):
+        p = carried_points(n, 9).to(cuda_device)
+        with pytest.raises(TypeError):
+            cuda_fe.padd(p.long(), p.long())
+        with pytest.raises(ValueError):
+            cuda_fe.padd(p[..., ::2], p[..., ::2])
+    assert cuda_bls.LAUNCHES["fp381_mul"] == 0 and cuda_fe.LAUNCHES["padd"] == 0
 
 
 @pytest.mark.cuda

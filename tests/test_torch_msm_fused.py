@@ -407,7 +407,7 @@ def test_padd_routes_by_lane_count(monkeypatch):
     """Every padd launch of the MSM schedule (the chunk-root top tree of a
     10k commit, the bucket tail, the window fold, the streamed partial sum:
     1-192 lanes) takes the warp-per-lane kernel, the per-signature ladder's
-    16,384 lanes the thread-per-lane kernel; on the CPU both are the plain
+    16,384 lanes the 4-threads-a-lane kernel; on the CPU both are the plain
     version."""
     assert 192 <= cuda_fe.PADD_FEW_LANES < 16_384
     few = (1, 2, 4, 8, 16, 32, 64, 96, 160, 192, cuda_fe.PADD_FEW_LANES)
