@@ -10,10 +10,14 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   2. build the CUDA kernel libraries (one nvcc each, started together, sm_90a)
      and the native host prep (gcc);
   3. each of the six kernels against its plain torch version on the card at
-     the shapes the paths below give it (uptree at 2,048-lane chunks on the
-     warm and streamed paths and at 1,024; pdbl at all six window-fold
-     shapes and on the ladder; padd on the top tree, the tail and the
-     ladder), and off the paths: both padd kernels at 32, 192, 1,024, 4,096,
+     the shapes the paths below give it (uptree and fenwick_reduce on the
+     warm, streamed and pipelined MSMs and on each of the tampered
+     bisection's combined checks, 2,048-10,240 lanes, chunks of 2,048 or
+     1,024; fsquare_chain on their A and R decompressions; pdbl at all six
+     window-fold shapes and on the ladder; padd on the top trees, the tail,
+     the chunk partials' fold and the ladder; the ladder at the widths of
+     tampered_persig, the bisection's leaves and host_small_cuda), and off
+     the paths: both padd kernels at 32, 192, 1,024, 4,096,
      4,097, 16,384 and 24,576 lanes (the sweep that sets
      cuda_fe.PADD_FEW_LANES) and bucket_fold at T = 1 and 33 windows;
      tolerance zero (integer arithmetic), with
@@ -29,29 +33,49 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      the unfused MSM total against the integer reference on a small input,
      and the fused total against the unfused one at the 10k commit's 20,480
      lanes;
-  4. a 10,000-validator commit (random keys from a seed, real signatures over
-     each row's precommit sign bytes) through ValidatorSet.verify_commit on
-     two paths: "cold" (plain kernel: A and R decompressed together, fills
-     the A cache) and "warm" (cached-A kernel), then one more warm call under
-     torch.profiler (device busy time, idle share, kernels by device time);
-     both run the fused MSM (uptree, fenwick_reduce, bucket_fold);
-  5. the "tampered" path: three tampered signatures, so verify_batch's
-     combined check fails and the per-signature recovery gives the mask, which
-     must be False exactly there; verify_commit raises CommitVerifyError; one
-     more verify_batch call under torch.profiler;
+  4. batch.prewarm(10,000, backend="cuda") (its seconds printed; the A
+     cache is reset after it), then a 10,000-validator commit (random keys
+     from a seed, real signatures over each row's precommit sign bytes)
+     through ValidatorSet.verify_commit on three paths: "cold" (plain
+     kernel: A and R decompressed together, fills the A cache) and "warm"
+     (cached-A kernel), both under configure_prep(stream=False), the single
+     flush, then 7 interleaved pairs of warm calls with the staged host
+     prep off and on (configure_prep(staged=...), both medians printed),
+     then one more warm call under torch.profiler (device busy time,
+     idle share, kernels by device time); and "pipelined", the default
+     route of 2,048 to 12,287 rows: two chunks of the planner's 24,576-lane
+     bucket, a head of 1,250 rows (one warm call, 5 timed, one profiled;
+     host prep, prep wait and prep overlap printed); all run the fused MSM
+     (uptree, fenwick_reduce, bucket_fold);
+  5. the "tampered" path: three tampered signatures, so the pipelined
+     combined check fails and the bisection gives the mask (20 flushes:
+     17 combined checks and 3 per-signature leaves, as the reference's
+     recursion gives on these rows), which must be False exactly there;
+     "tampered_persig", the same rows with TMTPU_BISECT=0 (one per-signature
+     pass over all rows); each arm warmed once, timed once, profiled once;
+     verify_commit raises CommitVerifyError;
   6. the "streamed" path: verify_batch over 100,000 rows (the commit's signed
      rows tiled ten times) through the flush planner, 9 chunks of 24,576
      lanes, once to warm and three timed runs, one more under torch.profiler;
      then "streamed_tampered": two tampered rows in different chunks, the
-     chunk-wise recovery, a mask False exactly there;
+     chunk-wise recovery (each 12,287-row chunk pipelined, then bisected;
+     each chunk's path and flush count printed), a mask False exactly there;
+  "host_small": BASELINE config 1, 128 rows through Ed25519BatchVerifier()
+     with no backend and no device: the host combined check with no kernel
+     launched; 200 rows with a bad row: the host bisection; the same 128
+     rows through Ed25519BatchVerifier(device=<the card>), which asks for the
+     card ("host_small_cuda"): its per-signature ladder; every mask held
+     against ed25519_ref.verify_cofactored;
   7. "mixed_commit": a 10,000-validator set holding 4 BLS validators, a
      plain Commit through verify_commit honest, with one bad BLS row and with
-     one bad Ed25519 row (Ed25519 rows on the card, BLS rows by bls_ref on
-     the host), verdicts held against bls_ref / ed25519_ref;
+     one bad Ed25519 row (Ed25519 rows on the card, pipelined since slice 9,
+     BLS rows by bls_ref on the host), verdicts held against bls_ref /
+     ed25519_ref;
   8. "mixed_sr25519_10k": BASELINE config 5 as bench.py builds it (10,000
      rows, the last 2,000 sr25519, 110-byte messages) through
      verify_batch(key_types=...): warm, 3 timed calls (the Ed25519 rows on
-     the card, the sr25519 rows by the native verifier on the host), then an
+     the card, pipelined since slice 9, the sr25519 rows by the native
+     verifier on the host), then an
      Ed25519 and an sr25519 row tampered (exact mask); 64 rows of each mask
      held against the port's pure-Python verifiers;
   9. the BLS kernels fp381_mul and fp12_sparse_mul against their plain
@@ -82,10 +106,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
   12. a `kernels` JSON line (a row off every path counts 0 launches), the
      card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
-(the warm and streamed paths per call); every kernel of a path must launch on
-it: the six Ed25519 kernels on the Ed25519 paths (mixed_commit and
-mixed_sr25519_10k included), the two BLS kernels on the BLS paths. Exits
-non-zero without a result when no CUDA device is available.
+(the warm, pipelined and streamed paths per call); every kernel of a path must
+launch on it: the six Ed25519 kernels on the Ed25519 paths (pipelined,
+tampered, tampered_persig, mixed_commit and mixed_sr25519_10k included), the
+two BLS kernels on the BLS paths, none on host_small. Exits non-zero without a
+result when no CUDA device is available.
 """
 
 from __future__ import annotations
@@ -143,6 +168,11 @@ N_MIXED_BLS = 4  # BLS validators in the mixed plain commit (each costs a host p
 # validators, the last 20% sr25519, 110-byte messages
 N_SR = 2_000
 SR_MSG_LEN = 110
+# The tampered bisection's combined checks (rows -> 2 x _lane_bucket(rows + 1)
+# MSM lanes, the fused chunk): 512, 1,024, 1,808, 2,048 and 4,096 rows; its
+# 8,192-row check has warm's 20,480 lanes.
+TAMPERED_MSM = ((2_048, 2048, 512), (3_072, 1024, 1_024), (4_096, 2048, 1_808),
+                (6_144, 2048, 2_048), (10_240, 2048, 4_096))
 SR_TAMPERED = (4_321, 9_876)  # an Ed25519 row and an sr25519 row
 N_COFACTORLESS = 300  # the cofactorless commit: its host loop is pure Python where OpenSSL is missing
 PADD_SWEEP = (32, 192, 1_024, 4_096, 4_097, 16_384, 24_576)
@@ -220,11 +250,12 @@ def timed(fn, reps: int = 5):
 # JSON line holds only what this run measured.
 RECORDED_BEFORE_MS = {
     ("padd", "warm", 160): 0.0203, ("padd", "warm", 32): 0.0205,
-    ("padd", "streamed", 192): 0.0205, ("padd", "tampered", 16_384): 0.0215,
+    ("padd", "streamed", 192): 0.0205, ("padd", "tampered_persig", 16_384): 0.0215,
     ("bucket_fold", "warm", 8_192): 0.1695,
-    ("pdbl", "tampered", 16_384): 0.0378,
+    ("pdbl", "tampered_persig", 16_384): 0.0378,
     ("fsquare_chain", "warm", 10_240): 0.0301, ("fsquare_chain", "cold", 20_480): 0.0470,
-    ("fsquare_chain", "streamed", 24_576): 0.0461, ("fsquare_chain", "tampered", 16_384): 0.0292,
+    ("fsquare_chain", "streamed", 24_576): 0.0461,
+    ("fsquare_chain", "tampered_persig", 16_384): 0.0292,
     ("fenwick_reduce", "warm", 8_192): 0.3327,
     ("fp12_sparse_mul", "bls_warm", 2): 0.1221, ("fp12_sparse_mul", None, 16_384): 0.4642,
     ("fp381_mul", "bls_warm", 216): 0.0063,
@@ -430,9 +461,10 @@ def max_err(got, want) -> int:
 def kernel_checks(dev, rng, card: dict) -> list:
     """Each kernel against its plain version at the shapes of each path:
     warm (cached A: R decompressed on 10,240 lanes, the fused MSM over
-    20,480 lanes), cold (A and R decompressed on 20,480), tampered (the
-    per-signature ladder on the 16,384-lane bucket) and streamed (24,576-lane
-    chunks: A and R decompressed, the fused MSM)."""
+    20,480 lanes), cold (A and R decompressed on 20,480), tampered_persig
+    (the per-signature ladder on the 16,384-lane bucket), tampered (the
+    bisection's ladder leaf on 1,024 lanes), streamed and pipelined
+    (24,576-lane chunks: A and R decompressed, the fused MSM)."""
     from tendermint_tpu_torch.ops import cuda_fe, cuda_msm, msm_torch
     from tendermint_tpu_torch.ops.msm_geometry import chunk_geometry, tree_written_positions
 
@@ -504,31 +536,50 @@ def kernel_checks(dev, rng, card: dict) -> list:
                     # table and perm read once; level 0 and the chunk trees written once
                     bytes=n * POINT_BYTES + t_ * n * 4 + (t_ * n + nchunks * (ch - 1)) * POINT_BYTES)
 
-    fs = fused_storage(pick(20_480), rng, 20_480)
-    m, kf = fs["idx"].shape
-    fw_args = (fs["lvl0"], fs["ctree"], fs["top"], fs["idx"])
-    t_ = fs["t"]
-    # the gather's floor: the distinct 32-B sectors of the nodes' limb rows
-    sectors = fenwick_gather_sectors(fs["idx"].cpu().numpy(), *(
-        fs[k].shape[-1] for k in ("lvl0", "ctree", "top")))
+    def fenwick_case(path, n, where):
+        """fenwick_reduce on the fused storage of an n-lane MSM; returns the
+        case and the storage (its prefix points feed bucket_fold)."""
+        fs = fused_storage(pick(n), rng, n)
+        m, kf = fs["idx"].shape
+        fw_args = (fs["lvl0"], fs["ctree"], fs["top"], fs["idx"])
+        # the gather's floor: the distinct 32-B sectors of the nodes' limb rows
+        sectors = fenwick_gather_sectors(fs["idx"].cpu().numpy(), *(
+            fs[k].shape[-1] for k in ("lvl0", "ctree", "top")))
+        return dict(name="fenwick_reduce", path=path,
+                    variant=f"Kf={kf}, 256 buckets x {fs['t']} windows, {n:,}-lane MSM, {where}",
+                    lanes=m, kern=lambda: cuda_msm.fenwick_reduce(*fw_args),
+                    plain=lambda: cuda_msm.fenwick_reduce_plain(*fw_args),
+                    t_ops=work_seconds(m * (kf - 1) * PADD_MADS, card),
+                    bytes=sectors * 32 + m * kf * 4 + m * POINT_BYTES, sectors=sectors,
+                    bound_note=f"operations: (Kf-1) x PADD_MADS a lane over the whole card; "
+                               f"bytes: {sectors} gather sectors x 32 B, the index table and "
+                               f"the output once"), fs
+
+    warm_fenwick, fs = fenwick_case("warm", 20_480, "10k commit")
     cases = [
         uptree_case("warm", 20_480, 2048, "10k commit: 32 windows x 10 chunks"),
         uptree_case("streamed", 24_576, 2048, "planner chunk: 32 windows x 12 chunks"),
-        uptree_case(None, 3_072, 1024, "1,536-lane A bucket: 32 windows x 3 chunks, off the path"),
-        dict(name="fenwick_reduce", path="warm", variant=f"Kf={kf}, 256 buckets x {t_} windows",
-             lanes=m, kern=lambda: cuda_msm.fenwick_reduce(*fw_args),
-             plain=lambda: cuda_msm.fenwick_reduce_plain(*fw_args),
-             t_ops=work_seconds(m * (kf - 1) * PADD_MADS, card),
-             bytes=sectors * 32 + m * kf * 4 + m * POINT_BYTES, sectors=sectors,
-             bound_note=f"operations: (Kf-1) x PADD_MADS a lane over the whole card; bytes: "
-                        f"{sectors} gather sectors x 32 B, the index table and the output once"),
-        bucket_fold_case("warm", fs["prefix"], t_),
+        uptree_case("pipelined", 24_576, 2048, "pipelined chunk: 32 windows x 12 chunks"),
+        # the bisection's combined checks of 512-8,192 rows (8,192 is warm's 20,480 lanes)
+        *(uptree_case("tampered", n, ch, f"bisection sub-check of {rows} rows: "
+                                         f"32 windows x {n // ch} chunks")
+          for n, ch, rows in TAMPERED_MSM),
+        warm_fenwick,
+        *(fenwick_case("tampered", n, f"bisection sub-check of {rows} rows")[0]
+          for n, _, rows in TAMPERED_MSM),
+        bucket_fold_case("warm", fs["prefix"], fs["t"]),
         bucket_fold_case(None, pick(256), 1),
         bucket_fold_case(None, pick(256 * 33), 33),
         padd_case("warm", 32 * 5, "top tree level 1: 32 windows x 5 root pairs"),
         padd_case("streamed", 32 * 6, "top tree level 1: 32 windows x 6 root pairs"),
         padd_case("warm", 32, "[255] P_255 and W per window"),
-        padd_case("tampered", 16_384, "per-signature ladder"),
+        padd_case("pipelined", 1, "the chunk partials' fold"),
+        padd_case("tampered", 32 * 3, "top tree level 1 of a 4,096-row sub-check: 32 x 3"),
+        padd_case("tampered", 32 * 2, "top tree level 1 of a 1,024-2,048-row sub-check: 32 x 2"),
+        padd_case("tampered_persig", 16_384, "per-signature ladder"),
+        padd_case("tampered", 1_024, "per-signature ladder, the bisection's 784-row leaf"),
+        padd_case("tampered", 512, "per-signature ladder, the bisection's 512-row leaves"),
+        padd_case("host_small_cuda", 128, "per-signature ladder of 128 rows"),
         *(padd_case(None, n, f"sweep, {symbol}", few)
           for n in PADD_SWEEP for symbol, few in SWEEP_FEW_LANES.items()),
         pdbl_case("warm", 32, 8, "[256] P_255 per window"),
@@ -537,13 +588,22 @@ def kernel_checks(dev, rng, card: dict) -> list:
         pdbl_case("warm", 4, 32, "window fold level 3"),
         pdbl_case("warm", 2, 64, "window fold level 4"),
         pdbl_case("warm", 1, 128, "last window-fold level"),
-        pdbl_case("tampered", 16_384, 4, "per-signature ladder"),
+        pdbl_case("tampered_persig", 16_384, 4, "per-signature ladder"),
+        pdbl_case("tampered", 1_024, 4, "per-signature ladder, the bisection's 784-row leaf"),
+        pdbl_case("tampered", 512, 4, "per-signature ladder, the bisection's 512-row leaves"),
         pdbl_case("cofactored_300", 512, 4, "per-signature ladder of a 300-row commit"),
+        pdbl_case("host_small_cuda", 128, 4, "per-signature ladder of 128 rows"),
         fsq_case("warm", 10_240, "R decompression"),
         fsq_case("cold", 20_480, "A and R decompression"),
         fsq_case("streamed", 24_576, "A and R decompression per chunk"),
-        fsq_case("tampered", 16_384, "per-signature A or R decompression"),
+        fsq_case("tampered_persig", 16_384, "per-signature A or R decompression"),
+        fsq_case("tampered", 1_024, "A or R decompression, the bisection's 784-row leaf"),
+        fsq_case("pipelined", 24_576, "A and R decompression per chunk of the 10k commit"),
+        fsq_case("tampered", 512, "A or R decompression, the bisection's 512-row leaves"),
+        *(fsq_case("tampered", n // 2, f"R decompression of a {rows}-row cached sub-check")
+          for n, _, rows in TAMPERED_MSM),
         fsq_case("cofactored_300", 512, "A or R decompression of a 300-row commit"),
+        fsq_case("host_small_cuda", 128, "A or R decompression of 128 rows"),
     ]
 
     return check_cases(cases, card), base
@@ -836,68 +896,107 @@ def same_counts(launches: dict, path: str, counts: dict) -> None:
 
 
 def commit_phase(dev, corpus) -> dict:
-    """The three commit paths, each with its own launch counts:
-    {path: {kernel: n}}."""
+    """prewarm, then the commit paths, each with its own launch counts:
+    {path: {kernel: n}}. cold and warm run the single flush
+    (configure_prep(stream=False)); pipelined, tampered and tampered_persig
+    run with the default configuration, as a node would."""
     from tendermint_tpu_torch.crypto import batch
     from tendermint_tpu_torch.types.block import Commit, CommitSig
     from tendermint_tpu_torch.types.validator_set import CommitVerifyError
 
     vals, block_id, commit, msgs = corpus
-    batch.reset_a_cache()
     launches = {}
-
-    # Cold: the plain kernel decompresses A and R together and fills the cache.
-    reset_launches()
     t0 = time.perf_counter()
-    vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev)
+    batch.prewarm(N_VALIDATORS, backend="cuda")
     torch.cuda.synchronize()
-    cold_ms = (time.perf_counter() - t0) * 1e3
-    launches["cold"] = read_launches("cold")
-    cold = dict(batch.LAST_FLUSH)
-    assert cold.get("mode") == "plain" and cold.get("fused") and "recovery_s" not in cold, cold
+    print(f"prewarm({N_VALIDATORS}, backend='cuda'): {time.perf_counter() - t0:.2f} s "
+          f"(stream flag after: {batch._stream_enabled()})", flush=True)
+    if not batch._stream_enabled():
+        raise SystemExit("prewarm left the stream flag off")
+    batch.reset_a_cache()
 
-    # Warm: the cached-A kernel; counts per call, the same on every call.
-    warm, warm_flush = [], []
-    for _ in range(7):
+    def verify(tag: str) -> dict:
         reset_launches()
         t0 = time.perf_counter()
         vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev)
         torch.cuda.synchronize()
-        warm.append((time.perf_counter() - t0) * 1e3)
-        same_counts(launches, "warm", read_launches("warm"))
-        warm_flush.append(dict(batch.LAST_FLUSH))
-    for f in warm_flush:
-        assert f.get("mode") == "cached" and f.get("fused") and "recovery_s" not in f, f
-    prep = statistics.median(f["prep_s"] for f in warm_flush) * 1e3
-    total = statistics.median(f["total_s"] for f in warm_flush) * 1e3
-    sign_bytes = []
-    for _ in range(3):  # the commit API's own host work before the flush
-        t0 = time.perf_counter()
-        commit.vote_sign_bytes_many(CHAIN_ID, range(N_VALIDATORS))
-        sign_bytes.append((time.perf_counter() - t0) * 1e3)
-    print(f"verify_commit 10k: cold_ms={cold_ms:.1f} warm_median_ms={statistics.median(warm):.1f} "
-          f"warm_ms={[round(w, 1) for w in warm]} sign_bytes_ms={statistics.median(sign_bytes):.1f} "
-          f"host_prep_ms={prep:.1f} submit_to_sync_ms={total - prep:.1f} lanes={cold['lanes']} "
-          f"(A block {cold['lanes'] // 2}) fused={cold['fused']}", flush=True)
-    print(f"launches cold={launches['cold']} warm per call={launches['warm']}", flush=True)
-    profile_path("warm", lambda: vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev),
-                 statistics.median(warm))
+        ms = (time.perf_counter() - t0) * 1e3
+        return dict(batch.LAST_FLUSH, ms=ms, counts=read_launches(tag))
 
-    # Tampered: the cached flush fails, the per-signature recovery gives the mask.
+    stream = batch._stream_enabled()
+    batch.configure_prep(stream=False)
+    try:
+        # Cold: the plain kernel decompresses A and R together and fills the cache.
+        cold = verify("cold")
+        launches["cold"] = cold["counts"]
+        assert cold.get("mode") == "plain" and cold.get("fused") and "recovery_s" not in cold, cold
+        # Warm: the cached-A kernel; counts per call, the same on every call.
+        warm_flush = [verify("warm") for _ in range(7)]
+        for f in warm_flush:
+            same_counts(launches, "warm", f["counts"])
+            assert f.get("mode") == "cached" and f.get("fused") and "recovery_s" not in f, f
+        warm = [f["ms"] for f in warm_flush]
+        # Staged against unstaged host prep on the same warm call, interleaved.
+        staged_ab = {True: [], False: []}
+        for _ in range(7):
+            for staged in (False, True):
+                batch.configure_prep(staged=staged)
+                f = verify("warm")
+                same_counts(launches, "warm", f["counts"])
+                assert f.get("mode") == "cached" and "recovery_s" not in f, f
+                staged_ab[staged].append((f["ms"], f["prep_s"] * 1e3))
+        batch.configure_prep(staged=True)
+        print("warm staged vs unstaged (interleaved, 7 each): " + " ".join(
+            f"{'staged' if k else 'unstaged'}_median_ms="
+            f"{statistics.median(t for t, _ in v):.1f} "
+            f"{'staged' if k else 'unstaged'}_host_prep_ms={statistics.median(p for _, p in v):.1f}"
+            for k, v in staged_ab.items()), flush=True)
+        sign_bytes = []
+        for _ in range(3):  # the commit API's own host work before the flush
+            t0 = time.perf_counter()
+            commit.vote_sign_bytes_many(CHAIN_ID, range(N_VALIDATORS))
+            sign_bytes.append((time.perf_counter() - t0) * 1e3)
+        prep = statistics.median(f["prep_s"] for f in warm_flush) * 1e3
+        total = statistics.median(f["total_s"] for f in warm_flush) * 1e3
+        print(f"verify_commit 10k (stream off): cold_ms={cold['ms']:.1f} "
+              f"warm_median_ms={statistics.median(warm):.1f} warm_ms={[round(w, 1) for w in warm]} "
+              f"sign_bytes_ms={statistics.median(sign_bytes):.1f} host_prep_ms={prep:.1f} "
+              f"submit_to_sync_ms={total - prep:.1f} lanes={cold['lanes']} "
+              f"(A block {cold['lanes'] // 2}) fused={cold['fused']}", flush=True)
+        print(f"launches cold={launches['cold']} warm per call={launches['warm']}", flush=True)
+        profile_path("warm", lambda: vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit,
+                                                        device=dev), statistics.median(warm))
+    finally:
+        batch.configure_prep(stream=stream)
+
+    # Pipelined: the default route of a 10k commit, two chunks of the planner's bucket.
+    verify("pipelined")  # warm
+    piped = [verify("pipelined") for _ in range(5)]
+    for f in piped:
+        same_counts(launches, "pipelined", f["counts"])
+        if not (f.get("mode") == "pipelined" and f.get("path") == "rlc-pipelined"
+                and f.get("chunks") == 2 and f.get("head_rows") == 1_250
+                and f.get("chunk_lanes") == 24_576 and "recovery_s" not in f):
+            raise SystemExit(f"pipelined flush detail wrong: {f}")
+    pms = [f["ms"] for f in piped]
+
+    def med(key):
+        return statistics.median(f[key] for f in piped) * 1e3
+
+    print(f"pipelined verify_commit 10k: median_ms={statistics.median(pms):.1f} "
+          f"ms={[round(t, 1) for t in pms]} host_prep_ms={med('prep_s'):.1f} "
+          f"prep_wait_ms={med('prep_wait_s'):.1f} prep_overlap_ms={med('prep_overlap_s'):.1f} "
+          f"chunks=2 head_rows=1250 chunk_lanes=24576 launches per call={launches['pipelined']}",
+          flush=True)
+    profile_path("pipelined", lambda: vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit,
+                                                         device=dev), statistics.median(pms))
+
+    # Tampered: the pipelined check fails; the bisection (default) or one
+    # per-signature pass (TMTPU_BISECT=0) gives the mask.
     pubkeys = [vals.validators[i].pub_key.bytes() for i in range(N_VALIDATORS)]
     sigs = [cs.signature for cs in commit.signatures]
     for i in TAMPERED:
         sigs[i] = flip(sigs[i])
-    reset_launches()
-    t0 = time.perf_counter()
-    mask = batch.verify_batch(pubkeys, msgs, sigs, device=dev)
-    torch.cuda.synchronize()
-    batch_ms = (time.perf_counter() - t0) * 1e3
-    launches["tampered"] = read_launches("tampered")
-    recovery_ms = batch.LAST_FLUSH["recovery_s"] * 1e3
-    bad = tuple(int(i) for i in np.flatnonzero(~mask))
-    if bad != TAMPERED:
-        raise SystemExit(f"tampered mask wrong: False at {bad}, expected {TAMPERED}")
     tampered = Commit(HEIGHT, 0, block_id, [
         CommitSig(cs.block_id_flag, cs.validator_address, cs.timestamp_ns, s)
         for cs, s in zip(commit.signatures, sigs)])
@@ -907,11 +1006,97 @@ def commit_phase(dev, corpus) -> dict:
         print(f"tampered commit rejected: {e}", flush=True)
     else:
         raise SystemExit("tampered commit was accepted")
-    print(f"tampered rows {bad}: verify_batch ms={batch_ms:.1f} (per-signature recovery "
-          f"ms={recovery_ms:.1f}) launches={launches['tampered']}", flush=True)
-    profile_path("tampered", lambda: batch.verify_batch(pubkeys, msgs, sigs, device=dev),
-                 batch_ms)
+    for path, bisect, want_path, want_flushes in (("tampered", "1", "rlc-bisect", 20),
+                                                  ("tampered_persig", "0", "persig", 1)):
+        os.environ["TMTPU_BISECT"] = bisect
+        try:
+            batch.verify_batch(pubkeys, msgs, sigs, device=dev)  # warm: this arm's shapes
+            reset_launches()
+            t0 = time.perf_counter()
+            mask = batch.verify_batch(pubkeys, msgs, sigs, device=dev)
+            torch.cuda.synchronize()
+            batch_ms = (time.perf_counter() - t0) * 1e3
+            launches[path] = read_launches(path)
+            f = dict(batch.LAST_FLUSH)
+            bad = tuple(int(i) for i in np.flatnonzero(~mask))
+            if bad != TAMPERED:
+                raise SystemExit(f"{path} mask wrong: False at {bad}, expected {TAMPERED}")
+            if (f.get("path"), f.get("recovery_flushes"), f.get("mode")) != (
+                    want_path, want_flushes, "pipelined"):
+                raise SystemExit(f"{path} flush detail wrong: {f}")
+            print(f"{path} rows {bad}: verify_batch ms={batch_ms:.1f} path={f['path']} "
+                  f"recovery_flushes={f['recovery_flushes']} "
+                  f"recovery_ms={f['recovery_s'] * 1e3:.1f} launches={launches[path]}", flush=True)
+            profile_path(path, lambda: batch.verify_batch(pubkeys, msgs, sigs, device=dev),
+                         batch_ms)
+        finally:
+            del os.environ["TMTPU_BISECT"]
     return launches
+
+
+def host_small_phase(dev, corpus, launches: dict) -> None:
+    """The host arm: BASELINE config 1 (128 rows through Ed25519BatchVerifier
+    with no backend and no device) takes the host combined check with no
+    kernel launched; 200 rows with a bad row take the host bisection; the
+    same 128 rows through Ed25519BatchVerifier(device=<the card>), which asks
+    for the card, run its per-signature ladder (the reference's batch128).
+    Every mask is held against ed25519_ref.verify_cofactored."""
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto import ed25519_ref as E
+
+    vals, _, commit, msgs = corpus
+    pks = [v.pub_key.bytes() for v in vals.validators[:200]]
+    sigs = [cs.signature for cs in commit.signatures[:200]]
+    msgs = list(msgs[:200])
+
+    def held(mask, sigs_, n):
+        want = [E.verify_cofactored(pks[i], msgs[i], sigs_[i]) for i in range(n)]
+        if mask.tolist() != want:
+            raise SystemExit("host_small: a mask differs from ed25519_ref.verify_cofactored")
+
+    out = {}
+    for tag, device in (("host_small", None), ("host_small_cuda", dev)):
+        v = batch.Ed25519BatchVerifier(device=device)
+        for row in zip(pks[:128], msgs[:128], sigs[:128]):
+            v.add(*row)
+        v.verify()  # warm
+        times = []
+        for _ in range(5):
+            reset_launches()
+            t0 = time.perf_counter()
+            mask = v.verify()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            same_counts(launches, tag, read_launches(tag, () if device is None else
+                                                     ("padd", "pdbl", "fsquare_chain")))
+        f = dict(batch.LAST_FLUSH)
+        held(mask, sigs, 128)
+        want = ("host_rlc", "cpu") if device is None else ("persig", "persig")
+        if (f.get("mode"), f.get("path")) != want or not mask.all():
+            raise SystemExit(f"{tag}: flush {f}, {int((~mask).sum())} rows False")
+        if device is None and any(launches[tag].values()):
+            raise SystemExit(f"host_small launched kernels: {launches[tag]}")
+        out[tag] = statistics.median(times)
+    bad = list(sigs)
+    bad[150] = flip(bad[150])
+    reset_launches()
+    t0 = time.perf_counter()
+    mask = batch.verify_batch(pks, msgs, bad)
+    bisect_ms = (time.perf_counter() - t0) * 1e3
+    launches["host_small_bisect"] = read_launches("host_small_bisect", ())
+    f = dict(batch.LAST_FLUSH)
+    held(mask, bad, 200)
+    if (np.flatnonzero(~mask).tolist() != [150] or f.get("path") != "cpu"
+            or f.get("mode") != "host_serial" or not f.get("recovery_flushes")
+            or any(launches["host_small_bisect"].values())):
+        raise SystemExit(f"host_small bisection: {f}, launches {launches['host_small_bisect']}")
+    print(f"host_small (BASELINE config 1, 128 rows): Ed25519BatchVerifier() median_ms="
+          f"{out['host_small']:.2f} mode=host_rlc path=cpu launches=0; "
+          f"Ed25519BatchVerifier(device={dev}) median_ms="
+          f"{out['host_small_cuda']:.2f} launches per call={launches['host_small_cuda']}; "
+          f"200 rows, row 150 bad: ms={bisect_ms:.1f} host bisection "
+          f"recovery_flushes={f['recovery_flushes']} launches=0; masks equal "
+          f"ed25519_ref.verify_cofactored", flush=True)
 
 
 def flip(sig: bytes) -> bytes:
@@ -942,7 +1127,8 @@ def streamed_phase(dev, corpus, launches: dict) -> None:
         f = dict(batch.LAST_FLUSH)
         if not mask.all() or mask.shape != (n,):
             raise SystemExit(f"streamed mask wrong: {int((~mask).sum())} rows False")
-        if not (f.get("mode") == "streamed" and f.get("fused") and "recovery_s" not in f
+        if not (f.get("mode") == "streamed" and f.get("path") == "rlc-streamed"
+                and f.get("fused") and "recovery_s" not in f
                 and f["chunk_lanes"] == 24_576
                 and 0 < f["peak_lanes_in_flight"] <= 2 * f["chunk_lanes"]):
             raise SystemExit(f"streamed flush detail wrong: {f}")
@@ -974,11 +1160,15 @@ def streamed_phase(dev, corpus, launches: dict) -> None:
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches["streamed_tampered"] = read_launches("streamed_tampered")
+    f = dict(batch.LAST_FLUSH)
     bad = tuple(int(i) for i in np.flatnonzero(~mask))
-    if bad != STREAM_TAMPERED or "recovery_s" not in batch.LAST_FLUSH:
-        raise SystemExit(f"streamed tampered mask wrong: False at {bad}, expected {STREAM_TAMPERED}")
-    print(f"streamed tampered rows {bad}: verify_batch ms={ms:.1f} (chunk-wise recovery "
-          f"ms={batch.LAST_FLUSH['recovery_s'] * 1e3:.1f}) "
+    if bad != STREAM_TAMPERED or "recovery_s" not in f or f.get("path") != "rlc-streamed-recovery":
+        raise SystemExit(f"streamed tampered mask wrong: False at {bad}, expected "
+                         f"{STREAM_TAMPERED}; flush {f}")
+    chunks = [(c["rows"], c["path"], c["recovery_flushes"]) for c in f["recovered_chunks"]]
+    print(f"streamed tampered rows {bad}: verify_batch ms={ms:.1f} path={f['path']} (chunk-wise "
+          f"recovery ms={f['recovery_s'] * 1e3:.1f}, recovery_flushes="
+          f"{f.get('recovery_flushes')}) chunks (rows, path, recovery flushes)={chunks} "
           f"launches={launches['streamed_tampered']}", flush=True)
 
 
@@ -1029,10 +1219,11 @@ def build_mixed_sr25519(rng):
 
 def mixed_sr25519_phase(dev, sr: dict, launches: dict) -> None:
     """verify_batch(key_types=...) on the mixed Ed25519 + sr25519 set: once
-    to warm (fills the A cache), 3 timed calls (launch counts the same on
-    each), then one Ed25519 row and one sr25519 row tampered, whose mask
-    must be False exactly there (the Ed25519 rows' exact-mask recovery on
-    the card). The Ed25519 rows run the card path, the sr25519 rows the
+    to warm, 3 timed calls (launch counts the same on each; the 8,000
+    Ed25519 rows run the pipelined 2-chunk stream, the default route since
+    slice 9, where they ran the cached single flush before), then one
+    Ed25519 row and one sr25519 row tampered, whose mask must be False
+    exactly there (the Ed25519 rows' bisection on the card). The Ed25519 rows run the card path, the sr25519 rows the
     native verifier on the host; a 64-row sample of each mask is held
     against the port's pure-Python verifiers."""
     from tendermint_tpu_torch.crypto import batch
@@ -1059,12 +1250,12 @@ def mixed_sr25519_phase(dev, sr: dict, launches: dict) -> None:
     n_ed = N_VALIDATORS - N_SR
     sample = sorted(set(int(i) for i in rng.integers(0, n_ed, 32))
                     | set(int(i) for i in rng.integers(n_ed, N_VALIDATORS, 32)))
-    call(sr["sigs"])  # warm: the A cache of these keys
+    call(sr["sigs"])  # warm
     times, sr_ms = [], []
     for _ in range(3):
         mask, ms, flush = call(sr["sigs"])
         same_counts(launches, "mixed_sr25519_10k", read_launches("mixed_sr25519_10k"))
-        if not mask.all() or flush.get("sr25519_rows") != N_SR or flush.get("mode") != "cached":
+        if not mask.all() or flush.get("sr25519_rows") != N_SR or flush.get("mode") != "pipelined":
             raise SystemExit(f"mixed_sr25519_10k: {int((~mask).sum())} rows False, flush {flush}")
         times.append(ms)
         sr_ms.append(flush["sr25519_s"] * 1e3)
@@ -1121,7 +1312,9 @@ def build_mixed_commit(corpus):
 
 def mixed_commit_phase(dev, mixed: dict, launches: dict) -> None:
     """verify_commit on the mixed set: honest, one bad BLS row, one bad
-    Ed25519 row. The Ed25519 rows run the card path (all six kernels), the
+    Ed25519 row. The Ed25519 rows run the card path (all six kernels; the
+    pipelined stream and, on the bad Ed25519 row, the bisection, since
+    slice 9), the
     BLS rows bls_ref.verify on the host; the per-row verdicts
     (verify_batch(key_types=...)) are held against bls_ref on every BLS row
     and ed25519_ref on the tampered Ed25519 row and a sample of 64 others."""
@@ -1468,6 +1661,7 @@ def main() -> int:
     msm_reference_check(dev, rng, base)
     launches = commit_phase(dev, corpus)
     streamed_phase(dev, corpus, launches)
+    host_small_phase(dev, corpus, launches)
     mixed_commit_phase(dev, mixed, launches)
     mixed_sr25519_phase(dev, mixed_sr, launches)
     bls_phase(dev, bls, launches)

@@ -1,50 +1,72 @@
-"""Batch Ed25519 verification on the card: `verify_batch -> bool mask`.
+"""Batch Ed25519 verification: `verify_batch -> bool mask`.
 
-The counterpart of tendermint_tpu/crypto/batch.py's `verify_batch_jax` in the
-single-device configuration with TMTPU_PREP_STREAM=0 and TMTPU_BISECT=0.
-Routing on the card (backend "cuda"):
+The counterpart of tendermint_tpu/crypto/batch.py's `verify_batch` in the
+single-device configuration, with the reference's knobs, defaults and route
+labels (LAST_FLUSH["path"]: the third value of the reference's
+`_verify_batch_routed`).
 
-- fewer than RLC_MIN rows: the per-signature ladder (ops/ed25519_torch.py);
-- RLC_MIN to planner_chunk_rows() rows (12,287 at the default budget): ONE
-  random-linear-combination flush (ops/msm_torch.py), on the fused MSM
-  schedule whenever a chunk tiles its lanes (every lane bucket of 1,024
-  A lanes or more, so every flush this module makes). If the combined check
-  fails, one per-signature flush over all rows gives the exact mask (the
-  reference's non-bisect recovery);
-- more rows: the streamed flush planner. Fixed chunks of planner_budget()
-  lanes, each with its own B lane, are prepared on a worker thread one chunk
-  ahead, run as partial MSMs, summed on the device with one padd each, and
-  checked once. If that check fails, the exact mask is recovered chunk by
-  chunk through the in-budget path above.
+`backend` picks the arm, as the reference's does. None follows the verify
+mode (`backend_default`): the host in cofactorless mode, else the card,
+except that a call of fewer than _CUDA_MIN_BATCH = 256 rows (env
+TMTPU_JAX_MIN) runs on the host unless its `device` names a card (the
+reference has no device argument: a caller who names the card gets it).
+"cpu" is the host arm at every size, "cuda" the card arm at every size. The
+arm is chosen by row count, verify mode and the caller's `device` only,
+never by whether a card is present: a card call resolves `device`
+(device.resolve raises without a card).
+
+The host arm (`verify_batch_cpu`, path "cpu"): from _HOST_RLC_MIN = 48 rows
+(env TMTPU_HOST_RLC_MIN), and not in cofactorless mode, the combined check
+on host points (a Pippenger MSM over crypto/ed25519_ref), striped on the
+prep worker above the stream floor; when it fails, the host bisection over
+host sub-checks and serial leaves. Fewer rows, and cofactorless mode, run the
+serial loop (keys.Ed25519PubKey.verify under the mode).
+
+The card arm (`verify_batch_cuda`):
+
+- fewer than RLC_MIN rows: the per-signature ladder (ops/ed25519_torch.py),
+  path "persig";
+- RLC_MIN to planner_chunk_rows() rows (12,287 at the default budget): from
+  the stream floor (TMTPU_PREP_STREAM_FLOOR = 2,048) with the stream on
+  (TMTPU_PREP_STREAM = 1), the pipelined 2-chunk stream (head max(RLC_MIN,
+  n // 8) rows, the tail's host prep on the prep worker while the head's
+  kernels run; "rlc-pipelined"); below it, or with the stream off, ONE
+  random-linear-combination flush (ops/msm_torch.py; "rlc"), with its
+  challenge hashing on the prep worker when staged (TMTPU_PREP_STAGED = 1).
+  If the combined check fails, bisection (TMTPU_BISECT = 1;
+  "rlc-bisect") or one per-signature flush over all rows
+  (TMTPU_BISECT = 0) gives the exact mask;
+- more rows: the streamed flush planner ("rlc-streamed"). Fixed chunks of
+  planner_budget() lanes, each with its own B lane, are prepared on the prep
+  worker one chunk ahead, run as partial MSMs, summed on the device with one
+  padd each, and checked once. If that check fails, each chunk runs the
+  in-budget path above ("rlc-streamed-recovery").
 
 A kernel or launch failure raises: there is no retry on another schedule
-and no recovery from a device error (ROADMAP.md section C).
+and no recovery from a device error (ROADMAP.md section C). The host arm's
+two catches (a host combined check that raises counts as failed) touch no
+device.
 
-The card path is COFACTORED with canonical encodings and s < L on every
-route, so its mask never depends on the route
-(crypto/ed25519_ref.verify_cofactored). `backend` picks the path, as the
-reference's does: None follows the verify mode (`backend_default`), "cuda"
-is the card path on `device`, "cpu" the host serial loop
-(keys.Ed25519PubKey.verify, one row at a time, under the mode). In
-cofactorless mode (TMTPU_ED25519_MODE, keys.set_verify_mode) the default is
-the host loop, which then gives the Go reference's verdicts; an explicit
-"cuda" stays on the card and cofactored.
+Every route is COFACTORED with canonical encodings and s < L, except the
+serial loop in cofactorless mode, so a mask never depends on the route
+(crypto/ed25519_ref.verify_cofactored).
 
 Host prep runs in native C (native/): challenge hashes, RLC scalars, the
-window sort. Decompressed public keys are cached ON THE DEVICE across calls
-(consensus re-verifies one validator set every height): the first flush of a
-set runs the plain kernel, which decompresses A in-kernel and fills the
-cache; once every included key is cached, the cached-A kernel decompresses
-only R. The streamed path decompresses A and R in every chunk, as the
-reference's does.
+window sort. Decompressed public keys are cached ON THE DEVICE across calls:
+the first single flush of a set runs the plain kernel, which decompresses A
+in-kernel and fills the cache; once every included key is cached, the
+cached-A kernel decompresses only R. The pipelined and streamed paths
+decompress A and R in every chunk, as the reference's do.
 """
 
 from __future__ import annotations
 
+import logging
+import os
 import threading
 import time
 from collections import deque
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,14 +76,23 @@ from tendermint_tpu_torch.crypto.ed25519_ref import BASE, L, point_compress
 from tendermint_tpu_torch.device import resolve
 
 RLC_MIN = 512
+L8 = 8 * L  # full curve-group order: the A-lane scalar modulus
 
 BACKENDS = ("cuda", "cpu")
 
+# A call that names no backend runs on the host below this many rows.
+_CUDA_MIN_BATCH = int(os.environ.get("TMTPU_JAX_MIN", "256"))
+
+
+def _names_card(device) -> bool:
+    """An explicit card `device` asks for the card arm at every row count."""
+    return device is not None and torch.device(device).type == "cuda"
+
 
 def backend_default() -> str:
-    """The path of a verify_batch call that names no backend: the host serial
-    loop in cofactorless mode (the card's kernels are cofactored by
-    construction), else the card path."""
+    """The arm of a verify_batch call that names no backend: the host in
+    cofactorless mode (the card's kernels are cofactored by construction),
+    else the card (below _CUDA_MIN_BATCH rows, the host all the same)."""
     from tendermint_tpu_torch.crypto.keys import cofactorless_mode
 
     return "cpu" if cofactorless_mode() else "cuda"
@@ -149,6 +180,109 @@ def _prep_pool():
 
 
 # ---------------------------------------------------------------------------
+# Prep pipeline configuration: the reference's env names and defaults, so one
+# node config drives both packages.
+#
+#   staged        a single flush hashes its challenges on the prep worker while
+#                 the dispatch thread builds the A block (TMTPU_PREP_STAGED);
+#   stream        an in-budget flush of stream_floor rows or more runs as the
+#                 pipelined 2-chunk stream (TMTPU_PREP_STREAM);
+#   stream_floor  TMTPU_PREP_STREAM_FLOOR, default 2,048 rows;
+#   host_stripe   the host combined check above the stream floor runs in
+#                 stripes whose prep overlaps the previous stripe's MSM
+#                 (TMTPU_HOST_STRIPE: "auto" = only on a host of more than one
+#                 core, "0" = never, anything else = always).
+
+
+def _prep_env_flag(name: str, default: str) -> bool:
+    return os.environ.get(name, default) != "0"
+
+
+def _host_stripe_env(default: str = "auto"):
+    v = os.environ.get("TMTPU_HOST_STRIPE", default)
+    if v == "0":
+        return False
+    if v in ("auto", ""):
+        return "auto"
+    return True
+
+
+_PREP_CFG = {
+    "staged": _prep_env_flag("TMTPU_PREP_STAGED", "1"),
+    "stream": _prep_env_flag("TMTPU_PREP_STREAM", "1"),
+    "stream_floor": max(1, int(os.environ.get("TMTPU_PREP_STREAM_FLOOR", "2048") or 2048)),
+    "host_stripe": _host_stripe_env(),
+}
+
+
+def configure_prep(prep_threads: Optional[int] = None, staged: Optional[bool] = None,
+                   stream: Optional[bool] = None, stream_floor: Optional[int] = None,
+                   host_stripe=None) -> None:
+    """Set the prep pipeline (process-global, like configure_planner).
+    prep_threads resizes the native worker pool (0 / None = the host default,
+    min(cores, 8)); host_stripe takes True, False or "auto"."""
+    if prep_threads is not None:
+        native.configure_prep_threads(prep_threads or None)
+    if staged is not None:
+        _PREP_CFG["staged"] = bool(staged)
+    if stream is not None:
+        _PREP_CFG["stream"] = bool(stream)
+    if stream_floor is not None:
+        _PREP_CFG["stream_floor"] = max(1, int(stream_floor))
+    if host_stripe is not None:
+        _PREP_CFG["host_stripe"] = "auto" if host_stripe == "auto" else bool(host_stripe)
+
+
+def _staged_enabled() -> bool:
+    return _PREP_CFG["staged"]
+
+
+def _stream_enabled() -> bool:
+    return _PREP_CFG["stream"]
+
+
+def _stream_floor() -> int:
+    return _PREP_CFG["stream_floor"]
+
+
+def _host_stripe_on() -> bool:
+    v = _PREP_CFG["host_stripe"]
+    if v == "auto":
+        return (os.cpu_count() or 1) > 1
+    return bool(v)
+
+
+# Rows challenge-hashed, ever: a clean flush hashes each row at most once.
+HASH_ROWS_HASHED = [0]
+_HASH_COUNT_LOCK = threading.Lock()
+
+
+def _count_hashed(rows: int) -> None:
+    with _HASH_COUNT_LOCK:  # the prep worker and the calling thread both count
+        HASH_ROWS_HASHED[0] += rows
+
+
+def _overlap_seconds(spans, busy) -> float:
+    """Sum over the prep spans [s, e) of their intersection with the union
+    of the device-busy intervals."""
+    if not spans or not busy:
+        return 0.0
+    merged = []
+    for s, e in sorted(busy):
+        if merged and s <= merged[-1][1]:
+            merged[-1] = (merged[-1][0], max(merged[-1][1], e))
+        else:
+            merged.append((s, e))
+    total = 0.0
+    for s, e in spans:
+        for bs, be in merged:
+            lo, hi = max(s, bs), min(e, be)
+            if lo < hi:
+                total += hi - lo
+    return total
+
+
+# ---------------------------------------------------------------------------
 # Host prep (native C).
 
 
@@ -213,6 +347,7 @@ def _precheck_and_hash_fast(pubkeys, msgs, sigs):
     precheck fails."""
     precheck, a_rows, r_rows, s_rows, blobs = _precheck_rows_fast(pubkeys, msgs, sigs)
     h_rows = native.ed25519_h_batch(*blobs)
+    _count_hashed(len(pubkeys))
     h_rows[~precheck] = 0
     return precheck, a_rows, r_rows, s_rows, h_rows
 
@@ -338,11 +473,13 @@ def _a_block(rows: np.ndarray, cols: np.ndarray, store: torch.Tensor, na: int,
 class _RlcCall:
     """An RLC flush submitted to the device, not yet synced."""
 
-    __slots__ = ("precheck", "n", "na", "mode", "dev", "pts", "a_rows", "prep_s", "t0")
+    __slots__ = ("precheck", "n", "na", "mode", "dev", "pts", "a_rows", "prep_s", "t0",
+                 "overlap_s")
 
-    def __init__(self, precheck, n, na, mode, dev, pts, a_rows, prep_s, t0):
+    def __init__(self, precheck, n, na, mode, dev, pts, a_rows, prep_s, t0, overlap_s):
         self.precheck, self.n, self.na, self.mode = precheck, n, na, mode
         self.dev, self.pts, self.a_rows, self.prep_s, self.t0 = dev, pts, a_rows, prep_s, t0
+        self.overlap_s = overlap_s  # staged: hashing overlapped with the A block; else None
 
 
 def _rlc_lanes(precheck, a_rows, r_rows, s_rows, h_rows, na: int):
@@ -367,12 +504,31 @@ def _rlc_lanes(precheck, a_rows, r_rows, s_rows, h_rows, na: int):
 
 
 def _rlc_submit(pubkeys, msgs, sigs, device) -> _RlcCall:
-    """Host prep + device submit of the combined check (no sync)."""
+    """Host prep + device submit of the combined check (no sync).
+
+    Staged (the default): the precheck and the hasher's blobs on this
+    thread, the challenge hashes on the prep worker while the cache decision
+    is made and, on the cached-A kernel, the A block is built; the hashes
+    are awaited just before the scalars need them (a hashing failure
+    re-raises here). The mask is the same either way: w = z h is 0 wherever
+    z is, so zeroing h after the cache exclusion equals zeroing it before."""
     from tendermint_tpu_torch.ops import msm_torch
 
     t0 = time.perf_counter()
     n = len(pubkeys)
-    precheck, a_rows, r_rows, s_rows, h_rows = _precheck_and_hash_fast(pubkeys, msgs, sigs)
+    staged = _staged_enabled()
+    if staged:
+        precheck, a_rows, r_rows, s_rows, blobs = _precheck_rows_fast(pubkeys, msgs, sigs)
+
+        def _hash_task(blobs=blobs, rows=n):
+            ts = time.perf_counter()
+            h = native.ed25519_h_batch(*blobs)
+            _count_hashed(rows)
+            return h, ts, time.perf_counter()
+
+        hash_fut = _prep_pool().submit(_hash_task)
+    else:
+        precheck, a_rows, r_rows, s_rows, h_rows = _precheck_and_hash_fast(pubkeys, msgs, sigs)
     keys = [bytes(p) for p in pubkeys]
     with _A_LOCK:
         for i in np.flatnonzero(precheck):
@@ -385,19 +541,29 @@ def _rlc_submit(pubkeys, msgs, sigs, device) -> _RlcCall:
         if cached:  # the columns are valid only together with this store
             cols = np.fromiter((_A_CACHE[keys[i]] for i in rows), dtype=np.int64, count=len(rows))
     na = _lane_bucket(n + 1)
+    a_dev = a_span = overlap_s = None
+    if staged:
+        if cached:  # the A block is built while the prep worker hashes
+            t_a = time.perf_counter()
+            a_dev = _a_block(rows, cols, store, na, device)
+            a_span = (t_a, time.perf_counter())
+        h_rows, h_t0, h_t1 = hash_fut.result()
+        h_rows[~precheck] = 0
+        overlap_s = _overlap_seconds([(h_t0, h_t1)], [a_span] if a_span else [])
     pts, perm, ends = _rlc_lanes(precheck, a_rows, r_rows, s_rows, h_rows, na)
     prep_s = time.perf_counter() - t0
     if cached:
-        dev = msm_torch.rlc_check_cached_submit(
-            _a_block(rows, cols, store, na, device), pts[na:], perm, ends)
-        return _RlcCall(precheck, n, na, "cached", dev, None, None, prep_s, t0)
+        if a_dev is None:
+            a_dev = _a_block(rows, cols, store, na, device)
+        dev = msm_torch.rlc_check_cached_submit(a_dev, pts[na:], perm, ends)
+        return _RlcCall(precheck, n, na, "cached", dev, None, None, prep_s, t0, overlap_s)
     dev, dpts = msm_torch.rlc_check_submit(pts, perm, ends, device)
-    return _RlcCall(precheck, n, na, "plain", dev, dpts, a_rows, prep_s, t0)
+    return _RlcCall(precheck, n, na, "plain", dev, dpts, a_rows, prep_s, t0, overlap_s)
 
 
 def _rlc_finish(call: _RlcCall) -> Optional[np.ndarray]:
     """ONE device-to-host copy; the mask when the combined check passes, None
-    when the caller must recover per signature."""
+    when the caller must recover the exact mask."""
     from tendermint_tpu_torch.ops import msm_torch
 
     out = call.dev.cpu().numpy()  # [batch_ok, lane_ok...]
@@ -413,6 +579,8 @@ def _rlc_finish(call: _RlcCall) -> Optional[np.ndarray]:
                          ok[rows])
     LAST_FLUSH.update(mode=call.mode, prep_s=call.prep_s, total_s=time.perf_counter() - call.t0,
                       lanes=2 * na, fused=msm_torch.fused_for_lanes(2 * na))
+    if call.overlap_s is not None:
+        LAST_FLUSH.update(prep_overlap_s=call.overlap_s, chunks=1, chunk_lanes=2 * na)
     return precheck if (bool(out[0]) and lanes_ok) else None
 
 
@@ -430,12 +598,241 @@ def _verify_serial_host(pubkeys, msgs, sigs) -> np.ndarray:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The host arm: the card's combined check on host points (crypto/ed25519_ref),
+# a Pippenger MSM in Python. z = 0 (mod 8) annihilates every lane's
+# cofactor-torsion component, so an all-pass batch satisfies the cofactored
+# equation exactly; a failure falls back to the host bisection or the serial
+# loop for the exact mask.
+
+_HOST_RLC_MIN = int(os.environ.get("TMTPU_HOST_RLC_MIN", "48"))
+
+# decompressed host points, shared across flushes (None = invalid encoding)
+_HOST_PT_CACHE: dict = {}
+_HOST_PT_CACHE_MAX = 8192
+
+
+def _host_point(enc: bytes):
+    """Cached ed25519_ref decompression (None = invalid encoding)."""
+    pt = _HOST_PT_CACHE.get(enc, False)
+    if pt is False:
+        from tendermint_tpu_torch.crypto.ed25519_ref import point_decompress
+
+        pt = point_decompress(enc)
+        if len(_HOST_PT_CACHE) >= _HOST_PT_CACHE_MAX:
+            _HOST_PT_CACHE.clear()
+        _HOST_PT_CACHE[enc] = pt
+    return pt
+
+
+def _host_msm(pairs, window: int = 0):
+    """Sum of s P over ed25519_ref extended points: a windowed bucket
+    (Pippenger) MSM, most significant window first. `pairs`: [(point, int)];
+    zero scalars are skipped. window = 0 picks the width with the fewest
+    modelled adds. Returns the extended sum, or None when nothing is summed."""
+    from tendermint_tpu_torch.crypto.ed25519_ref import point_add, point_double
+
+    pairs = [(p, s) for p, s in pairs if s]
+    if not pairs:
+        return None
+    nbits = max(s.bit_length() for _, s in pairs)
+    if window <= 0:
+        n = len(pairs)
+        window = min(range(3, 11), key=lambda w: ((nbits + w - 1) // w) * (n + (1 << (w + 1))))
+    nwin = (nbits + window - 1) // window
+    nbuckets = (1 << window) - 1
+    acc = None
+    for w in range(nwin - 1, -1, -1):
+        if acc is not None:
+            for _ in range(window):
+                acc = point_double(acc)
+        shift = w * window
+        buckets = [None] * (nbuckets + 1)
+        for p, s in pairs:
+            d = (s >> shift) & nbuckets
+            if d:
+                buckets[d] = p if buckets[d] is None else point_add(buckets[d], p)
+        running = total = None
+        for b in range(nbuckets, 0, -1):
+            if buckets[b] is not None:
+                running = buckets[b] if running is None else point_add(running, buckets[b])
+            if running is not None:
+                total = running if total is None else point_add(total, running)
+        if total is not None:
+            acc = total if acc is None else point_add(acc, total)
+    return acc
+
+
+def _sample_z(rng, n: int, precheck) -> list:
+    """RLC coefficients as ints: ~124-bit, nonzero, z = 0 (mod 8); 0 for
+    excluded rows (the same draw as _rlc_scalars_fast)."""
+    zw = rng.integers(0, 1 << 64, size=(n, 2), dtype=np.uint64)
+    return [((((int(zw[i, 0]) & ((1 << 57) - 1)) << 64) | int(zw[i, 1]) | 1) << 3)
+            if precheck[i] else 0 for i in range(n)]
+
+
+def _verify_batch_cpu_rlc(pubkeys, msgs, sigs) -> Optional[np.ndarray]:
+    """Host combined check: sum w_i A_i + ((L - u) mod L) B + sum z_i R_i == O
+    with w_i = z_i h_i mod 8L and u = sum z_i s_i mod L, the card's equation
+    on host points. Returns the mask when it holds, None when the caller
+    must recover the exact mask (a row failed, or the sum has Z = 0).
+
+    Chunked at planner_chunk_rows(): each chunk is a partial MSM with its own
+    B term, summed with point_add. Above the stream floor, with the stream
+    on and striping allowed (_host_stripe_on), the stripes are at most
+    max(1024, n // 8) rows and stripe k+1's prep (precheck, hashing, z) runs
+    on the prep worker while stripe k's MSM runs here; LAST_FLUSH then
+    carries prep_overlap_s. A-lane coefficients collapse per distinct key."""
+    from tendermint_tpu_torch.crypto.ed25519_ref import IDENTITY, P, point_add, point_equal
+
+    n = len(pubkeys)
+    rng = np.random.default_rng()  # OS entropy per call
+    stream = _stream_enabled() and n >= _stream_floor() and _host_stripe_on()
+    chunk = planner_chunk_rows()
+    if stream:
+        chunk = min(chunk, max(1024, n // 8))
+    stripes = [(lo, min(lo + chunk, n)) for lo in range(0, n, chunk)]
+    pipelined = stream and len(stripes) > 1
+
+    def _stripe_prep(lo: int, hi: int):
+        """Everything before the point work for rows [lo, hi) (indices
+        stripe-local); on the prep worker when pipelined, which serializes
+        the shared rng."""
+        t0s = time.perf_counter()
+        m = hi - lo
+        pc, _a, _r, s_rows, h_rows = _precheck_and_hash_fast(pubkeys[lo:hi], msgs[lo:hi],
+                                                             sigs[lo:hi])
+        s_i = [int.from_bytes(s_rows[i].tobytes(), "little") if pc[i] else 0 for i in range(m)]
+        h_i = [int.from_bytes(h_rows[i].tobytes(), "little") if pc[i] else 0 for i in range(m)]
+        z = _sample_z(rng, m, pc)
+        return pc, s_i, h_i, z, (t0s, time.perf_counter())
+
+    acc = None
+    prechecks, prep_spans, msm_spans = [], [], []
+    if pipelined:
+        fut = _prep_pool().submit(_stripe_prep, *stripes[0])
+    for k, (lo, hi) in enumerate(stripes):
+        if pipelined:
+            pc, s_i, h_i, z, span = fut.result()
+            if k + 1 < len(stripes):
+                fut = _prep_pool().submit(_stripe_prep, *stripes[k + 1])
+        else:
+            pc, s_i, h_i, z, span = _stripe_prep(lo, hi)
+        prep_spans.append(span)
+        t_msm = time.perf_counter()
+        m = hi - lo
+        pts = [None] * m
+        for i in range(m):  # invalid encodings drop out of the precheck
+            if not pc[i]:
+                continue
+            a = _host_point(bytes(pubkeys[lo + i]))
+            r = _host_point(bytes(sigs[lo + i])[:32])
+            if a is None or r is None:
+                pc[i] = False
+                continue
+            pts[i] = (a, r)
+        a_coef, a_by_key, pairs = {}, {}, []
+        u = 0
+        for i in range(m):
+            if not pc[i]:
+                continue
+            pkb = bytes(pubkeys[lo + i])
+            a_coef[pkb] = (a_coef.get(pkb, 0) + z[i] * h_i[i]) % L8
+            a_by_key[pkb] = pts[i][0]
+            pairs.append((pts[i][1], z[i]))
+            u += z[i] * s_i[i]
+        prechecks.append(pc)
+        if pairs:
+            pairs.extend((a_by_key[pkb], c) for pkb, c in a_coef.items())
+            # the stripe's own B term: the sum of (L - u_k) is L - sum u_k mod L
+            pairs.append((BASE, (L - u % L) % L))
+            part = _host_msm(pairs)
+            if part is not None:
+                acc = part if acc is None else point_add(acc, part)
+        msm_spans.append((t_msm, time.perf_counter()))
+    precheck = np.concatenate(prechecks)
+    LAST_FLUSH["prep_s"] = sum(e - s for s, e in prep_spans)
+    if pipelined:
+        LAST_FLUSH["prep_overlap_s"] = _overlap_seconds(prep_spans, msm_spans)
+    if not precheck.any():
+        return precheck  # nothing verifiable: every verdict is already False
+    if len(stripes) > 1:
+        LAST_FLUSH.update(chunks=len(stripes), chunk_lanes=2 * (chunk + 1))
+    res = acc if acc is not None else IDENTITY
+    if res[2] % P == 0:
+        return None  # an exceptional addition on crafted torsion inputs: the serial loop decides
+    return precheck if point_equal(res, IDENTITY) else None
+
+
+def _bisect_recover_host(pubkeys, msgs, sigs):
+    """The host twin of _bisect_recover after a failed host combined check:
+    host sub-checks over power-of-two halves, the serial loop at leaves of
+    max(TMTPU_BISECT_LEAF // 4, 1) rows, below 2 * _HOST_RLC_MIN rows and
+    after TMTPU_BISECT_MAX_BAD bad leaves. Returns (mask, flushes)."""
+
+    def _combined(lo, hi):
+        try:
+            return _verify_batch_cpu_rlc(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi])
+        except Exception:  # no device here: the serial leaves below give the mask
+            logging.getLogger(__name__).exception("host sub-check failed; recovering serially")
+            return None
+
+    mask, flushes, _ = _bisect(len(pubkeys), _combined,
+                               lambda lo, hi: _verify_serial_host(pubkeys[lo:hi], msgs[lo:hi],
+                                                                  sigs[lo:hi]),
+                               max(_bisect_leaf_rows() // 4, 1), _HOST_RLC_MIN)
+    return mask, flushes
+
+
+def verify_batch_cpu(pubkeys: Sequence[bytes], msgs: Sequence[bytes],
+                     sigs: Sequence[bytes]) -> np.ndarray:
+    """The host arm. From _HOST_RLC_MIN rows, and not in cofactorless mode
+    (whose predicate is stricter than the combined check's), the host
+    combined check (LAST_FLUSH mode "host_rlc" when it passes); when it
+    fails, the host bisection (TMTPU_BISECT = 1) or one serial pass
+    (TMTPU_BISECT = 0), mode "host_serial" with recovery_flushes. Fewer rows,
+    and cofactorless mode, run the serial loop (mode "host_serial")."""
+    from tendermint_tpu_torch.crypto.keys import cofactorless_mode
+
+    t0 = time.perf_counter()
+    if len(pubkeys) >= _HOST_RLC_MIN and not cofactorless_mode():
+        try:
+            mask = _verify_batch_cpu_rlc(pubkeys, msgs, sigs)
+        except Exception:
+            logging.getLogger(__name__).exception("host RLC failed; recovering on the host")
+            mask = None
+        if mask is not None:
+            LAST_FLUSH.update(mode="host_rlc", total_s=time.perf_counter() - t0)
+            return mask
+        detail = dict(LAST_FLUSH)
+        t1 = time.perf_counter()
+        if _bisect_enabled():
+            mask, flushes = _bisect_recover_host(pubkeys, msgs, sigs)
+        else:
+            mask, flushes = _verify_serial_host(pubkeys, msgs, sigs), 1
+        LAST_FLUSH.clear()
+        LAST_FLUSH.update(detail, mode="host_serial", recovery_flushes=flushes,
+                          recovery_s=time.perf_counter() - t1, total_s=time.perf_counter() - t0)
+        return mask
+    mask = _verify_serial_host(pubkeys, msgs, sigs)
+    LAST_FLUSH.update(mode="host_serial", total_s=time.perf_counter() - t0)
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# The card arm.
+
+# The route label of the last card flush (the reference's LAST_JAX_PATH).
+LAST_PATH: List[str] = [""]
+
+
 def _persig_flush(pubkeys, msgs, sigs, device) -> np.ndarray:
     """The per-signature ladder over all rows: device mask & host precheck."""
     from tendermint_tpu_torch.ops.ed25519_torch import verify_prepared
 
     a, r, s_d, h_d, precheck, n = prepare_batch(pubkeys, msgs, sigs)
     t = [torch.from_numpy(x).to(device) for x in (a, r, s_d, h_d)]
+    LAST_PATH[0] = "persig"
     mask = verify_prepared(*t).cpu().numpy()[:n]
     return mask & precheck
 
@@ -443,40 +840,52 @@ def _persig_flush(pubkeys, msgs, sigs, device) -> np.ndarray:
 def _prep_stream_chunk(pubkeys, msgs, sigs, lo: int, hi: int, na_c: int):
     """Host prep of one planner chunk on the prep worker: rows [lo, hi) in
     the plain-kernel lane layout with the chunk's own B lane. Returns
-    (precheck (hi-lo,), pts (2 na_c, 32), perm, ends, prep seconds)."""
+    (precheck (hi-lo,), pts (2 na_c, 32), perm, ends, (start, end))."""
     t0 = time.perf_counter()
     precheck, a_rows, r_rows, s_rows, h_rows = _precheck_and_hash_fast(
         pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi])
     pts, perm, ends = _rlc_lanes(precheck, a_rows, r_rows, s_rows, h_rows, na_c)
-    return precheck, pts, perm, ends, time.perf_counter() - t0
+    return precheck, pts, perm, ends, (t0, time.perf_counter())
 
 
-def _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device) -> Optional[np.ndarray]:
+def _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device, chunks=None,
+                               mode: str = "streamed") -> Optional[np.ndarray]:
     """The streamed combined check: chunk k+1's host prep runs on the prep
     worker while chunk k's kernels run; each chunk's partial point is added
     to a device accumulator with one padd; at most 2 chunks are in flight
     (the older chunk's lane flags are synced before a third is submitted);
-    one identity check at the end. Returns the mask when the check passes,
-    None when the caller must recover the exact mask."""
+    one identity check at the end. `chunks` overrides the planner's row
+    spans (the pipelined stream's [(0, head), (head, n)]); every chunk pads
+    to the planner's one chunk bucket. prep_overlap_s intersects the prep
+    spans with the device-busy intervals, each chunk's from its submit's
+    return to its sync, as the reference counts them. The port's submit
+    returns only after its thousands of launches, so prep that overlaps
+    the launch loop is not counted (prep_wait_s shows how little of it the
+    next chunk waited for). Returns the mask when the check passes, None
+    when the caller must recover the exact mask."""
     from tendermint_tpu_torch.ops import msm_torch
 
     t0 = time.perf_counter()
     n = len(pubkeys)
     na_c = planner_budget() // 2
-    chunks = _planner_chunks(n)
+    if chunks is None:
+        chunks = _planner_chunks(n)
     pool = _prep_pool()
     prechecks: list = [None] * len(chunks)
+    submit_t: list = [None] * len(chunks)
     inflight: deque = deque()  # (chunk index, lane flags, event or None)
     acc = None
     lanes_ok = True
-    prep_s = wait_s = 0.0
+    wait_s = 0.0
     peak = 0
+    prep_spans, dev_busy = [], []
 
     def sync_oldest():
         k, flags, ev = inflight.popleft()
         if ev is not None:
             ev.synchronize()  # this chunk's kernels and flag copy, not later ones
         ok = flags.numpy()
+        dev_busy.append((submit_t[k], time.perf_counter()))
         pc = prechecks[k]
         c = chunks[k][1] - chunks[k][0]
         return not pc.any() or bool(ok[:c][pc].all() and ok[na_c : na_c + c][pc].all())
@@ -484,13 +893,14 @@ def _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device) -> Optional[np.ndarr
     fut = pool.submit(_prep_stream_chunk, pubkeys, msgs, sigs, *chunks[0], na_c)
     for k in range(len(chunks)):
         tw = time.perf_counter()
-        precheck, pts, perm, ends, chunk_prep_s = fut.result()
+        precheck, pts, perm, ends, span = fut.result()
         wait_s += time.perf_counter() - tw
-        prep_s += chunk_prep_s
+        prep_spans.append(span)
         prechecks[k] = precheck
         if k + 1 < len(chunks):
             fut = pool.submit(_prep_stream_chunk, pubkeys, msgs, sigs, *chunks[k + 1], na_c)
         part, ok = msm_torch.rlc_partial_submit(pts, perm, ends, device)
+        submit_t[k] = time.perf_counter()
         acc = part if acc is None else msm_torch.partial_fold_submit(acc, part)
         if device.type == "cuda":
             flags = torch.empty(ok.shape, dtype=torch.bool, pin_memory=True)
@@ -505,31 +915,185 @@ def _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device) -> Optional[np.ndarr
             lanes_ok &= sync_oldest()
     while inflight:
         lanes_ok &= sync_oldest()
+    t_sync = time.perf_counter()
     batch_ok = bool(msm_torch.partial_identity_submit(acc).item())
-    LAST_FLUSH.update(mode="streamed", fused=msm_torch.fused_for_lanes(2 * na_c),
+    dev_busy.append((t_sync, time.perf_counter()))
+    LAST_FLUSH.update(mode=mode, fused=msm_torch.fused_for_lanes(2 * na_c),
                       chunks=len(chunks), chunk_lanes=2 * na_c, peak_lanes_in_flight=peak,
-                      lanes=len(chunks) * 2 * na_c, prep_s=prep_s, prep_wait_s=wait_s,
+                      lanes=len(chunks) * 2 * na_c, prep_s=sum(e - s for s, e in prep_spans),
+                      prep_wait_s=wait_s, prep_overlap_s=_overlap_seconds(prep_spans, dev_busy),
                       total_s=time.perf_counter() - t0)
     if batch_ok and lanes_ok:
         return np.concatenate(prechecks)
     return None
 
 
+def _verify_batch_pipelined(pubkeys, msgs, sigs, device) -> Optional[np.ndarray]:
+    """The in-budget 2-chunk stream: a head of max(RLC_MIN, n // 8) rows is
+    submitted first, so the tail's hashing, scalars and sort run on the prep
+    worker while the head's kernels run; both chunks pad to the planner's
+    chunk bucket. Declines (None, no flush) when the head is not shorter
+    than n or the tail exceeds a chunk. Returns the mask when the combined
+    check passes, else None."""
+    n = len(pubkeys)
+    head = max(RLC_MIN, n // 8)
+    if not (head < n and n - head <= planner_chunk_rows()):
+        return None
+    mask = _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device, chunks=[(0, head), (head, n)],
+                                      mode="pipelined")
+    LAST_FLUSH["head_rows"] = head
+    return mask
+
+
 def _verify_batch_streamed(pubkeys, msgs, sigs, device) -> np.ndarray:
     """Planner-engaged verification: the streamed combined check; when it
-    fails, the exact mask chunk by chunk through the in-budget path (each
-    chunk at most the budget, so recovery never exceeds it either)."""
+    fails, each planner chunk runs the in-budget card path (pipelined, then
+    bisection), so recovery never exceeds the budget either. LAST_FLUSH
+    keeps the streamed flush's detail and gains recovered_chunks (each
+    chunk's rows, path, mode and recovery flushes) and, where a chunk
+    recovered, recovery_flushes, their sum (as the reference counts)."""
     mask = _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device)
     if mask is not None:
+        LAST_PATH[0] = "rlc-streamed"
         return mask
     detail = dict(LAST_FLUSH)
     t0 = time.perf_counter()
-    parts = [verify_batch(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], device=device,
-                          backend="cuda")
-             for lo, hi in _planner_chunks(len(pubkeys))]
+    parts, recovered = [], []
+    for lo, hi in _planner_chunks(len(pubkeys)):
+        LAST_FLUSH.clear()
+        parts.append(verify_batch_cuda(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], device))
+        recovered.append(dict(rows=hi - lo, path=LAST_PATH[0], mode=LAST_FLUSH.get("mode"),
+                              recovery_flushes=LAST_FLUSH.get("recovery_flushes", 0)))
     LAST_FLUSH.clear()
-    LAST_FLUSH.update(detail, recovery_s=time.perf_counter() - t0)
+    LAST_FLUSH.update(detail, recovery_s=time.perf_counter() - t0, recovered_chunks=recovered)
+    flushes = sum(c["recovery_flushes"] for c in recovered)
+    if flushes:
+        LAST_FLUSH["recovery_flushes"] = flushes
+    LAST_PATH[0] = "rlc-streamed-recovery"
     return np.concatenate(parts)
+
+
+# ---------------------------------------------------------------------------
+# Exact-mask recovery after a failed combined check, knobs read per call.
+
+
+def _bisect_enabled() -> bool:
+    """TMTPU_BISECT=0 restores the one per-signature pass over all rows."""
+    return os.environ.get("TMTPU_BISECT", "1") != "0"
+
+
+def _bisect_leaf_rows() -> int:
+    """Ranges of at most this many rows are recovered per signature."""
+    try:
+        return max(1, int(os.environ.get("TMTPU_BISECT_LEAF", "256")))
+    except ValueError:
+        return 256
+
+
+def _bisect_max_bad() -> int:
+    """After this many bad leaves the remaining ranges skip their combined
+    checks and go straight per signature."""
+    try:
+        return max(1, int(os.environ.get("TMTPU_BISECT_MAX_BAD", "8")))
+    except ValueError:
+        return 8
+
+
+def _bisect(n: int, combined, leaf, leaf_rows: int, min_rows: int):
+    """The exact mask of rows [0, n), whose combined check failed, in
+    O(bad rows x log(chunks)) flushes; both arms' recursion. A failed range
+    splits at the largest power of two below its size; each half gets one
+    combined check (`combined(lo, hi)`: the mask, or None when it fails), a
+    passing half is done, a failing half recurses, and when the first half
+    passes the second is known bad and descends unchecked. Ranges of at most
+    `leaf_rows` rows, under 2 `min_rows` rows, or after _bisect_max_bad()
+    bad leaves take `leaf(lo, hi)` (the exact mask). Each call of either is
+    one flush. Returns (mask, flushes, bad leaves)."""
+    out = np.zeros(n, dtype=bool)
+    max_bad = _bisect_max_bad()
+    flushes = bad_leaves = 0
+
+    def _check(lo, hi):
+        nonlocal flushes
+        flushes += 1
+        return combined(lo, hi)
+
+    def _go(lo, hi):  # [lo, hi) holds at least one bad row
+        nonlocal flushes, bad_leaves
+        m = hi - lo
+        if m <= leaf_rows or m < 2 * min_rows or bad_leaves >= max_bad:
+            flushes += 1
+            bad_leaves += 1
+            out[lo:hi] = leaf(lo, hi)
+            return
+        mid = lo + (1 << ((m - 1).bit_length() - 1))  # the largest power of two < m
+        first = _check(lo, mid)
+        if first is not None:
+            out[lo:mid] = first
+            _go(mid, hi)  # the parent failed and the first half passed
+            return
+        _go(lo, mid)
+        if hi - mid >= min_rows and bad_leaves < max_bad:
+            second = _check(mid, hi)
+            if second is not None:
+                out[mid:hi] = second
+                return
+        _go(mid, hi)
+
+    _go(0, n)
+    return out, flushes, bad_leaves
+
+
+def _bisect_recover(pubkeys, msgs, sigs, device):
+    """The card arm's bisection (_bisect): combined checks by _rlc_submit /
+    _rlc_finish, leaves of TMTPU_BISECT_LEAF rows on the per-signature
+    ladder, no sub-check under 2 RLC_MIN rows. One bad row over
+    C = ceil(n / leaf) chunks costs at most 2 ceil(log2 C) + 1 flushes.
+    Returns (mask, flushes); the path becomes "rlc-bisect" unless the
+    recovery was one leaf."""
+    mask, flushes, bad_leaves = _bisect(
+        len(pubkeys),
+        lambda lo, hi: _rlc_finish(_rlc_submit(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], device)),
+        lambda lo, hi: _persig_flush(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], device),
+        _bisect_leaf_rows(), RLC_MIN)
+    if bad_leaves > 1 or flushes > 1:
+        LAST_PATH[0] = "rlc-bisect"
+    return mask, flushes
+
+
+def verify_batch_cuda(pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Sequence[bytes],
+                      device: torch.device) -> np.ndarray:
+    """The card arm on a resolved `device` (the reference's verify_batch_jax
+    on one device); LAST_PATH names the route. After a failed single or
+    pipelined combined check (or a pipelined geometry that declines, as in
+    the reference), the exact mask comes from the bisection or, with
+    TMTPU_BISECT=0, one per-signature pass; LAST_FLUSH keeps the failed
+    flush's detail and gains recovery_flushes and recovery_s."""
+    n = len(pubkeys)
+    if n < RLC_MIN:
+        LAST_FLUSH.update(mode="persig")
+        return _persig_flush(pubkeys, msgs, sigs, device)
+    if planner_engaged(n):
+        return _verify_batch_streamed(pubkeys, msgs, sigs, device)
+    if _stream_enabled() and n >= _stream_floor():
+        mask = _verify_batch_pipelined(pubkeys, msgs, sigs, device)
+        if mask is not None:
+            LAST_PATH[0] = "rlc-pipelined"
+            return mask
+    else:
+        mask = _rlc_finish(_rlc_submit(pubkeys, msgs, sigs, device))
+        if mask is not None:
+            LAST_PATH[0] = "rlc"
+            return mask
+    detail = dict(LAST_FLUSH)
+    t0 = time.perf_counter()
+    if _bisect_enabled():
+        mask, flushes = _bisect_recover(pubkeys, msgs, sigs, device)
+    else:
+        mask, flushes = _persig_flush(pubkeys, msgs, sigs, device), 1
+    LAST_FLUSH.clear()
+    LAST_FLUSH.update(detail, recovery_flushes=flushes, recovery_s=time.perf_counter() - t0)
+    return mask
 
 
 def _verify_sr25519_rows(pubkeys, msgs, sigs, idx) -> np.ndarray:
@@ -581,41 +1145,139 @@ def _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend) -
     return out
 
 
+
+
+def _verify_batch_routed(pubkeys, msgs, sigs, device, backend) -> tuple:
+    """verify_batch's routing of an all-Ed25519 set (the reference's
+    _verify_batch_routed): (mask, route label)."""
+    be = backend_default() if backend is None else backend
+    if (backend is None and be == "cuda" and len(pubkeys) < _CUDA_MIN_BATCH
+            and not _names_card(device)):
+        be = "cpu"
+    if be == "cpu":
+        return verify_batch_cpu(pubkeys, msgs, sigs), "cpu"
+    mask = verify_batch_cuda(pubkeys, msgs, sigs, resolve(device))
+    return mask, LAST_PATH[0]
+
+
 def verify_batch(
     pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Sequence[bytes], device=None,
     key_types: Optional[Sequence[str]] = None, backend: Optional[str] = None,
 ) -> np.ndarray:
     """Verify N (pubkey, msg, sig) triples; returns bool[N]. key_types: per-row
     key type, None meaning all ed25519; a set with other types takes the
-    per-type routing of _verify_batch_mixed_exact. backend: "cuda" (the card
-    path on `device`), "cpu" (the host serial loop) or None
-    (backend_default(): the verify mode decides)."""
+    per-type routing of _verify_batch_mixed_exact (path "mixed"). backend:
+    "cuda" (the card arm on `device`), "cpu" (the host arm) or None (the
+    verify mode, the row count and a card `device` decide; see the module
+    docstring).
+    LAST_FLUSH["path"] is the route's label."""
     if not (len(pubkeys) == len(msgs) == len(sigs)):
         raise ValueError("pubkeys/msgs/sigs length mismatch")
     be = backend_default() if backend is None else backend
     if be not in BACKENDS:
         raise ValueError(f"unknown crypto backend {be!r}")
-    dev = resolve(device) if be == "cuda" else None
-    n = len(pubkeys)
-    if n == 0:
+    if len(pubkeys) == 0:
         return np.zeros(0, dtype=bool)
     if key_types is not None and any(t != "ed25519" for t in key_types):
-        return _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend)
+        mask = _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend)
+        LAST_FLUSH["path"] = "mixed"
+        return mask
     LAST_FLUSH.clear()
-    if be == "cpu":
-        t0 = time.perf_counter()
-        mask = _verify_serial_host(pubkeys, msgs, sigs)
-        LAST_FLUSH.update(mode="host_serial", total_s=time.perf_counter() - t0)
-        return mask
-    if n < RLC_MIN:
-        LAST_FLUSH.update(mode="persig")
-        return _persig_flush(pubkeys, msgs, sigs, dev)
-    if planner_engaged(n):
-        return _verify_batch_streamed(pubkeys, msgs, sigs, dev)
-    mask = _rlc_finish(_rlc_submit(pubkeys, msgs, sigs, dev))
-    if mask is not None:
-        return mask
-    t0 = time.perf_counter()
-    mask = _persig_flush(pubkeys, msgs, sigs, dev)
-    LAST_FLUSH.update(recovery_s=time.perf_counter() - t0)
+    mask, path = _verify_batch_routed(pubkeys, msgs, sigs, device, backend)
+    LAST_FLUSH["path"] = path
     return mask
+
+
+def _prewarm_bls(device) -> None:
+    """Warm the aggregate path: bls_ref's derived tables (a keygen, a
+    signature, a verify) and one 4-point fold on `device` through
+    ops/bls12_torch.py. A throwaway key from OS entropy."""
+    from tendermint_tpu_torch.crypto import bls_ref
+    from tendermint_tpu_torch.ops import bls12_torch
+
+    sk = bls_ref.gen_sk()
+    pk = bls_ref.sk_to_pk(sk)
+    sig = bls_ref.sign(sk, b"prewarm")
+    aff = bls_ref._jac_to_affine(bls_ref.g1_from_bytes(pk))
+    bls12_torch.fold_points(bls12_torch.affine_limbs([(aff[0].v, aff[1].v)] * 4), device)
+    bls_ref.verify(pk, b"prewarm", sig)
+
+
+def prewarm(n_vals: int, backend: Optional[str] = None, pubkeys: Optional[Sequence[bytes]] = None,
+            planner_chunk: bool = True, bls: bool = False, device=None) -> None:
+    """Do ahead of a node's first flush what its first flushes would pay:
+    the nvcc builds (on a card), the prep worker and the native pool, one
+    plain single flush and one cached-A single flush of n_vals rows (the
+    stream off for both, restored after), one flush of planner_chunk_rows()
+    + 1 rows (the chunk bucket the pipelined and streamed paths run), and,
+    with `pubkeys`, the A cache filled from the real keys. bls=True also
+    warms the aggregate path (_prewarm_bls). Nothing off the card arm, nor
+    below _CUDA_MIN_BATCH validators unless `device` names a card (the rule
+    verify_batch routes by). The throwaway key comes from OS entropy."""
+    if bls:
+        _prewarm_bls(device)
+    be = backend or backend_default()
+    if be != "cuda" or (n_vals < _CUDA_MIN_BATCH and not _names_card(device)):
+        return  # small sets run on the host: nothing to warm
+    from tendermint_tpu_torch.crypto import ed25519_ref
+    from tendermint_tpu_torch.ops import msm_torch
+
+    dev = resolve(device)
+    if dev.type == "cuda":
+        from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
+
+        cuda_fe.build()
+        cuda_msm.build()
+    seed = os.urandom(32)
+    pk = ed25519_ref.public_key(seed)
+    msg = b"prewarm"
+    sig = ed25519_ref.sign(seed, msg)
+    _prep_pool()
+    native.prep_pool_size()
+    stream_prev = _PREP_CFG["stream"]
+    _PREP_CFG["stream"] = False
+    try:
+        verify_batch_cuda([pk] * n_vals, [msg] * n_vals, [sig] * n_vals, dev)  # plain, fills A
+        verify_batch_cuda([pk] * n_vals, [msg] * n_vals, [sig] * n_vals, dev)  # cached-A
+    finally:
+        _PREP_CFG["stream"] = stream_prev
+    if planner_chunk:
+        rows = planner_chunk_rows() + 1
+        verify_batch_cuda([pk] * rows, [msg] * rows, [sig] * rows, dev)
+    good = [np.frombuffer(bytes(k), dtype=np.uint8) for k in (pubkeys or ()) if len(k) == 32]
+    if good:
+        enc = np.stack(good)
+        pts, ok = msm_torch.decompress_rows(enc, device=dev)
+        fill_a_cache(enc, pts, ok)
+    LAST_FLUSH.clear()
+
+
+class Ed25519BatchVerifier:
+    """Accumulate-and-flush batch verifier (the reference's interface for
+    the vote path and commit verification); `device` is passed to
+    verify_batch."""
+
+    def __init__(self, backend: Optional[str] = None, device=None) -> None:
+        self._backend = backend
+        self._device = device
+        self._pubkeys: List[bytes] = []
+        self._msgs: List[bytes] = []
+        self._sigs: List[bytes] = []
+
+    def add(self, pubkey: bytes, msg: bytes, sig: bytes) -> None:
+        self._pubkeys.append(bytes(pubkey))
+        self._msgs.append(bytes(msg))
+        self._sigs.append(bytes(sig))
+
+    def __len__(self) -> int:
+        return len(self._pubkeys)
+
+    def verify(self) -> np.ndarray:
+        """Verify every triple added; the batch stays until reset()."""
+        return verify_batch(self._pubkeys, self._msgs, self._sigs, device=self._device,
+                            backend=self._backend)
+
+    def reset(self) -> None:
+        self._pubkeys.clear()
+        self._msgs.clear()
+        self._sigs.clear()

@@ -8,7 +8,10 @@ RLC scalar math `rlc_scalars`, the per-window counting sort
 object in `_build/`, keyed by a hash of the two sources and of this file
 (which generates their constant headers), and bound with ctypes. A failed
 build raises with the compiler's stderr: the port has no pure-Python host
-prep and no silent Python path for sr25519 rows.
+prep and no silent Python path for sr25519 rows. Every driver runs on
+prep_threads() threads (min(cores, 8), or TMTPU_PREP_THREADS), through the
+library's parked worker pool, which configure_prep_threads resizes and
+prep_pool_size reads, as in the reference package.
 """
 
 from __future__ import annotations
@@ -25,7 +28,41 @@ import numpy as np
 _LOCK = threading.Lock()
 _LIB = None
 _BASE = os.path.dirname(os.path.abspath(__file__))
-_NTHREADS = min(8, os.cpu_count() or 1)
+
+
+def _default_threads() -> int:
+    """The prep thread count by default: min(cores, 8), or TMTPU_PREP_THREADS
+    (1 to 64) where it is set."""
+    env = os.environ.get("TMTPU_PREP_THREADS", "")
+    if env:
+        try:
+            return max(1, min(64, int(env)))
+        except ValueError:
+            pass
+    return min(8, os.cpu_count() or 1)
+
+
+_NTHREADS = _default_threads()
+
+
+def prep_threads() -> int:
+    """The thread count every native driver runs with."""
+    return _NTHREADS
+
+
+def configure_prep_threads(n) -> int:
+    """Set the prep thread count (None or 0 = the default) and resize the
+    library's parked worker pool to match (building the library if it is not
+    built yet). Returns the new count."""
+    global _NTHREADS
+    _NTHREADS = _default_threads() if not n else max(1, min(64, int(n)))
+    _lib().tm_prep_pool_configure(_NTHREADS)
+    return _NTHREADS
+
+
+def prep_pool_size() -> int:
+    """The live size of the library's worker pool (1 = per-call threads)."""
+    return int(_lib().tm_prep_pool_size())
 
 
 def _primes(k: int) -> list:
@@ -158,6 +195,8 @@ def _build() -> ctypes.CDLL:
     lib.tm_sr25519_verify_batch.argtypes = [u8p, u8p, i64p, u8p, ctypes.c_int64, u8p, ctypes.c_int]
     lib.tm_prep_pool_configure.argtypes = [ctypes.c_int]
     lib.tm_prep_pool_configure.restype = ctypes.c_int
+    lib.tm_prep_pool_size.argtypes = []
+    lib.tm_prep_pool_size.restype = ctypes.c_int
     if _NTHREADS > 1:
         lib.tm_prep_pool_configure(_NTHREADS)
     return lib

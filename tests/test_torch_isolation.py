@@ -63,9 +63,14 @@ def test_no_jax_reference_in_sources():
 
 
 def test_default_device_is_the_card():
-    """device=None means CUDA; on a host without a card that raises."""
+    """device=None means CUDA; on a host without a card a card call raises.
+    A call that names no backend runs fewer than 256 rows on the host (the
+    reference's routing, by row count, not by whether a card is present)."""
     if torch.cuda.is_available():
         assert tbatch.verify_batch([], [], [], device=None).shape == (0,)
         return
+    n = 256
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        tbatch.verify_batch([b"\0" * 32], [b""], [b"\0" * 64])
+        tbatch.verify_batch([b"\0" * 32] * n, [b""] * n, [b"\0" * 64] * n)
+    assert tbatch.verify_batch([b"\0" * 32], [b""], [b"\0" * 64]).shape == (1,)
+    assert tbatch.LAST_FLUSH["path"] == "cpu"

@@ -278,3 +278,25 @@ def test_explicit_cuda_backend_stays_cofactored_on_card(cuda_device, monkeypatch
     assert batch.LAST_FLUSH["mode"] == "host_serial"
     assert batch.verify_batch(*rows, device=cuda_device, backend="cuda").all()
     assert batch.LAST_FLUSH["mode"] == "persig"
+
+
+@pytest.mark.cuda
+def test_card_device_launches_kernels_below_256_rows(cuda_device):
+    """verify_batch(..., device=<card>) with 3 rows and no backend runs the
+    card's per-signature ladder, as the caller asked: its kernels launch and
+    the mask is ed25519_ref's; the same rows with no device take the host
+    arm and launch none."""
+    seeds = [bytes([i + 1]) * 32 for i in range(3)]
+    msgs = [b"small-%d" % i for i in range(3)]
+    pks = [ref.public_key(s) for s in seeds]
+    sigs = [ref.sign(s, m) for s, m in zip(seeds, msgs)]
+    sigs[1] = sigs[1][:32] + (1).to_bytes(32, "little")
+    want = [ref.verify_cofactored(p, m, s) for p, m, s in zip(pks, msgs, sigs)]
+    assert want == [True, False, True]
+    cuda_fe.reset_launches()
+    assert batch.verify_batch(pks, msgs, sigs, device=cuda_device).tolist() == want
+    assert batch.LAST_FLUSH["path"] == "persig"
+    assert all(cuda_fe.LAUNCHES[k] > 0 for k in ("padd", "pdbl", "fsquare_chain")), cuda_fe.LAUNCHES
+    cuda_fe.reset_launches()
+    assert batch.verify_batch(pks, msgs, sigs).tolist() == want
+    assert batch.LAST_FLUSH["path"] == "cpu" and not any(cuda_fe.LAUNCHES.values())

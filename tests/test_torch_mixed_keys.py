@@ -122,7 +122,9 @@ def test_all_ed25519_key_types_take_the_plain_path(reference_masks):
         tbatch.LAST_FLUSH.clear()
         got = tbatch.verify_batch(pks, msgs, sigs, device="cpu", key_types=kt)
         assert got.tobytes() == want.tobytes()
-        assert tbatch.LAST_FLUSH == {"mode": "persig"}
+        # the plain (not the per-type) routing: 3 rows take the host serial loop
+        assert set(tbatch.LAST_FLUSH) == {"mode", "total_s", "path"}
+        assert tbatch.LAST_FLUSH["mode"] == "host_serial" and tbatch.LAST_FLUSH["path"] == "cpu"
 
 
 # ---------------------------------------------------------------------------

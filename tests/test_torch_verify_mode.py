@@ -132,7 +132,10 @@ def test_default_verify_batch_masks_equal_reference(set_mode, mode, n):
     assert got.tobytes() == want.tobytes()
     torsion = [i for i, row in enumerate(zip(pks, msgs, sigs)) if row == torsion_defect_sig()]
     assert torsion and bool(got[torsion].any()) is (mode == "cofactored")
-    assert (tbatch.LAST_FLUSH["mode"] == "host_serial") is (mode == "cofactorless")
+    # the reference's routing: the host below 256 rows and in cofactorless mode
+    assert (tbatch.LAST_FLUSH["path"] == "cpu") is (mode == "cofactorless" or n < 256)
+    if mode == "cofactorless":
+        assert tbatch.LAST_FLUSH["mode"] == "host_serial"
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -254,8 +257,9 @@ def test_verify_commit_with_torsion_row_follows_mode(set_mode, mode):
     want = _outcome(lambda: jvs.verify_commit(CHAIN, JBID, HEIGHT, jc))
     got = _outcome(lambda: tvs.verify_commit(CHAIN, TBID, HEIGHT, tc, device="cpu"))
     assert got == want
+    # 5 rows: the host serial loop in both modes, as in the reference
+    assert tbatch.LAST_FLUSH["path"] == "cpu" and tbatch.LAST_FLUSH["mode"] == "host_serial"
     if mode == "cofactored":
-        assert got == ("ok",) and tbatch.LAST_FLUSH["mode"] == "persig"
+        assert got == ("ok",)
     else:
         assert got == ("CommitVerifyError", f"wrong signature (#{k})")
-        assert tbatch.LAST_FLUSH["mode"] == "host_serial"
