@@ -15,10 +15,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      bisection's combined checks, 2,048-10,240 lanes, chunks of 2,048 or
      1,024; fsquare_chain on their A and R decompressions; pdbl at all six
      window-fold shapes and on the ladder; padd on the top trees, the tail,
-     the chunk partials' fold and the ladder; the ladder at the widths of
-     tampered_persig, the bisection's leaves and host_small_cuda), and off
-     the paths: both padd kernels at 32, 192, 1,024, 4,096,
-     4,097, 16,384 and 24,576 lanes (the sweep that sets
+     every window-fold level, the chunk partials' fold and the ladder; the
+     ladder at the widths of tampered_persig, the bisection's leaves and
+     host_small_cuda; the A and R of mixed_sr25519_10k's tampered 2,048-row
+     sub-check (6,144 lanes); the light paths' 8,192- and 10,240-lane
+     flushes, their R decompressions and the cold trusting check's A and R,
+     the 4,096-lane recovery ladder, the 3,072-lane skipping checks and the
+     accumulated flush's pipelined chunk: uptree, fenwick_reduce and the
+     decompression), and off the paths: both padd kernels at 32, 192,
+     1,024, 4,096, 4,097, 16,384 and 24,576 lanes (the sweep that sets
      cuda_fe.PADD_FEW_LANES) and bucket_fold at T = 1 and 33 windows;
      tolerance zero (integer arithmetic), with
      its device time (the profiler's kernel records, median per launch;
@@ -103,13 +108,41 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      (LAST_FLUSH mode host_serial) with no kernel launched; an explicit
      backend="cuda" must accept every row on the card; then, back in
      cofactored mode, the same commit must pass on the card;
-  12. a `kernels` JSON line (a row off every path counts 0 launches), the
+  12. the light paths (a corpus signed on the fork pool before the card is
+     touched): "light_trusting_4k" (BASELINE config 3 at bench.py's size:
+     light.verifier.verify_non_adjacent from a trusted 4,096-validator
+     header at height 1 to one at height 5 whose set replaces 1,024 of
+     them, trust 1/3; the trusting check's 3,072 rows and the light check's
+     4,096, each an asynchronous cached-A single flush after one cold call,
+     both labels "rlc-async"; 10 interleaved rounds of the whole step, its
+     two checks submitted together and the same two checks one after the
+     other, the pair's order alternating, then the step and the serial pair
+     profiled); "light_tampered"
+     (3 bad rows of known validators: both finishes recover by one
+     per-signature pass, "persig-async", masks held against
+     ed25519_ref.verify_cofactored on every row, and the step passes);
+     "light_skipping" (a light.client.Client in skipping mode over a
+     MockProvider chain of 16 heights x 1,024 validators whose whole set
+     rotates at height 9: the trusted heights must be the bisection's,
+     steps and card flushes printed); "light_accumulated" (heights 1-8's
+     commits submitted under accumulate_flushes with a bad row in commit
+     3: one flush, the default 8,192-row route with bisection, each slice
+     equal to that commit's own submit and finish); the light checks that
+     light_skipping's refused steps submit and never finish (count, host ms,
+     launches), and one such dropped submit timed and profiled; the phase's
+     seconds;
+  13. the shape check: from phase 4 on, each call of the six Ed25519
+     wrappers notes its shape (the lanes of its batch, uptree's windows and
+     chunk, fenwick_reduce's storage segments and Kf, bucket_fold's windows;
+     not the loop counts), and every shape a path gave a kernel must be the
+     shape of a phase-3 row, or the script exits naming it;
+  14. a `kernels` JSON line (a row off every path counts 0 launches), the
      card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
 (the warm, pipelined and streamed paths per call); every kernel of a path must
 launch on it: the six Ed25519 kernels on the Ed25519 paths (pipelined,
-tampered, tampered_persig, mixed_commit and mixed_sr25519_10k included), the
-two BLS kernels on the BLS paths, none on host_small. Exits non-zero without a
+tampered, tampered_persig, mixed_commit, mixed_sr25519_10k and the four light
+paths included), the two BLS kernels on the BLS paths, none on host_small. Exits non-zero without a
 result when no CUDA device is available.
 """
 
@@ -176,6 +209,22 @@ TAMPERED_MSM = ((2_048, 2048, 512), (3_072, 1024, 1_024), (4_096, 2048, 1_808),
 SR_TAMPERED = (4_321, 9_876)  # an Ed25519 row and an sr25519 row
 N_COFACTORLESS = 300  # the cofactorless commit: its host loop is pure Python where OpenSSL is missing
 PADD_SWEEP = (32, 192, 1_024, 4_096, 4_097, 16_384, 24_576)
+# The light paths. BASELINE config 3 at bench.py's size (_CONFIG_SIZES
+# "light_trusting_4k"): a trusted header at height 1 with 4,096 validators,
+# an untrusted one at height 5 whose set replaces 1,024 of them; trust 1/3.
+LIGHT_N = 4_096
+LIGHT_REPLACED = 1_024
+LIGHT_TAMPERED = 3  # bad rows in the untrusted commit, all of known validators
+LIGHT_ROUNDS = 10  # interleaved rounds of the step, its checks together and one after the other
+NANOS = 1_000_000_000
+LIGHT_T0 = 1_700_000_000 * NANOS
+LIGHT_NOW = LIGHT_T0 + 3_600 * NANOS
+LIGHT_PERIOD = 24 * 3_600 * NANOS
+LIGHT_DRIFT = 10 * NANOS
+# light_skipping: 16 heights x 1,024 validators, the whole set rotating at
+# height 9; light_accumulated: heights 1-8's commits, one bad row in commit 3
+SKIP_HEIGHTS, SKIP_N, SKIP_ROTATION = 16, 1_024, 9
+ACC_COMMITS, ACC_BAD = 8, (3, 100)
 
 REPLACES = {
     "padd": "tendermint_tpu/ops/pallas_fe.py:249",
@@ -491,13 +540,14 @@ def kernel_checks(dev, rng, card: dict) -> list:
 
         kern = (lambda: cuda_fe.padd(p, q)) if few_lanes is None else forced
         return dict(name="padd", path=path, variant=where, lanes=lanes, symbol=symbol, kern=kern,
-                    plain=lambda: cuda_fe.padd_plain(p, q),
+                    plain=lambda: cuda_fe.padd_plain(p, q), key=shape_key("padd", p, q),
                     mads=PADD_MADS, items=lanes, bytes=3 * POINT_BYTES * lanes)
 
     def pdbl_case(path, lanes, times, where):
         p = pick(lanes)
         return dict(name="pdbl", path=path, variant=f"times={times}, {where}", lanes=lanes,
                     kern=lambda: cuda_fe.pdbl(p, times), plain=lambda: cuda_fe.pdbl_plain(p, times),
+                    key=shape_key("pdbl", p, times),
                     mads=pdbl_mads(times), items=lanes,
                     bytes=(3 * 80 + POINT_BYTES) * lanes)  # x, y, z in (t is not read), 4 out
 
@@ -506,6 +556,7 @@ def kernel_checks(dev, rng, card: dict) -> list:
         return dict(name="bucket_fold", path=path, variant=f"T={t_}", lanes=m,
                     kern=lambda: cuda_msm.bucket_fold(prefix, t_),
                     plain=lambda: cuda_msm.bucket_fold_plain(prefix, t_),
+                    key=shape_key("bucket_fold", prefix, t_),
                     mads=PADD_MADS, items=255 * t_, bytes=(m + 2 * t_) * POINT_BYTES,
                     bound_note="operations: 255 adds a window x PADD_MADS over the whole card; "
                                "the adds form a chain 8 levels deep, which this bound does not "
@@ -516,6 +567,7 @@ def kernel_checks(dev, rng, card: dict) -> list:
         return dict(name="fsquare_chain", path=path, variant=f"k=50, {where}", lanes=lanes,
                     kern=lambda: cuda_fe.fsquare_chain(x, 50),
                     plain=lambda: cuda_fe.fsquare_chain_plain(x, 50),
+                    key=shape_key("fsquare_chain", x, 50),
                     mads=50 * SQR, items=lanes, bytes=2 * 80 * lanes)
 
     def uptree_case(path, n, ch, where):
@@ -532,6 +584,7 @@ def kernel_checks(dev, rng, card: dict) -> list:
         return dict(name="uptree", path=path, variant=f"ch={ch}, {where}", lanes=t_ * n,
                     kern=lambda: cuda_msm.uptree(x, perm, ch),
                     plain=lambda: cuda_msm.uptree_plain(x, perm, ch),
+                    key=shape_key("uptree", x, perm, ch),
                     view=written, mads=PADD_MADS, items=nchunks * (ch - 1),
                     # table and perm read once; level 0 and the chunk trees written once
                     bytes=n * POINT_BYTES + t_ * n * 4 + (t_ * n + nchunks * (ch - 1)) * POINT_BYTES)
@@ -549,6 +602,7 @@ def kernel_checks(dev, rng, card: dict) -> list:
                     variant=f"Kf={kf}, 256 buckets x {fs['t']} windows, {n:,}-lane MSM, {where}",
                     lanes=m, kern=lambda: cuda_msm.fenwick_reduce(*fw_args),
                     plain=lambda: cuda_msm.fenwick_reduce_plain(*fw_args),
+                    key=shape_key("fenwick_reduce", *fw_args),
                     t_ops=work_seconds(m * (kf - 1) * PADD_MADS, card),
                     bytes=sectors * 32 + m * kf * 4 + m * POINT_BYTES, sectors=sectors,
                     bound_note=f"operations: (Kf-1) x PADD_MADS a lane over the whole card; "
@@ -556,6 +610,8 @@ def kernel_checks(dev, rng, card: dict) -> list:
                                f"the output once"), fs
 
     warm_fenwick, fs = fenwick_case("warm", 20_480, "10k commit")
+    trusting_fenwick, trusting_fs = fenwick_case("light_trusting_4k", 8_192,
+                                                 "trusting check, 3,072 rows")
     cases = [
         uptree_case("warm", 20_480, 2048, "10k commit: 32 windows x 10 chunks"),
         uptree_case("streamed", 24_576, 2048, "planner chunk: 32 windows x 12 chunks"),
@@ -574,6 +630,8 @@ def kernel_checks(dev, rng, card: dict) -> list:
         padd_case("streamed", 32 * 6, "top tree level 1: 32 windows x 6 root pairs"),
         padd_case("warm", 32, "[255] P_255 and W per window"),
         padd_case("pipelined", 1, "the chunk partials' fold"),
+        *(padd_case("warm", lanes, f"window fold level {level}: {lanes} pairs")
+          for level, lanes in enumerate((16, 8, 4, 2), 1)),
         padd_case("tampered", 32 * 3, "top tree level 1 of a 4,096-row sub-check: 32 x 3"),
         padd_case("tampered", 32 * 2, "top tree level 1 of a 1,024-2,048-row sub-check: 32 x 2"),
         padd_case("tampered_persig", 16_384, "per-signature ladder"),
@@ -604,6 +662,39 @@ def kernel_checks(dev, rng, card: dict) -> list:
           for n, _, rows in TAMPERED_MSM),
         fsq_case("cofactored_300", 512, "A or R decompression of a 300-row commit"),
         fsq_case("host_small_cuda", 128, "A or R decompression of 128 rows"),
+        fsq_case("mixed_sr25519_10k tampered", 6_144,
+                 "A and R decompression of the bisection's 2,048-row sub-check"),
+        # the light paths: the trusting check's 3,072 rows (8,192 lanes) and the
+        # light check's 4,096 (10,240), cached A; the recovery ladder on 4,096
+        # lanes; the skipping chain's 1,024-row checks (3,072 lanes); the
+        # accumulated 8,192-row flush, pipelined in the planner's chunk
+        uptree_case("light_trusting_4k", 8_192, 2048, "trusting check, 3,072 rows: "
+                                                       "32 windows x 4 chunks"),
+        uptree_case("light_trusting_4k", 10_240, 2048, "light check, 4,096 rows: "
+                                                        "32 windows x 5 chunks"),
+        trusting_fenwick,
+        fenwick_case("light_trusting_4k", 10_240, "light check, 4,096 rows")[0],
+        bucket_fold_case("light_trusting_4k", trusting_fs["prefix"], trusting_fs["t"]),
+        fsq_case("light_trusting_4k", 4_096, "R decompression of the trusting check"),
+        fsq_case("light_trusting_4k", 5_120, "R decompression of the light check"),
+        fsq_case("light_trusting_4k", 8_192, "A and R decompression of the cold trusting check"),
+        padd_case("light_trusting_4k", 32 * 2, "top tree level 1 of the trusting check: 32 x 2"),
+        padd_case("light_trusting_4k", 32 * 3, "top tree level 1 of the light check: 32 x 3"),
+        padd_case("light_trusting_4k", 32, "[255] P_255 and W per window"),
+        pdbl_case("light_trusting_4k", 32, 8, "[256] P_255 per window"),
+        pdbl_case("light_trusting_4k", 1, 128, "last window-fold level"),
+        padd_case("light_tampered", 4_096, "per-signature ladder, 3,072 and 4,096 rows"),
+        pdbl_case("light_tampered", 4_096, 4, "per-signature ladder, 3,072 and 4,096 rows"),
+        fsq_case("light_tampered", 4_096, "per-signature A or R decompression"),
+        uptree_case("light_skipping", 3_072, 1024, "1,024-row check: 32 windows x 3 chunks"),
+        fenwick_case("light_skipping", 3_072, "1,024-row check")[0],
+        fsq_case("light_skipping", 1_536, "R decompression of a cached 1,024-row check"),
+        fsq_case("light_skipping", 3_072, "A and R decompression of a 1,024-row check"),
+        padd_case("light_skipping", 32, "top tree level 1 of a 1,024-row check: 32 x 1"),
+        uptree_case("light_accumulated", 24_576, 2048, "pipelined chunk of the 8,192-row "
+                                                        "flush: 32 windows x 12 chunks"),
+        fsq_case("light_accumulated", 24_576, "A and R decompression per pipelined chunk"),
+        fenwick_case("light_accumulated", 24_576, "pipelined chunk of the 8,192-row flush")[0],
     ]
 
     return check_cases(cases, card), base
@@ -653,6 +744,8 @@ def check_cases(cases, card: dict) -> list:
         for k in ("bound_note", "sectors"):
             if k in c:
                 row[k] = c[k]
+        if "key" in c:
+            row["shape"] = c["key"][1:]
         rows.append(row)
         print(f"kernel {row['name']} [{row['path']}] {row['variant']} lanes={row['lanes']} "
               f"{symbol}: ms={ms:.4f} ({ms_by}) "
@@ -870,19 +963,82 @@ def profile_path(path: str, fn, median_ms: float) -> None:
               f"{e.key[:90]}")
 
 
+# A call's shape as a kernel row names it, by wrapper (the wrapper's own
+# argument names): the lanes of its point or field batch, uptree's windows
+# and chunk, fenwick_reduce's storage segments and Kf, bucket_fold's
+# windows. The run-time loop counts (pdbl's doublings, fsquare_chain's
+# squarings) are not part of a shape.
+SHAPE_OF = {
+    "padd": lambda p, q: (p.numel() // 80,),
+    "pdbl": lambda p, times=1: (p.numel() // 80,),
+    "fsquare_chain": lambda x, k: (x.numel() // 20,),
+    "uptree": lambda pts, perm, ch: (pts.shape[-1], perm.shape[0], ch),
+    "fenwick_reduce": lambda lvl0, ctree, top, node_idx: (
+        lvl0.shape[-1], ctree.shape[-1], top.shape[-1], node_idx.shape[-1]),
+    "bucket_fold": lambda prefix, t_windows: (prefix.shape[-1], t_windows),
+}
+SHAPES_SEEN: set = set()  # the wrappers' shapes since the last reset_launches()
+PATH_SHAPES: dict = {}  # path -> the shapes read_launches() took for it
+
+
+def shape_key(name: str, *args, **kwargs) -> tuple:
+    return (name, *SHAPE_OF[name](*args, **kwargs))
+
+
+def record_shapes() -> None:
+    """From here on each call of the six Ed25519 wrappers adds its shape
+    to SHAPES_SEEN (a dict lookup and a set add a call; the wrappers and
+    their launch counts are unchanged)."""
+    from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
+
+    def shim(module, name):
+        real = getattr(module, name)
+
+        def call(*a, **k):
+            SHAPES_SEEN.add(shape_key(name, *a, **k))
+            return real(*a, **k)
+        setattr(module, name, call)
+
+    for name in ED25519_KERNELS:
+        shim(cuda_fe if name in cuda_fe.LAUNCHES else cuda_msm, name)
+
+
+def note_shapes(path: str) -> None:
+    PATH_SHAPES.setdefault(path, set()).update(SHAPES_SEEN)
+
+
+def coverage(rows: list) -> None:
+    """Every shape a path gave one of the six Ed25519 wrappers is the shape
+    of a kernel row (of that path or another); exits non-zero naming each
+    shape that has none."""
+    have = {(r["name"], *r["shape"]) for r in rows if "shape" in r}
+    missing = sorted({(key, path) for path, keys in PATH_SHAPES.items() for key in keys
+                      if key not in have}, key=str)
+    print(f"shapes: {sum(map(len, PATH_SHAPES.values()))} (path, kernel, shape) triples on "
+          f"{len(PATH_SHAPES)} paths, {len({k for v in PATH_SHAPES.values() for k in v})} "
+          f"distinct shapes, {len(missing)} without a kernel row", flush=True)
+    for key, path in missing:
+        print(f"shape without a kernel row: {key[0]} {key[1:]} on {path}", flush=True)
+    if missing:
+        raise SystemExit(f"{len(missing)} shapes of the paths have no kernel row")
+
+
 def reset_launches() -> None:
     from tendermint_tpu_torch.ops import cuda_bls, cuda_fe, cuda_msm
 
     cuda_fe.reset_launches()
     cuda_msm.reset_launches()
     cuda_bls.reset_launches()
+    SHAPES_SEEN.clear()
 
 
 def read_launches(path: str, kernels=ED25519_KERNELS) -> dict:
     """The launch counts of all eight kernels since the last reset; every
-    kernel of the path (`kernels`) must have run."""
+    kernel of the path (`kernels`) must have run. The wrappers' shapes since
+    the reset are the path's too."""
     from tendermint_tpu_torch.ops import cuda_bls, cuda_fe, cuda_msm
 
+    note_shapes(path)
     counts = {**cuda_fe.LAUNCHES, **cuda_msm.LAUNCHES, **cuda_bls.LAUNCHES}
     for name in kernels:
         if counts[name] <= 0:
@@ -1264,7 +1420,7 @@ def mixed_sr25519_phase(dev, sr: dict, launches: dict) -> None:
     for i in SR_TAMPERED:
         bad_sigs[i] = flip(bad_sigs[i])
     mask, bad_ms, flush = call(bad_sigs)
-    counts = read_launches("mixed_sr25519_10k tampered")
+    counts = launches["mixed_sr25519_10k tampered"] = read_launches("mixed_sr25519_10k tampered")
     bad = tuple(int(i) for i in np.flatnonzero(~mask))
     if bad != SR_TAMPERED or "recovery_s" not in flush:
         raise SystemExit(f"mixed_sr25519_10k tampered mask: False at {bad}, expected {SR_TAMPERED}")
@@ -1467,6 +1623,441 @@ def cofactorless_phase(dev, cf: dict, launches: dict) -> None:
           f"launches={launches['cofactored_300']}", flush=True)
 
 
+def _sign_known(args):
+    """Signatures of (seed, pubkey, message) rows by ed25519_ref, the key
+    already known."""
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+
+    out = []
+    for seed, pk, msg in args:
+        a, prefix = ref.secret_expand(seed)
+        r = ref.sha512_mod_l(prefix + msg)
+        r_enc = ref.point_compress(ref.point_mul(r, ref.BASE))
+        h = ref.sha512_mod_l(r_enc + pk + msg)
+        out.append(r_enc + ((r + h * a) % ref.L).to_bytes(32, "little"))
+    return out
+
+
+def _verify_cofactored_rows(args):
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+
+    return [ref.verify_cofactored(pk, msg, sig) for pk, msg, sig in args]
+
+
+def pool_map(pool, fn, jobs, workers: int) -> list:
+    """fn over jobs on the pool in `workers` strided parts, in job order."""
+    parts = pool.map(fn, [jobs[i::workers] for i in range(workers)])
+    out = [None] * len(jobs)
+    for i, part in enumerate(parts):
+        out[i::workers] = part
+    return out
+
+
+def light_header(h: int, vals, next_vals, last_hash: bytes):
+    """A header of the light chains: seeded-free field hashes, time
+    LIGHT_T0 + h s, the set's proposer."""
+    from tendermint_tpu_torch.crypto import tmhash
+    from tendermint_tpu_torch.types.basic import BlockID, PartSetHeader
+    from tendermint_tpu_torch.types.block import ConsensusVersion, Header
+
+    return Header(
+        version=ConsensusVersion(), chain_id=CHAIN_ID, height=h, time_ns=LIGHT_T0 + h * NANOS,
+        last_block_id=(BlockID(last_hash, PartSetHeader(1, tmhash.sum256(last_hash)))
+                       if last_hash else BlockID()),
+        last_commit_hash=tmhash.sum256(b"lc%d" % h), data_hash=tmhash.sum256(b"d%d" % h),
+        validators_hash=vals.hash(), next_validators_hash=next_vals.hash(),
+        consensus_hash=tmhash.sum256(b"c"), app_hash=tmhash.sum256(b"a%d" % h),
+        last_results_hash=tmhash.sum256(b"r%d" % h), evidence_hash=tmhash.sum256(b"e"),
+        proposer_address=vals.get_proposer().address)
+
+
+def _commit_rows(header, vals, seed_of):
+    """(block ID, CommitSig metadata, signing jobs) of every validator's
+    precommit for `header`, each at its own timestamp."""
+    from tendermint_tpu_torch.crypto import tmhash
+    from tendermint_tpu_torch.types.basic import BlockID, BlockIDFlag, PartSetHeader
+    from tendermint_tpu_torch.types.block import Commit, CommitSig
+
+    bid = BlockID(header.hash(), PartSetHeader(1, tmhash.sum256(header.hash())))
+    meta = [(v.address, header.time_ns + 1_000 * i) for i, v in enumerate(vals.validators)]
+    stub = Commit(header.height, 0, bid, [CommitSig(BlockIDFlag.COMMIT, a, ts, b"")
+                                          for a, ts in meta])
+    msgs = stub.vote_sign_bytes_many(CHAIN_ID, range(len(meta)))
+    return bid, meta, [(seed_of[v.pub_key.bytes()], v.pub_key.bytes(), m)
+                       for v, m in zip(vals.validators, msgs)]
+
+
+def build_light(rng):
+    """The light paths' chains, signed on a fork pool before the card is
+    touched: the trusted (height 1, LIGHT_N validators) and untrusted
+    (height 5, LIGHT_REPLACED of them replaced) light blocks of
+    light_trusting_4k, the untrusted commit with LIGHT_TAMPERED bad rows of
+    known validators and ed25519_ref.verify_cofactored's verdict on each of
+    its rows, and the SKIP_HEIGHTS-block chain of SKIP_N validators whose
+    whole set rotates at SKIP_ROTATION."""
+    from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
+    from tendermint_tpu_torch.types.basic import BlockIDFlag
+    from tendermint_tpu_torch.types.block import Commit, CommitSig
+    from tendermint_tpu_torch.types.light import LightBlock, SignedHeader
+    from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    t0 = time.perf_counter()
+    n_keys = LIGHT_N + LIGHT_REPLACED + 2 * SKIP_N
+    seeds = [rng.bytes(32) for _ in range(n_keys)]
+    workers = os.cpu_count() or 1
+    with mp.get_context("fork").Pool(workers) as pool:
+        pubs = pool_map(pool, _pubkey_rows, [(s, b"") for s in seeds], workers)
+        seed_of = dict(zip(pubs, seeds))
+
+        def vset(lo, hi):
+            return ValidatorSet([Validator(Ed25519PubKey(pk), 10) for pk in pubs[lo:hi]])
+
+        trusted_vals = vset(0, LIGHT_N)
+        untrusted_vals = vset(LIGHT_REPLACED, LIGHT_N + LIGHT_REPLACED)
+        s1 = vset(LIGHT_N + LIGHT_REPLACED, LIGHT_N + LIGHT_REPLACED + SKIP_N)
+        s2 = vset(LIGHT_N + LIGHT_REPLACED + SKIP_N, n_keys)
+        headers = [(light_header(1, trusted_vals, trusted_vals, b""), trusted_vals),
+                   (light_header(5, untrusted_vals, untrusted_vals, rng.bytes(32)),
+                    untrusted_vals)]
+        last = b""
+        for h in range(1, SKIP_HEIGHTS + 1):
+            vals, nxt = (s1 if h < SKIP_ROTATION else s2), (s1 if h + 1 < SKIP_ROTATION else s2)
+            headers.append((light_header(h, vals, nxt, last), vals))
+            last = headers[-1][0].hash()
+        rows = [_commit_rows(hd, vals, seed_of) for hd, vals in headers]
+        sigs = pool_map(pool, _sign_known, [j for _, _, jobs in rows for j in jobs], workers)
+        blocks, k = [], 0
+        for (hd, vals), (bid, meta, jobs) in zip(headers, rows):
+            commit = Commit(hd.height, 0, bid, [
+                CommitSig(BlockIDFlag.COMMIT, a, ts, sig)
+                for (a, ts), sig in zip(meta, sigs[k:k + len(meta)])])
+            k += len(meta)
+            blocks.append(LightBlock(SignedHeader(hd, commit), vals))
+        # the tampered commit: bad rows of validators the trusted set knows
+        untrusted = blocks[1]
+        known = [i for i, v in enumerate(untrusted_vals.validators)
+                 if trusted_vals.has_address(v.address)]
+        bad = sorted(int(i) for i in rng.choice(known, LIGHT_TAMPERED, replace=False))
+        commit = untrusted.signed_header.commit
+        tampered = Commit(commit.height, commit.round, commit.block_id, [
+            CommitSig(cs.block_id_flag, cs.validator_address, cs.timestamp_ns,
+                      flip(cs.signature) if i in bad else cs.signature)
+            for i, cs in enumerate(commit.signatures)])
+        jobs = rows[1][2]
+        verdicts = pool_map(pool, _verify_cofactored_rows, [
+            (pk, msg, cs.signature) for (_, pk, msg), cs in zip(jobs, tampered.signatures)],
+            workers)
+        pool.close()
+        pool.join()
+    print(f"light corpus: {n_keys} keys, {len(sigs)} signatures and {len(verdicts)} host "
+          f"verdicts in {time.perf_counter() - t0:.1f} s ({workers} processes)", flush=True)
+    return dict(trusted=blocks[0], untrusted=untrusted, tampered=tampered, bad=bad,
+                verdicts=np.array(verdicts, dtype=bool),
+                chain={lb.height: lb for lb in blocks[2:]})
+
+
+@contextlib.contextmanager
+def captured_finishes():
+    """Every verify_batch_finish inside the block: its mask and the flush's
+    route label, in finish order."""
+    from tendermint_tpu_torch.crypto import batch
+
+    seen, real = [], batch.verify_batch_finish
+
+    def finish(h):
+        mask = real(h)
+        seen.append((mask, batch.LAST_FLUSH.get("path")))
+        return mask
+
+    batch.verify_batch_finish = finish
+    try:
+        yield seen
+    finally:
+        batch.verify_batch_finish = real
+
+
+@contextlib.contextmanager
+def counted(module, *names):
+    """Calls of module.<name> inside the block, by name."""
+    counts, saved = dict.fromkeys(names, 0), {n: getattr(module, n) for n in names}
+
+    def wrap(name):
+        def call(*a, **k):
+            counts[name] += 1
+            return saved[name](*a, **k)
+        return call
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        yield counts
+    finally:
+        for n, f in saved.items():
+            setattr(module, n, f)
+
+
+@contextlib.contextmanager
+def tracked_submits():
+    """Each batch._rlc_submit inside the block: its host ms, the six
+    Ed25519 kernels' launches it queued, and whether an _rlc_finish synced
+    it (a refused skipping step drops its light check unfinished)."""
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
+
+    subs, submit, finish = [], batch._rlc_submit, batch._rlc_finish
+
+    def launched():
+        return sum(cuda_fe.LAUNCHES.values()) + sum(cuda_msm.LAUNCHES.values())
+
+    def sub(*a, **k):
+        n0, t0 = launched(), time.perf_counter()
+        call = submit(*a, **k)
+        subs.append({"call": call, "ms": (time.perf_counter() - t0) * 1e3,
+                     "launches": launched() - n0, "finished": False})
+        return call
+
+    def fin(call):
+        for s in subs:
+            s["finished"] |= s["call"] is call
+        return finish(call)
+
+    batch._rlc_submit, batch._rlc_finish = sub, fin
+    try:
+        yield subs
+    finally:
+        batch._rlc_submit, batch._rlc_finish = submit, finish
+        for s in subs:
+            s.pop("call")
+
+
+def skipping_heights(lo: int, hi: int, rotation: int) -> list:
+    """The heights the Client's bisection (light/client.py _verify_skipping)
+    trusts from `lo` to `hi` on a chain whose whole set changes at
+    `rotation`: a step is verified when it is adjacent or both ends have
+    the same set; otherwise the midpoint is pushed."""
+    trusted, current, stack = [lo], lo, [hi]
+    while stack:
+        cand = stack[-1]
+        if cand == current + 1 or (cand < rotation) == (current < rotation):
+            stack.pop()
+            trusted.append(cand)
+            current = cand
+        else:
+            stack.append((current + cand) // 2)
+    return trusted
+
+
+def light_phase(dev, lc: dict, launches: dict) -> None:
+    """The four light paths, each with its own launch counts."""
+    import asyncio
+    from fractions import Fraction
+
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto import ed25519_ref as E
+    from tendermint_tpu_torch.libs.kvdb import MemDB
+    from tendermint_tpu_torch.light import verifier
+    from tendermint_tpu_torch.light.client import SKIPPING, Client, TrustOptions
+    from tendermint_tpu_torch.light.provider import MockProvider
+    from tendermint_tpu_torch.light.store import LightStore
+
+    t_phase = time.perf_counter()
+    trusted, untrusted = lc["trusted"], lc["untrusted"]
+    tvals, uvals = trusted.validator_set, untrusted.validator_set
+    commit = untrusted.signed_header.commit
+    level = Fraction(1, 3)
+    n_trusting = sum(tvals.has_address(cs.validator_address) for cs in commit.signatures)
+
+    def step(sh=None):
+        verifier.verify_non_adjacent(
+            CHAIN_ID, trusted.signed_header, tvals, sh or untrusted.signed_header, uvals,
+            LIGHT_PERIOD, LIGHT_NOW, LIGHT_DRIFT, level, device=dev)
+        torch.cuda.synchronize()
+
+    def checks_overlapped():
+        fin_t = tvals.begin_verify_commit_light_trusting(CHAIN_ID, commit, level, device=dev)
+        fin_l = uvals.begin_verify_commit_light(CHAIN_ID, commit.block_id, commit.height, commit,
+                                                device=dev)
+        fin_t()
+        fin_l()
+        torch.cuda.synchronize()
+
+    def checks_serial():
+        tvals.verify_commit_light_trusting(CHAIN_ID, commit, level, device=dev)
+        uvals.verify_commit_light(CHAIN_ID, commit.block_id, commit.height, commit, device=dev)
+        torch.cuda.synchronize()
+
+    def timed_call(fn, path=None):
+        reset_launches()
+        with captured_finishes() as seen:
+            t0 = time.perf_counter()
+            fn()
+            ms = (time.perf_counter() - t0) * 1e3
+        if path is not None:
+            same_counts(launches, path, read_launches(path))
+        return ms, seen
+
+    # light_trusting_4k: the first call runs the plain kernels and fills the A cache
+    cold_ms, seen = timed_call(step)
+    note_shapes("light_trusting_4k")
+    labels = [p for _, p in seen]
+    if labels != ["rlc-async", "rlc-async"] or [len(m) for m, _ in seen] != [n_trusting, LIGHT_N]:
+        raise SystemExit(f"light_trusting_4k cold: labels {labels}, rows "
+                         f"{[len(m) for m, _ in seen]}")
+    times = {"step": [], "overlapped": [], "serial": []}
+    for r in range(LIGHT_ROUNDS):  # interleaved; the pair's order alternates by round
+        pair = [("overlapped", checks_overlapped), ("serial", checks_serial)]
+        for key, fn in [("step", step)] + (pair if r % 2 == 0 else pair[::-1]):
+            ms, seen = timed_call(fn, "light_trusting_4k")
+            if [p for _, p in seen] != ["rlc-async", "rlc-async"] or not all(
+                    m.all() for m, _ in seen):
+                raise SystemExit(f"light_trusting_4k {key}: {[(int(m.sum()), p) for m, p in seen]}")
+            times[key].append(ms)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    q = statistics.quantiles(times["serial"], n=4)
+    wins = sum(o < t for o, t in zip(times["overlapped"], times["serial"]))
+    print(f"light_trusting_4k ({LIGHT_N} validators, {LIGHT_REPLACED} replaced, trust 1/3; "
+          f"trusting check {n_trusting} rows, light check {LIGHT_N} rows): "
+          f"verify_non_adjacent median_ms={med['step']:.1f} ms={[round(t, 1) for t in times['step']]} "
+          f"cold_ms={cold_ms:.1f}; the two checks submitted together median_ms="
+          f"{med['overlapped']:.1f} ms={[round(t, 1) for t in times['overlapped']]} against one "
+          f"after the other median_ms={med['serial']:.1f} "
+          f"ms={[round(t, 1) for t in times['serial']]} (serial quartiles {q[0]:.1f}-{q[2]:.1f}; "
+          f"together faster in {wins} of {LIGHT_ROUNDS} interleaved rounds); labels rlc-async, "
+          f"rlc-async; lanes "
+          f"{2 * batch._lane_bucket(n_trusting + 1)} and {2 * batch._lane_bucket(LIGHT_N + 1)}; "
+          f"launches per call={launches['light_trusting_4k']}", flush=True)
+    profile_path("light_trusting_4k", step, med["step"])
+    profile_path("light_trusting_4k serial", checks_serial, med["serial"])
+
+    # light_tampered: both combined checks fail; each finish recovers by one
+    # per-signature pass, and the step passes on the power left
+    tampered_sh = type(untrusted.signed_header)(untrusted.signed_header.header, lc["tampered"])
+    tvals_rows = [i for i, cs in enumerate(commit.signatures)
+                  if tvals.has_address(cs.validator_address)]
+    step(tampered_sh)  # warm: the ladder's shapes
+    t_ms = []
+    for _ in range(3):
+        ms, seen = timed_call(lambda: step(tampered_sh), "light_tampered")
+        t_ms.append(ms)
+        (m_trust, p_trust), (m_light, p_light) = seen
+        want = lc["verdicts"]
+        if (p_trust, p_light) != ("persig-async", "persig-async") or (
+                m_light.tobytes() != want.tobytes()
+                or m_trust.tobytes() != want[tvals_rows].tobytes()):
+            raise SystemExit(f"light_tampered: labels {p_trust}, {p_light}; light mask False at "
+                             f"{np.flatnonzero(~m_light).tolist()}, expected {lc['bad']}")
+    if np.flatnonzero(~lc["verdicts"]).tolist() != lc["bad"]:
+        raise SystemExit("light_tampered: ed25519_ref refuses other rows than the tampered ones")
+    print(f"light_tampered (rows {lc['bad']} bad): verify_non_adjacent median_ms="
+          f"{statistics.median(t_ms):.1f} ms={[round(t, 1) for t in t_ms]}; labels persig-async, "
+          f"persig-async; both masks equal ed25519_ref.verify_cofactored on all "
+          f"{LIGHT_N} rows; launches per call={launches['light_tampered']}", flush=True)
+    profile_path("light_tampered", lambda: step(tampered_sh), statistics.median(t_ms))
+
+    # light_skipping: a Client bisecting across the chain's full rotation
+    chain = lc["chain"]
+    client = Client(CHAIN_ID, TrustOptions(LIGHT_PERIOD, 1, chain[1].hash()),
+                    MockProvider(CHAIN_ID, chain), [], LightStore(MemDB()),
+                    verification_mode=SKIPPING, device=dev)
+    want = skipping_heights(1, SKIP_HEIGHTS, SKIP_ROTATION)
+    reset_launches()
+    with counted(verifier, "verify_adjacent", "verify_non_adjacent") as steps, \
+            counted(batch, "_persig_flush") as persig, tracked_submits() as subs:
+        t0 = time.perf_counter()
+
+        async def go():
+            await client.initialize(LIGHT_NOW)
+            return await client.verify_light_block_at_height(SKIP_HEIGHTS, LIGHT_NOW)
+
+        lb = asyncio.run(go())
+        torch.cuda.synchronize()
+        skip_ms = (time.perf_counter() - t0) * 1e3
+    launches["light_skipping"] = read_launches("light_skipping")
+    if lb.hash() != chain[SKIP_HEIGHTS].hash() or client.store.heights() != want:
+        raise SystemExit(f"light_skipping: trusted heights {client.store.heights()}, "
+                         f"expected {want}")
+    dropped = [s for s in subs if not s["finished"]]
+    print(f"light_skipping ({SKIP_HEIGHTS} heights x {SKIP_N} validators, rotation at "
+          f"{SKIP_ROTATION}): Client.verify_light_block_at_height({SKIP_HEIGHTS}) with "
+          f"initialize ms={skip_ms:.1f}; trusted heights {client.store.heights()} (the "
+          f"bisection's rule: {want}); steps {steps}; card flushes: {len(subs)} combined checks "
+          f"submitted, {persig['_persig_flush']} per-signature passes; launches="
+          f"{launches['light_skipping']}", flush=True)
+    print(f"light_skipping: {len(dropped)} of {len(subs)} combined checks submitted and never "
+          f"finished (the light checks of refused steps): host ms in their submits "
+          f"{sum(s['ms'] for s in dropped):.1f} ({[round(s['ms'], 1) for s in dropped]}), "
+          f"six-kernel launches {sum(s['launches'] for s in dropped)}; the finished ones' "
+          f"submits {sum(s['ms'] for s in subs if s['finished']):.1f} ms", flush=True)
+
+    # one light check submitted and dropped, as a refused step drops it: the
+    # host ms of its submit, and under the profiler every kernel it queues
+    top = chain[SKIP_HEIGHTS]
+    c_top = top.signed_header.commit
+
+    def drop():
+        top.validator_set.begin_verify_commit_light(CHAIN_ID, c_top.block_id, c_top.height,
+                                                    c_top, device=dev)
+
+    drop_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        drop()
+        drop_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    print(f"light_skipping dropped submit: host ms {[round(t, 1) for t in drop_ms]}", flush=True)
+    profile_path("light_skipping dropped submit", drop, statistics.median(drop_ms))
+
+    # light_accumulated: heights 1-8's commits in one flush, a bad row in commit 3
+    hs = list(range(1, ACC_COMMITS + 1))
+    commits = {}
+    for h in hs:
+        c = chain[h].signed_header.commit
+        if h == ACC_BAD[0]:
+            c = type(c)(c.height, c.round, c.block_id, [
+                type(cs)(cs.block_id_flag, cs.validator_address, cs.timestamp_ns,
+                         flip(cs.signature) if i == ACC_BAD[1] else cs.signature)
+                for i, cs in enumerate(c.signatures)])
+        commits[h] = c
+
+    def begin(h):
+        c = commits[h]
+        return chain[h].validator_set.begin_verify_commit_light(CHAIN_ID, c.block_id, c.height,
+                                                                c, device=dev)
+
+    with captured_finishes() as separate:
+        t0 = time.perf_counter()
+        for h in hs:
+            begin(h)()
+        torch.cuda.synchronize()
+        sep_ms = (time.perf_counter() - t0) * 1e3
+    reset_launches()
+    with captured_finishes() as seen:
+        t0 = time.perf_counter()
+        with batch.accumulate_flushes(device=dev) as acc:
+            fins = [begin(h) for h in hs]
+        acc.flush()
+        acc_path = dict(batch.LAST_FLUSH)
+        for fin in fins:
+            fin()
+        torch.cuda.synchronize()
+        acc_ms = (time.perf_counter() - t0) * 1e3
+    launches["light_accumulated"] = read_launches("light_accumulated")
+    bad_flat = (ACC_BAD[0] - 1) * SKIP_N + ACC_BAD[1]
+    if (acc.flush_count != 1 or acc.lanes != ACC_COMMITS * SKIP_N
+            or [m.tobytes() for m, _ in seen] != [m.tobytes() for m, _ in separate]
+            or np.flatnonzero(~acc.flush()).tolist() != [bad_flat]
+            or acc_path.get("path") != "rlc-bisect"):
+        raise SystemExit(f"light_accumulated: flush_count {acc.flush_count}, path "
+                         f"{acc_path.get('path')}, False at {np.flatnonzero(~acc.flush()).tolist()}")
+    print(f"light_accumulated ({ACC_COMMITS} commits x {SKIP_N} rows, row {ACC_BAD[1]} of commit "
+          f"{ACC_BAD[0]} bad): one flush (flush_count 1) of {acc.lanes} rows, path "
+          f"{acc_path['path']}, recovery_flushes={acc_path.get('recovery_flushes')}, "
+          f"ms={acc_ms:.1f}; slices equal the separate submits' masks ({ACC_COMMITS} submits "
+          f"and finishes one after the other: ms={sep_ms:.1f}, labels "
+          f"{[p for _, p in separate]}); launches={launches['light_accumulated']}", flush=True)
+    print(f"light phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def build_bls_set():
     """10,000 BLS validators built as bench.py's _bls_bench_valset builds them
     (keys sk_i = sk0 + i, so pk_{i+1} = pk_i + G1), power 10 each, and three
@@ -1630,6 +2221,7 @@ def main() -> int:
     mixed = build_mixed_commit(corpus)
     mixed_sr = build_mixed_sr25519(np.random.default_rng(SEED + 8))
     cofactorless = build_cofactorless_commit(corpus)
+    light = build_light(np.random.default_rng(SEED + 10))
     bls = build_bls_set()
     dev = torch.device("cuda")
     card_line = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -1659,6 +2251,7 @@ def main() -> int:
     rows, base = kernel_checks(dev, rng, card)
     rows += bls_kernel_checks(dev, rng, card)
     msm_reference_check(dev, rng, base)
+    record_shapes()
     launches = commit_phase(dev, corpus)
     streamed_phase(dev, corpus, launches)
     host_small_phase(dev, corpus, launches)
@@ -1666,6 +2259,8 @@ def main() -> int:
     mixed_sr25519_phase(dev, mixed_sr, launches)
     bls_phase(dev, bls, launches)
     cofactorless_phase(dev, cofactorless, launches)
+    light_phase(dev, light, launches)
+    coverage(rows)
     for r in rows:  # the count on the path whose shape the row checks; none off the path
         r["launches"] = 0 if r["path"] is None else launches[r["path"]][r["name"]]
     print(json.dumps({"kernels": rows, "launches_by_path": launches}), flush=True)

@@ -11,6 +11,9 @@
   bls12_msm point triples (X, Y, Z) -> (33, n) / (3, 33, n) tensors.
 - `fp2_rows_to_tensor`, `fp12_rows_to_tensor`: pallas_bls row lists (an Fp2
   is a pair of 33 limb rows, an Fp12 six Fp2) -> (..., 2, 33, n) tensors.
+- `light_block_from_reference_bytes`: the JAX package's
+  `types/light.light_block_to_bytes` output -> a port LightBlock (a chain
+  built in the reference, carried into the port by its bytes).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import numpy as np
 import torch
 
 from tendermint_tpu_torch.device import resolve
+from tendermint_tpu_torch.types.light import light_block_from_bytes
 
 
 def a_coords_to_tensor(coords: Sequence[np.ndarray], device=None) -> torch.Tensor:
@@ -73,3 +77,8 @@ def fp2_rows_to_tensor(rows, device=None) -> torch.Tensor:
 
 def fp12_rows_to_tensor(f, device=None) -> torch.Tensor:
     return torch.stack([fp2_rows_to_tensor(c, device) for c in f])
+
+
+# The port's types/light.py shares the JAX package's JSON codec field for
+# field, so the reference's light_block_to_bytes output decodes as it is.
+light_block_from_reference_bytes = light_block_from_bytes

@@ -47,6 +47,14 @@ and no recovery from a device error (ROADMAP.md section C). The host arm's
 two catches (a host combined check that raises counts as failed) touch no
 device.
 
+Submit / finish (`verify_batch_submit`, `verify_batch_finish`, the
+reference's rule): an all-Ed25519 set of RLC_MIN rows or more on the card
+arm, and within the planner's budget, queues one combined check and
+returns; its finish syncs it ("rlc-async") or recovers the exact mask by
+one per-signature pass ("persig-async"). Anything else runs verify_batch
+at submit. Inside `accumulate_flushes()` (thread-local) submits join a
+FlushAccumulator, whose one verify_batch call every finish slices.
+
 Every route is COFACTORED with canonical encodings and s < L, except the
 serial loop in cofactorless mode, so a mask never depends on the route
 (crypto/ed25519_ref.verify_cofactored).
@@ -61,6 +69,7 @@ decompress A and R in every chunk, as the reference's do.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -1185,6 +1194,178 @@ def verify_batch(
     LAST_FLUSH.clear()
     mask, path = _verify_batch_routed(pubkeys, msgs, sigs, device, backend)
     LAST_FLUSH["path"] = path
+    return mask
+
+
+# ---------------------------------------------------------------------------
+# Submit / finish: a flush whose device work is queued before the caller
+# syncs it, so independent checks (the light client's trusting and light
+# pair) put both flushes on the card before reading either. Cross-request
+# accumulation (FlushAccumulator) lets many submits share one flush.
+
+
+class FlushAccumulator:
+    """While installed on this thread by `accumulate_flushes()`, every
+    verify_batch_submit appends its rows here instead of flushing, and
+    `flush()` verifies all of them with ONE verify_batch call; each
+    submit's verify_batch_finish returns its own slice of that mask. The
+    slices equal separate requests' masks: every route gives the exact
+    per-row mask, so a bad row in one request never changes another's."""
+
+    __slots__ = ("backend", "device", "pubkeys", "msgs", "sigs", "key_types", "_mask",
+                 "_flushed", "_error", "flush_count")
+
+    def __init__(self, backend: Optional[str] = None, device=None):
+        self.backend = backend
+        self.device = device
+        self.pubkeys: list = []
+        self.msgs: list = []
+        self.sigs: list = []
+        self.key_types: list = []
+        self._mask: Optional[np.ndarray] = None
+        self._flushed = False
+        self._error: Optional[BaseException] = None
+        self.flush_count = 0  # verify_batch calls this accumulator made
+
+    @property
+    def lanes(self) -> int:
+        return len(self.pubkeys)
+
+    def add(self, pubkeys, msgs, sigs, key_types) -> tuple:
+        """Append one submit's rows; returns its (start, end) slice."""
+        if self._flushed:
+            raise RuntimeError("FlushAccumulator already flushed")
+        start = len(self.pubkeys)
+        self.pubkeys.extend(pubkeys)
+        self.msgs.extend(msgs)
+        self.sigs.extend(sigs)
+        self.key_types.extend(key_types if key_types is not None else ["ed25519"] * len(pubkeys))
+        return start, len(self.pubkeys)
+
+    def flush(self) -> np.ndarray:
+        """Verify every accumulated row in one verify_batch call. Idempotent:
+        a failed flush latches its error and re-raises it at every later
+        call. Call it outside the accumulate_flushes() scope, or on an
+        accumulator no longer installed."""
+        if self._flushed:
+            if self._error is not None:
+                raise self._error
+            return self._mask
+        self._flushed = True
+        if not self.pubkeys:
+            self._mask = np.zeros(0, dtype=bool)
+            return self._mask
+        kt = self.key_types if any(t != "ed25519" for t in self.key_types) else None
+        self.flush_count += 1
+        try:
+            self._mask = verify_batch(self.pubkeys, self.msgs, self.sigs, device=self.device,
+                                      key_types=kt, backend=self.backend)
+        except BaseException as e:
+            self._error = e
+            raise
+        return self._mask
+
+
+_ACC_TLS = threading.local()
+
+
+def current_accumulator() -> Optional[FlushAccumulator]:
+    return getattr(_ACC_TLS, "current", None)
+
+
+@contextlib.contextmanager
+def accumulate_flushes(acc: Optional[FlushAccumulator] = None, backend: Optional[str] = None,
+                       device=None):
+    """Install a FlushAccumulator on THIS thread: verify_batch_submit calls
+    inside the scope accumulate instead of flushing. Leaving the scope does
+    not flush: the caller flushes, or the first verify_batch_finish does.
+    Thread-local, so an accumulator never captures another thread's
+    submits."""
+    acc = acc or FlushAccumulator(backend=backend, device=device)
+    prev = getattr(_ACC_TLS, "current", None)
+    _ACC_TLS.current = acc
+    try:
+        yield acc
+    finally:
+        _ACC_TLS.current = prev
+
+
+class BatchHandle:
+    """A verify_batch_submit in flight: resolved (`_mask`), a combined check
+    queued on the device (`_call`, with the rows for recovery in `_args`),
+    or a slice of an accumulator's flush (`_acc`, `_acc_range`)."""
+
+    __slots__ = ("_mask", "_call", "_args", "_acc", "_acc_range")
+
+    def __init__(self, mask=None, call=None, args=None, acc=None, acc_range=None):
+        self._mask = mask
+        self._call = call
+        self._args = args
+        self._acc = acc
+        self._acc_range = acc_range
+
+
+def verify_batch_submit(
+    pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Sequence[bytes], device=None,
+    key_types: Optional[Sequence[str]] = None, backend: Optional[str] = None,
+) -> BatchHandle:
+    """Start a verification; pair with verify_batch_finish. Inside an
+    accumulate_flushes() scope the rows join the accumulator. Otherwise
+    the submit is eligible for the asynchronous single flush (the
+    reference's rule, tendermint_tpu/crypto/batch.py verify_batch_submit)
+    when the backend resolves to "cuda", the set is all-Ed25519, it holds
+    at least max(RLC_MIN, _CUDA_MIN_BATCH) rows (RLC_MIN alone when a
+    backend or a card `device` is named) and it is not planner-engaged:
+    _rlc_submit queues the combined check on `device` and returns without
+    syncing. Anything else runs verify_batch eagerly (a mixed set its exact
+    per-type split, D3) and the handle comes back resolved. The
+    reference's other terms (circuit breaker, verified-row memo, lane
+    router, sharded runner, the RLC kill switch) have no counterpart in
+    the port yet (ROADMAP A4, A5, A8); its catch around the submit is not
+    ported (D1): a failure raises."""
+    if not (len(pubkeys) == len(msgs) == len(sigs)):
+        raise ValueError("pubkeys/msgs/sigs length mismatch")
+    acc = current_accumulator()
+    if acc is not None:
+        return BatchHandle(acc=acc, acc_range=acc.add(pubkeys, msgs, sigs, key_types))
+    n = len(pubkeys)
+    be = backend_default() if backend is None else backend
+    mixed = key_types is not None and any(t != "ed25519" for t in key_types)
+    floor = _CUDA_MIN_BATCH if backend is None and not _names_card(device) else 0
+    if not (be == "cuda" and not mixed and n >= max(RLC_MIN, floor) and not planner_engaged(n)):
+        return BatchHandle(mask=verify_batch(pubkeys, msgs, sigs, device=device,
+                                             key_types=key_types, backend=backend))
+    dev = resolve(device)
+    return BatchHandle(call=_rlc_submit(pubkeys, msgs, sigs, dev),
+                       args=(pubkeys, msgs, sigs, dev))
+
+
+def verify_batch_finish(h: BatchHandle) -> np.ndarray:
+    """The mask of a submitted verification. A queued combined check is
+    synced (LAST_FLUSH path "rlc-async"); when it fails, one per-signature
+    pass over all rows gives the exact mask (path "persig-async", one
+    recovery flush), as the reference's finish recovers: it does not
+    bisect. Finishing twice returns the same mask. Handles in flight share
+    no device buffer (each flush allocates its own tensors; the A cache
+    grows by copy and never rewrites a column a queued flush reads), so
+    they may finish in any order; LAST_FLUSH is the last finish's."""
+    if h._mask is not None:
+        return h._mask
+    if h._acc is not None:
+        start, end = h._acc_range
+        h._mask = h._acc.flush()[start:end]
+        return h._mask
+    pubkeys, msgs, sigs, dev = h._args
+    LAST_FLUSH.clear()
+    mask = _rlc_finish(h._call)
+    if mask is not None:
+        LAST_FLUSH["path"] = "rlc-async"
+    else:
+        t0 = time.perf_counter()
+        mask = _persig_flush(pubkeys, msgs, sigs, dev)
+        LAST_FLUSH.update(path="persig-async", recovery_flushes=1,
+                          recovery_s=time.perf_counter() - t0)
+    h._mask, h._call, h._args = mask, None, None
     return mask
 
 

@@ -1,28 +1,46 @@
-"""Validator and ValidatorSet with batched and aggregate commit verification.
+"""Validator and ValidatorSet with batched, light and aggregate commit
+verification.
 
-The verify_commit and verify_aggregate_commit parts of
-tendermint_tpu/types/validator_set.py. verify_commit (reference
-types/validator_set.go:662-714): the reference's serial per-validator verify
-loop becomes one crypto.batch.verify_batch flush on the card, with each
-row's key type, so BLS rows of a plain Commit are verified on the host.
-verify_aggregate_commit: one BLS pairing check against a signer bitmap, with
-the aggregate-pubkey fold (ops/bls12_torch.py) and the Miller loop
+The port's copy of tendermint_tpu/types/validator_set.py, but for the
+proposer-priority increments and update_with_change_set (ROADMAP A3's
+remainder). The set is sorted by descending power, ties by ascending
+address; the proposer is computed at construction (all priorities 0: the
+smallest address), and hash() is the Merkle root of the SimpleValidator
+encodings, so a LightBlock's validate_basic holds.
+
+verify_commit (reference types/validator_set.go:662-714): the reference's
+serial per-validator loop becomes one crypto.batch.verify_batch flush on
+the card, with each row's key type, so BLS rows of a plain Commit are
+verified on the host.
+
+verify_commit_light / verify_commit_light_trusting and their begin_*
+submit/finish forms (reference :719, :772): the for-block rows go to
+crypto.batch.verify_batch_submit, and the finish tallies only the rows
+that verified, as the JAX package does (it departs from Go, which stops at
+the first bad signature): a commit with a bad row and enough power left
+still passes.
+
+verify_aggregate_commit: one BLS pairing check against a signer bitmap,
+with the aggregate-pubkey fold (ops/bls12_torch.py) and the Miller loop
 (ops/pairing_torch.py) on the card; decoding, hash_to_g2 and the final
-exponentiation stay on the host (crypto/bls_ref.py). Same errors and messages
-as the JAX package. Proposer selection and set updates are not part of the
-port yet.
+exponentiation stay on the host (crypto/bls_ref.py). Same errors and
+messages as the JAX package.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from fractions import Fraction  # noqa: F401  (the trust level type, as the reference's)
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
+from tendermint_tpu_torch.crypto import batch, tmhash
 from tendermint_tpu_torch.crypto.batch import verify_batch
 from tendermint_tpu_torch.crypto.keys import Bls12381PubKey, Ed25519PubKey
+from tendermint_tpu_torch.crypto.merkle import hash_from_byte_slices
+from tendermint_tpu_torch.libs import protowire as pw
 
 INT64_MAX = 2**63 - 1
 
@@ -49,24 +67,121 @@ class Validator:
     pub_key: Union[Ed25519PubKey, Bls12381PubKey]
     voting_power: int
     address: bytes = b""
+    proposer_priority: int = 0
 
     def __post_init__(self):
         if not self.address:
             self.address = self.pub_key.address()
 
+    def copy(self) -> "Validator":
+        return Validator(self.pub_key, self.voting_power, self.address, self.proposer_priority)
+
+    def validate_basic(self) -> None:
+        if self.pub_key is None:
+            raise ValueError("validator does not have a public key")
+        if self.voting_power < 0:
+            raise ValueError("validator has negative voting power")
+        if len(self.address) != tmhash.TRUNCATED_SIZE:
+            raise ValueError("validator address is the wrong size")
+
+    def compare_proposer_priority(self, other: "Validator") -> "Validator":
+        """Higher priority wins; a tie goes to the smaller address
+        (reference: types/validator.go:64-84)."""
+        if self.proposer_priority > other.proposer_priority:
+            return self
+        if self.proposer_priority < other.proposer_priority:
+            return other
+        if self.address < other.address:
+            return self
+        if self.address > other.address:
+            return other
+        raise ValueError("cannot compare identical validators")
+
+    def simple_bytes(self) -> bytes:
+        """The SimpleValidator proto encoding that ValidatorSet.hash merkles
+        (reference: types/validator.go ToProto, types/validator_set.go Hash)."""
+        field = {"ed25519": 1, "sr25519": 3, "bls12_381": 4}.get(self.pub_key.type_name())
+        if field is None:
+            raise ValueError(f"unsupported key type {self.pub_key.type_name()}")
+        pk = pw.Writer()
+        pk.bytes_field(field, self.pub_key.bytes())
+        w = pw.Writer()
+        w.message_field(1, pk.bytes(), always=True)
+        w.varint_field(2, self.voting_power)
+        return w.bytes()
+
 
 class ValidatorSet:
     """Validators sorted by descending voting power, ties by ascending address
-    (reference: types/validator_set.go ValidatorsByVotingPower)."""
+    (reference: types/validator_set.go ValidatorsByVotingPower), and the
+    proposer."""
 
-    def __init__(self, validators: Sequence[Validator]):
+    def __init__(self, validators: Sequence[Validator], proposer: Optional[Validator] = None):
         self.validators: List[Validator] = sorted(
-            (Validator(v.pub_key, v.voting_power, v.address) for v in validators),
-            key=lambda v: (-v.voting_power, v.address),
-        )
-        if len({v.address for v in self.validators}) != len(self.validators):
-            raise ValueError("duplicate validator address")
+            (v.copy() for v in validators), key=lambda v: (-v.voting_power, v.address))
         self._total_voting_power: Optional[int] = None
+        self._by_address: Dict[bytes, int] = {v.address: i for i, v in enumerate(self.validators)}
+        if len(self._by_address) != len(self.validators):
+            raise ValueError("duplicate validator address")
+        self.proposer: Optional[Validator] = proposer
+        if self.proposer is None and self.validators:
+            self.proposer = self._compute_proposer()
+
+    def __len__(self) -> int:
+        return len(self.validators)
+
+    def is_nil_or_empty(self) -> bool:
+        return len(self.validators) == 0
+
+    def has_address(self, address: bytes) -> bool:
+        return address in self._by_address
+
+    def get_by_address(self, address: bytes) -> Tuple[int, Optional[Validator]]:
+        idx = self._by_address.get(address)
+        if idx is None:
+            return -1, None
+        return idx, self.validators[idx]
+
+    def get_by_index(self, index: int) -> Tuple[bytes, Optional[Validator]]:
+        if index < 0 or index >= len(self.validators):
+            return b"", None
+        v = self.validators[index]
+        return v.address, v
+
+    def copy(self) -> "ValidatorSet":
+        vs = ValidatorSet.__new__(ValidatorSet)
+        vs.validators = [v.copy() for v in self.validators]
+        vs._total_voting_power = self._total_voting_power
+        vs._by_address = dict(self._by_address)
+        vs.proposer = self.proposer.copy() if self.proposer else None
+        return vs
+
+    def validate_basic(self) -> None:
+        if self.is_nil_or_empty():
+            raise ValueError("validator set is nil or empty")
+        for v in self.validators:
+            v.validate_basic()
+        if self.proposer is None:
+            raise ValueError("proposer failed validate basic, error: nil validator")
+        self.proposer.validate_basic()
+
+    def hash(self) -> bytes:
+        """Merkle root of the SimpleValidator encodings (reference:
+        types/validator_set.go Hash)."""
+        return hash_from_byte_slices([v.simple_bytes() for v in self.validators])
+
+    def _compute_proposer(self) -> Validator:
+        res = self.validators[0]
+        for v in self.validators[1:]:
+            res = res.compare_proposer_priority(v)
+        return res
+
+    def get_proposer(self) -> Validator:
+        if not self.validators:
+            raise ValueError("empty validator set")
+        if self.proposer is None:
+            self.proposer = self._compute_proposer()
+        return self.proposer
 
     def size(self) -> int:
         return len(self.validators)
@@ -112,6 +227,86 @@ class ValidatorSet:
         needed = self.total_voting_power() * 2 // 3
         if tallied <= needed:
             raise NotEnoughVotingPowerError(tallied, needed)
+
+    def begin_verify_commit_light(self, chain_id: str, block_id, height: int, commit,
+                                  device=None):
+        """The submit half of verify_commit_light: the structural checks and
+        a verify_batch_submit of the for-block rows on `device`; returns a
+        finish() that syncs, tallies the rows that verified and raises
+        NotEnoughVotingPowerError at or below 2/3 of the power. Several
+        begins before their finishes put their flushes on the card together
+        (light/verifier.py does so with the trusting and light checks)."""
+        if self.size() != len(commit.signatures):
+            raise CommitVerifyError(
+                f"invalid commit -- wrong set size: {self.size()} vs {len(commit.signatures)}"
+            )
+        if height != commit.height:
+            raise CommitVerifyError(f"invalid commit -- wrong height: {height} vs {commit.height}")
+        if block_id != commit.block_id:
+            raise CommitVerifyError(
+                f"invalid commit -- wrong block ID: want {block_id}, got {commit.block_id}"
+            )
+        idxs = [idx for idx, cs in enumerate(commit.signatures) if cs.for_block()]
+        vals = [self.validators[idx] for idx in idxs]
+        handle = _submit_rows(chain_id, commit, idxs, vals, device)
+        powers = [v.voting_power for v in vals]
+
+        def finish() -> None:
+            mask = batch.verify_batch_finish(handle)
+            tallied = sum(p for ok, p in zip(mask, powers) if ok)
+            needed = self.total_voting_power() * 2 // 3
+            if tallied <= needed:
+                raise NotEnoughVotingPowerError(tallied, needed)
+
+        return finish
+
+    def verify_commit_light(self, chain_id: str, block_id, height: int, commit,
+                            device=None) -> None:
+        """Only the for-block signatures, in one flush; the power of those
+        that verified must exceed 2/3 (reference: types/validator_set.go:719-763)."""
+        self.begin_verify_commit_light(chain_id, block_id, height, commit, device=device)()
+
+    def begin_verify_commit_light_trusting(self, chain_id: str, commit, trust_level,
+                                           device=None):
+        """The submit half of verify_commit_light_trusting (see
+        begin_verify_commit_light): each for-block signature is looked up by
+        address in this (trusted) set, unknown addresses are skipped, a
+        validator seen twice raises, and the finish fails at or below
+        total * numerator // denominator of the power."""
+        if trust_level.denominator == 0:
+            raise CommitVerifyError("trustLevel has zero Denominator")
+        needed = self.total_voting_power() * trust_level.numerator // trust_level.denominator
+        seen: Dict[int, int] = {}
+        idxs, vals = [], []
+        for idx, cs in enumerate(commit.signatures):
+            if not cs.for_block():
+                continue
+            val_idx, val = self.get_by_address(cs.validator_address)
+            if val is None:
+                continue
+            if val_idx in seen:
+                raise CommitVerifyError(
+                    f"double vote from {val.address.hex()} ({seen[val_idx]} and {idx})"
+                )
+            seen[val_idx] = idx
+            idxs.append(idx)
+            vals.append(val)
+        handle = _submit_rows(chain_id, commit, idxs, vals, device)
+        powers = [v.voting_power for v in vals]
+
+        def finish() -> None:
+            mask = batch.verify_batch_finish(handle)
+            tallied = sum(p for ok, p in zip(mask, powers) if ok)
+            if tallied <= needed:
+                raise NotEnoughVotingPowerError(tallied, needed)
+
+        return finish
+
+    def verify_commit_light_trusting(self, chain_id: str, commit, trust_level,
+                                     device=None) -> None:
+        """Trust-level verification against a possibly different validator
+        set (reference: types/validator_set.go:772-830)."""
+        self.begin_verify_commit_light_trusting(chain_id, commit, trust_level, device=device)()
 
     def verify_aggregate_commit(self, chain_id: str, block_id, height: int, commit,
                                 device=None) -> None:
@@ -191,6 +386,14 @@ class ValidatorSet:
         needed = self.total_voting_power() * 2 // 3
         if tallied <= needed:
             raise NotEnoughVotingPowerError(tallied, needed)
+
+
+def _submit_rows(chain_id: str, commit, idxs, vals, device):
+    """verify_batch_submit of commit rows `idxs`, signed by `vals`."""
+    return batch.verify_batch_submit(
+        [v.pub_key.bytes() for v in vals], commit.vote_sign_bytes_many(chain_id, idxs),
+        [commit.signatures[i].signature for i in idxs], device=device,
+        key_types=[v.pub_key.type_name() for v in vals])
 
 
 # Stage times (s) of the last verify_aggregate_commit that reached the fold:

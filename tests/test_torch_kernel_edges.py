@@ -1,8 +1,9 @@
 """Port kernels against their plain torch versions at edge shapes, on the
 card: B1 (fsquare_chain), B2 (padd), B3 (pdbl), B5 (fenwick_reduce), B6
 (bucket_fold), B7 (fp381_mul), B8 (fp12_sparse_mul); that a malformed CUDA
-input raises rather than taking a plain version; and the verify-mode
-routing of an explicit backend="cuda" request.
+input raises rather than taking a plain version; the verify-mode
+routing of an explicit backend="cuda" request; and two asynchronous
+submits in flight on the card, then accumulated into one flush.
 
 B8 at 1, 2, 3, 129 and 16,384 lanes: a block holds 2 lanes, so these cover
 a half block, one block, a ragged last block and many blocks. B5 at Kf = 1,
@@ -300,3 +301,32 @@ def test_card_device_launches_kernels_below_256_rows(cuda_device):
     cuda_fe.reset_launches()
     assert batch.verify_batch(pks, msgs, sigs).tolist() == want
     assert batch.LAST_FLUSH["path"] == "cpu" and not any(cuda_fe.LAUNCHES.values())
+
+
+@pytest.mark.cuda
+def test_submits_in_flight_on_card(cuda_device):
+    """Two 600-row submits queued on the card before either is finished,
+    finished in reverse order: the honest one passes its combined check
+    ("rlc-async"), the one with a bad row recovers by one per-signature
+    pass ("persig-async"); then both as one FlushAccumulator flush, whose
+    slices equal the separate masks."""
+    seeds = [bytes([i + 1]) * 32 for i in range(16)]
+    pks = [ref.public_key(seeds[i % 16]) for i in range(600)]
+    msgs = [b"in-flight-%d" % i for i in range(600)]
+    sigs = [ref.sign(seeds[i % 16], m) for i, m in enumerate(msgs)]
+    bad = list(sigs)
+    bad[77] = bad[77][:32] + (1).to_bytes(32, "little")
+    h1 = batch.verify_batch_submit(pks, msgs, sigs, device=cuda_device)
+    h2 = batch.verify_batch_submit(pks, msgs, bad, device=cuda_device)
+    assert h1._call is not None and h2._call is not None
+    m2 = batch.verify_batch_finish(h2)
+    assert batch.LAST_FLUSH["path"] == "persig-async"
+    m1 = batch.verify_batch_finish(h1)
+    assert batch.LAST_FLUSH["path"] == "rlc-async"
+    assert m1.all() and np.flatnonzero(~m2).tolist() == [77]
+    with batch.accumulate_flushes(device=cuda_device) as acc:
+        handles = [batch.verify_batch_submit(pks, msgs, s, device=cuda_device)
+                   for s in (bad, sigs)]
+    got = [batch.verify_batch_finish(h) for h in handles]
+    assert acc.flush_count == 1
+    assert got[0].tobytes() == m2.tobytes() and got[1].tobytes() == m1.tobytes()
