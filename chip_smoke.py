@@ -131,19 +131,47 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      light_skipping's refused steps submit and never finish (count, host ms,
      launches), and one such dropped submit timed and profiled; the phase's
      seconds;
-  13. the shape check: from phase 4 on, each call of the six Ed25519
+  13. the consensus and catch-up paths: "verify_commit_1k" (BASELINE
+     config 2: the first 1,000 corpus validators with their own
+     signatures, cold and 5 warm calls, the single flush "rlc", one
+     profiled); "vote_storm_10k" (BASELINE config 5's vote stream: the 10k
+     corpus's commit signatures as precommits into a deferred
+     types.vote_set.VoteSet, flushed every 512 adds, 19 flushes of 512 rows
+     and one of 272, each flush's ms and label, votes/s, +2/3 and
+     make_commit's bytes equal to the corpus commit's, a storm of one drain
+     of each kind profiled;
+     the verify-at-add arm on the first 1,024 votes with no launch; with
+     the default memo the storm again and its commit's verify_commit from
+     the memo, path "memo", 0 launches; a drain with a bad vote, an
+     equivocation whose pair pop_conflicts gives, its DuplicateVoteEvidence
+     verified through verify_batch and refused with a flipped signature);
+     "catchup_128" and "super_batch_1k" (BASELINE config 4 at bench.py's
+     bench_catchup and bench_super_batch sizes, the latter's depth cut from
+     10k blocks to 16: real blocks, part sets and last commits signed on
+     the fork pool, through blocksync.verify.verify_run_batched, ms per
+     run, blocks/s, labels, one run profiled; a tampered catchup_128 run
+     whose block 5 has 43 bad signatures and block 11 a wrong block ID: the
+     index is 5, then 11 with block 5 repaired); "memo" (the default memo:
+     a repeated 10k verify_commit and verify_batch of its rows answered
+     from it, 0 launches, all True). Every timed phase, old and new, runs
+     with the verified-row memo off (configure_verified_memo(0), as
+     bench.py times); the memo checks put the default back around
+     themselves. Each phase's seconds are printed;
+  14. the shape check: from phase 4 on, each call of the six Ed25519
      wrappers notes its shape (the lanes of its batch, uptree's windows and
      chunk, fenwick_reduce's storage segments and Kf, bucket_fold's windows;
      not the loop counts), and every shape a path gave a kernel must be the
      shape of a phase-3 row, or the script exits naming it;
-  14. a `kernels` JSON line (a row off every path counts 0 launches), the
+  15. a `kernels` JSON line (a row off every path counts 0 launches), the
      card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
 (the warm, pipelined and streamed paths per call); every kernel of a path must
 launch on it: the six Ed25519 kernels on the Ed25519 paths (pipelined,
-tampered, tampered_persig, mixed_commit, mixed_sr25519_10k and the four light
-paths included), the two BLS kernels on the BLS paths, none on host_small. Exits non-zero without a
-result when no CUDA device is available.
+tampered, tampered_persig, mixed_commit, mixed_sr25519_10k, the four light
+paths and the consensus and catch-up paths included), the two BLS kernels on
+the BLS paths, none on host_small, the verify-at-add arm, the evidence check
+and the memo's answers. Exits non-zero without a result when no CUDA device
+is available.
 """
 
 from __future__ import annotations
@@ -225,6 +253,23 @@ LIGHT_DRIFT = 10 * NANOS
 # height 9; light_accumulated: heights 1-8's commits, one bad row in commit 3
 SKIP_HEIGHTS, SKIP_N, SKIP_ROTATION = 16, 1_024, 9
 ACC_COMMITS, ACC_BAD = 8, (3, 100)
+# The consensus and catch-up paths. verify_commit_1k: BASELINE config 2
+# (bench.py _CONFIG_SIZES "verify_commit_1k"), the first 1,000 validators of
+# the 10k corpus with their own signatures. vote_storm_10k: BASELINE config
+# 5's vote stream (bench.py bench_vote_storm) over the 10k corpus, whose
+# commit signatures are its precommits, drained every DRAIN adds; the
+# verify-at-add arm on the first AT_ADD_VOTES. catchup: BASELINE config 4 at
+# bench.py's sizes, (blocks, validators, blocks a run): bench_catchup and
+# bench_super_batch (config 4's width; its depth cut from 10k blocks to 16).
+N_1K = 1_000
+DRAIN = 512
+AT_ADD_VOTES = 1_024
+STORM_BAD = 17  # the bad vote of the tampered drain
+CATCHUP = {"catchup_128": (48, 128, 16), "super_batch_1k": (16, 1_024, 16)}
+CATCHUP_TXS = 4  # 200-byte transactions a block
+# the tampered catchup_128 run: bad signatures on more than a third of the
+# power in block 5's commit, and a wrong block ID in block 11's
+CATCHUP_BAD_BLOCK, CATCHUP_BAD_ROWS, CATCHUP_WRONG_ID = 5, 43, 11
 
 REPLACES = {
     "padd": "tendermint_tpu/ops/pallas_fe.py:249",
@@ -695,6 +740,27 @@ def kernel_checks(dev, rng, card: dict) -> list:
                                                         "flush: 32 windows x 12 chunks"),
         fsq_case("light_accumulated", 24_576, "A and R decompression per pipelined chunk"),
         fenwick_case("light_accumulated", 24_576, "pipelined chunk of the 8,192-row flush")[0],
+        # the consensus and catch-up paths: the 1,000-row commit and the storm's
+        # 512-row drains (cached A: 2,048 lanes), the cold commit's A and R, the
+        # 272-row drain's ladder (512 lanes), the catch-up runs' pipelined and
+        # streamed chunks (24,576 lanes)
+        uptree_case("verify_commit_1k", 2_048, 2048, "1,000-row commit and 512-row vote "
+                                                      "drains: 32 windows x 1 chunk"),
+        fenwick_case("verify_commit_1k", 2_048, "1,000-row commit and 512-row vote drains")[0],
+        fsq_case("verify_commit_1k", 1_024, "R decompression of the 1,000-row commit and the "
+                                            "512-row drains"),
+        fsq_case("verify_commit_1k cold", 2_048, "A and R decompression of the cold 1,000-row "
+                                                 "commit"),
+        padd_case("vote_storm_10k", 512, "per-signature ladder of the 272-row drain"),
+        pdbl_case("vote_storm_10k", 512, 4, "per-signature ladder of the 272-row drain"),
+        fsq_case("vote_storm_10k", 512, "A or R decompression of the 272-row drain"),
+        uptree_case("catchup_128", 24_576, 2048, "pipelined chunk of a 2,048-row run: "
+                                                  "32 windows x 12 chunks"),
+        fenwick_case("catchup_128", 24_576, "pipelined chunk of a 2,048-row run")[0],
+        fsq_case("catchup_128", 24_576, "A and R decompression per pipelined chunk"),
+        uptree_case("super_batch_1k", 24_576, 2048, "planner chunk of the 16,384-row run: "
+                                                     "32 windows x 12 chunks"),
+        fsq_case("super_batch_1k", 24_576, "A and R decompression per planner chunk"),
     ]
 
     return check_cases(cases, card), base
@@ -1051,9 +1117,9 @@ def same_counts(launches: dict, path: str, counts: dict) -> None:
         raise SystemExit(f"{path} calls launched different counts: {launches[path]} vs {counts}")
 
 
-def commit_phase(dev, corpus) -> dict:
-    """prewarm, then the commit paths, each with its own launch counts:
-    {path: {kernel: n}}. cold and warm run the single flush
+def commit_phase(dev, corpus, launches: dict) -> None:
+    """prewarm, then the commit paths, each with its own launch counts in
+    `launches`: {path: {kernel: n}}. cold and warm run the single flush
     (configure_prep(stream=False)); pipelined, tampered and tampered_persig
     run with the default configuration, as a node would."""
     from tendermint_tpu_torch.crypto import batch
@@ -1061,7 +1127,6 @@ def commit_phase(dev, corpus) -> dict:
     from tendermint_tpu_torch.types.validator_set import CommitVerifyError
 
     vals, block_id, commit, msgs = corpus
-    launches = {}
     t0 = time.perf_counter()
     batch.prewarm(N_VALIDATORS, backend="cuda")
     torch.cuda.synchronize()
@@ -1187,7 +1252,6 @@ def commit_phase(dev, corpus) -> dict:
                          batch_ms)
         finally:
             del os.environ["TMTPU_BISECT"]
-    return launches
 
 
 def host_small_phase(dev, corpus, launches: dict) -> None:
@@ -2058,6 +2122,394 @@ def light_phase(dev, lc: dict, launches: dict) -> None:
     print(f"light phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def catchup_block(h: int, vals_hash: bytes, proposer: bytes, last_bid, last_commit, rng):
+    """A real block at height h: CATCHUP_TXS seeded transactions, the header
+    over them, the previous block's ID and its commit."""
+    from tendermint_tpu_torch.crypto import tmhash
+    from tendermint_tpu_torch.crypto.merkle import hash_from_byte_slices
+    from tendermint_tpu_torch.types.block import Block, ConsensusVersion, Header, txs_hash
+
+    txs = [rng.bytes(200) for _ in range(CATCHUP_TXS)]
+    header = Header(
+        version=ConsensusVersion(), chain_id=CHAIN_ID, height=h, time_ns=LIGHT_T0 + h * NANOS,
+        last_block_id=last_bid, last_commit_hash=last_commit.hash(), data_hash=txs_hash(txs),
+        validators_hash=vals_hash, next_validators_hash=vals_hash,
+        consensus_hash=tmhash.sum256(b"c"), app_hash=tmhash.sum256(b"a%d" % h),
+        last_results_hash=tmhash.sum256(b"r%d" % h), evidence_hash=hash_from_byte_slices([]),
+        proposer_address=proposer)
+    return Block(header, txs, (), last_commit)
+
+
+def build_catchup(rng):
+    """The catch-up chains of CATCHUP, signed on a fork pool before the card
+    is touched: for each, n_blocks + 1 real blocks with their part sets,
+    block h + 1 carrying every validator's precommit for block h (each at
+    its own timestamp), so the run of triples (block, parts, next block)
+    commits blocks 1..n_blocks. A block's ID holds its last commit's hash,
+    so the chain is built height by height, each commit signed on the pool."""
+    from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
+    from tendermint_tpu_torch.types.basic import BlockID, BlockIDFlag
+    from tendermint_tpu_torch.types.block import EMPTY_COMMIT, Commit, CommitSig
+    from tendermint_tpu_torch.types.part_set import PartSet
+    from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    t0 = time.perf_counter()
+    workers = os.cpu_count() or 1
+    out, n_sigs = {}, 0
+    with mp.get_context("fork").Pool(workers) as pool:
+        for name, (n_blocks, n_vals, per_run) in CATCHUP.items():
+            seeds = [rng.bytes(32) for _ in range(n_vals)]
+            pubs = pool_map(pool, _pubkey_rows, [(s, b"") for s in seeds], workers)
+            seed_of = dict(zip(pubs, seeds))
+            vals = ValidatorSet([Validator(Ed25519PubKey(pk), 10) for pk in pubs])
+            vals_hash, proposer = vals.hash(), vals.get_proposer().address
+            last_bid, last_commit, blocks = BlockID(), EMPTY_COMMIT, []
+            for h in range(1, n_blocks + 2):
+                block = catchup_block(h, vals_hash, proposer, last_bid, last_commit, rng)
+                parts = PartSet.from_data(block.encode())
+                blocks.append((block, parts))
+                last_bid = BlockID(block.hash(), parts.header)
+                meta = [(v.address, block.header.time_ns + 1_000 * i)
+                        for i, v in enumerate(vals.validators)]
+                stub = Commit(h, 0, last_bid, [CommitSig(BlockIDFlag.COMMIT, a, ts, b"")
+                                               for a, ts in meta])
+                if h <= n_blocks:
+                    msgs = stub.vote_sign_bytes_many(CHAIN_ID, range(n_vals))
+                    sigs = pool_map(pool, _sign_known, [
+                        (seed_of[v.pub_key.bytes()], v.pub_key.bytes(), m)
+                        for v, m in zip(vals.validators, msgs)], workers)
+                    n_sigs += len(sigs)
+                    last_commit = Commit(h, 0, last_bid, [
+                        CommitSig(BlockIDFlag.COMMIT, a, ts, sig)
+                        for (a, ts), sig in zip(meta, sigs)])
+            triples = [(blocks[i][0], blocks[i][1], blocks[i + 1][0]) for i in range(n_blocks)]
+            out[name] = dict(vals=vals, runs=[triples[i:i + per_run]
+                                              for i in range(0, n_blocks, per_run)])
+        pool.close()
+        pool.join()
+    sizes = ", ".join(f"{k} {v[0]} blocks x {v[1]} validators" for k, v in CATCHUP.items())
+    print(f"catchup corpus: {sizes}: {n_sigs} signatures in {time.perf_counter() - t0:.1f} s "
+          f"({workers} processes)", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def memo_rows(rows: int):
+    """The verified-row memo at `rows` inside the block (the timed phases run
+    with it off, as bench.py times), off again after it."""
+    from tendermint_tpu_torch.crypto import batch
+
+    batch.configure_verified_memo(rows)
+    try:
+        yield
+    finally:
+        batch.configure_verified_memo(0)
+
+
+def commit_1k_phase(dev, corpus, launches: dict) -> None:
+    """verify_commit_1k: the first N_1K corpus validators and their own
+    signatures, one height: cold (A cache reset: the plain kernel), then 5
+    warm calls (cached A), both the single flush ("rlc": at least 256 rows
+    and below the 2,048-row stream floor); one warm call profiled."""
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.types.block import Commit
+    from tendermint_tpu_torch.types.validator_set import ValidatorSet
+
+    vals, block_id, commit, _ = corpus
+    vals1k = ValidatorSet(vals.validators[:N_1K])
+    commit1k = Commit(HEIGHT, 0, block_id, commit.signatures[:N_1K])
+
+    def verify(tag: str) -> dict:
+        reset_launches()
+        t0 = time.perf_counter()
+        vals1k.verify_commit(CHAIN_ID, block_id, HEIGHT, commit1k, device=dev)
+        torch.cuda.synchronize()
+        return dict(batch.LAST_FLUSH, ms=(time.perf_counter() - t0) * 1e3,
+                    counts=read_launches(tag))
+
+    batch.reset_a_cache()
+    cold = verify("verify_commit_1k cold")
+    launches["verify_commit_1k cold"] = cold["counts"]
+    warm = [verify("verify_commit_1k") for _ in range(6)][1:]
+    for f in warm:
+        same_counts(launches, "verify_commit_1k", f["counts"])
+    if (cold.get("path"), cold.get("mode")) != ("rlc", "plain") or any(
+            (f.get("path"), f.get("mode")) != ("rlc", "cached") for f in warm):
+        raise SystemExit(f"verify_commit_1k route wrong: cold {cold}, warm {warm[0]}")
+    wms = statistics.median(f["ms"] for f in warm)
+    print(f"verify_commit_1k ({N_1K} validators x power 10): cold_ms={cold['ms']:.1f} "
+          f"warm_median_ms={wms:.1f} warm_ms={[round(f['ms'], 1) for f in warm]} "
+          f"path={warm[0]['path']} modes cold={cold['mode']} warm={warm[0]['mode']} "
+          f"lanes={warm[0]['lanes']} launches cold={cold['counts']} "
+          f"warm per call={launches['verify_commit_1k']}", flush=True)
+    profile_path("verify_commit_1k", lambda: vals1k.verify_commit(
+        CHAIN_ID, block_id, HEIGHT, commit1k, device=dev), wms)
+
+
+def storm_votes(vals, block_id, commit):
+    """The corpus commit's signatures as the precommits of a vote stream:
+    a precommit's sign bytes are the commit row's (height, round, block ID,
+    timestamp), whatever the validator's index."""
+    from tendermint_tpu_torch.types.basic import SignedMsgType
+    from tendermint_tpu_torch.types.vote import Vote
+
+    return [Vote(SignedMsgType.PRECOMMIT, HEIGHT, 0, block_id, cs.timestamp_ns,
+                 cs.validator_address, i, cs.signature)
+            for i, cs in enumerate(commit.signatures)]
+
+
+def run_storm(dev, vals, votes, defer: bool = True):
+    """Every vote into a fresh VoteSet, flushed every DRAIN adds when
+    deferred: (vote set, [(rows, ms, label, recovery flushes, failed)],
+    total ms)."""
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.types.basic import SignedMsgType
+    from tendermint_tpu_torch.types.vote_set import VoteSet
+
+    vs = VoteSet(CHAIN_ID, HEIGHT, 0, SignedMsgType.PRECOMMIT, vals,
+                 defer_verification=defer, device=dev)
+    flushes = []
+    t0 = time.perf_counter()
+    want = "pending" if defer else True
+    for k, vote in enumerate(votes, 1):
+        got = vs.add_vote(vote)
+        if got != want:
+            raise SystemExit(f"vote {k - 1}: add_vote gave {got!r}, expected {want!r}")
+        if defer and (k % DRAIN == 0 or k == len(votes)):
+            rows = vs.pending_count()
+            tf = time.perf_counter()
+            _, failed = vs.flush()
+            torch.cuda.synchronize()
+            flushes.append((rows, (time.perf_counter() - tf) * 1e3, batch.LAST_FLUSH.get("path"),
+                            batch.LAST_FLUSH.get("recovery_flushes"), failed))
+    return vs, flushes, (time.perf_counter() - t0) * 1e3
+
+
+def vote_storm_phase(dev, corpus, launches: dict, memo_default: int) -> None:
+    """vote_storm_10k: the 10k corpus's precommits into a deferred VoteSet,
+    flushed every DRAIN adds (19 flushes of 512 rows, one of 272), with the
+    memo off: each flush's rows, ms and label, votes/s; +2/3 and
+    make_commit's bytes against the corpus commit. Beside it the
+    verify-at-add arm (one host verify a vote, no launch) on the first
+    AT_ADD_VOTES votes. With the default memo the storm again, and the
+    commit it makes verified from the memo: path "memo", 0 launches. Then
+    the tampered round: one bad vote in a drain, an equivocating pair
+    (pop_conflicts), and DuplicateVoteEvidence checked through verify_batch,
+    then refused with vote B's signature flipped."""
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto import ed25519_ref as E
+    from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
+    from tendermint_tpu_torch.types.basic import BlockID, PartSetHeader
+    from tendermint_tpu_torch.types.evidence import DuplicateVoteEvidence
+    from tendermint_tpu_torch.types.vote import Vote
+
+    vals, block_id, commit, _ = corpus
+    votes = storm_votes(vals, block_id, commit)
+    run_storm(dev, vals, votes)  # warm
+    reset_launches()
+    vs, flushes, total_ms = run_storm(dev, vals, votes)
+    launches["vote_storm_10k"] = read_launches("vote_storm_10k")
+    made = vs.make_commit().encode()
+    drains = [DRAIN] * (N_VALIDATORS // DRAIN) + [N_VALIDATORS % DRAIN] * bool(N_VALIDATORS % DRAIN)
+    if (not vs.has_two_thirds_majority() or made != commit.encode()
+            or [r for r, *_ in flushes] != drains or any(f[4] for f in flushes)):
+        raise SystemExit(f"vote_storm_10k: maj23 {vs.has_two_thirds_majority()}, commit equal "
+                         f"{made == commit.encode()}, flushes {[f[:3] for f in flushes]}")
+    flush_ms = [f[1] for f in flushes]
+    print(f"vote_storm_10k ({N_VALIDATORS} precommits, a flush every {DRAIN} adds): "
+          f"ms={total_ms:.1f} votes_per_s={N_VALIDATORS / total_ms * 1e3:.0f} "
+          f"flushes={len(flushes)} flush_ms_sum={sum(flush_ms):.1f} "
+          f"flush_512_median_ms={statistics.median(flush_ms[:-1]):.1f} "
+          f"flush_{drains[-1]}_ms={flush_ms[-1]:.1f} labels={sorted(set(f[2] for f in flushes))} "
+          f"({DRAIN}: {flushes[0][2]}, {drains[-1]}: {flushes[-1][2]}); +2/3 True; make_commit "
+          f"bytes equal "
+          f"the corpus commit's; launches={launches['vote_storm_10k']}", flush=True)
+    print(f"vote_storm_10k flush ms: {[round(t, 1) for t in flush_ms]}", flush=True)
+    # profiled: one drain of each kind (a whole storm is ~143,000 kernels,
+    # which the profiler takes tens of seconds to read)
+    sub = votes[:DRAIN + drains[-1]]
+    _, _, sub_ms = run_storm(dev, vals, sub)
+    profile_path(f"vote_storm_10k, first {len(sub)} votes (drains of {DRAIN} and "
+                 f"{drains[-1]})", lambda: run_storm(dev, vals, sub), sub_ms)
+
+    reset_launches()
+    _, _, at_add_ms = run_storm(dev, vals, votes[:AT_ADD_VOTES], defer=False)
+    counts = read_launches("vote_storm_10k verify-at-add", kernels=())
+    if any(counts[k] for k in ED25519_KERNELS):
+        raise SystemExit(f"the verify-at-add arm launched kernels: {counts}")
+    print(f"vote_storm_10k verify-at-add (defer_verification=False, one host verify a vote, "
+          f"first {AT_ADD_VOTES} votes): ms={at_add_ms:.1f} "
+          f"votes_per_s={AT_ADD_VOTES / at_add_ms * 1e3:.0f}, 0 launches", flush=True)
+
+    with memo_rows(memo_default):
+        vs, _, memo_ms = run_storm(dev, vals, votes)
+        made = vs.make_commit()
+        reset_launches()
+        t0 = time.perf_counter()
+        vals.verify_commit(CHAIN_ID, block_id, HEIGHT, made, device=dev)
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_launches("vote_storm_10k memo commit", kernels=())
+        f = dict(batch.LAST_FLUSH)
+        stats = batch.verified_memo_stats()
+    if f.get("path") != "memo" or f.get("memo_hits") != N_VALIDATORS or any(
+            counts[k] for k in ED25519_KERNELS):
+        raise SystemExit(f"the storm's commit did not come from the memo: {f}, {counts}")
+    print(f"vote_storm_10k -> verify_commit with the default memo: storm ms={memo_ms:.1f}, "
+          f"verify_commit ms={verify_ms:.2f} path=memo memo_hits={f['memo_hits']} 0 launches; "
+          f"memo {stats}", flush=True)
+
+    # the tampered round: a bad vote, then an equivocation by the key of seed 0
+    seed0 = np.random.default_rng(SEED + 1).bytes(32)
+    pk0 = E.public_key(seed0)
+    idx0, val0 = vals.get_by_address(Ed25519PubKey(pk0).address())
+    bad_votes = list(votes[:DRAIN])
+    bad_votes[STORM_BAD] = bad_votes[STORM_BAD].with_signature(
+        flip(bad_votes[STORM_BAD].signature))
+    reset_launches()
+    vs, flushes, tampered_ms = run_storm(dev, vals, bad_votes)
+    launches["vote_storm_10k tampered"] = read_launches("vote_storm_10k tampered")
+    rows, _, label, recovery, failed = flushes[0]
+    if failed != [STORM_BAD]:
+        raise SystemExit(f"vote_storm_10k tampered: failed {failed}, expected [{STORM_BAD}]")
+    other = BlockID(b"\x0b" * 32, PartSetHeader(1, b"\x0c" * 32))
+    vote_a = votes[idx0]
+    vote_b = Vote(vote_a.type, HEIGHT, 0, other, vote_a.timestamp_ns, vote_a.validator_address,
+                  idx0)
+    vote_b = vote_b.with_signature(E.sign(seed0, vote_b.sign_bytes(CHAIN_ID)))
+    for v in (vote_a, vote_b):
+        vs.add_vote(v)
+        vs.flush()
+    conflicts = vs.pop_conflicts()
+    if [(c.vote_a.encode(), c.vote_b.encode()) for c in conflicts] != [
+            (vote_a.encode(), vote_b.encode())]:
+        raise SystemExit(f"vote_storm_10k: pop_conflicts gave {len(conflicts)} conflicts")
+    ev = DuplicateVoteEvidence.from_votes(conflicts[0].vote_a, conflicts[0].vote_b,
+                                          commit.signatures[0].timestamp_ns,
+                                          vals.total_voting_power(), val0.voting_power)
+    reset_launches()
+    ev.verify(CHAIN_ID, val0.pub_key, batch_verifier=lambda p, m, s, kt: batch.verify_batch(
+        p, m, s, key_types=kt))
+    ev_path = batch.LAST_FLUSH.get("path")
+    forged = DuplicateVoteEvidence(ev.vote_a, ev.vote_b.with_signature(flip(ev.vote_b.signature)),
+                                   ev.total_voting_power, ev.validator_power, ev.timestamp_ns)
+    try:
+        forged.verify(CHAIN_ID, val0.pub_key, batch_verifier=lambda p, m, s, kt:
+                      batch.verify_batch(p, m, s, key_types=kt))
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise SystemExit("DuplicateVoteEvidence with a flipped signature was accepted")
+    counts = read_launches("vote_storm_10k evidence", kernels=())
+    if refusal != "verifying VoteB: invalid signature" or any(
+            counts[k] for k in ED25519_KERNELS):
+        raise SystemExit(f"evidence check: {refusal!r}, launches {counts}")
+    print(f"vote_storm_10k tampered: vote {STORM_BAD} bad -> failed {failed}, drain of {rows} "
+          f"rows path={label} recovery_flushes={recovery} (storm ms={tampered_ms:.1f}, "
+          f"launches={launches['vote_storm_10k tampered']}); validator {idx0} equivocates: "
+          f"pop_conflicts gave the pair; DuplicateVoteEvidence.verify through verify_batch "
+          f"passed (path {ev_path}, 0 launches), with vote B's signature flipped: {refusal!r}",
+          flush=True)
+
+
+def catchup_phase(dev, cu: dict, launches: dict) -> None:
+    """catchup_128 (3 runs of 16 blocks, 2,048 rows each: the pipelined
+    stream) and super_batch_1k (one run of 16 blocks, 16,384 rows: the
+    streamed planner) through blocksync.verify.verify_run_batched on the
+    card: every run warm once, then timed, per-run ms, blocks/s, labels and
+    launches per run, one run profiled. Then the tampered catchup_128 run:
+    bad signatures on CATCHUP_BAD_ROWS of block CATCHUP_BAD_BLOCK's rows
+    (more than a third of the power) and a wrong block ID in block
+    CATCHUP_WRONG_ID's commit: the index is CATCHUP_BAD_BLOCK, and
+    CATCHUP_WRONG_ID once that block is repaired."""
+    import dataclasses
+
+    from tendermint_tpu_torch.blocksync.verify import verify_run_batched
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.types.basic import BlockID
+
+    def check(vals, run, path=None):
+        reset_launches()
+        t0 = time.perf_counter()
+        got = verify_run_batched(vals, CHAIN_ID, run, device=dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_launches(path) if path else None
+        return got, ms, dict(batch.LAST_FLUSH), counts
+
+    for name, (n_blocks, n_vals, per_run) in CATCHUP.items():
+        vals, runs = cu[name]["vals"], cu[name]["runs"]
+        for run in runs:
+            check(vals, run)  # warm
+        timed_runs = [check(vals, run, name) for run in runs]
+        for got, _, f, counts in timed_runs:
+            same_counts(launches, name, counts)
+            if got is not None:
+                raise SystemExit(f"{name}: an honest run failed at {got}: {f}")
+        ms = [t for _, t, _, _ in timed_runs]
+        labels = sorted({f.get("path") for _, _, f, _ in timed_runs})
+        f0 = timed_runs[0][2]
+        print(f"{name} ({n_blocks} blocks x {n_vals} validators, runs of {per_run}: "
+              f"{per_run * n_vals} rows a run): run_ms={[round(t, 1) for t in ms]} "
+              f"blocks_per_s={n_blocks / sum(ms) * 1e3:.1f} labels={labels} mode={f0.get('mode')} "
+              f"chunks={f0.get('chunks')} launches per run={launches[name]}", flush=True)
+        profile_path(name, lambda: verify_run_batched(vals, CHAIN_ID, runs[0], device=dev),
+                     statistics.median(ms))
+
+    vals, run = cu["catchup_128"]["vals"], list(cu["catchup_128"]["runs"][0])
+    first, parts, second = run[CATCHUP_BAD_BLOCK]
+    lc = second.last_commit
+    sigs = [flip(cs.signature) if i < 2 * CATCHUP_BAD_ROWS and i % 2 == 0 else cs.signature
+            for i, cs in enumerate(lc.signatures)]
+    bad_commit = dataclasses.replace(lc, signatures=tuple(
+        dataclasses.replace(cs, signature=sg) for cs, sg in zip(lc.signatures, sigs)))
+    run[CATCHUP_BAD_BLOCK] = (first, parts, dataclasses.replace(second, last_commit=bad_commit))
+    first, parts, second = run[CATCHUP_WRONG_ID]
+    wrong = BlockID(b"\x0e" * 32, second.last_commit.block_id.part_set_header)
+    run[CATCHUP_WRONG_ID] = (first, parts, dataclasses.replace(
+        second, last_commit=dataclasses.replace(second.last_commit, block_id=wrong)))
+    got, ms, f, launches["catchup_128 tampered"] = check(vals, run, "catchup_128 tampered")
+    repaired = list(run)
+    repaired[CATCHUP_BAD_BLOCK] = cu["catchup_128"]["runs"][0][CATCHUP_BAD_BLOCK]
+    got2, ms2, f2, _ = check(vals, repaired, "catchup_128 repaired")
+    if (got, got2) != (CATCHUP_BAD_BLOCK, CATCHUP_WRONG_ID):
+        raise SystemExit(f"catchup tampered run: index {got} then {got2}, expected "
+                         f"{CATCHUP_BAD_BLOCK} then {CATCHUP_WRONG_ID}")
+    print(f"catchup_128 tampered run ({CATCHUP_BAD_ROWS} bad signatures in block "
+          f"{CATCHUP_BAD_BLOCK}, a wrong block ID in block {CATCHUP_WRONG_ID}): index {got} "
+          f"(ms={ms:.1f}, path={f.get('path')}, recovery_flushes={f.get('recovery_flushes')}, "
+          f"launches={launches['catchup_128 tampered']}); block {CATCHUP_BAD_BLOCK} repaired: "
+          f"index {got2} (ms={ms2:.1f}, path={f2.get('path')})", flush=True)
+
+
+def memo_phase(dev, corpus, launches: dict, memo_default: int) -> None:
+    """With the default memo: the 10k commit verified twice, the second
+    answered from the memo (path "memo", 0 launches), and verify_batch over
+    the same rows answered the same way, all True."""
+    from tendermint_tpu_torch.crypto import batch
+
+    vals, block_id, commit, msgs = corpus
+    with memo_rows(memo_default):
+        vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev)
+        first = batch.LAST_FLUSH.get("path")
+        reset_launches()
+        t0 = time.perf_counter()
+        vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        second = dict(batch.LAST_FLUSH)
+        mask = batch.verify_batch([v.pub_key.bytes() for v in vals.validators], msgs,
+                                  [cs.signature for cs in commit.signatures], device=dev)
+        third = batch.LAST_FLUSH.get("path")
+        counts = read_launches("memo", kernels=())
+        stats = batch.verified_memo_stats()
+    if (second.get("path"), third, bool(mask.all()), mask.shape) != (
+            "memo", "memo", True, (N_VALIDATORS,)) or any(counts[k] for k in ED25519_KERNELS):
+        raise SystemExit(f"memo: {second}, {third}, all {mask.all()}, launches {counts}")
+    launches["memo"] = counts
+    print(f"memo (default {memo_default} rows): verify_commit 10k first path={first}, repeated "
+          f"path=memo in {ms:.2f} ms with 0 launches; verify_batch of its rows path=memo, "
+          f"all {N_VALIDATORS} True; memo {stats}", flush=True)
+
+
 def build_bls_set():
     """10,000 BLS validators built as bench.py's _bls_bench_valset builds them
     (keys sk_i = sk0 + i, so pk_{i+1} = pk_i + G1), power 10 each, and three
@@ -2222,6 +2674,7 @@ def main() -> int:
     mixed_sr = build_mixed_sr25519(np.random.default_rng(SEED + 8))
     cofactorless = build_cofactorless_commit(corpus)
     light = build_light(np.random.default_rng(SEED + 10))
+    catchup = build_catchup(np.random.default_rng(SEED + 11))
     bls = build_bls_set()
     dev = torch.device("cuda")
     card_line = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -2247,19 +2700,30 @@ def main() -> int:
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {lib}:", line.strip(), flush=True)
 
+    from tendermint_tpu_torch.crypto import batch
+
+    # every timed phase runs with the verified-row memo off, as bench.py times;
+    # the memo checks put the default back inside their own blocks
+    memo_default = batch.verified_memo_stats()["capacity"]
+    batch.configure_verified_memo(0)
     rng = np.random.default_rng(SEED)
     rows, base = kernel_checks(dev, rng, card)
     rows += bls_kernel_checks(dev, rng, card)
     msm_reference_check(dev, rng, base)
     record_shapes()
-    launches = commit_phase(dev, corpus)
-    streamed_phase(dev, corpus, launches)
-    host_small_phase(dev, corpus, launches)
-    mixed_commit_phase(dev, mixed, launches)
-    mixed_sr25519_phase(dev, mixed_sr, launches)
-    bls_phase(dev, bls, launches)
-    cofactorless_phase(dev, cofactorless, launches)
-    light_phase(dev, light, launches)
+    print(f"kernel checks: {time.perf_counter() - t0:.1f} s since the build began", flush=True)
+    launches = {}
+    for phase, args in (
+            (commit_phase, (corpus, launches)), (streamed_phase, (corpus, launches)),
+            (host_small_phase, (corpus, launches)), (mixed_commit_phase, (mixed, launches)),
+            (mixed_sr25519_phase, (mixed_sr, launches)), (bls_phase, (bls, launches)),
+            (cofactorless_phase, (cofactorless, launches)), (light_phase, (light, launches)),
+            (commit_1k_phase, (corpus, launches)),
+            (vote_storm_phase, (corpus, launches, memo_default)),
+            (catchup_phase, (catchup, launches)), (memo_phase, (corpus, launches, memo_default))):
+        t_phase = time.perf_counter()
+        phase(dev, *args)
+        print(f"{phase.__name__}: {time.perf_counter() - t_phase:.1f} s", flush=True)
     coverage(rows)
     for r in rows:  # the count on the path whose shape the row checks; none off the path
         r["launches"] = 0 if r["path"] is None else launches[r["path"]][r["name"]]

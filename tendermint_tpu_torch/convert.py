@@ -14,6 +14,12 @@
 - `light_block_from_reference_bytes`: the JAX package's
   `types/light.light_block_to_bytes` output -> a port LightBlock (a chain
   built in the reference, carried into the port by its bytes).
+- `vote_from_reference`, `evidence_from_reference`, `block_from_reference`:
+  a Vote, a DuplicateVoteEvidence or a Block of the JAX package -> the
+  port's, through its canonical bytes (encoded there, decoded here).
+- `validator_set_from_reference`: a ValidatorSet of the JAX package -> the
+  port's, with each validator's key type, power, address and proposer
+  priority, and the same proposer.
 """
 
 from __future__ import annotations
@@ -82,3 +88,37 @@ def fp12_rows_to_tensor(f, device=None) -> torch.Tensor:
 # The port's types/light.py shares the JAX package's JSON codec field for
 # field, so the reference's light_block_to_bytes output decodes as it is.
 light_block_from_reference_bytes = light_block_from_bytes
+
+
+def vote_from_reference(vote):
+    from tendermint_tpu_torch.types.vote import Vote
+
+    return Vote.decode(vote.encode())
+
+
+def evidence_from_reference(ev):
+    from tendermint_tpu_torch.types.evidence import decode_evidence
+
+    return decode_evidence(ev.encode())
+
+
+def block_from_reference(block):
+    from tendermint_tpu_torch.types.block import Block
+
+    return Block.decode(block.encode())
+
+
+def validator_set_from_reference(vals):
+    """The reference's objects are read, never imported: each validator's
+    pub_key (type_name(), bytes()), voting_power, address and
+    proposer_priority, and the proposer's address."""
+    from tendermint_tpu_torch.crypto.keys import pubkey_from_type_and_bytes
+    from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    out = ValidatorSet([
+        Validator(pubkey_from_type_and_bytes(v.pub_key.type_name(), v.pub_key.bytes()),
+                  v.voting_power, v.address, v.proposer_priority)
+        for v in vals.validators])
+    if vals.proposer is not None:
+        out.proposer = out.get_by_address(vals.proposer.address)[1]
+    return out

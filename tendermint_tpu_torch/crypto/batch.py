@@ -5,12 +5,16 @@ single-device configuration, with the reference's knobs, defaults and route
 labels (LAST_FLUSH["path"]: the third value of the reference's
 `_verify_batch_routed`).
 
-`backend` picks the arm, as the reference's does. None follows the verify
-mode (`backend_default`): the host in cofactorless mode, else the card,
-except that a call of fewer than _CUDA_MIN_BATCH = 256 rows (env
-TMTPU_JAX_MIN) runs on the host unless its `device` names a card (the
-reference has no device argument: a caller who names the card gets it).
-"cpu" is the host arm at every size, "cuda" the card arm at every size. The
+`backend` picks the arm, as the reference's does. None follows
+`backend_default`: the host in cofactorless mode, else TMTPU_CRYPTO_BACKEND
+when it is set, else the card; on the card, a call of fewer than
+_CUDA_MIN_BATCH = 256 rows (env TMTPU_JAX_MIN) runs on the host unless its
+`device` names a card (the reference has no device argument: a caller who
+names the card gets it). "cpu" is the host arm at every size, "cuda" the
+card arm at every size ("jax", the reference's name for its device arm, is
+read as "cuda", in the variable and in `backend=`); any other name raises
+ValueError. TMTPU_RLC=0 turns the combined check off, as in the reference:
+the card arm runs one per-signature pass at every size. The
 arm is chosen by row count, verify mode and the caller's `device` only,
 never by whether a card is present: a card call resolves `device`
 (device.resolve raises without a card).
@@ -55,6 +59,12 @@ one per-signature pass ("persig-async"). Anything else runs verify_batch
 at submit. Inside `accumulate_flushes()` (thread-local) submits join a
 FlushAccumulator, whose one verify_batch call every finish slices.
 
+Before any route, the verified-row memo (`VerifiedRowMemo`, 65,536 rows,
+env TMTPU_VERIFIED_MEMO_ROWS, on by default as in the reference) answers
+rows that verified True before: a call whose rows all hit takes path
+"memo" with no flush, a partial hit verifies only the rest, and the True
+rows of every flush and finish are inserted.
+
 Every route is COFACTORED with canonical encodings and s < L, except the
 serial loop in cofactorless mode, so a mask never depends on the route
 (crypto/ed25519_ref.verify_cofactored).
@@ -70,11 +80,12 @@ decompress A and R in every chunk, as the reference's do.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import logging
 import os
 import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -98,13 +109,32 @@ def _names_card(device) -> bool:
     return device is not None and torch.device(device).type == "cuda"
 
 
+def _card_alias(backend: Optional[str]) -> Optional[str]:
+    """The reference's name of its device arm, "jax", is the card arm here."""
+    return "cuda" if backend == "jax" else backend
+
+
+def _rlc_enabled() -> bool:
+    """TMTPU_RLC=0 turns the combined check off: the card arm runs one
+    per-signature pass at every size and no submit is asynchronous."""
+    return os.environ.get("TMTPU_RLC", "1") != "0"
+
+
 def backend_default() -> str:
     """The arm of a verify_batch call that names no backend: the host in
     cofactorless mode (the card's kernels are cofactored by construction),
-    else the card (below _CUDA_MIN_BATCH rows, the host all the same)."""
+    else TMTPU_CRYPTO_BACKEND when set ("jax", the reference's device arm,
+    read as "cuda"; an unknown name is returned as it is and refused by
+    verify_batch), else the card (below _CUDA_MIN_BATCH rows, the host all
+    the same)."""
     from tendermint_tpu_torch.crypto.keys import cofactorless_mode
 
-    return "cpu" if cofactorless_mode() else "cuda"
+    if cofactorless_mode():
+        return "cpu"
+    env = os.environ.get("TMTPU_CRYPTO_BACKEND")
+    if env:
+        return _card_alias(env)
+    return "cuda"
 
 # RLC lane buckets (A-block size Na; total lanes = 2 Na): ~25% max padding.
 _LANE_BUCKETS = [
@@ -131,6 +161,113 @@ def _lane_bucket(m: int) -> int:
 # Timings and shape of the last flush (host prep, device + sync, schedule),
 # for chip_smoke.py.
 LAST_FLUSH: dict = {}
+
+# ---------------------------------------------------------------------------
+# Verified-row memo (the reference's VerifiedRowMemo): a bounded LRU of
+# digests of rows that verified True. A commit made from votes that a
+# deferred VoteSet flush already verified is answered from it with no flush.
+# Only True rows enter (a flush that raises inserts nothing); the digest is
+# length-framed over the verify mode, key type, key, message and signature,
+# so a changed byte or a mode flip misses; capacity 0 turns it off.
+
+
+class VerifiedRowMemo:
+    """Bounded LRU of verified-row digests; thread-safe."""
+
+    def __init__(self, capacity: int = 65536):
+        self.capacity = max(0, int(capacity))
+        self._rows: "OrderedDict[bytes, None]" = OrderedDict()
+        self._lock = threading.Lock()
+        self.hits = 0
+        self.misses = 0
+        self.insertions = 0
+        self.evictions = 0
+
+    def digest_rows(self, pubkeys, msgs, sigs, key_types=None) -> list:
+        """SHA-256 per row of the mode byte, then each of key type, key,
+        message and signature framed by its 4-byte little-endian length."""
+        from tendermint_tpu_torch.crypto.keys import cofactorless_mode
+
+        mode = b"\x01" if cofactorless_mode() else b"\x00"
+        out = []
+        for i in range(len(pubkeys)):
+            kt = (key_types[i] if key_types is not None else "ed25519").encode()
+            h = hashlib.sha256(mode)
+            for part in (kt, bytes(pubkeys[i]), bytes(msgs[i]), bytes(sigs[i])):
+                h.update(len(part).to_bytes(4, "little"))
+                h.update(part)
+            out.append(h.digest())
+        return out
+
+    def lookup(self, digests) -> np.ndarray:
+        """Per-row hit mask; hits are refreshed in the LRU order."""
+        out = np.zeros(len(digests), dtype=bool)
+        if self.capacity == 0 or not digests:
+            return out
+        with self._lock:
+            for i, d in enumerate(digests):
+                if d in self._rows:
+                    self._rows.move_to_end(d)
+                    out[i] = True
+            nh = int(out.sum())
+            self.hits += nh
+            self.misses += len(digests) - nh
+        return out
+
+    def insert(self, digests, mask) -> None:
+        """Record the rows whose verdict is True, evicting the oldest past
+        the capacity."""
+        if self.capacity == 0 or digests is None:
+            return
+        with self._lock:
+            for i, d in enumerate(digests):
+                if not mask[i]:
+                    continue
+                if d in self._rows:
+                    self._rows.move_to_end(d)
+                    continue
+                self._rows[d] = None
+                self.insertions += 1
+                if len(self._rows) > self.capacity:
+                    self._rows.popitem(last=False)
+                    self.evictions += 1
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._rows)
+
+    def __contains__(self, digest: bytes) -> bool:
+        with self._lock:
+            return digest in self._rows
+
+    def stats(self) -> dict:
+        with self._lock:
+            size = len(self._rows)
+        return {"capacity": self.capacity, "rows": size, "hits": self.hits,
+                "misses": self.misses, "insertions": self.insertions,
+                "evictions": self.evictions}
+
+
+def _memo_env_rows() -> int:
+    try:
+        return int(os.environ.get("TMTPU_VERIFIED_MEMO_ROWS", "65536"))
+    except ValueError:
+        return 65536
+
+
+_MEMO = VerifiedRowMemo(_memo_env_rows())
+
+
+def configure_verified_memo(rows: Optional[int] = None) -> None:
+    """Resize the memo (0 turns it off). Resizing replaces it: no verdict
+    outlives a capacity change."""
+    global _MEMO
+    if rows is not None:
+        _MEMO = VerifiedRowMemo(rows)
+
+
+def verified_memo_stats() -> dict:
+    return _MEMO.stats()
 
 # ---------------------------------------------------------------------------
 # Streamed flush planner: a flush above the lane budget runs as fixed chunks
@@ -1077,9 +1214,10 @@ def verify_batch_cuda(pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Seq
     pipelined combined check (or a pipelined geometry that declines, as in
     the reference), the exact mask comes from the bisection or, with
     TMTPU_BISECT=0, one per-signature pass; LAST_FLUSH keeps the failed
-    flush's detail and gains recovery_flushes and recovery_s."""
+    flush's detail and gains recovery_flushes and recovery_s. With TMTPU_RLC=0
+    every size runs one per-signature pass, as the reference's does."""
     n = len(pubkeys)
-    if n < RLC_MIN:
+    if n < RLC_MIN or not _rlc_enabled():
         LAST_FLUSH.update(mode="persig")
         return _persig_flush(pubkeys, msgs, sigs, device)
     if planner_engaged(n):
@@ -1158,13 +1296,16 @@ def _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend) -
 
 def _verify_batch_routed(pubkeys, msgs, sigs, device, backend) -> tuple:
     """verify_batch's routing of an all-Ed25519 set (the reference's
-    _verify_batch_routed): (mask, route label)."""
-    be = backend_default() if backend is None else backend
+    _verify_batch_routed): (mask, route label). An arm that is neither the
+    host nor the card raises ValueError."""
+    be = backend_default() if backend is None else _card_alias(backend)
     if (backend is None and be == "cuda" and len(pubkeys) < _CUDA_MIN_BATCH
             and not _names_card(device)):
         be = "cpu"
     if be == "cpu":
         return verify_batch_cpu(pubkeys, msgs, sigs), "cpu"
+    if be != "cuda":
+        raise ValueError(f"unknown crypto backend {be!r}")
     mask = verify_batch_cuda(pubkeys, msgs, sigs, resolve(device))
     return mask, LAST_PATH[0]
 
@@ -1176,24 +1317,47 @@ def verify_batch(
     """Verify N (pubkey, msg, sig) triples; returns bool[N]. key_types: per-row
     key type, None meaning all ed25519; a set with other types takes the
     per-type routing of _verify_batch_mixed_exact (path "mixed"). backend:
-    "cuda" (the card arm on `device`), "cpu" (the host arm) or None (the
+    "cuda" (the card arm on `device`; "jax", the reference's name, is read
+    as "cuda"), "cpu" (the host arm) or None (TMTPU_CRYPTO_BACKEND, the
     verify mode, the row count and a card `device` decide; see the module
     docstring).
+
+    The verified-row memo is read first, as in the reference: when every
+    row verified True before, the mask comes from it with no flush (path
+    "memo"); when some did, only the others are verified (LAST_FLUSH is
+    that flush's, with memo_hits). The rows of a flush that verify True are
+    inserted after it; a flush that raises inserts nothing.
     LAST_FLUSH["path"] is the route's label."""
     if not (len(pubkeys) == len(msgs) == len(sigs)):
         raise ValueError("pubkeys/msgs/sigs length mismatch")
-    be = backend_default() if backend is None else backend
-    if be not in BACKENDS:
-        raise ValueError(f"unknown crypto backend {be!r}")
     if len(pubkeys) == 0:
         return np.zeros(0, dtype=bool)
+    digests = None
+    if _MEMO.capacity:
+        digests = _MEMO.digest_rows(pubkeys, msgs, sigs, key_types)
+        hit = _MEMO.lookup(digests) if len(_MEMO) else np.zeros(len(digests), dtype=bool)
+        nh = int(hit.sum())
+        if nh == len(pubkeys):
+            LAST_FLUSH.clear()
+            LAST_FLUSH.update(path="memo", memo_hits=nh)
+            return np.ones(nh, dtype=bool)
+        if nh:
+            idx = np.flatnonzero(~hit)
+            out = np.ones(len(pubkeys), dtype=bool)
+            out[idx] = verify_batch(
+                [pubkeys[i] for i in idx], [msgs[i] for i in idx], [sigs[i] for i in idx],
+                device=device, backend=backend,
+                key_types=None if key_types is None else [key_types[i] for i in idx])
+            LAST_FLUSH["memo_hits"] = nh
+            return out
     if key_types is not None and any(t != "ed25519" for t in key_types):
         mask = _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend)
-        LAST_FLUSH["path"] = "mixed"
-        return mask
-    LAST_FLUSH.clear()
-    mask, path = _verify_batch_routed(pubkeys, msgs, sigs, device, backend)
+        path = "mixed"
+    else:
+        LAST_FLUSH.clear()
+        mask, path = _verify_batch_routed(pubkeys, msgs, sigs, device, backend)
     LAST_FLUSH["path"] = path
+    _MEMO.insert(digests, mask)
     return mask
 
 
@@ -1292,17 +1456,20 @@ def accumulate_flushes(acc: Optional[FlushAccumulator] = None, backend: Optional
 
 class BatchHandle:
     """A verify_batch_submit in flight: resolved (`_mask`), a combined check
-    queued on the device (`_call`, with the rows for recovery in `_args`),
-    or a slice of an accumulator's flush (`_acc`, `_acc_range`)."""
+    queued on the device (`_call`, with the rows for recovery in `_args` and
+    their memo digests in `_digests`), or a slice of an accumulator's flush
+    (`_acc`, `_acc_range`)."""
 
-    __slots__ = ("_mask", "_call", "_args", "_acc", "_acc_range")
+    __slots__ = ("_mask", "_call", "_args", "_acc", "_acc_range", "_digests")
 
-    def __init__(self, mask=None, call=None, args=None, acc=None, acc_range=None):
+    def __init__(self, mask=None, call=None, args=None, acc=None, acc_range=None,
+                 digests=None):
         self._mask = mask
         self._call = call
         self._args = args
         self._acc = acc
         self._acc_range = acc_range
+        self._digests = digests
 
 
 def verify_batch_submit(
@@ -1313,31 +1480,40 @@ def verify_batch_submit(
     accumulate_flushes() scope the rows join the accumulator. Otherwise
     the submit is eligible for the asynchronous single flush (the
     reference's rule, tendermint_tpu/crypto/batch.py verify_batch_submit)
-    when the backend resolves to "cuda", the set is all-Ed25519, it holds
-    at least max(RLC_MIN, _CUDA_MIN_BATCH) rows (RLC_MIN alone when a
-    backend or a card `device` is named) and it is not planner-engaged:
-    _rlc_submit queues the combined check on `device` and returns without
-    syncing. Anything else runs verify_batch eagerly (a mixed set its exact
-    per-type split, D3) and the handle comes back resolved. The
-    reference's other terms (circuit breaker, verified-row memo, lane
-    router, sharded runner, the RLC kill switch) have no counterpart in
-    the port yet (ROADMAP A4, A5, A8); its catch around the submit is not
-    ported (D1): a failure raises."""
+    when the backend resolves to "cuda", TMTPU_RLC is not "0", the set is
+    all-Ed25519, it holds at least max(RLC_MIN, _CUDA_MIN_BATCH) rows
+    (RLC_MIN alone when a backend or a card `device` is named) and it is
+    not planner-engaged. An eligible submit whose rows are all in the
+    verified-row memo comes back resolved (path "memo"); else _rlc_submit
+    queues the combined check on `device` and returns without syncing.
+    Anything else runs verify_batch eagerly (a mixed set its exact per-type
+    split, D3), whose own memo reading covers it, and the handle comes back
+    resolved. The reference's other terms (circuit breaker, lane router,
+    sharded runner) have no counterpart in the port yet (ROADMAP A1, A3,
+    A6); its catch around the submit is not ported (D1): a failure raises."""
     if not (len(pubkeys) == len(msgs) == len(sigs)):
         raise ValueError("pubkeys/msgs/sigs length mismatch")
     acc = current_accumulator()
     if acc is not None:
         return BatchHandle(acc=acc, acc_range=acc.add(pubkeys, msgs, sigs, key_types))
     n = len(pubkeys)
-    be = backend_default() if backend is None else backend
+    be = backend_default() if backend is None else _card_alias(backend)
     mixed = key_types is not None and any(t != "ed25519" for t in key_types)
     floor = _CUDA_MIN_BATCH if backend is None and not _names_card(device) else 0
-    if not (be == "cuda" and not mixed and n >= max(RLC_MIN, floor) and not planner_engaged(n)):
+    if not (be == "cuda" and _rlc_enabled() and not mixed and n >= max(RLC_MIN, floor)
+            and not planner_engaged(n)):
         return BatchHandle(mask=verify_batch(pubkeys, msgs, sigs, device=device,
                                              key_types=key_types, backend=backend))
+    digests = None
+    if _MEMO.capacity:
+        digests = _MEMO.digest_rows(pubkeys, msgs, sigs, key_types)
+        if len(_MEMO) and _MEMO.lookup(digests).all():
+            LAST_FLUSH.clear()
+            LAST_FLUSH.update(path="memo", memo_hits=n)
+            return BatchHandle(mask=np.ones(n, dtype=bool))
     dev = resolve(device)
     return BatchHandle(call=_rlc_submit(pubkeys, msgs, sigs, dev),
-                       args=(pubkeys, msgs, sigs, dev))
+                       args=(pubkeys, msgs, sigs, dev), digests=digests)
 
 
 def verify_batch_finish(h: BatchHandle) -> np.ndarray:
@@ -1345,7 +1521,8 @@ def verify_batch_finish(h: BatchHandle) -> np.ndarray:
     synced (LAST_FLUSH path "rlc-async"); when it fails, one per-signature
     pass over all rows gives the exact mask (path "persig-async", one
     recovery flush), as the reference's finish recovers: it does not
-    bisect. Finishing twice returns the same mask. Handles in flight share
+    bisect. Either way the rows that verified True enter the verified-row
+    memo. Finishing twice returns the same mask. Handles in flight share
     no device buffer (each flush allocates its own tensors; the A cache
     grows by copy and never rewrites a column a queued flush reads), so
     they may finish in any order; LAST_FLUSH is the last finish's."""
@@ -1365,7 +1542,8 @@ def verify_batch_finish(h: BatchHandle) -> np.ndarray:
         mask = _persig_flush(pubkeys, msgs, sigs, dev)
         LAST_FLUSH.update(path="persig-async", recovery_flushes=1,
                           recovery_s=time.perf_counter() - t0)
-    h._mask, h._call, h._args = mask, None, None
+    _MEMO.insert(h._digests, mask)
+    h._mask, h._call, h._args, h._digests = mask, None, None, None
     return mask
 
 
@@ -1397,7 +1575,7 @@ def prewarm(n_vals: int, backend: Optional[str] = None, pubkeys: Optional[Sequen
     verify_batch routes by). The throwaway key comes from OS entropy."""
     if bls:
         _prewarm_bls(device)
-    be = backend or backend_default()
+    be = _card_alias(backend) or backend_default()
     if be != "cuda" or (n_vals < _CUDA_MIN_BATCH and not _names_card(device)):
         return  # small sets run on the host: nothing to warm
     from tendermint_tpu_torch.crypto import ed25519_ref

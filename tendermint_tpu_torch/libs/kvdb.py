@@ -3,7 +3,7 @@
 
 MemDB (ephemeral) and SQLiteDB (durable, one file, stdlib sqlite3), with
 tm-db's interface: get/set/delete/has and prefix iteration in key order.
-Write batches wait for a caller in the port (blocksync, ROADMAP A3).
+Write batches wait for a caller in the port that stores blocks (ROADMAP A8).
 """
 
 from __future__ import annotations

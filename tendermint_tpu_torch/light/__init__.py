@@ -1,7 +1,7 @@
 """Light client: trust-minimized header verification, the port's copy of
 tendermint_tpu/light/ (reference light/: client.go, verifier.go, store/,
 provider/, detector.go). The light service, its coalescer, the proxy and
-HTTPProvider are not ported yet (ROADMAP A3).
+HTTPProvider are not ported yet (ROADMAP A2, A8).
 """
 
 from tendermint_tpu_torch.light.client import (  # noqa: F401

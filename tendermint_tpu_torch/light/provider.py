@@ -1,7 +1,7 @@
 """Light-block providers: the port's copy of tendermint_tpu/light/provider.py
 (reference light/provider/provider.go, light/provider/errors.go,
 light/provider/mock) without the RPC-backed HTTPProvider, which waits for
-an RPC port (ROADMAP A3).
+an RPC port (ROADMAP A8).
 """
 
 from __future__ import annotations

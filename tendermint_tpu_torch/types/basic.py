@@ -81,6 +81,11 @@ class BlockID:
     def is_zero(self) -> bool:
         return len(self.hash) == 0 and self.part_set_header.is_zero()
 
+    def is_complete(self) -> bool:
+        """A full block's ID (reference types/block.go IsComplete)."""
+        return (len(self.hash) == tmhash.SIZE and self.part_set_header.total > 0
+                and len(self.part_set_header.hash) == tmhash.SIZE)
+
     def validate_basic(self) -> None:
         if self.hash and len(self.hash) != tmhash.SIZE:
             raise ValueError("wrong Hash size")

@@ -1,6 +1,6 @@
-"""Header, CommitSig, Commit (reference types/block.go) and AggregateCommit:
-the part of tendermint_tpu/types/block.py that commit verification and the
-light client need.
+"""Header, CommitSig, Commit, Block (reference types/block.go) and
+AggregateCommit: the port's copy of tendermint_tpu/types/block.py, but for
+the AggregateCommit codec.
 
 Header.hash is the Merkle root of the 14 proto-encoded header fields
 (reference types/block.go Header.Hash, types/encoding_helper.go cdcEncode:
@@ -23,6 +23,7 @@ from tendermint_tpu_torch.types.basic import (
     SignedMsgType,
     ts_seconds_nanos,
 )
+from tendermint_tpu_torch.types.vote import Vote, decode_timestamp
 
 
 def _cdc_bytes(b: bytes) -> bytes:
@@ -43,14 +44,14 @@ def _cdc_int64(v: int) -> bytes:
     return w.bytes()
 
 
-def _decode_timestamp(data: bytes) -> int:
-    sec = nanos = 0
-    for f, _, v in pw.Reader(data):
-        if f == 1:
-            sec = pw.int64_from_varint(v)
-        elif f == 2:
-            nanos = pw.int64_from_varint(v)
-    return sec * 1_000_000_000 + nanos
+def tx_hash(tx: bytes) -> bytes:
+    return tmhash.sum256(tx)
+
+
+def txs_hash(txs: Sequence[bytes]) -> bytes:
+    """Merkle root over the transactions' SHA-256 hashes (reference
+    types/tx.go Txs.Hash)."""
+    return hash_from_byte_slices([tx_hash(tx) for tx in txs])
 
 
 def _timestamp(ts_ns: int) -> bytes:
@@ -154,7 +155,7 @@ class Header:
             elif f == 3:
                 kw["height"] = pw.int64_from_varint(v)
             elif f == 4:
-                kw["time_ns"] = _decode_timestamp(v)
+                kw["time_ns"] = decode_timestamp(v)
             elif f == 5:
                 kw["last_block_id"] = BlockID.decode(v)
             elif f in _BYTES_FIELDS:
@@ -218,7 +219,7 @@ class CommitSig:
             elif f == 2:
                 addr = v
             elif f == 3:
-                ts = _decode_timestamp(v)
+                ts = decode_timestamp(v)
             elif f == 4:
                 sig = v
         return cls(flag, addr, ts, sig)
@@ -236,6 +237,14 @@ class Commit:
 
     def size(self) -> int:
         return len(self.signatures)
+
+    def get_vote(self, val_idx: int) -> Vote:
+        """The precommit of signature val_idx (reference types/block.go:770-782)."""
+        cs = self.signatures[val_idx]
+        return Vote(type=SignedMsgType.PRECOMMIT, height=self.height, round=self.round,
+                    block_id=cs.block_id(self.block_id), timestamp_ns=cs.timestamp_ns,
+                    validator_address=cs.validator_address, validator_index=val_idx,
+                    signature=cs.signature)
 
     def vote_sign_bytes(self, chain_id: str, val_idx: int) -> bytes:
         cs = self.signatures[val_idx]
@@ -294,6 +303,77 @@ class Commit:
             elif f == 4:
                 sigs.append(CommitSig.decode(v))
         return cls(height, round_, block_id, tuple(sigs))
+
+
+EMPTY_COMMIT = Commit(height=0, round=0, block_id=BlockID(), signatures=())
+
+
+@dataclass(frozen=True)
+class Block:
+    """A header, its transactions, its evidence and the commit of the block
+    before it (reference types/block.go Block)."""
+
+    header: Header
+    txs: tuple
+    evidence: tuple
+    last_commit: Commit
+
+    def __post_init__(self):
+        object.__setattr__(self, "txs", tuple(self.txs))
+        object.__setattr__(self, "evidence", tuple(self.evidence))
+
+    def hash(self) -> bytes:
+        return self.header.hash()
+
+    def data_hash(self) -> bytes:
+        return txs_hash(self.txs)
+
+    def validate_basic(self) -> None:
+        self.header.validate_basic()
+        self.last_commit.validate_basic()
+        if self.header.height > 1 and self.last_commit.size() == 0:
+            raise ValueError("nil LastCommit")
+        if self.header.last_commit_hash != self.last_commit.hash():
+            raise ValueError("wrong Header.LastCommitHash")
+        if self.header.data_hash != self.data_hash():
+            raise ValueError("wrong Header.DataHash")
+        if self.header.evidence_hash != hash_from_byte_slices([e.hash() for e in self.evidence]):
+            raise ValueError("wrong Header.EvidenceHash")
+
+    def encode(self) -> bytes:
+        w = pw.Writer()
+        w.message_field(1, self.header.encode(), always=True)
+        data = pw.Writer()
+        for tx in self.txs:
+            data.bytes_field(1, tx, emit_empty=True)
+        w.message_field(2, data.bytes(), always=True)
+        ev = pw.Writer()
+        for e in self.evidence:
+            ev.message_field(1, e.encode(), always=True)
+        w.message_field(3, ev.bytes(), always=True)
+        w.message_field(4, self.last_commit.encode(), always=True)
+        return w.bytes()
+
+    @classmethod
+    def decode(cls, data: bytes) -> "Block":
+        from tendermint_tpu_torch.types.evidence import decode_evidence
+
+        header = None
+        txs: List[bytes] = []
+        evidence = []
+        last_commit = EMPTY_COMMIT
+        for f, _, v in pw.Reader(data):
+            if f == 1:
+                header = Header.decode(v)
+            elif f == 2:
+                txs.extend(vv for ff, _, vv in pw.Reader(v) if ff == 1)
+            elif f == 3:
+                evidence.extend(decode_evidence(vv) for ff, _, vv in pw.Reader(v) if ff == 1)
+            elif f == 4:
+                last_commit = Commit.decode(v)
+        if header is None:
+            raise ValueError("block missing header")
+        return cls(header, tuple(txs), tuple(evidence), last_commit)
 
 
 @dataclass(frozen=True)

@@ -1,12 +1,14 @@
 """Validator and ValidatorSet with batched, light and aggregate commit
 verification.
 
-The port's copy of tendermint_tpu/types/validator_set.py, but for the
-proposer-priority increments and update_with_change_set (ROADMAP A3's
-remainder). The set is sorted by descending power, ties by ascending
-address; the proposer is computed at construction (all priorities 0: the
-smallest address), and hash() is the Merkle root of the SimpleValidator
-encodings, so a LightBlock's validate_basic holds.
+The port's copy of tendermint_tpu/types/validator_set.py. The set is
+sorted by descending power, ties by ascending address; the proposer is
+computed at construction (from the validators' priorities), and hash() is
+the Merkle root of the SimpleValidator encodings, so a LightBlock's
+validate_basic holds. increment_proposer_priority and
+update_with_change_set follow the reference's weighted round robin and
+updates (types/validator_set.go:113-247, :577-652), Go's truncating and
+Euclidean divisions spelled out where Python's differ.
 
 verify_commit (reference types/validator_set.go:662-714): the reference's
 serial per-validator loop becomes one crypto.batch.verify_batch flush on
@@ -43,6 +45,8 @@ from tendermint_tpu_torch.crypto.merkle import hash_from_byte_slices
 from tendermint_tpu_torch.libs import protowire as pw
 
 INT64_MAX = 2**63 - 1
+MAX_TOTAL_VOTING_POWER = INT64_MAX // 8
+PRIORITY_WINDOW_SIZE_FACTOR = 2
 
 
 class CommitVerifyError(Exception):
@@ -193,6 +197,112 @@ class ValidatorSet:
                 tot = _clip64(tot + v.voting_power)
             self._total_voting_power = tot
         return self._total_voting_power
+
+    # -- proposer priorities (reference types/validator_set.go:113-247) -----
+
+    def _compute_avg_proposer_priority(self) -> int:
+        # Go's big.Int Div is Euclidean; for a positive divisor that is floor
+        # division, as Python's //.
+        return sum(v.proposer_priority for v in self.validators) // len(self.validators)
+
+    def _shift_by_avg_proposer_priority(self) -> None:
+        avg = self._compute_avg_proposer_priority()
+        for v in self.validators:
+            v.proposer_priority = _clip64(v.proposer_priority - avg)
+
+    def rescale_priorities(self, diff_max: int) -> None:
+        """Divide every priority by ceil(spread / diff_max) when the spread
+        exceeds diff_max, truncating toward zero as Go's integer division."""
+        if diff_max <= 0:
+            return
+        prios = [v.proposer_priority for v in self.validators]
+        diff = abs(max(prios) - min(prios))
+        ratio = (diff + diff_max - 1) // diff_max
+        if diff > diff_max:
+            for v in self.validators:
+                p = v.proposer_priority
+                v.proposer_priority = -((-p) // ratio) if p < 0 else p // ratio
+
+    def _increment_proposer_priority(self) -> Validator:
+        for v in self.validators:
+            v.proposer_priority = _clip64(v.proposer_priority + v.voting_power)
+        mostest = self._compute_proposer()
+        mostest.proposer_priority = _clip64(mostest.proposer_priority - self.total_voting_power())
+        return mostest
+
+    def increment_proposer_priority(self, times: int) -> None:
+        """Rescale, centre, then `times` rounds of the weighted round robin;
+        the last round's winner is the proposer (reference
+        types/validator_set.go:116-138)."""
+        if self.is_nil_or_empty():
+            raise ValueError("empty validator set")
+        if times <= 0:
+            raise ValueError("cannot call IncrementProposerPriority with non-positive times")
+        self.rescale_priorities(PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power())
+        self._shift_by_avg_proposer_priority()
+        proposer = None
+        for _ in range(times):
+            proposer = self._increment_proposer_priority()
+        self.proposer = proposer
+
+    def copy_increment_proposer_priority(self, times: int) -> "ValidatorSet":
+        c = self.copy()
+        c.increment_proposer_priority(times)
+        return c
+
+    def update_with_change_set(self, changes: Sequence[Validator]) -> None:
+        """Apply updates and removals (power 0 removes), as the reference's
+        updateWithChangeSet (types/validator_set.go:577-652): the checks in
+        its order, the new total bounded by MAX_TOTAL_VOTING_POWER before
+        removals, a new validator's priority -1.125 x the new total, then
+        rescale and centre. Raises ValueError and leaves the set as it was."""
+        if not changes:
+            return
+        seen = set()
+        updates: List[Validator] = []
+        deletes: List[Validator] = []
+        # copies: the priorities assigned below must not reach the caller's objects
+        for c in sorted((c.copy() for c in changes), key=lambda v: v.address):
+            if c.address in seen:
+                raise ValueError(f"duplicate entry {c.address.hex()} in changes")
+            seen.add(c.address)
+            if c.voting_power < 0:
+                raise ValueError("voting power can't be negative")
+            if c.voting_power > MAX_TOTAL_VOTING_POWER:
+                raise ValueError(
+                    "to prevent clipping/overflow, voting power can't be higher than max")
+            (deletes if c.voting_power == 0 else updates).append(c)
+        for d in deletes:
+            if d.address not in self._by_address:
+                raise ValueError(f"failed to find validator {d.address.hex()} to remove")
+        new_total = self.total_voting_power()
+        for u in updates:
+            _, old = self.get_by_address(u.address)
+            new_total += u.voting_power - (old.voting_power if old else 0)
+            if new_total > MAX_TOTAL_VOTING_POWER:
+                raise ValueError("total voting power of resulting valset exceeds max")
+        for u in updates:
+            _, old = self.get_by_address(u.address)
+            u.proposer_priority = (-(new_total + (new_total >> 3)) if old is None
+                                   else old.proposer_priority)
+        by_addr = {v.address: v for v in self.validators}
+        for u in updates:
+            by_addr[u.address] = u.copy()
+        for d in deletes:
+            by_addr.pop(d.address, None)
+        if not by_addr:
+            raise ValueError("applying the validator changes would result in empty set")
+        self.validators = sorted(by_addr.values(), key=lambda v: (-v.voting_power, v.address))
+        self._by_address = {v.address: i for i, v in enumerate(self.validators)}
+        self._total_voting_power = None
+        self.rescale_priorities(PRIORITY_WINDOW_SIZE_FACTOR * self.total_voting_power())
+        self._shift_by_avg_proposer_priority()
+        if self.proposer is not None and self.proposer.address in self._by_address:
+            self.proposer = self.validators[self._by_address[self.proposer.address]]
+        elif self.validators:
+            self.proposer = self._compute_proposer()
+
+    # -- commit verification -------------------------------------------------
 
     def verify_commit(self, chain_id: str, block_id, height: int, commit, device=None) -> None:
         """All signatures checked; +2/3 must be for the block."""

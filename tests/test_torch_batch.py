@@ -20,8 +20,22 @@ torch.set_num_threads(2)
 
 
 @pytest.fixture(autouse=True)
-def _cpu_backend(monkeypatch):
-    monkeypatch.setenv("TMTPU_CRYPTO_BACKEND", "cpu")
+def _port_memo_off():
+    """The port's verified-row memo is off, as tests/conftest.py turns the
+    reference's off: a row verified twice takes its route twice."""
+    from tendermint_tpu_torch.crypto import batch
+
+    prev, batch._MEMO = batch._MEMO, batch.VerifiedRowMemo(0)
+    yield
+    batch._MEMO = prev
+
+
+@pytest.fixture(autouse=True)
+def _default_arm(monkeypatch):
+    """The reference's calls name backend="cpu"; the port's take its default
+    arm, which TMTPU_CRYPTO_BACKEND (set to "cpu" by other test modules at
+    import) would otherwise pick."""
+    monkeypatch.delenv("TMTPU_CRYPTO_BACKEND", raising=False)
     tbatch.reset_a_cache()
     yield
     tbatch.reset_a_cache()

@@ -27,6 +27,17 @@ LEAF = 64
 BOUND = 2 * math.ceil(math.log2(N // LEAF)) + 1  # one bad row over C = 4 chunks
 
 
+@pytest.fixture(autouse=True)
+def _port_memo_off():
+    """The port's verified-row memo is off, as tests/conftest.py turns the
+    reference's off: a row verified twice takes its route twice."""
+    from tendermint_tpu_torch.crypto import batch
+
+    prev, batch._MEMO = batch._MEMO, batch.VerifiedRowMemo(0)
+    yield
+    batch._MEMO = prev
+
+
 @pytest.fixture
 def bisect_env(knobs, monkeypatch):
     for mod in (tbatch, jbatch):

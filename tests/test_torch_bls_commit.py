@@ -38,6 +38,17 @@ TBID = BlockID(b"\x07" * 32, PartSetHeader(1, b"\x08" * 32))
 N = 7
 
 
+@pytest.fixture(autouse=True)
+def _port_memo_off():
+    """The port's verified-row memo is off, as tests/conftest.py turns the
+    reference's off: a row verified twice takes its route twice."""
+    from tendermint_tpu_torch.crypto import batch
+
+    prev, batch._MEMO = batch._MEMO, batch.VerifiedRowMemo(0)
+    yield
+    batch._MEMO = prev
+
+
 def _sets():
     privs = [TK.gen_bls12_381(bytes([0x50 + i]) * 32) for i in range(N)]
     pks = [p.pub_key() for p in privs]

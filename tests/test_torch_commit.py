@@ -34,6 +34,17 @@ TBID = BlockID(b"\x11" * 32, PartSetHeader(3, b"\x22" * 32))
 
 
 @pytest.fixture(autouse=True)
+def _port_memo_off():
+    """The port's verified-row memo is off, as tests/conftest.py turns the
+    reference's off: a row verified twice takes its route twice."""
+    from tendermint_tpu_torch.crypto import batch
+
+    prev, batch._MEMO = batch._MEMO, batch.VerifiedRowMemo(0)
+    yield
+    batch._MEMO = prev
+
+
+@pytest.fixture(autouse=True)
 def _cpu_backend(monkeypatch):
     monkeypatch.setenv("TMTPU_CRYPTO_BACKEND", "cpu")
     tbatch.reset_a_cache()
@@ -86,7 +97,9 @@ def _outcome(fn):
 
 def _both(jc, tc, height=HEIGHT, jbid=JBID, tbid=TBID):
     want = _outcome(lambda: JVS.verify_commit(CHAIN, jbid, height, jc))
-    got = _outcome(lambda: TVS.verify_commit(CHAIN, tbid, height, tc, device="cpu"))
+    with pytest.MonkeyPatch.context() as mp:  # the port on its default arm
+        mp.delenv("TMTPU_CRYPTO_BACKEND")
+        got = _outcome(lambda: TVS.verify_commit(CHAIN, tbid, height, tc, device="cpu"))
     assert got == want
     return got
 

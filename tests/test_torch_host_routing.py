@@ -24,6 +24,17 @@ torch.set_num_threads(2)
 MODES = ("cofactored", "cofactorless")
 
 
+@pytest.fixture(autouse=True)
+def _port_memo_off():
+    """The port's verified-row memo is off, as tests/conftest.py turns the
+    reference's off: a row verified twice takes its route twice."""
+    from tendermint_tpu_torch.crypto import batch
+
+    prev, batch._MEMO = batch._MEMO, batch.VerifiedRowMemo(0)
+    yield
+    batch._MEMO = prev
+
+
 @pytest.mark.parametrize("n", [3, 47, 48, 100, 255, 256])
 @pytest.mark.parametrize("mode", MODES)
 def test_default_route_by_row_count_and_mode(knobs, monkeypatch, mode, n):

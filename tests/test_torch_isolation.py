@@ -35,19 +35,31 @@ assert not bad, bad
 """
 
 
+@pytest.fixture(autouse=True)
+def _port_memo_off():
+    """The port's verified-row memo is off, as tests/conftest.py turns the
+    reference's off: a row verified twice takes its route twice."""
+    from tendermint_tpu_torch.crypto import batch
+
+    prev, batch._MEMO = batch._MEMO, batch.VerifiedRowMemo(0)
+    yield
+    batch._MEMO = prev
+
+
 def test_package_and_smoke_import_no_jax():
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_mods = int(res.stdout.split()[0])
-    assert n_mods >= 43
+    assert n_mods >= 49
     for mod in ("ops.cuda_fe", "ops.cuda_msm", "ops.msm_geometry", "ops.msm_torch",
                 "crypto.batch", "ops.fp381", "ops.cuda_bls", "ops.bls12_torch",
                 "ops.tower", "ops.pairing_torch", "crypto.bls_ref", "crypto.keys", "types.validator_set",
                 "crypto.merlin", "crypto.sr25519", "native", "crypto.merkle", "types.light",
                 "light", "light.verifier", "light.client", "light.store", "light.provider",
-                "libs.kvdb"):
+                "libs.kvdb", "types.vote", "types.evidence", "types.vote_set", "types.part_set",
+                "blocksync", "blocksync.verify"):
         assert f"tendermint_tpu_torch.{mod}" in res.stdout.split(), mod
 
 
@@ -64,10 +76,12 @@ def test_no_jax_reference_in_sources():
     assert not hits, hits
 
 
-def test_default_device_is_the_card():
+def test_default_device_is_the_card(monkeypatch):
     """device=None means CUDA; on a host without a card a card call raises.
     A call that names no backend runs fewer than 256 rows on the host (the
-    reference's routing, by row count, not by whether a card is present)."""
+    reference's routing, by row count, not by whether a card is present).
+    TMTPU_CRYPTO_BACKEND is unset: it would pick the arm."""
+    monkeypatch.delenv("TMTPU_CRYPTO_BACKEND", raising=False)
     if torch.cuda.is_available():
         assert tbatch.verify_batch([], [], [], device=None).shape == (0,)
         return

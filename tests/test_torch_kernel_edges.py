@@ -56,6 +56,17 @@ from tendermint_tpu_torch.ops.ed25519_torch import identity
 NL = cuda_msm.NL
 
 
+@pytest.fixture(autouse=True)
+def _port_memo_off():
+    """The port's verified-row memo is off, as tests/conftest.py turns the
+    reference's off: a row verified twice takes its route twice."""
+    from tendermint_tpu_torch.crypto import batch
+
+    prev, batch._MEMO = batch._MEMO, batch.VerifiedRowMemo(0)
+    yield
+    batch._MEMO = prev
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():

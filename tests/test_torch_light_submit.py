@@ -33,6 +33,17 @@ BAD = (5,)
 _PORT: dict = {}
 
 
+@pytest.fixture(autouse=True)
+def _port_memo_off():
+    """The port's verified-row memo is off, as tests/conftest.py turns the
+    reference's off: a row verified twice takes its route twice."""
+    from tendermint_tpu_torch.crypto import batch
+
+    prev, batch._MEMO = batch._MEMO, batch.VerifiedRowMemo(0)
+    yield
+    batch._MEMO = prev
+
+
 def reference_submit(pks, msgs, sigs, key_types=None):
     """The reference's submit / finish under its host twins: (mask, route
     label of its flush record, whether the handle came back resolved)."""

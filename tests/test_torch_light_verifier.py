@@ -32,6 +32,17 @@ N_VALS = 24
 pytestmark = pytest.mark.usefixtures("_cpu_backend")
 
 
+@pytest.fixture(autouse=True)
+def _port_memo_off():
+    """The port's verified-row memo is off, as tests/conftest.py turns the
+    reference's off: a row verified twice takes its route twice."""
+    from tendermint_tpu_torch.crypto import batch
+
+    prev, batch._MEMO = batch._MEMO, batch.VerifiedRowMemo(0)
+    yield
+    batch._MEMO = prev
+
+
 @pytest.fixture
 def _cpu_backend(monkeypatch):
     monkeypatch.setenv("TMTPU_CRYPTO_BACKEND", "cpu")

@@ -44,6 +44,17 @@ BLS = [TK.gen_bls12_381(bytes([0x61 + i]) * 32) for i in range(2)]
 
 
 @pytest.fixture(autouse=True)
+def _port_memo_off():
+    """The port's verified-row memo is off, as tests/conftest.py turns the
+    reference's off: a row verified twice takes its route twice."""
+    from tendermint_tpu_torch.crypto import batch
+
+    prev, batch._MEMO = batch._MEMO, batch.VerifiedRowMemo(0)
+    yield
+    batch._MEMO = prev
+
+
+@pytest.fixture(autouse=True)
 def _cpu_backend(monkeypatch):
     monkeypatch.setenv("TMTPU_CRYPTO_BACKEND", "cpu")
 

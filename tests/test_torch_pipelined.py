@@ -29,6 +29,17 @@ torch.set_num_threads(2)
 N = 700
 
 
+@pytest.fixture(autouse=True)
+def _port_memo_off():
+    """The port's verified-row memo is off, as tests/conftest.py turns the
+    reference's off: a row verified twice takes its route twice."""
+    from tendermint_tpu_torch.crypto import batch
+
+    prev, batch._MEMO = batch._MEMO, batch.VerifiedRowMemo(0)
+    yield
+    batch._MEMO = prev
+
+
 def precheck_rejects(n: int, at=(1, 5)):
     """rows_with(n) with an s >= L at at[0] and a short key at at[1]: rows the
     precheck refuses, so the combined check still passes."""

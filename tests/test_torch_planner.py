@@ -23,7 +23,21 @@ NOT_ON_CURVE = next(y.to_bytes(32, "little") for y in range(2, 100)
 
 
 @pytest.fixture(autouse=True)
-def _small_budget():
+def _port_memo_off():
+    """The port's verified-row memo is off, as tests/conftest.py turns the
+    reference's off: a row verified twice takes its route twice."""
+    from tendermint_tpu_torch.crypto import batch
+
+    prev, batch._MEMO = batch._MEMO, batch.VerifiedRowMemo(0)
+    yield
+    batch._MEMO = prev
+
+
+@pytest.fixture(autouse=True)
+def _small_budget(monkeypatch):
+    """A 1,024-lane budget; the port on its default arm (the reference's
+    calls name backend="cpu")."""
+    monkeypatch.delenv("TMTPU_CRYPTO_BACKEND", raising=False)
     budget = tbatch.planner_budget()
     tbatch.configure_planner(max_flush_lanes=1024)
     tbatch.reset_a_cache()

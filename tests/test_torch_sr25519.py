@@ -33,6 +33,17 @@ SMALL_MULTIPLES = [
 ]
 
 
+@pytest.fixture(autouse=True)
+def _port_memo_off():
+    """The port's verified-row memo is off, as tests/conftest.py turns the
+    reference's off: a row verified twice takes its route twice."""
+    from tendermint_tpu_torch.crypto import batch
+
+    prev, batch._MEMO = batch._MEMO, batch.VerifiedRowMemo(0)
+    yield
+    batch._MEMO = prev
+
+
 def _transcript_ops(rng):
     """A seeded sequence of transcript operations: messages of 0-400 bytes
     (longer than the 166-byte STROBE rate) and challenges of 1-199 bytes."""

@@ -8,8 +8,8 @@ tests/test_ed25519_edge_vectors.py (honest, s + L, small-order A with the
 challenge even and odd, non-canonical A, non-canonical and canonical
 identity R) and tests/sigutil.torsion_defect_sig(), among honest rows. The
 reference runs its default verify_batch with TMTPU_CRYPTO_BACKEND=cpu; the
-port runs its default route with device="cpu" (the kernels' plain
-versions).
+port runs its default route with the variable unset and device="cpu" (the
+kernels' plain versions).
 
 Tolerance: zero. Masks must be byte-identical, verify_commit must pass or
 raise the same exception type with the same message, and
@@ -42,6 +42,17 @@ torch.set_num_threads(2)
 MODES = ("cofactored", "cofactorless")
 T2_ENC = ref.point_compress((0, ref.P - 1, 1, 0))
 IDENTITY_NONCANONICAL = (ref.P + 1).to_bytes(32, "little")
+
+
+@pytest.fixture(autouse=True)
+def _port_memo_off():
+    """The port's verified-row memo is off, as tests/conftest.py turns the
+    reference's off: a row verified twice takes its route twice."""
+    from tendermint_tpu_torch.crypto import batch
+
+    prev, batch._MEMO = batch._MEMO, batch.VerifiedRowMemo(0)
+    yield
+    batch._MEMO = prev
 
 
 @pytest.fixture(autouse=True)
@@ -127,7 +138,9 @@ def test_default_verify_batch_masks_equal_reference(set_mode, mode, n):
     set_mode(mode)
     pks, msgs, sigs = (list(c) for c in zip(*rows_of(n)))
     want = jbatch.verify_batch(pks, msgs, sigs)
-    got = tbatch.verify_batch(pks, msgs, sigs, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:  # the port on its default arm
+        mp.delenv("TMTPU_CRYPTO_BACKEND")
+        got = tbatch.verify_batch(pks, msgs, sigs, device="cpu")
     assert got.dtype == want.dtype == np.bool_
     assert got.tobytes() == want.tobytes()
     torsion = [i for i, row in enumerate(zip(pks, msgs, sigs)) if row == torsion_defect_sig()]
@@ -150,11 +163,18 @@ def test_explicit_cuda_backend_stays_cofactored(set_mode, mode):
     assert got.tobytes() == jbatch.verify_batch(pks, msgs, sigs).tobytes()
 
 
-def test_backend_names(set_mode):
+def test_backend_names(set_mode, monkeypatch):
+    """An unknown arm raises; "jax", the reference's name for its device arm,
+    is the card arm (here on device="cpu"), as TMTPU_CRYPTO_BACKEND=jax is."""
     pk, msg, sig = torsion_defect_sig()
     with pytest.raises(ValueError, match="unknown crypto backend"):
-        tbatch.verify_batch([pk], [msg], [sig], device="cpu", backend="jax")
+        tbatch.verify_batch([pk], [msg], [sig], device="cpu", backend="bogus")
     set_mode("cofactored")
+    assert tbatch.verify_batch([pk], [msg], [sig], device="cpu", backend="jax").all()
+    assert tbatch.LAST_FLUSH["mode"] == "persig"
+    monkeypatch.setenv("TMTPU_CRYPTO_BACKEND", "jax")
+    assert tbatch.backend_default() == "cuda"
+    monkeypatch.delenv("TMTPU_CRYPTO_BACKEND")
     assert tbatch.backend_default() == "cuda"
     # the host loop in cofactored mode gives the card path's verdicts
     got = tbatch.verify_batch([pk] * 2, [msg] * 2, [sig] * 2, device="cpu", backend="cpu")
