@@ -157,19 +157,38 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      with the verified-row memo off (configure_verified_memo(0), as
      bench.py times); the memo checks put the default back around
      themselves. Each phase's seconds are printed;
-  14. the shape check: from phase 4 on, each call of the six Ed25519
+  14. the scheduler paths (crypto/scheduler.py, memo off): "scheduler_lanes"
+     (each consumer through its lane of a default scheduler on the card
+     against its direct call: the storm's 20 drains on the votes lane, the
+     catch-up runs on the catch-up lane, super_batch_1k split at
+     planner_chunk_rows() into two pipelined flushes, light_trusting_4k's
+     step accumulated on the light lane; masks, indices, labels and launch
+     counts equal); "light_serve_1k" (a LightService under bench.py
+     bench_light_serve's traffic on light_skipping's chain, every answer
+     the chain's header, and its serial arm); "scheduler_mixed" (storms,
+     super_batch_1k runs, light clients and queued vote rows at once on one
+     scheduler: deterministic results, no vote flush with another lane's
+     rows, a between-chunk preemption, no inline fallback, every Ed25519
+     kernel launched; one short window profiled); "poisoned_votes"
+     (bench.py bench_poisoned_flush's 512-row vote batches, clean and at 1%
+     poison, through the votes lane: the quarantine lane after the first
+     recovery, every mask equal to ed25519_ref's);
+  15. the shape check: from phase 4 on, each call of the six Ed25519
      wrappers notes its shape (the lanes of its batch, uptree's windows and
      chunk, fenwick_reduce's storage segments and Kf, bucket_fold's windows;
-     not the loop counts), and every shape a path gave a kernel must be the
-     shape of a phase-3 row, or the script exits naming it;
-  15. a `kernels` JSON line (a row off every path counts 0 launches), the
+     not the loop counts); a shape that no phase-3 row has gets a row
+     checked on the arguments of its first call (the scheduler paths'
+     timing-dependent flush sizes, the quarantine lane's small ladders),
+     and every shape a path gave a kernel must then be the shape of a row,
+     or the script exits naming it;
+  16. a `kernels` JSON line (a row off every path counts 0 launches), the
      card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
 (the warm, pipelined and streamed paths per call); every kernel of a path must
 launch on it: the six Ed25519 kernels on the Ed25519 paths (pipelined,
 tampered, tampered_persig, mixed_commit, mixed_sr25519_10k, the four light
-paths and the consensus and catch-up paths included), the two BLS kernels on
-the BLS paths, none on host_small, the verify-at-add arm, the evidence check
+paths, the consensus and catch-up paths and the scheduler paths included),
+the two BLS kernels on the BLS paths, none on host_small, the verify-at-add arm, the evidence check
 and the memo's answers. Exits non-zero without a result when no CUDA device
 is available.
 """
@@ -270,6 +289,19 @@ CATCHUP_TXS = 4  # 200-byte transactions a block
 # the tampered catchup_128 run: bad signatures on more than a third of the
 # power in block 5's commit, and a wrong block ID in block 11's
 CATCHUP_BAD_BLOCK, CATCHUP_BAD_ROWS, CATCHUP_WRONG_ID = 5, 43, 11
+# The scheduler paths (crypto/scheduler.py). light_serve_1k: bench.py
+# bench_light_serve's traffic (32 clients, 600 requests, Zipf(1.1) heights
+# over 2..heights, seed 7, a 0.02-s coalescing window, max_heights_per_flush
+# heights + 1, no max_pending) on light_skipping's chain; its serial arm is
+# sampled on the first SERVE_SERIAL requests. poisoned_votes: bench.py
+# bench_poisoned_flush's shape, POISON_ROWS-row vote batches from the 10k
+# corpus, POISON_CALLS calls at 0 and POISONED_CALLS at 1% poison (seed 20;
+# each poisoned call after the first runs two per-signature ladders at once,
+# ~3 s, so that arm is cut from 64 calls to 16). PEERS: the peers the vote
+# paths tag their rows with.
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SEED, SERVE_WINDOW, SERVE_SERIAL = 32, 600, 7, 0.02, 60
+POISON_ROWS, POISON_CALLS, POISONED_CALLS, POISON_RATE, POISON_SEED = 512, 64, 16, 0.01, 20
+PEERS = 8
 
 REPLACES = {
     "padd": "tendermint_tpu/ops/pallas_fe.py:249",
@@ -552,6 +584,100 @@ def max_err(got, want) -> int:
     return int((got.long() - want.long()).abs().max())
 
 
+def padd_case_of(path, p, q, where, few_lanes=None):
+    """padd on points p, q. `few_lanes` pins cuda_fe.PADD_FEW_LANES around
+    each call to force one kernel (the sweep); None keeps the routing as
+    shipped."""
+    from tendermint_tpu_torch.ops import cuda_fe
+
+    lanes = p.numel() // 80
+    few = cuda_fe.PADD_FEW_LANES if few_lanes is None else few_lanes
+    with pinned(cuda_fe, "PADD_FEW_LANES", few):
+        symbol = ENTRY_SYMBOL[cuda_fe.padd_entry(lanes)]
+
+    def forced():
+        with pinned(cuda_fe, "PADD_FEW_LANES", few):
+            return cuda_fe.padd(p, q)
+
+    kern = (lambda: cuda_fe.padd(p, q)) if few_lanes is None else forced
+    return dict(name="padd", path=path, variant=where, lanes=lanes, symbol=symbol, kern=kern,
+                plain=lambda: cuda_fe.padd_plain(p, q), key=shape_key("padd", p, q),
+                mads=PADD_MADS, items=lanes, bytes=3 * POINT_BYTES * lanes)
+
+
+def pdbl_case_of(path, p, times, variant):
+    from tendermint_tpu_torch.ops import cuda_fe
+
+    lanes = p.numel() // 80
+    return dict(name="pdbl", path=path, variant=variant, lanes=lanes,
+                kern=lambda: cuda_fe.pdbl(p, times), plain=lambda: cuda_fe.pdbl_plain(p, times),
+                key=shape_key("pdbl", p, times), mads=pdbl_mads(times), items=lanes,
+                bytes=(3 * 80 + POINT_BYTES) * lanes)  # x, y, z in (t is not read), 4 out
+
+
+def bucket_fold_case_of(path, prefix, t_):
+    from tendermint_tpu_torch.ops import cuda_msm
+
+    m = 256 * t_
+    return dict(name="bucket_fold", path=path, variant=f"T={t_}", lanes=m,
+                kern=lambda: cuda_msm.bucket_fold(prefix, t_),
+                plain=lambda: cuda_msm.bucket_fold_plain(prefix, t_),
+                key=shape_key("bucket_fold", prefix, t_),
+                mads=PADD_MADS, items=255 * t_, bytes=(m + 2 * t_) * POINT_BYTES,
+                bound_note="operations: 255 adds a window x PADD_MADS over the whole card; "
+                           "the adds form a chain 8 levels deep, which this bound does not "
+                           "count")
+
+
+def fsq_case_of(path, x, k, variant):
+    from tendermint_tpu_torch.ops import cuda_fe
+
+    lanes = x.numel() // 20
+    return dict(name="fsquare_chain", path=path, variant=variant, lanes=lanes,
+                kern=lambda: cuda_fe.fsquare_chain(x, k),
+                plain=lambda: cuda_fe.fsquare_chain_plain(x, k),
+                key=shape_key("fsquare_chain", x, k), mads=k * SQR, items=lanes,
+                bytes=2 * 80 * lanes)
+
+
+def uptree_case_of(path, x, perm, ch, variant):
+    from tendermint_tpu_torch.ops import cuda_msm
+    from tendermint_tpu_torch.ops.msm_geometry import chunk_geometry, tree_written_positions
+
+    t_, n = perm.shape
+    nchunks = t_ * n // ch
+    pos = torch.from_numpy(tree_written_positions(ch)).to(x.device)
+
+    def written(t):  # level 0, and the chunk-tree positions that hold a node
+        return t[0], t[1].reshape(4, 20, nchunks, chunk_geometry(ch).rows_out * 128)[..., pos]
+
+    return dict(name="uptree", path=path, variant=variant, lanes=t_ * n,
+                kern=lambda: cuda_msm.uptree(x, perm, ch),
+                plain=lambda: cuda_msm.uptree_plain(x, perm, ch),
+                key=shape_key("uptree", x, perm, ch),
+                view=written, mads=PADD_MADS, items=nchunks * (ch - 1),
+                # table and perm read once; level 0 and the chunk trees written once
+                bytes=n * POINT_BYTES + t_ * n * 4 + (t_ * n + nchunks * (ch - 1)) * POINT_BYTES)
+
+
+def fenwick_case_of(path, lvl0, ctree, top, idx, variant, card):
+    from tendermint_tpu_torch.ops import cuda_msm
+
+    m, kf = idx.shape
+    fw_args = (lvl0, ctree, top, idx)
+    # the gather's floor: the distinct 32-B sectors of the nodes' limb rows
+    sectors = fenwick_gather_sectors(idx.cpu().numpy(), *(a.shape[-1] for a in fw_args[:3]))
+    return dict(name="fenwick_reduce", path=path, variant=variant, lanes=m,
+                kern=lambda: cuda_msm.fenwick_reduce(*fw_args),
+                plain=lambda: cuda_msm.fenwick_reduce_plain(*fw_args),
+                key=shape_key("fenwick_reduce", *fw_args),
+                t_ops=work_seconds(m * (kf - 1) * PADD_MADS, card),
+                bytes=sectors * 32 + m * kf * 4 + m * POINT_BYTES, sectors=sectors,
+                bound_note=f"operations: (Kf-1) x PADD_MADS a lane over the whole card; "
+                           f"bytes: {sectors} gather sectors x 32 B, the index table and "
+                           f"the output once")
+
+
 def kernel_checks(dev, rng, card: dict) -> list:
     """Each kernel against its plain version at the shapes of each path:
     warm (cached A: R decompressed on 10,240 lanes, the fused MSM over
@@ -559,8 +685,7 @@ def kernel_checks(dev, rng, card: dict) -> list:
     (the per-signature ladder on the 16,384-lane bucket), tampered (the
     bisection's ladder leaf on 1,024 lanes), streamed and pipelined
     (24,576-lane chunks: A and R decompressed, the fused MSM)."""
-    from tendermint_tpu_torch.ops import cuda_fe, cuda_msm, msm_torch
-    from tendermint_tpu_torch.ops.msm_geometry import chunk_geometry, tree_written_positions
+    from tendermint_tpu_torch.ops import cuda_fe, msm_torch
 
     enc = seeded_points(2048, rng)
     p0, ok = msm_torch.decompress_rows(enc, dev)
@@ -572,87 +697,28 @@ def kernel_checks(dev, rng, card: dict) -> list:
         return base[..., torch.from_numpy(rng.integers(0, nb, size=n)).to(dev)].contiguous()
 
     def padd_case(path, lanes, where, few_lanes=None):
-        """`few_lanes` pins cuda_fe.PADD_FEW_LANES around each call to force
-        one kernel (the sweep); None keeps the routing as shipped."""
-        p, q = pick(lanes), pick(lanes)
-        few = cuda_fe.PADD_FEW_LANES if few_lanes is None else few_lanes
-        with pinned(cuda_fe, "PADD_FEW_LANES", few):
-            symbol = ENTRY_SYMBOL[cuda_fe.padd_entry(lanes)]
-
-        def forced():
-            with pinned(cuda_fe, "PADD_FEW_LANES", few):
-                return cuda_fe.padd(p, q)
-
-        kern = (lambda: cuda_fe.padd(p, q)) if few_lanes is None else forced
-        return dict(name="padd", path=path, variant=where, lanes=lanes, symbol=symbol, kern=kern,
-                    plain=lambda: cuda_fe.padd_plain(p, q), key=shape_key("padd", p, q),
-                    mads=PADD_MADS, items=lanes, bytes=3 * POINT_BYTES * lanes)
+        return padd_case_of(path, pick(lanes), pick(lanes), where, few_lanes)
 
     def pdbl_case(path, lanes, times, where):
-        p = pick(lanes)
-        return dict(name="pdbl", path=path, variant=f"times={times}, {where}", lanes=lanes,
-                    kern=lambda: cuda_fe.pdbl(p, times), plain=lambda: cuda_fe.pdbl_plain(p, times),
-                    key=shape_key("pdbl", p, times),
-                    mads=pdbl_mads(times), items=lanes,
-                    bytes=(3 * 80 + POINT_BYTES) * lanes)  # x, y, z in (t is not read), 4 out
-
-    def bucket_fold_case(path, prefix, t_):
-        m = 256 * t_
-        return dict(name="bucket_fold", path=path, variant=f"T={t_}", lanes=m,
-                    kern=lambda: cuda_msm.bucket_fold(prefix, t_),
-                    plain=lambda: cuda_msm.bucket_fold_plain(prefix, t_),
-                    key=shape_key("bucket_fold", prefix, t_),
-                    mads=PADD_MADS, items=255 * t_, bytes=(m + 2 * t_) * POINT_BYTES,
-                    bound_note="operations: 255 adds a window x PADD_MADS over the whole card; "
-                               "the adds form a chain 8 levels deep, which this bound does not "
-                               "count")
+        return pdbl_case_of(path, pick(lanes), times, f"times={times}, {where}")
 
     def fsq_case(path, lanes, where):
-        x = pick(lanes)[1].contiguous()
-        return dict(name="fsquare_chain", path=path, variant=f"k=50, {where}", lanes=lanes,
-                    kern=lambda: cuda_fe.fsquare_chain(x, 50),
-                    plain=lambda: cuda_fe.fsquare_chain_plain(x, 50),
-                    key=shape_key("fsquare_chain", x, 50),
-                    mads=50 * SQR, items=lanes, bytes=2 * 80 * lanes)
+        return fsq_case_of(path, pick(lanes)[1].contiguous(), 50, f"k=50, {where}")
 
     def uptree_case(path, n, ch, where):
-        t_ = 32
         x = pick(n)
-        perm = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(t_)])
+        perm = torch.from_numpy(np.stack([rng.permutation(n) for _ in range(32)])
                                 .astype(np.int32)).to(dev)
-        nchunks = t_ * n // ch
-        pos = torch.from_numpy(tree_written_positions(ch)).to(dev)
-
-        def written(t):  # level 0, and the chunk-tree positions that hold a node
-            return t[0], t[1].reshape(4, 20, nchunks, chunk_geometry(ch).rows_out * 128)[..., pos]
-
-        return dict(name="uptree", path=path, variant=f"ch={ch}, {where}", lanes=t_ * n,
-                    kern=lambda: cuda_msm.uptree(x, perm, ch),
-                    plain=lambda: cuda_msm.uptree_plain(x, perm, ch),
-                    key=shape_key("uptree", x, perm, ch),
-                    view=written, mads=PADD_MADS, items=nchunks * (ch - 1),
-                    # table and perm read once; level 0 and the chunk trees written once
-                    bytes=n * POINT_BYTES + t_ * n * 4 + (t_ * n + nchunks * (ch - 1)) * POINT_BYTES)
+        return uptree_case_of(path, x, perm, ch, f"ch={ch}, {where}")
 
     def fenwick_case(path, n, where):
         """fenwick_reduce on the fused storage of an n-lane MSM; returns the
         case and the storage (its prefix points feed bucket_fold)."""
         fs = fused_storage(pick(n), rng, n)
-        m, kf = fs["idx"].shape
-        fw_args = (fs["lvl0"], fs["ctree"], fs["top"], fs["idx"])
-        # the gather's floor: the distinct 32-B sectors of the nodes' limb rows
-        sectors = fenwick_gather_sectors(fs["idx"].cpu().numpy(), *(
-            fs[k].shape[-1] for k in ("lvl0", "ctree", "top")))
-        return dict(name="fenwick_reduce", path=path,
-                    variant=f"Kf={kf}, 256 buckets x {fs['t']} windows, {n:,}-lane MSM, {where}",
-                    lanes=m, kern=lambda: cuda_msm.fenwick_reduce(*fw_args),
-                    plain=lambda: cuda_msm.fenwick_reduce_plain(*fw_args),
-                    key=shape_key("fenwick_reduce", *fw_args),
-                    t_ops=work_seconds(m * (kf - 1) * PADD_MADS, card),
-                    bytes=sectors * 32 + m * kf * 4 + m * POINT_BYTES, sectors=sectors,
-                    bound_note=f"operations: (Kf-1) x PADD_MADS a lane over the whole card; "
-                               f"bytes: {sectors} gather sectors x 32 B, the index table and "
-                               f"the output once"), fs
+        kf = fs["idx"].shape[1]
+        return fenwick_case_of(path, fs["lvl0"], fs["ctree"], fs["top"], fs["idx"],
+                               f"Kf={kf}, 256 buckets x {fs['t']} windows, {n:,}-lane MSM, "
+                               f"{where}", card), fs
 
     warm_fenwick, fs = fenwick_case("warm", 20_480, "10k commit")
     trusting_fenwick, trusting_fs = fenwick_case("light_trusting_4k", 8_192,
@@ -668,9 +734,9 @@ def kernel_checks(dev, rng, card: dict) -> list:
         warm_fenwick,
         *(fenwick_case("tampered", n, f"bisection sub-check of {rows} rows")[0]
           for n, _, rows in TAMPERED_MSM),
-        bucket_fold_case("warm", fs["prefix"], fs["t"]),
-        bucket_fold_case(None, pick(256), 1),
-        bucket_fold_case(None, pick(256 * 33), 33),
+        bucket_fold_case_of("warm", fs["prefix"], fs["t"]),
+        bucket_fold_case_of(None, pick(256), 1),
+        bucket_fold_case_of(None, pick(256 * 33), 33),
         padd_case("warm", 32 * 5, "top tree level 1: 32 windows x 5 root pairs"),
         padd_case("streamed", 32 * 6, "top tree level 1: 32 windows x 6 root pairs"),
         padd_case("warm", 32, "[255] P_255 and W per window"),
@@ -719,7 +785,7 @@ def kernel_checks(dev, rng, card: dict) -> list:
                                                         "32 windows x 5 chunks"),
         trusting_fenwick,
         fenwick_case("light_trusting_4k", 10_240, "light check, 4,096 rows")[0],
-        bucket_fold_case("light_trusting_4k", trusting_fs["prefix"], trusting_fs["t"]),
+        bucket_fold_case_of("light_trusting_4k", trusting_fs["prefix"], trusting_fs["t"]),
         fsq_case("light_trusting_4k", 4_096, "R decompression of the trusting check"),
         fsq_case("light_trusting_4k", 5_120, "R decompression of the light check"),
         fsq_case("light_trusting_4k", 8_192, "A and R decompression of the cold trusting check"),
@@ -1051,22 +1117,64 @@ def shape_key(name: str, *args, **kwargs) -> tuple:
     return (name, *SHAPE_OF[name](*args, **kwargs))
 
 
-def record_shapes() -> None:
+NEW_SHAPE_ARGS: dict = {}  # shape key -> (args, kwargs) of its first call with no row
+
+
+def record_shapes(rows: list) -> None:
     """From here on each call of the six Ed25519 wrappers adds its shape
     to SHAPES_SEEN (a dict lookup and a set add a call; the wrappers and
-    their launch counts are unchanged)."""
+    their launch counts are unchanged). The first call of a shape that no
+    row of `rows` has keeps a copy of its arguments, for recorded_rows()."""
     from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
+
+    known = {(r["name"], *r["shape"]) for r in rows if "shape" in r}
 
     def shim(module, name):
         real = getattr(module, name)
 
         def call(*a, **k):
-            SHAPES_SEEN.add(shape_key(name, *a, **k))
+            key = shape_key(name, *a, **k)
+            SHAPES_SEEN.add(key)
+            if key not in known and key not in NEW_SHAPE_ARGS:
+                NEW_SHAPE_ARGS[key] = (
+                    tuple(x.clone() if isinstance(x, torch.Tensor) else x for x in a), dict(k))
             return real(*a, **k)
         setattr(module, name, call)
 
     for name in ED25519_KERNELS:
         shim(cuda_fe if name in cuda_fe.LAUNCHES else cuda_msm, name)
+
+
+def recorded_rows(card: dict, launches: dict) -> list:
+    """A kernel row for each shape a path gave a kernel that no phase-3 row
+    has (the scheduler's combined flushes and the quarantine lane's small
+    flushes, whose sizes depend on timing): the kernel against its plain
+    version on the arguments of that shape's first call, timed and bounded
+    as phase 3's rows are. The row's path is a path that gave the shape."""
+    cases = []
+    for key, (args, kw) in sorted(NEW_SHAPE_ARGS.items(), key=str):
+        paths = sorted(p for p, keys in PATH_SHAPES.items() if key in keys)
+        if not paths:  # seen outside every path's window (a kernel check's own call)
+            continue
+        path = next((p for p in paths if p in launches), paths[0])
+        where = f"recorded on {', '.join(paths)}"
+        name = key[0]
+        if name == "padd":
+            cases.append(padd_case_of(path, *args, where))
+        elif name == "pdbl":
+            times = kw.get("times", args[1] if len(args) > 1 else 1)
+            cases.append(pdbl_case_of(path, args[0], times, f"times={times}, {where}"))
+        elif name == "fsquare_chain":
+            cases.append(fsq_case_of(path, *args, f"k={args[1]}, {where}"))
+        elif name == "uptree":
+            cases.append(uptree_case_of(path, *args, f"ch={args[2]}, {where}"))
+        elif name == "fenwick_reduce":
+            cases.append(fenwick_case_of(path, *args, f"Kf={args[3].shape[1]}, {where}", card))
+        else:
+            cases.append(bucket_fold_case_of(path, *args))
+    print(f"recorded shapes: {len(cases)} shapes first given by the paths below phase 3, "
+          f"each checked on its recorded arguments", flush=True)
+    return check_cases(cases, card)
 
 
 def note_shapes(path: str) -> None:
@@ -2258,10 +2366,17 @@ def storm_votes(vals, block_id, commit):
             for i, cs in enumerate(commit.signatures)]
 
 
-def run_storm(dev, vals, votes, defer: bool = True):
+def six_launches() -> dict:
+    from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
+
+    return {**cuda_fe.LAUNCHES, **cuda_msm.LAUNCHES}
+
+
+def run_storm(dev, vals, votes, defer: bool = True, peers: bool = False):
     """Every vote into a fresh VoteSet, flushed every DRAIN adds when
-    deferred: (vote set, [(rows, ms, label, recovery flushes, failed)],
-    total ms)."""
+    deferred: (vote set, [(rows, ms, label, recovery flushes, failed,
+    launches)], total ms). With `peers` vote k comes from peer p<k % PEERS>,
+    the provenance of its row."""
     from tendermint_tpu_torch.crypto import batch
     from tendermint_tpu_torch.types.basic import SignedMsgType
     from tendermint_tpu_torch.types.vote_set import VoteSet
@@ -2272,16 +2387,19 @@ def run_storm(dev, vals, votes, defer: bool = True):
     t0 = time.perf_counter()
     want = "pending" if defer else True
     for k, vote in enumerate(votes, 1):
-        got = vs.add_vote(vote)
+        got = vs.add_vote(vote, f"p{k % PEERS}" if peers else "")
         if got != want:
             raise SystemExit(f"vote {k - 1}: add_vote gave {got!r}, expected {want!r}")
         if defer and (k % DRAIN == 0 or k == len(votes)):
             rows = vs.pending_count()
-            tf = time.perf_counter()
+            n0, tf = six_launches(), time.perf_counter()
             _, failed = vs.flush()
             torch.cuda.synchronize()
-            flushes.append((rows, (time.perf_counter() - tf) * 1e3, batch.LAST_FLUSH.get("path"),
-                            batch.LAST_FLUSH.get("recovery_flushes"), failed))
+            ms = (time.perf_counter() - tf) * 1e3
+            n1 = six_launches()
+            flushes.append((rows, ms, batch.LAST_FLUSH.get("path"),
+                            batch.LAST_FLUSH.get("recovery_flushes"), failed,
+                            {name: n1[name] - n0[name] for name in ED25519_KERNELS}))
     return vs, flushes, (time.perf_counter() - t0) * 1e3
 
 
@@ -2368,7 +2486,7 @@ def vote_storm_phase(dev, corpus, launches: dict, memo_default: int) -> None:
     reset_launches()
     vs, flushes, tampered_ms = run_storm(dev, vals, bad_votes)
     launches["vote_storm_10k tampered"] = read_launches("vote_storm_10k tampered")
-    rows, _, label, recovery, failed = flushes[0]
+    rows, _, label, recovery, failed, _ = flushes[0]
     if failed != [STORM_BAD]:
         raise SystemExit(f"vote_storm_10k tampered: failed {failed}, expected [{STORM_BAD}]")
     other = BlockID(b"\x0b" * 32, PartSetHeader(1, b"\x0c" * 32))
@@ -2508,6 +2626,541 @@ def memo_phase(dev, corpus, launches: dict, memo_default: int) -> None:
     print(f"memo (default {memo_default} rows): verify_commit 10k first path={first}, repeated "
           f"path=memo in {ms:.2f} ms with 0 launches; verify_batch of its rows path=memo, "
           f"all {N_VALIDATORS} True; memo {stats}", flush=True)
+
+
+def build_poisoned(corpus):
+    """poisoned_votes' batches, before the card is touched: the first
+    POISON_ROWS corpus rows, and the same rows with round(POISON_ROWS x
+    POISON_RATE) of them poisoned as bench.py bench_poisoned_flush poisons
+    them (a real signature lifted from the next row, source peer:poisoner;
+    the other rows peer:honest<i % 8>), with ed25519_ref's verdict on every
+    row of both, on the fork pool."""
+    vals, _, commit, msgs = corpus
+    pks = [v.pub_key.bytes() for v in vals.validators[:POISON_ROWS]]
+    msgs = list(msgs[:POISON_ROWS])
+    sigs = [cs.signature for cs in commit.signatures[:POISON_ROWS]]
+    rng = np.random.default_rng(POISON_SEED)
+    k = int(round(POISON_ROWS * POISON_RATE))
+    bad = {int(i) for i in rng.choice(POISON_ROWS, size=k, replace=False)}
+    psigs = [sigs[(i + 1) % POISON_ROWS] if i in bad else sigs[i] for i in range(POISON_ROWS)]
+    srcs = ["peer:poisoner" if i in bad else f"peer:honest{i % 8}" for i in range(POISON_ROWS)]
+    workers = os.cpu_count() or 1
+    with mp.get_context("fork").Pool(workers) as pool:
+        want = [np.array(pool_map(pool, _verify_cofactored_rows, list(zip(pks, msgs, sg)),
+                                  workers), dtype=bool) for sg in (sigs, psigs)]
+        pool.close()
+        pool.join()
+    return dict(pks=pks, msgs=msgs, arms={"clean": (sigs, [f"peer:honest{i % 8}" for i in
+                                                           range(POISON_ROWS)], want[0]),
+                                          "1%": (psigs, srcs, want[1])}, bad=sorted(bad))
+
+
+@contextlib.contextmanager
+def installed_scheduler(dev):
+    """A VerifyScheduler on the card installed as the process default inside
+    the block; closed and uninstalled after it."""
+    from tendermint_tpu_torch.crypto import scheduler
+
+    sched = scheduler.VerifyScheduler(device=dev)
+    scheduler.set_default(sched)
+    try:
+        yield sched
+    finally:
+        scheduler.set_default(None)
+        sched.close()
+
+
+def recorded_flushes(fn):
+    """fn(), the (rows, route label) of every flush the recorder
+    (libs/trace.py) took during it, in order, and their ms in all."""
+    from tendermint_tpu_torch.libs import trace
+
+    trace.tracer.clear()
+    out = fn()
+    events = [e["attrs"] for e in trace.tracer.dump() if e["name"] == "batch_verify.flush"]
+    return out, [(e["n"], e["path"]) for e in events], sum(e["total_ms"] for e in events)
+
+
+ALONE: dict = {}  # the scheduler paths' numbers alone, for scheduler_mixed
+
+
+def scheduler_lanes_phase(dev, corpus, cu, lc, launches) -> None:
+    """scheduler_lanes: one consumer at a time through its lane of a default
+    scheduler on the card, each against its direct call on the same rows
+    (the memo off): vote_storm_10k's 20 drains (VoteSet.flush -> the votes
+    lane, rows tagged peer:<id>), catchup_128's three runs and
+    super_batch_1k's run (verify_run_batched(scheduler=) -> the catch-up
+    lane; super_batch_1k's 16,384 rows split at planner_chunk_rows() into
+    two flushes), and light_trusting_4k's step under
+    accumulate_flushes(sched.accumulate("light")) against a FlushAccumulator.
+    Masks, failed indices and returned indices equal the direct call's; so
+    do labels and launch counts, but super_batch_1k's. Printed: each lane's
+    end-to-end ms, flush wall and queue wait against the direct call's
+    end-to-end ms and flush wall (the recorder's), and the handoff: the
+    lane's end-to-end ms less its queue wait, less the direct call's."""
+    from fractions import Fraction
+
+    from tendermint_tpu_torch.blocksync.verify import verify_run_batched
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.light import verifier
+
+    vals, block_id, commit, _ = corpus
+    votes = storm_votes(vals, block_id, commit)
+    (_, direct, direct_ms), _, direct_flush_ms = recorded_flushes(
+        lambda: run_storm(dev, vals, votes, peers=True))
+    with installed_scheduler(dev) as sched:
+        reset_launches()
+        vs, lane, lane_ms = run_storm(dev, vals, votes, peers=True)
+        launches["scheduler_lanes votes"] = read_launches("scheduler_lanes votes")
+        walls = [f["wall_s"] * 1e3 for f in sched.flush_log]
+        def route(flushes):  # rows, label, recovery flushes, failed, launches of each drain
+            return [(f[0], *f[2:]) for f in flushes]
+
+        if (route(lane) != route(direct)
+                or vs.make_commit().encode() != commit.encode()
+                or [set(f["rows"]) for f in sched.flush_log] != [{"votes"}] * len(lane)):
+            raise SystemExit(f"scheduler_lanes votes: lane {route(lane)} vs direct "
+                             f"{route(direct)}")
+        ALONE["votes_per_s"] = N_VALIDATORS / lane_ms * 1e3
+        print(f"scheduler_lanes votes ({len(lane)} drains of vote_storm_10k, VoteSet.flush on the "
+              f"votes lane, inline): ms={lane_ms:.1f} ({ALONE['votes_per_s']:.0f} votes/s) "
+              f"against direct ms={direct_ms:.1f}; flush wall {sum(walls):.1f} (direct "
+              f"{direct_flush_ms:.1f}), queue wait 0; handoff {lane_ms - direct_ms:.1f} ms; "
+              f"drain ms median {statistics.median(f[1] for f in lane):.1f} (direct "
+              f"{statistics.median(f[1] for f in direct):.1f}); labels and per-drain launches "
+              f"equal the direct "
+              f"call's ({lane[0][2]} {lane[0][5]}, {lane[-1][2]} {lane[-1][5]}); make_commit "
+              f"bytes equal the corpus commit's", flush=True)
+
+        for name in CATCHUP:
+            cvals, runs = cu[name]["vals"], cu[name]["runs"]
+            direct_runs = []
+            for run in runs:
+                t0 = time.perf_counter()
+                got, flushes, flush_ms = recorded_flushes(
+                    lambda: verify_run_batched(cvals, CHAIN_ID, run, device=dev))
+                torch.cuda.synchronize()
+                direct_runs.append((got, (time.perf_counter() - t0) * 1e3, flushes, flush_ms))
+            lane_runs = []
+            for run in runs:
+                mark = len(sched.flush_log)
+                reset_launches()
+                t0 = time.perf_counter()
+                got, flushes, _ = recorded_flushes(
+                    lambda: verify_run_batched(cvals, CHAIN_ID, run, scheduler=sched))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = read_launches(f"scheduler_lanes {name}")
+                same_counts(launches, f"scheduler_lanes {name}", counts)
+                lane_runs.append((got, ms, flushes, list(sched.flush_log)[mark:]))
+            direct_labels = [f for _, _, f, _ in direct_runs]
+            lane_labels = [f for _, _, f, _ in lane_runs]
+            want_labels, want_counts = direct_labels, launches[name]
+            if name == "super_batch_1k":  # split at planner_chunk_rows(): two pipelined flushes
+                chunk = batch.planner_chunk_rows()
+                n = sum(r for r, _ in direct_labels[0])
+                want_labels = [[(chunk, "rlc-pipelined"), (n - chunk, "rlc-pipelined")]]
+                want_counts = {k: 2 * v for k, v in launches["catchup_128"].items()}
+            six = {k: launches[f"scheduler_lanes {name}"][k] for k in ED25519_KERNELS}
+            if (any(g is not None for g, *_ in direct_runs + lane_runs)
+                    or lane_labels != want_labels
+                    or six != {k: want_counts[k] for k in ED25519_KERNELS}
+                    or any([set(e["rows"]) for e in log] != [{"catchup"}] * len(log)
+                           for *_, log in lane_runs)):
+                raise SystemExit(f"scheduler_lanes {name}: lane {lane_labels} {six}, expected "
+                                 f"{want_labels} {want_counts}")
+            lane_ms = [ms for _, ms, _, _ in lane_runs]
+            wall = [sum(e["wall_s"] for e in log) * 1e3 for *_, log in lane_runs]
+            wait = [max(e["wait_s"]["catchup"] for e in log) * 1e3 for *_, log in lane_runs]
+            direct_ms = [t for _, t, _, _ in direct_runs]
+            handoff = statistics.median(t - w for t, w in zip(lane_ms, wait)) - statistics.median(
+                direct_ms)
+            ALONE[name] = len(runs) * CATCHUP[name][2] / sum(lane_ms) * 1e3
+            print(f"scheduler_lanes {name} ({len(runs)} runs on the catch-up lane): run ms "
+                  f"{[round(t, 1) for t in lane_ms]} ({ALONE[name]:.1f} blocks/s), flush wall "
+                  f"{[round(t, 1) for t in wall]}, queue wait {[round(t, 1) for t in wait]} "
+                  f"against direct ms {[round(t, 1) for t in direct_ms]}, flush wall "
+                  f"{[round(f, 1) for *_, f in direct_runs]}; handoff {handoff:.1f} ms (median); "
+                  f"flushes {lane_labels[0]} (direct {direct_labels[0]}); launches per run={six}",
+                  flush=True)
+
+        trusted, untrusted = lc["trusted"], lc["untrusted"]
+
+        def step(acc):
+            with captured_finishes() as seen:
+                t0 = time.perf_counter()
+                with batch.accumulate_flushes(acc):
+                    verifier.verify_non_adjacent(
+                        CHAIN_ID, trusted.signed_header, trusted.validator_set,
+                        untrusted.signed_header, untrusted.validator_set, LIGHT_PERIOD,
+                        LIGHT_NOW, LIGHT_DRIFT, Fraction(1, 3), device=dev)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            return ms, [(m.tobytes(), p) for m, p in seen]
+
+        step(batch.FlushAccumulator(device=dev))  # warm
+        reset_launches()
+        (d_ms, d_seen), _, d_flush_ms = recorded_flushes(
+            lambda: step(batch.FlushAccumulator(device=dev)))
+        d_counts = read_launches("scheduler_lanes light direct")
+        mark = len(sched.flush_log)
+        reset_launches()
+        l_ms, l_seen = step(sched.accumulate("light"))
+        launches["scheduler_lanes light"] = read_launches("scheduler_lanes light")
+        log = list(sched.flush_log)[mark:]
+        if (l_seen != d_seen or [set(e["rows"]) for e in log] != [{"light"}]
+                or {k: launches["scheduler_lanes light"][k] for k in ED25519_KERNELS}
+                != {k: d_counts[k] for k in ED25519_KERNELS}):
+            raise SystemExit(f"scheduler_lanes light: {[p for _, p in l_seen]} vs "
+                             f"{[p for _, p in d_seen]}, log {log}")
+        wait_ms = log[0]["wait_s"]["light"] * 1e3
+        print(f"scheduler_lanes light (light_trusting_4k's step, both checks in one "
+              f"{log[0]['rows']['light']}-row flush): ms={l_ms:.1f} (flush wall "
+              f"{log[0]['wall_s'] * 1e3:.1f}, queue wait {wait_ms:.1f}) against a "
+              f"FlushAccumulator's ms={d_ms:.1f} (flush wall {d_flush_ms:.1f}); handoff "
+              f"{l_ms - wait_ms - d_ms:.1f} ms; labels {[p for _, p in l_seen]}; "
+              f"launches={launches['scheduler_lanes light']}", flush=True)
+        if sched.fallbacks:
+            raise SystemExit(f"scheduler_lanes: {sched.fallbacks} inline fallbacks")
+
+
+def zipf_requests(heights: int, n: int, seed: int) -> list:
+    """bench.py bench_light_serve's draw: Zipf(1.1) over heights 2..heights."""
+    import random
+
+    rng = random.Random(seed)
+    ranks = list(range(2, heights + 1))
+    return rng.choices(ranks, [1.0 / (i + 1) ** 1.1 for i in range(len(ranks))], k=n)
+
+
+def light_service(dev, chain, scheduler=None):
+    from tendermint_tpu_torch.config import LightServiceConfig
+    from tendermint_tpu_torch.light.provider import MockProvider
+    from tendermint_tpu_torch.light.service import LightService
+
+    cfg = LightServiceConfig(coalesce_window=SERVE_WINDOW, max_heights_per_flush=SKIP_HEIGHTS + 1,
+                             max_pending=0, trust_period=LIGHT_PERIOD / NANOS)
+    return LightService(CHAIN_ID, MockProvider(CHAIN_ID, chain), cfg, now_ns=lambda: LIGHT_NOW,
+                        scheduler=scheduler, device=dev)
+
+
+def serve(svc, chain, reqs, clients: int):
+    """`clients` concurrent clients, each asking its share of `reqs` in turn:
+    (wall s, latencies s, answers (height, source)); every answer must be
+    the chain's header at that height."""
+    import asyncio
+
+    lats, answers = [], []
+
+    async def client(mine):
+        for h in mine:
+            t1 = time.perf_counter()
+            lb, source = await svc.verify_height(h)
+            lats.append(time.perf_counter() - t1)
+            if lb.hash() != chain[h].hash():
+                raise SystemExit(f"light service answered height {h} with another header")
+            answers.append((h, source))
+
+    async def go():
+        t1 = time.perf_counter()
+        await asyncio.gather(*[client(reqs[i::clients]) for i in range(clients)])
+        return time.perf_counter() - t1
+
+    wall = asyncio.run(go())
+    torch.cuda.synchronize()
+    return wall, sorted(lats), answers
+
+
+def pct_ms(vals, p: float) -> float:
+    return vals[min(len(vals) - 1, int(p * len(vals)))] * 1e3
+
+
+def light_serve_phase(dev, lc, launches) -> None:
+    """light_serve_1k: a LightService on the card (its own scheduler, the
+    light lane) over MockProvider on light_skipping's chain (16 heights x
+    1,024 validators, the set rotating at 9: heights 9 and up take the
+    bisection fallback), bench.py bench_light_serve's traffic; every answer
+    the chain's header. Printed: client_verifs/s, p50/p99 latency, card
+    flushes, lanes, cache hits, single-flight waits, bisections, the stage
+    percentiles; then bench's serial arm (a fresh skipping Client per
+    request from the anchor, sampled) and the speedup."""
+    import asyncio
+
+    from tendermint_tpu_torch.libs.kvdb import MemDB
+    from tendermint_tpu_torch.light.client import Client, TrustOptions
+    from tendermint_tpu_torch.light.provider import MockProvider
+    from tendermint_tpu_torch.light.store import LightStore
+
+    chain = lc["chain"]
+    reqs = zipf_requests(SKIP_HEIGHTS, SERVE_REQUESTS, SERVE_SEED)
+    svc = light_service(dev, chain)
+    reset_launches()
+    try:
+        wall, lats, answers = serve(svc, chain, reqs, SERVE_CLIENTS)
+        launches["light_serve_1k"] = read_launches("light_serve_1k")
+        st = svc.stats()
+        sched_st = svc.scheduler.stats()
+    finally:
+        svc.close()
+    if sched_st["inline_fallbacks"] or len(answers) != len(reqs):
+        raise SystemExit(f"light_serve_1k: {len(answers)} answers, {sched_st['inline_fallbacks']} "
+                         f"fallbacks")
+    ALONE["light_per_s"] = len(reqs) / wall
+    print(f"light_serve_1k ({SERVE_CLIENTS} clients, {len(reqs)} Zipf(1.1) requests over heights "
+          f"2-{SKIP_HEIGHTS} of {SKIP_N} validators, window {SERVE_WINDOW} s): "
+          f"client_verifs_per_s={len(reqs) / wall:.1f} wall_s={wall:.3f} p50_ms="
+          f"{pct_ms(lats, 0.5):.1f} p99_ms={pct_ms(lats, 0.99):.1f}; flushes={st['flushes']} "
+          f"lanes_total={st['lanes_total']} cache_hits={st['cache_hits']} singleflight_waits="
+          f"{st['singleflight_waits']} bisections={st['bisections']} outcomes={st['outcomes']} "
+          f"windows={st['coalescer']['windows_fired']}; light-lane flushes "
+          f"{sched_st['lanes']['light']['flushes']} of {sched_st['lanes']['light']['rows_total']} "
+          f"rows; launches={launches['light_serve_1k']}", flush=True)
+    print(f"light_serve_1k stages: {json.dumps(st['stage_percentiles'])}", flush=True)
+
+    anchor = chain[1]
+    sample, serial = reqs[:SERVE_SERIAL], []
+    for h in sample:
+        client = Client(CHAIN_ID, TrustOptions(LIGHT_PERIOD, 1, anchor.hash()),
+                        MockProvider(CHAIN_ID, chain), [], LightStore(MemDB()), device=dev)
+
+        async def go(client=client, h=h):
+            await client.initialize(LIGHT_NOW)
+            return await client.verify_light_block_at_height(h, LIGHT_NOW)
+
+        t0 = time.perf_counter()
+        lb = asyncio.run(go())
+        torch.cuda.synchronize()
+        serial.append(time.perf_counter() - t0)
+        if lb.hash() != chain[h].hash():
+            raise SystemExit(f"light_serve_1k serial arm: height {h} verified another header")
+    per_req = sum(serial) / len(serial)
+    print(f"light_serve_1k serial arm (a fresh skipping Client per request from the anchor, "
+          f"first {len(sample)} requests): per_request_ms={per_req * 1e3:.1f} "
+          f"(heights < {SKIP_ROTATION}: one step; from {SKIP_ROTATION}: the bisection) against "
+          f"coalesced per_request_ms={wall / len(reqs) * 1e3:.2f}: speedup "
+          f"{per_req / (wall / len(reqs)):.1f}x", flush=True)
+
+
+def scheduler_mixed_phase(dev, corpus, cu, lc, launches) -> None:
+    """scheduler_mixed: one default scheduler on the card shared at once by
+    vote_storm_10k storms on one thread (VoteSet.flush, the votes lane,
+    inline), super_batch_1k catch-up runs looping on a second
+    (verify_run_batched(scheduler=): the catch-up lane, two chunks a run),
+    light_serve_1k's clients on the event loop (a fresh LightService on the
+    shared scheduler's light lane), and vote rows queued through a votes-lane
+    LaneAccumulator every second on a fourth (the queued form of the lane,
+    which the between-chunk preemption point serves). Every mask, index and
+    answer must equal its deterministic result; no vote flush may carry
+    another lane's rows; at least one between-chunk preemption; no inline
+    fallback; every Ed25519 kernel launched. Printed: votes/s and catch-up
+    blocks/s alone (scheduler_lanes) against under load, light requests/s,
+    the lanes' wait percentiles; then one short window of the three
+    consumers under torch.profiler: device busy and idle share."""
+    import threading
+
+    from tendermint_tpu_torch.blocksync.verify import verify_run_batched
+    from tendermint_tpu_torch.crypto import batch
+
+    vals, block_id, commit, _ = corpus
+    votes = storm_votes(vals, block_id, commit)
+    sb_vals, sb_run = cu["super_batch_1k"]["vals"], cu["super_batch_1k"]["runs"][0]
+    q_rows = ([v.pub_key.bytes() for v in vals.validators[:DRAIN]], list(corpus[3][:DRAIN]),
+              [cs.signature for cs in commit.signatures[:DRAIN]])
+    chain = lc["chain"]
+    reqs = zipf_requests(SKIP_HEIGHTS, SERVE_REQUESTS, SERVE_SEED)
+    drains = [DRAIN] * (N_VALIDATORS // DRAIN) + [N_VALIDATORS % DRAIN]
+
+    def storm():
+        vs, flushes, ms = run_storm(dev, vals, votes, peers=True)
+        if ([f[0] for f in flushes] != drains or any(f[4] for f in flushes)
+                or vs.make_commit().encode() != commit.encode()):
+            raise SystemExit(f"scheduler_mixed: a storm gave {[f[:3] for f in flushes]}")
+        return ms
+
+    def catchup():
+        t0 = time.perf_counter()
+        got = verify_run_batched(sb_vals, CHAIN_ID, sb_run, scheduler=sched)
+        torch.cuda.synchronize()
+        if got is not None:
+            raise SystemExit(f"scheduler_mixed: the super_batch_1k run failed at {got}")
+        return (time.perf_counter() - t0) * 1e3
+
+    def queued():
+        acc = sched.accumulate("votes")
+        acc.add(*q_rows, None)
+        if not acc.flush().all():
+            raise SystemExit("scheduler_mixed: queued vote rows refused")
+
+    def worker(fn, out, stop, pause=0.0):
+        try:
+            while not stop.is_set():
+                out.append(fn())
+                if pause:
+                    stop.wait(pause)
+        except BaseException as e:  # re-raised on the main thread
+            errors.append(e)
+
+    errors = []
+    with installed_scheduler(dev) as sched:
+        between = [0]
+        real_preempt = sched._preempt_votes_between_chunks
+
+        def preempt():
+            with sched._cv:
+                queued_votes = bool(sched._lanes["votes"].queue)
+            real_preempt()
+            between[0] += queued_votes
+
+        sched._preempt_votes_between_chunks = preempt
+        stop = threading.Event()
+        storms, runs, qs = [], [], []
+        threads = [threading.Thread(target=worker, args=a) for a in
+                   ((storm, storms, stop), (catchup, runs, stop), (queued, qs, stop, 1.0))]
+        reset_launches()
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        svc = light_service(dev, chain, scheduler=sched)
+        try:
+            wall, lats, answers = serve(svc, chain, reqs, SERVE_CLIENTS)
+        finally:
+            svc.close()
+        deadline = time.perf_counter() + 60  # the window stays open for one preemption
+        while not between[0] and not errors and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        stop.set()
+        for t in threads:
+            t.join()
+        window = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        if errors:
+            raise errors[0]
+        launches["scheduler_mixed"] = read_launches("scheduler_mixed")
+        log = list(sched.flush_log)
+        mixed_votes = [f["rows"] for f in log if "votes" in f["rows"] and len(f["rows"]) > 1]
+        st = sched.stats()
+        if mixed_votes or not between[0] or sched.fallbacks or not storms or not runs:
+            raise SystemExit(f"scheduler_mixed: vote flushes with other rows {mixed_votes}, "
+                             f"between-chunk preemptions {between[0]}, fallbacks "
+                             f"{sched.fallbacks}, storms {len(storms)}, runs {len(runs)}")
+        lanes = {lane: (v["flushes"], v["rows_total"]) for lane, v in st["lanes"].items()}
+        votes_s = N_VALIDATORS * len(storms) / sum(storms) * 1e3
+        blocks_s = CATCHUP["super_batch_1k"][0] * len(runs) / sum(runs) * 1e3
+        print(f"scheduler_mixed (window {window:.1f} s): votes_per_s alone "
+              f"{ALONE['votes_per_s']:.0f}, under load {votes_s:.0f} ({len(storms)} storms, ms "
+              f"{[round(t, 1) for t in storms]}); super_batch_1k blocks_per_s alone "
+              f"{ALONE['super_batch_1k']:.1f}, under load {blocks_s:.1f} ({len(runs)} runs, ms "
+              f"{[round(t, 1) for t in runs]}); light requests/s alone {ALONE['light_per_s']:.1f}, "
+              f"under load {len(reqs) / wall:.1f} (p50 {pct_ms(lats, 0.5):.1f} ms, p99 "
+              f"{pct_ms(lats, 0.99):.1f} ms); queued vote flushes {len(qs)}; preemptions "
+              f"{st['preemptions']} ({between[0]} between chunks); fallbacks 0; flushes by lane "
+              f"(flushes, rows) {lanes}; launches={launches['scheduler_mixed']}", flush=True)
+        print(f"scheduler_mixed lane waits: {json.dumps(st['lane_wait_percentiles'])}", flush=True)
+
+        # one short window under the profiler: a catch-up run, two drains, 32
+        # light requests of heights below the rotation on a fresh service
+        few = [h for h in reqs if h < SKIP_ROTATION][:32]
+        svc = light_service(dev, chain, scheduler=sched)
+
+        def window_fn():
+            side = [threading.Thread(target=catchup),
+                    threading.Thread(target=run_storm, args=(dev, vals, votes[:2 * DRAIN]))]
+            for t in side:
+                t.start()
+            serve(svc, chain, few, SERVE_CLIENTS)
+            for t in side:
+                t.join()
+
+        try:
+            profile_window("scheduler_mixed window", window_fn)
+        finally:
+            svc.close()
+
+
+def profile_window(path: str, fn) -> None:
+    """fn() under torch.profiler: its wall, the device busy time (the kernel
+    records of every thread), the idle share and the kernel count."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    if busy_ms <= 0:
+        print(f"profile {path}: the profiler recorded no device time (device busy: not measured)")
+        return
+    print(f"profile {path}: wall_ms={wall_ms:.1f} device_busy_ms={busy_ms:.2f} kernels="
+          f"{sum(e.count for e in rows)} idle_share={1 - busy_ms / wall_ms:.3f}", flush=True)
+
+
+def poisoned_votes_phase(dev, pz, launches) -> None:
+    """poisoned_votes: the POISON_ROWS-row batch through the votes lane of a
+    scheduler on the card, with sources, POISON_CALLS calls clean and
+    POISONED_CALLS at 1% poison (a fresh suspicion scorer each arm): the
+    first poisoned call's combined check fails and recovers on the card, the scorer quarantines
+    peer:poisoner, and every later call partitions its rows onto the
+    quarantine lane. Every mask equals ed25519_ref's verdicts. Printed per
+    arm: the votes-lane flush wall p50/p99/max, quarantine flushes, recovery
+    flushes and quarantined rows (the recorder's counters), labels."""
+    from tendermint_tpu_torch.crypto import provenance, scheduler
+    from tendermint_tpu_torch.libs import trace
+
+    sched = scheduler.VerifyScheduler(device=dev)
+    prev = provenance.set_default(provenance.SuspicionScorer())
+    out = {}
+    try:
+        for arm, (sigs, srcs, want) in pz["arms"].items():
+            provenance.default_scorer().reset()
+            mark = len(sched.flush_log)
+            c0 = trace.verify_stats()["counters"]
+            path = f"poisoned_votes {arm}"
+            reset_launches()
+            t0 = time.perf_counter()
+
+            def calls(n=POISON_CALLS if arm == "clean" else POISONED_CALLS):
+                for _ in range(n):
+                    mask = sched.verify_rows("votes", pz["pks"], pz["msgs"], sigs, None, srcs)
+                    if mask.tobytes() != want.tobytes():
+                        raise SystemExit(f"{path}: False at {np.flatnonzero(~mask).tolist()}, "
+                                         f"ed25519_ref {np.flatnonzero(~want).tolist()}")
+
+            _, flushes, _ = recorded_flushes(calls)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches[path] = read_launches(path)
+            c1 = trace.verify_stats()["counters"]
+            log = list(sched.flush_log)[mark:]
+            walls = sorted(f["wall_s"] for f in log if "votes" in f["rows"])
+            out[arm] = dict(
+                ms=ms, p50=pct_ms(walls, 0.5), p99=pct_ms(walls, 0.99), max=walls[-1] * 1e3,
+                vote_flushes=len(walls),
+                quarantine_flushes=sum(1 for f in log if "quarantine" in f["rows"]),
+                recovery=c1["recovery_flushes"] - c0["recovery_flushes"],
+                quarantined_rows=c1["quarantined_rows"] - c0["quarantined_rows"],
+                sources=provenance.default_scorer().stats()["quarantined"],
+                labels=sorted({p for _, p in flushes}), first=flushes[:3])
+        if (out["1%"]["sources"] != ["peer:poisoner"] or out["clean"]["sources"]
+                or not out["1%"]["quarantine_flushes"] or sched.fallbacks):
+            raise SystemExit(f"poisoned_votes: {out}")
+    finally:
+        provenance.set_default(prev)
+        sched.close()
+    for arm, o in out.items():
+        print(f"poisoned_votes {arm} ({o['vote_flushes']} calls of {POISON_ROWS} rows"
+              + (f", rows {pz['bad']} poisoned" if arm != "clean" else "") + f"): ms={o['ms']:.1f} "
+              f"votes-lane flush wall p50_ms={o['p50']:.1f} p99_ms={o['p99']:.1f} "
+              f"max_ms={o['max']:.1f} ({o['vote_flushes']} flushes); quarantine flushes "
+              f"{o['quarantine_flushes']}, recovery flushes {o['recovery']}, quarantined rows "
+              f"{o['quarantined_rows']}, quarantined sources {o['sources']}; labels {o['labels']}, "
+              f"first flushes {o['first']}; launches={launches[f'poisoned_votes {arm}']}",
+              flush=True)
+    print(f"poisoned_votes: vote-lane p99 at 1% over clean "
+          f"{out['1%']['p99'] / out['clean']['p99']:.2f}x; every mask equals ed25519_ref's",
+          flush=True)
 
 
 def build_bls_set():
@@ -2675,6 +3328,7 @@ def main() -> int:
     cofactorless = build_cofactorless_commit(corpus)
     light = build_light(np.random.default_rng(SEED + 10))
     catchup = build_catchup(np.random.default_rng(SEED + 11))
+    poisoned = build_poisoned(corpus)
     bls = build_bls_set()
     dev = torch.device("cuda")
     card_line = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -2710,7 +3364,7 @@ def main() -> int:
     rows, base = kernel_checks(dev, rng, card)
     rows += bls_kernel_checks(dev, rng, card)
     msm_reference_check(dev, rng, base)
-    record_shapes()
+    record_shapes(rows)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s since the build began", flush=True)
     launches = {}
     for phase, args in (
@@ -2720,13 +3374,18 @@ def main() -> int:
             (cofactorless_phase, (cofactorless, launches)), (light_phase, (light, launches)),
             (commit_1k_phase, (corpus, launches)),
             (vote_storm_phase, (corpus, launches, memo_default)),
-            (catchup_phase, (catchup, launches)), (memo_phase, (corpus, launches, memo_default))):
+            (catchup_phase, (catchup, launches)), (memo_phase, (corpus, launches, memo_default)),
+            (scheduler_lanes_phase, (corpus, catchup, light, launches)),
+            (light_serve_phase, (light, launches)),
+            (scheduler_mixed_phase, (corpus, catchup, light, launches)),
+            (poisoned_votes_phase, (poisoned, launches))):
         t_phase = time.perf_counter()
         phase(dev, *args)
         print(f"{phase.__name__}: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    rows += recorded_rows(card, launches)
     coverage(rows)
     for r in rows:  # the count on the path whose shape the row checks; none off the path
-        r["launches"] = 0 if r["path"] is None else launches[r["path"]][r["name"]]
+        r["launches"] = 0 if r["path"] is None else launches.get(r["path"], {}).get(r["name"], 0)
     print(json.dumps({"kernels": rows, "launches_by_path": launches}), flush=True)
     print(card_line, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,13 +2,15 @@
 
 The reference's BlocksyncReactor._verify_run_batched
 (tendermint_tpu/blocksync/reactor.py:285-342) as a function, without the
-reactor, its metrics, the scheduler's catch-up lane and the breaker's
-degrade. Each (first, parts, second) triple of the run holds a block, its
-PartSet and the next block, whose last_commit commits `first`; every
-commit is checked against the same validator set, and the for-block
-signatures of all of them go to ONE crypto.batch.verify_batch call with
-each row's key type (on the card from 256 rows: the pipelined stream from
-2,048 rows, the streamed planner past 12,287).
+reactor, its metrics and the breaker's degrade (ROADMAP D1). Each (first,
+parts, second) triple of the run holds a block, its PartSet and the next
+block, whose last_commit commits `first`; every commit is checked against
+the same validator set, and the for-block signatures of all of them go to
+ONE flush with each row's key type: the scheduler's catch-up lane when one
+is given and open (crypto/scheduler.py, which splits a flush above
+planner_chunk_rows()), else one crypto.batch.verify_batch call (on the card
+from 256 rows: the pipelined stream from 2,048 rows, the streamed planner
+past 12,287).
 """
 
 from __future__ import annotations
@@ -20,14 +22,15 @@ from tendermint_tpu_torch.types.basic import BlockID
 
 
 def verify_run_batched(vals, chain_id: str, run: Sequence[tuple], device=None,
-                       backend: Optional[str] = None) -> Optional[int]:
+                       backend: Optional[str] = None, scheduler=None) -> Optional[int]:
     """The index of the first triple whose commit fails, or None when all
     pass. A commit fails on its structure (a size other than the set's, a
     block ID other than BlockID(first.hash(), parts.header), a height other
     than first's) or when the power of its for-block signatures that
     verified is at most 2/3 of the set's. A run whose commits hold no
     for-block signature gives 0 (None when the run is empty), as the
-    reference's does. device and backend go to verify_batch."""
+    reference's does. device and backend go to verify_batch; a scheduler's
+    lane uses the scheduler's own."""
     pubkeys, msgs, sigs, key_types = [], [], [], []
     spans = []  # (start, count, powers, total power, structure ok)
     for first, parts, second, *_ in run:
@@ -52,8 +55,11 @@ def verify_run_batched(vals, chain_id: str, run: Sequence[tuple], device=None,
         spans.append((start, len(sigs) - start, powers, vals.total_voting_power(), ok_struct))
     if not sigs:
         return 0 if run else None
-    mask = verify_batch(pubkeys, msgs, sigs, device=device, key_types=key_types,
-                        backend=backend)
+    if scheduler is not None and not scheduler.closed:
+        mask = scheduler.verify_rows("catchup", pubkeys, msgs, sigs, key_types)
+    else:
+        mask = verify_batch(pubkeys, msgs, sigs, device=device, key_types=key_types,
+                            backend=backend)
     for i, (start, count, powers, total, ok_struct) in enumerate(spans):
         if not ok_struct:
             return i

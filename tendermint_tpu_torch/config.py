@@ -1,0 +1,73 @@
+"""Configuration of the port's verification scheduler and light service:
+the port's copies of `SchedulerConfig` and `LightServiceConfig` from
+tendermint_tpu/config/config.py (:263-340), with the same fields and
+defaults. convert.py carries the reference's instances across field by
+field. The rest of the node's configuration waits for the node (ROADMAP
+A10).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass
+class LightServiceConfig:
+    """light/service.py: the light client as a service. Repeat heights hit
+    a bounded verified-header cache (single-flight); distinct-height misses
+    coalesce into shared cross-height flushes on the scheduler's light
+    lane."""
+
+    enabled: bool = True
+    # coalescing window (seconds): the light lane holds rows this long, so
+    # misses arriving within it share one flush; 0 still coalesces
+    # same-event-loop-tick bursts
+    coalesce_window: float = 0.01
+    # a batch of jobs fires early once this many distinct heights joined
+    max_heights_per_flush: int = 64
+    # verified-header cache bound (LightStore pruning size)
+    cache_blocks: int = 2048
+    # misses in flight past this are shed (cache hits never are); 0 disables
+    max_pending: int = 1024
+    # trusting period (seconds) of the service's anchor span
+    trust_period: float = 7 * 24 * 3600.0
+    # skipping-verification trust level (1/3)
+    trust_level_numerator: int = 1
+    trust_level_denominator: int = 3
+    # clock drift tolerance (seconds) for header time checks
+    max_clock_drift: float = 10.0
+
+
+@dataclass
+class SchedulerConfig:
+    """crypto/scheduler.py: one node-wide scheduler with priority lanes.
+    Votes preempt (flush at once, alone), light serves within its
+    coalescing window, admission gets bounded latency, catch-up soaks idle
+    capacity. Pressure level 1 shrinks admission and catch-up (rows x
+    pressure_rows_factor, waits x pressure_wait_factor), level 2 pauses
+    catch-up."""
+
+    enabled: bool = True
+    # crypto backend of the combined flushes ("" = the crypto default)
+    backend: str = ""
+    # per-lane budgets: max rows taken per combined flush (0 = uncapped)
+    # and max seconds a queued row waits before its lane must flush
+    votes_max_rows: int = 0
+    votes_max_wait: float = 0.0
+    light_max_rows: int = 8192
+    light_max_wait: float = 0.01  # the light service re-pins it from coalesce_window
+    admission_max_rows: int = 1024
+    admission_max_wait: float = 0.004
+    catchup_max_rows: int = 8192
+    catchup_max_wait: float = 0.25
+    # quarantine lane (crypto/provenance.py): flushes alone, only when every
+    # other lane is empty (starvation floor = CATCHUP_STARVATION_FACTOR x wait)
+    quarantine_max_rows: int = 4096
+    quarantine_max_wait: float = 0.05
+    # overload response (set_pressure)
+    pressure_rows_factor: float = 0.5
+    pressure_wait_factor: float = 2.0
+    # device-batched transaction admission (read by the mempool, not ported)
+    admission_precheck: bool = True
+    # a consumer blocked on its verdict verifies inline after this many seconds
+    wait_timeout: float = 30.0

@@ -20,6 +20,9 @@
 - `validator_set_from_reference`: a ValidatorSet of the JAX package -> the
   port's, with each validator's key type, power, address and proposer
   priority, and the same proposer.
+- `scheduler_config_from_reference`, `light_service_config_from_reference`:
+  the JAX package's SchedulerConfig / LightServiceConfig -> the port's
+  config.py dataclasses, field by field.
 """
 
 from __future__ import annotations
@@ -122,3 +125,23 @@ def validator_set_from_reference(vals):
     if vals.proposer is not None:
         out.proposer = out.get_by_address(vals.proposer.address)[1]
     return out
+
+
+def _dataclass_from(cls, ref):
+    from dataclasses import fields
+
+    return cls(**{f.name: getattr(ref, f.name) for f in fields(cls)})
+
+
+def scheduler_config_from_reference(ref):
+    """A SchedulerConfig of the JAX package -> the port's, field by field."""
+    from tendermint_tpu_torch.config import SchedulerConfig
+
+    return _dataclass_from(SchedulerConfig, ref)
+
+
+def light_service_config_from_reference(ref):
+    """A LightServiceConfig of the JAX package -> the port's, field by field."""
+    from tendermint_tpu_torch.config import LightServiceConfig
+
+    return _dataclass_from(LightServiceConfig, ref)

@@ -65,6 +65,17 @@ rows that verified True before: a call whose rows all hit takes path
 "memo" with no flush, a partial hit verifies only the rest, and the True
 rows of every flush and finish are inserted.
 
+Then, as in the reference, a lane router installed by crypto/scheduler.py
+(`set_lane_router`) takes the rows of a call made inside a scheduler's
+`lane_scope` to that lane. Every flush and finish is recorded by
+libs/trace.py's `record_flush` (its span gated on one tracer flag read),
+and `verify_batch(..., sources=)` feeds the rows' verdicts to the
+suspicion scorer (crypto/provenance.py). The reference's circuit breaker
+has no counterpart (ROADMAP D1). `_PATH.label`, the route label, is kept
+per thread: a vote flush on its caller's thread and the scheduler's
+dispatch thread route at the same time, while LAST_FLUSH stays
+process-global (last flush wins).
+
 Every route is COFACTORED with canonical encodings and s < L, except the
 serial loop in cofactorless mode, so a mask never depends on the route
 (crypto/ed25519_ref.verify_cofactored).
@@ -94,6 +105,7 @@ import torch
 from tendermint_tpu_torch import native
 from tendermint_tpu_torch.crypto.ed25519_ref import BASE, L, point_compress
 from tendermint_tpu_torch.device import resolve
+from tendermint_tpu_torch.libs import trace as _trace
 
 RLC_MIN = 512
 L8 = 8 * L  # full curve-group order: the A-lane scalar modulus
@@ -968,8 +980,10 @@ def verify_batch_cpu(pubkeys: Sequence[bytes], msgs: Sequence[bytes],
 # ---------------------------------------------------------------------------
 # The card arm.
 
-# The route label of the last card flush (the reference's LAST_JAX_PATH).
-LAST_PATH: List[str] = [""]
+# The route label of this thread's last card flush (the reference's
+# LAST_JAX_PATH). Per thread: the scheduler's dispatch thread and a vote
+# flush on its caller's thread route at the same time.
+_PATH = threading.local()
 
 
 def _persig_flush(pubkeys, msgs, sigs, device) -> np.ndarray:
@@ -978,7 +992,7 @@ def _persig_flush(pubkeys, msgs, sigs, device) -> np.ndarray:
 
     a, r, s_d, h_d, precheck, n = prepare_batch(pubkeys, msgs, sigs)
     t = [torch.from_numpy(x).to(device) for x in (a, r, s_d, h_d)]
-    LAST_PATH[0] = "persig"
+    _PATH.label = "persig"
     mask = verify_prepared(*t).cpu().numpy()[:n]
     return mask & precheck
 
@@ -1100,7 +1114,7 @@ def _verify_batch_streamed(pubkeys, msgs, sigs, device) -> np.ndarray:
     recovered, recovery_flushes, their sum (as the reference counts)."""
     mask = _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device)
     if mask is not None:
-        LAST_PATH[0] = "rlc-streamed"
+        _PATH.label = "rlc-streamed"
         return mask
     detail = dict(LAST_FLUSH)
     t0 = time.perf_counter()
@@ -1108,14 +1122,14 @@ def _verify_batch_streamed(pubkeys, msgs, sigs, device) -> np.ndarray:
     for lo, hi in _planner_chunks(len(pubkeys)):
         LAST_FLUSH.clear()
         parts.append(verify_batch_cuda(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], device))
-        recovered.append(dict(rows=hi - lo, path=LAST_PATH[0], mode=LAST_FLUSH.get("mode"),
+        recovered.append(dict(rows=hi - lo, path=_PATH.label, mode=LAST_FLUSH.get("mode"),
                               recovery_flushes=LAST_FLUSH.get("recovery_flushes", 0)))
     LAST_FLUSH.clear()
     LAST_FLUSH.update(detail, recovery_s=time.perf_counter() - t0, recovered_chunks=recovered)
     flushes = sum(c["recovery_flushes"] for c in recovered)
     if flushes:
         LAST_FLUSH["recovery_flushes"] = flushes
-    LAST_PATH[0] = "rlc-streamed-recovery"
+    _PATH.label = "rlc-streamed-recovery"
     return np.concatenate(parts)
 
 
@@ -1203,14 +1217,14 @@ def _bisect_recover(pubkeys, msgs, sigs, device):
         lambda lo, hi: _persig_flush(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], device),
         _bisect_leaf_rows(), RLC_MIN)
     if bad_leaves > 1 or flushes > 1:
-        LAST_PATH[0] = "rlc-bisect"
+        _PATH.label = "rlc-bisect"
     return mask, flushes
 
 
 def verify_batch_cuda(pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Sequence[bytes],
                       device: torch.device) -> np.ndarray:
     """The card arm on a resolved `device` (the reference's verify_batch_jax
-    on one device); LAST_PATH names the route. After a failed single or
+    on one device); _PATH.label names the route. After a failed single or
     pipelined combined check (or a pipelined geometry that declines, as in
     the reference), the exact mask comes from the bisection or, with
     TMTPU_BISECT=0, one per-signature pass; LAST_FLUSH keeps the failed
@@ -1225,12 +1239,12 @@ def verify_batch_cuda(pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Seq
     if _stream_enabled() and n >= _stream_floor():
         mask = _verify_batch_pipelined(pubkeys, msgs, sigs, device)
         if mask is not None:
-            LAST_PATH[0] = "rlc-pipelined"
+            _PATH.label = "rlc-pipelined"
             return mask
     else:
         mask = _rlc_finish(_rlc_submit(pubkeys, msgs, sigs, device))
         if mask is not None:
-            LAST_PATH[0] = "rlc"
+            _PATH.label = "rlc"
             return mask
     detail = dict(LAST_FLUSH)
     t0 = time.perf_counter()
@@ -1296,23 +1310,50 @@ def _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend) -
 
 def _verify_batch_routed(pubkeys, msgs, sigs, device, backend) -> tuple:
     """verify_batch's routing of an all-Ed25519 set (the reference's
-    _verify_batch_routed): (mask, route label). An arm that is neither the
-    host nor the card raises ValueError."""
+    _verify_batch_routed): (mask, arm, route label). An arm that is neither
+    the host nor the card raises ValueError."""
     be = backend_default() if backend is None else _card_alias(backend)
     if (backend is None and be == "cuda" and len(pubkeys) < _CUDA_MIN_BATCH
             and not _names_card(device)):
         be = "cpu"
     if be == "cpu":
-        return verify_batch_cpu(pubkeys, msgs, sigs), "cpu"
+        return verify_batch_cpu(pubkeys, msgs, sigs), "cpu", "cpu"
     if be != "cuda":
         raise ValueError(f"unknown crypto backend {be!r}")
     mask = verify_batch_cuda(pubkeys, msgs, sigs, resolve(device))
-    return mask, LAST_PATH[0]
+    return mask, "cuda", _PATH.label
+
+
+def _score_rows(sources, mask) -> Optional[int]:
+    """The provenance feed (the reference's, batch.py:3200-3215): the rows
+    whose source was already quarantined when this flush ran (None for
+    none), then the scorer advances on the flush's verdicts. Advisory: it
+    never raises into the verify path."""
+    from tendermint_tpu_torch.crypto import provenance as _prov
+
+    try:
+        scorer = _prov.default_scorer()
+        q = scorer.quarantined_sources()
+        quarantined = (sum(1 for s in sources if s in q) or None) if q else None
+        scorer.record_rows(sources, mask)
+    except Exception:
+        return None
+    return quarantined
+
+
+def _record_memo_hits(nh: int, t_memo: float, sources) -> None:
+    """A memo answer's flush record; rows answered clean still count toward
+    their sources' parole."""
+    _trace.record_flush(backend="memo", path="memo", n=nh, total_s=time.perf_counter() - t_memo,
+                        n_valid=nh, memo_hits=nh)
+    if sources is not None:
+        _score_rows(sources, np.ones(nh, dtype=bool))
 
 
 def verify_batch(
     pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Sequence[bytes], device=None,
-    key_types: Optional[Sequence[str]] = None, backend: Optional[str] = None,
+    key_types: Optional[Sequence[str]] = None, backend: Optional[str] = None, *,
+    sources: Optional[Sequence[str]] = None,
 ) -> np.ndarray:
     """Verify N (pubkey, msg, sig) triples; returns bool[N]. key_types: per-row
     key type, None meaning all ed25519; a set with other types takes the
@@ -1320,14 +1361,19 @@ def verify_batch(
     "cuda" (the card arm on `device`; "jax", the reference's name, is read
     as "cuda"), "cpu" (the host arm) or None (TMTPU_CRYPTO_BACKEND, the
     verify mode, the row count and a card `device` decide; see the module
-    docstring).
+    docstring). sources: optional per-row provenance tags
+    (crypto/provenance.py); the flush's verdicts feed the suspicion scorer,
+    None skips scoring. Tags never change a verdict.
 
     The verified-row memo is read first, as in the reference: when every
     row verified True before, the mask comes from it with no flush (path
     "memo"); when some did, only the others are verified (LAST_FLUSH is
     that flush's, with memo_hits). The rows of a flush that verify True are
-    inserted after it; a flush that raises inserts nothing.
-    LAST_FLUSH["path"] is the route's label."""
+    inserted after it; a flush that raises inserts nothing. Then, inside a
+    scheduler's lane_scope on this thread, the rows go to that lane
+    (crypto/scheduler.py) instead of flushing here. LAST_FLUSH["path"] is
+    the route's label; every flush is also recorded by libs/trace.py's
+    record_flush (one span when tracing is on)."""
     if not (len(pubkeys) == len(msgs) == len(sigs)):
         raise ValueError("pubkeys/msgs/sigs length mismatch")
     if len(pubkeys) == 0:
@@ -1335,30 +1381,80 @@ def verify_batch(
     digests = None
     if _MEMO.capacity:
         digests = _MEMO.digest_rows(pubkeys, msgs, sigs, key_types)
+        t_memo = time.perf_counter()
         hit = _MEMO.lookup(digests) if len(_MEMO) else np.zeros(len(digests), dtype=bool)
         nh = int(hit.sum())
         if nh == len(pubkeys):
             LAST_FLUSH.clear()
             LAST_FLUSH.update(path="memo", memo_hits=nh)
+            _record_memo_hits(nh, t_memo, sources)
             return np.ones(nh, dtype=bool)
         if nh:
+            _record_memo_hits(nh, t_memo, None if sources is None else
+                              [sources[i] for i in np.flatnonzero(hit)])
             idx = np.flatnonzero(~hit)
             out = np.ones(len(pubkeys), dtype=bool)
             out[idx] = verify_batch(
                 [pubkeys[i] for i in idx], [msgs[i] for i in idx], [sigs[i] for i in idx],
                 device=device, backend=backend,
-                key_types=None if key_types is None else [key_types[i] for i in idx])
+                key_types=None if key_types is None else [key_types[i] for i in idx],
+                sources=None if sources is None else [sources[i] for i in idx])
             LAST_FLUSH["memo_hits"] = nh
             return out
-    if key_types is not None and any(t != "ed25519" for t in key_types):
-        mask = _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend)
-        path = "mixed"
-    else:
-        LAST_FLUSH.clear()
-        mask, path = _verify_batch_routed(pubkeys, msgs, sigs, device, backend)
+    if _LANE_ROUTER is not None:
+        mask = _LANE_ROUTER(pubkeys, msgs, sigs, backend, key_types, sources)
+        if mask is not None:
+            return mask
+    tr = _trace.tracer if _trace.tracer.enabled else None  # one flag read
+    t0 = time.perf_counter()
+    span = None
+    if tr is not None:
+        span = tr.span("verify_batch", n=len(pubkeys))
+        span.__enter__()
+    try:
+        if key_types is not None and any(t != "ed25519" for t in key_types):
+            mask = _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend)
+            be = backend_default() if backend is None else _card_alias(backend)
+            path = "mixed"
+        else:
+            LAST_FLUSH.clear()
+            mask, be, path = _verify_batch_routed(pubkeys, msgs, sigs, device, backend)
+    except BaseException as e:
+        if span is not None:
+            span.set(error=type(e).__name__)
+            span.__exit__(None, None, None)
+        raise
     LAST_FLUSH["path"] = path
     _MEMO.insert(digests, mask)
+    detail = dict(LAST_FLUSH)
+    quarantined = None if sources is None else _score_rows(sources, mask)
+    _trace.record_flush(
+        backend=be, path=path, n=len(pubkeys), total_s=time.perf_counter() - t0,
+        n_valid=int(mask.sum()), prep_s=detail.get("prep_s"),
+        rlc_fallback=bool(detail.get("recovery_flushes")), fused=detail.get("fused"),
+        chunks=detail.get("chunks"), chunk_lanes=detail.get("chunk_lanes"),
+        prep_overlap_s=detail.get("prep_overlap_s"),
+        recovery_flushes=detail.get("recovery_flushes"), quarantined=quarantined, tracer_=tr)
+    if span is not None:
+        span.set(path=path, backend=be)
+        span.__exit__(None, None, None)
     return mask
+
+
+# ---------------------------------------------------------------------------
+# Scheduler lane hook (crypto/scheduler.py): inside a scheduler's
+# lane_scope, verify_batch and verify_batch_submit send their rows to that
+# lane instead of flushing themselves. One global read and a None check on
+# every call when no scheduler is installed.
+
+_LANE_ROUTER = None
+
+
+def set_lane_router(router) -> None:
+    """Install the scheduler's row router: callable(pubkeys, msgs, sigs,
+    backend, key_types, sources) -> mask, or None to route normally."""
+    global _LANE_ROUTER
+    _LANE_ROUTER = router
 
 
 # ---------------------------------------------------------------------------
@@ -1488,15 +1584,21 @@ def verify_batch_submit(
     queues the combined check on `device` and returns without syncing.
     Anything else runs verify_batch eagerly (a mixed set its exact per-type
     split, D3), whose own memo reading covers it, and the handle comes back
-    resolved. The reference's other terms (circuit breaker, lane router,
-    sharded runner) have no counterpart in the port yet (ROADMAP A1, A3,
-    A6); its catch around the submit is not ported (D1): a failure raises."""
+    resolved. Inside a scheduler's lane_scope (and outside an accumulator)
+    the rows go to that lane and the handle comes back resolved: the lane's
+    combined flush is the overlap. The reference's sharded runner has no
+    counterpart yet (ROADMAP A8), nor has its circuit breaker (D1); its
+    catch around the submit is not ported (D1): a failure raises."""
     if not (len(pubkeys) == len(msgs) == len(sigs)):
         raise ValueError("pubkeys/msgs/sigs length mismatch")
     acc = current_accumulator()
     if acc is not None:
         return BatchHandle(acc=acc, acc_range=acc.add(pubkeys, msgs, sigs, key_types))
     n = len(pubkeys)
+    if _LANE_ROUTER is not None and n > 0:
+        mask = _LANE_ROUTER(pubkeys, msgs, sigs, backend, key_types)
+        if mask is not None:
+            return BatchHandle(mask=mask)
     be = backend_default() if backend is None else _card_alias(backend)
     mixed = key_types is not None and any(t != "ed25519" for t in key_types)
     floor = _CUDA_MIN_BATCH if backend is None and not _names_card(device) else 0
@@ -1507,13 +1609,16 @@ def verify_batch_submit(
     digests = None
     if _MEMO.capacity:
         digests = _MEMO.digest_rows(pubkeys, msgs, sigs, key_types)
+        t_memo = time.perf_counter()
         if len(_MEMO) and _MEMO.lookup(digests).all():
             LAST_FLUSH.clear()
             LAST_FLUSH.update(path="memo", memo_hits=n)
+            _record_memo_hits(n, t_memo, None)
             return BatchHandle(mask=np.ones(n, dtype=bool))
     dev = resolve(device)
+    t0 = time.perf_counter()
     return BatchHandle(call=_rlc_submit(pubkeys, msgs, sigs, dev),
-                       args=(pubkeys, msgs, sigs, dev), digests=digests)
+                       args=(pubkeys, msgs, sigs, dev, t0), digests=digests)
 
 
 def verify_batch_finish(h: BatchHandle) -> np.ndarray:
@@ -1532,16 +1637,31 @@ def verify_batch_finish(h: BatchHandle) -> np.ndarray:
         start, end = h._acc_range
         h._mask = h._acc.flush()[start:end]
         return h._mask
-    pubkeys, msgs, sigs, dev = h._args
+    pubkeys, msgs, sigs, dev, t0 = h._args
+    tr = _trace.tracer if _trace.tracer.enabled else None  # one flag read
     LAST_FLUSH.clear()
-    mask = _rlc_finish(h._call)
+    if tr is not None:
+        with tr.span("rlc.finish", n=len(pubkeys), async_=True):
+            mask = _rlc_finish(h._call)
+    else:
+        mask = _rlc_finish(h._call)
+    detail = dict(LAST_FLUSH)
     if mask is not None:
         LAST_FLUSH["path"] = "rlc-async"
+        _trace.record_flush(
+            backend="cuda", path="rlc-async", n=len(pubkeys), total_s=time.perf_counter() - t0,
+            n_valid=int(mask.sum()), prep_s=detail.get("prep_s"), fused=detail.get("fused"),
+            chunks=detail.get("chunks"), chunk_lanes=detail.get("chunk_lanes"),
+            prep_overlap_s=detail.get("prep_overlap_s"), tracer_=tr)
     else:
-        t0 = time.perf_counter()
+        t_rec = time.perf_counter()
         mask = _persig_flush(pubkeys, msgs, sigs, dev)
         LAST_FLUSH.update(path="persig-async", recovery_flushes=1,
-                          recovery_s=time.perf_counter() - t0)
+                          recovery_s=time.perf_counter() - t_rec)
+        _trace.record_flush(
+            backend="cuda", path="persig-async", n=len(pubkeys),
+            total_s=time.perf_counter() - t0, n_valid=int(mask.sum()),
+            transfer_s=time.perf_counter() - t_rec, rlc_fallback=True, tracer_=tr)
     _MEMO.insert(h._digests, mask)
     h._mask, h._call, h._args, h._digests = mask, None, None, None
     return mask

@@ -1,7 +1,8 @@
 """Light client: trust-minimized header verification, the port's copy of
 tendermint_tpu/light/ (reference light/: client.go, verifier.go, store/,
-provider/, detector.go). The light service, its coalescer, the proxy and
-HTTPProvider are not ported yet (ROADMAP A2, A8).
+provider/, detector.go), and the light service with its coalescer
+(light/service.py, light/coalescer.py). The proxy and HTTPProvider are not
+ported yet (ROADMAP A10).
 """
 
 from tendermint_tpu_torch.light.client import (  # noqa: F401

@@ -13,10 +13,11 @@ Signatures are verified as a vote arrives, on the host, or, with
 sign bytes in one pass and verifies them in ONE crypto.batch.verify_batch
 call with each row's key type (on the card from 256 rows), then commits the
 votes that verified through `_add_verified`, queuing the conflicts it finds
-for `pop_conflicts()`. The reference sends that flush through its
-scheduler's votes lane when one is installed, with per-row provenance; the
-port has neither yet and calls verify_batch directly, the reference's own
-route without a scheduler (ROADMAP D4).
+for `pop_conflicts()`. Each row is tagged with its provenance,
+`peer:<id>` or `lane:votes` (crypto/provenance.py); with a default
+scheduler installed (crypto/scheduler.py) the flush rides its votes lane,
+on the scheduler's device, as the reference's does
+(types/vote_set.py:226-264).
 """
 
 from __future__ import annotations
@@ -57,7 +58,8 @@ class VoteSet:
     def __init__(self, chain_id: str, height: int, round_: int,
                  signed_msg_type: SignedMsgType, val_set, defer_verification: bool = False,
                  device=None, backend: Optional[str] = None):
-        """device, backend: passed to verify_batch by flush()."""
+        """device, backend: passed to verify_batch by flush() when no default
+        scheduler is installed (the scheduler's own apply otherwise)."""
         if height == 0:
             raise ValueError("cannot make VoteSet for height == 0")
         self.chain_id = chain_id
@@ -75,7 +77,8 @@ class VoteSet:
         self._maj23: Optional[BlockID] = None
         self._votes_by_block: Dict[bytes, _BlockVotes] = {}
         self._peer_maj23s: Dict[str, BlockID] = {}
-        # the deferred queue: (idx, vote, validator), and its (idx, block key, signature) set
+        # the deferred queue: (idx, vote, validator, peer id), and its
+        # (idx, block key, signature) set
         self._pending: List[tuple] = []
         self._pending_seen: Set[Tuple[int, bytes, bytes]] = set()
         self._conflicts: List[ConflictingVotesError] = []
@@ -142,8 +145,8 @@ class VoteSet:
         flush adds it), False for a duplicate. Raises VoteSetError for an
         invalid vote and ConflictingVotesError for an equivocation
         (reference types/vote_set.go:143-290). peer_id: the peer the vote
-        came from; the reference tags deferred rows with it, the port keeps
-        the argument and has no provenance yet (ROADMAP D4)."""
+        came from, each deferred row's provenance ("peer:<id>"; "" is a local
+        or replayed vote, "lane:votes")."""
         if vote is None:
             raise VoteSetError("nil vote")
         idx = vote.validator_index
@@ -172,7 +175,7 @@ class VoteSet:
             if seen_key in self._pending_seen:
                 return False
             self._pending_seen.add(seen_key)
-            self._pending.append((idx, vote, val))
+            self._pending.append((idx, vote, val, peer_id))
             return "pending"
         if not val.pub_key.verify(vote.sign_bytes(self.chain_id), vote.signature):
             raise VoteSetError(f"invalid signature from validator {idx}")
@@ -182,24 +185,32 @@ class VoteSet:
         return added
 
     def flush(self) -> Tuple[List[Vote], List[int]]:
-        """Verify every queued vote in one verify_batch call and add those
-        that verified, in queue order, through the same path as add_vote.
+        """Verify every queued vote in one flush (the default scheduler's votes
+        lane, or verify_batch) and add those that verified, in queue order,
+        through the same path as add_vote.
         Returns (the votes added, now safe to gossip; the validator indices
         of the votes that failed); the conflicts found wait in
         pop_conflicts(). A failure of the flush raises and leaves the queue
         as it was."""
         if not self._pending:
             return [], []
-        pubkeys = [val.pub_key.bytes() for _, _, val in self._pending]
-        sigs = [vote.signature for _, vote, _ in self._pending]
-        key_types = [val.pub_key.type_name() for _, _, val in self._pending]
+        from tendermint_tpu_torch.crypto import scheduler as _scheduler
+
+        pubkeys = [val.pub_key.bytes() for _, _, val, _ in self._pending]
+        sigs = [vote.signature for _, vote, _, _ in self._pending]
+        key_types = [val.pub_key.type_name() for _, _, val, _ in self._pending]
+        sources = [f"peer:{peer}" if peer else "lane:votes" for *_, peer in self._pending]
         msgs = canonical.vote_sign_bytes_many(
             self.chain_id, self.signed_msg_type, self.height, self.round,
-            ((vote.block_id, vote.timestamp_ns) for _, vote, _ in self._pending))
-        mask = verify_batch(pubkeys, msgs, sigs, device=self.device, key_types=key_types,
-                            backend=self.backend)
+            ((vote.block_id, vote.timestamp_ns) for _, vote, _, _ in self._pending))
+        sched = _scheduler.default_scheduler()
+        if sched is not None:
+            mask = sched.verify_rows("votes", pubkeys, msgs, sigs, key_types, sources)
+        else:
+            mask = verify_batch(pubkeys, msgs, sigs, device=self.device, key_types=key_types,
+                                backend=self.backend, sources=sources)
         committed, failed = [], []
-        for ok, (idx, vote, val) in zip(mask, self._pending):
+        for ok, (idx, vote, val, _) in zip(mask, self._pending):
             if not ok:
                 failed.append(idx)
                 continue

@@ -1,9 +1,11 @@
-"""The slice's paths on the card, held against the port's own host arm: a
-deferred VoteSet flush of 512 precommits, the commit it makes answered from
-the verified-row memo with no launch, DuplicateVoteEvidence checked by a
-card flush, and blocksync's batched commit check over a run of 4 blocks x
-128 validators, honest and with a block whose bad signatures leave 2/3 or
-less of the power.
+"""The port's consumer paths on the card, held against the port's own host
+arm or its direct card calls: a deferred VoteSet flush of 512 precommits,
+the commit it makes answered from the verified-row memo with no launch,
+DuplicateVoteEvidence checked by a card flush, blocksync's batched commit
+check over a run of 4 blocks x 128 validators, honest and with a block
+whose bad signatures leave 2/3 or less of the power, and the same vote
+flush and run through a scheduler on the card (votes lane, catch-up lane,
+an accumulated light-lane flush) against direct verify_batch calls.
 
 Every test needs a CUDA card and skips without one. The file imports
 neither JAX nor the JAX package, so it also runs where JAX is not
@@ -22,7 +24,7 @@ import pytest
 import torch
 
 from tendermint_tpu_torch.blocksync.verify import verify_run_batched
-from tendermint_tpu_torch.crypto import batch
+from tendermint_tpu_torch.crypto import batch, scheduler
 from tendermint_tpu_torch.crypto import ed25519_ref as ref
 from tendermint_tpu_torch.crypto.keys import Ed25519PubKey
 from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
@@ -158,12 +160,7 @@ class _Block:
         return self._h
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("tampered", [None, 2])
-def test_run_check_on_the_card(cuda_device, tampered):
-    """4 blocks x 128 validators, 512 rows: the card's combined check; 43
-    bad signatures in block 2 (more than a third of the power)."""
-    vals, seeds, rng = _set(128, 3)
+def _run(vals, seeds, rng, tampered=None):
     parts = [type("P", (), {"header": PartSetHeader(1, rng.bytes(32))})() for _ in range(4)]
     blocks = [_Block(h + 1, rng.bytes(32)) for h in range(4)]
     run = []
@@ -173,8 +170,61 @@ def test_run_check_on_the_card(cuda_device, tampered):
         votes = _precommits(vals, seeds, first.header.height, bid, bad=bad)
         run.append((first, ps, _Block(first.header.height + 1, b"",
                                       _commit(votes, first.header.height, bid))))
+    return run
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tampered", [None, 2])
+def test_run_check_on_the_card(cuda_device, tampered):
+    """4 blocks x 128 validators, 512 rows: the card's combined check; 43
+    bad signatures in block 2 (more than a third of the power)."""
+    vals, seeds, rng = _set(128, 3)
+    run = _run(vals, seeds, rng, tampered)
     want = verify_run_batched(vals, CHAIN, run, backend="cpu")
     _reset()
     got = verify_run_batched(vals, CHAIN, run, device=cuda_device)
     assert got == want == tampered
     assert all(_launches()[k] > 0 for k in KERNELS)
+
+
+@pytest.mark.cuda
+def test_scheduler_lanes_on_the_card(cuda_device):
+    """A default scheduler on the card: the deferred flush of 512 votes with
+    two bad ones on the votes lane, a tampered 512-row run on the catch-up
+    lane and 512 rows accumulated on the light lane give the direct card
+    calls' masks, failed indices and index, and launch the six kernels."""
+    vals, seeds, rng = _set(512, 4)
+    bid = BlockID(rng.bytes(32), PartSetHeader(1, rng.bytes(32)))
+    votes = _precommits(vals, seeds, 5, bid, bad=(9, 401))
+    cvals, cseeds, crng = _set(128, 5)
+    run = _run(cvals, cseeds, crng, tampered=1)
+    rows = ([v.pub_key.bytes() for v in vals.validators], [v.sign_bytes(CHAIN) for v in votes],
+            [v.signature for v in votes])
+    sched = scheduler.VerifyScheduler(device=cuda_device)
+    out = {}
+    try:
+        for arm in ("direct", "lanes"):
+            scheduler.set_default(sched if arm == "lanes" else None)
+            vs = VoteSet(CHAIN, 5, 0, SignedMsgType.PRECOMMIT, vals, defer_verification=True,
+                         device=cuda_device)
+            for i, v in enumerate(votes):
+                vs.add_vote(v, f"peer{i % 4}")
+            _reset()
+            committed, failed = vs.flush()
+            index = verify_run_batched(cvals, CHAIN, run, device=cuda_device,
+                                       scheduler=sched if arm == "lanes" else None)
+            acc = sched.accumulate("light") if arm == "lanes" else batch.FlushAccumulator(
+                device=cuda_device)
+            with batch.accumulate_flushes(acc):
+                handle = batch.verify_batch_submit(*rows, device=cuda_device)
+            mask = batch.verify_batch_finish(handle)
+            out[arm] = ([v.encode() for v in committed], failed, index, mask.tobytes(),
+                        _launches())
+    finally:
+        scheduler.set_default(None)
+        sched.close()
+    assert out["lanes"][:4] == out["direct"][:4]
+    assert out["lanes"][1] == [9, 401] and out["lanes"][2] == 1
+    assert all(out["lanes"][4][k] > 0 for k in KERNELS)
+    assert [sorted(f["rows"]) for f in sched.flush_log] == [["votes"], ["catchup"], ["light"]]
+    assert sched.fallbacks == 0
