@@ -37,7 +37,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      card ms recorded before their redesigns (text line only);
      the unfused MSM total against the integer reference on a small input,
      and the fused total against the unfused one at the 10k commit's 20,480
-     lanes;
+     lanes; ops/ristretto_torch.ristretto_decode on the card against its
+     plain version, limb for limb, at 2,048 and 1,024 lanes (the mixed
+     paths' sr25519 decodes);
   4. batch.prewarm(10,000, backend="cuda") (its seconds printed; the A
      cache is reset after it), then a 10,000-validator commit (random keys
      from a seed, real signatures over each row's precommit sign bytes)
@@ -52,6 +54,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      bucket, a head of 1,250 rows (one warm call, 5 timed, one profiled;
      host prep, prep wait and prep overlap printed); all run the fused MSM
      (uptree, fenwick_reduce, bucket_fold);
+  "device_sort": the warm single flush (stream off) with TMTPU_DEVICE_SORT=1
+     ("warm_dsort": the window sort on the card) against 0, 7 interleaved
+     pairs, both profiled, and the tampered rows under each (equal masks,
+     labels and recovery flushes: "warm tampered", "warm_dsort tampered");
   5. the "tampered" path: three tampered signatures, so the pipelined
      combined check fails and the bisection gives the mask (20 flushes:
      17 combined checks and 3 per-signature leaves, as the reference's
@@ -78,11 +84,16 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      ed25519_ref;
   8. "mixed_sr25519_10k": BASELINE config 5 as bench.py builds it (10,000
      rows, the last 2,000 sr25519, 110-byte messages) through
-     verify_batch(key_types=...): warm, 3 timed calls (the Ed25519 rows on
-     the card, pipelined since slice 9, the sr25519 rows by the native
-     verifier on the host), then an
-     Ed25519 and an sr25519 row tampered (exact mask); 64 rows of each mask
-     held against the port's pure-Python verifiers;
+     verify_batch(key_types=...) on the reference's one-MSM route
+     ("rlc-mixed", mode "mixed": 10,240 A + 8,192 Ed25519 R + 2,048 sr25519
+     R lanes, no sr25519 row on the host): a cold call (both A fills), a
+     warm one, SR_REPS timed and one profiled; "mixed_sr25519_10k split",
+     the exact per-type split (the Ed25519 rows pipelined on the card, the
+     sr25519 rows by the native verifier on the host) timed and profiled
+     beside it; then an Ed25519 and an sr25519 row tampered: the combined
+     check fails and the split gives the exact mask (path "mixed",
+     rlc_fallback); launches held to SR_MIXED_WARM / SR_MIXED_COLD; 64 rows
+     of each mask held against the port's pure-Python verifiers;
   9. the BLS kernels fp381_mul and fp12_sparse_mul against their plain
      versions at the BLS paths' shapes (fp381_mul at every Miller-step
      launch shape, 8-216 products on 2 lanes, and at fold levels 1, 8 and
@@ -130,7 +141,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      equal to that commit's own submit and finish); the light checks that
      light_skipping's refused steps submit and never finish (count, host ms,
      launches), and one such dropped submit timed and profiled; the phase's
-     seconds;
+     seconds; "light_mixed": begin_verify_commit_light_trusting and its
+     finish on a 4,096-validator set holding 819 sr25519 validators, the
+     mixed flush submitted unsynced ("rlc-async", mode "mixed"; cold, 5
+     timed, one profiled), and with one tampered row, recovered by the
+     split (path "mixed", rlc_fallback, False there only);
   13. the consensus and catch-up paths: "verify_commit_1k" (BASELINE
      config 2: the first 1,000 corpus validators with their own
      signatures, cold and 5 warm calls, the single flush "rlc", one
@@ -187,7 +202,8 @@ The launch counts are zeroed just before each path and read just after it
 (the warm, pipelined and streamed paths per call); every kernel of a path must
 launch on it: the six Ed25519 kernels on the Ed25519 paths (pipelined,
 tampered, tampered_persig, mixed_commit, mixed_sr25519_10k, the four light
-paths, the consensus and catch-up paths and the scheduler paths included),
+paths, light_mixed, the consensus and catch-up paths and the scheduler paths
+included),
 the two BLS kernels on the BLS paths, none on host_small, the verify-at-add arm, the evidence check
 and the memo's answers. Exits non-zero without a result when no CUDA device
 is available.
@@ -254,6 +270,19 @@ SR_MSG_LEN = 110
 TAMPERED_MSM = ((2_048, 2048, 512), (3_072, 1024, 1_024), (4_096, 2048, 1_808),
                 (6_144, 2048, 2_048), (10_240, 2048, 4_096))
 SR_TAMPERED = (4_321, 9_876)  # an Ed25519 row and an sr25519 row
+# The one-MSM mixed flush of mixed_sr25519_10k: lanes 10,240 (A block) +
+# 8,192 (Ed25519 R) + 2,048 (sr25519 R) = 20,480, the warm single flush's MSM.
+# Launches (padd, pdbl, fsquare_chain, uptree, fenwick_reduce, bucket_fold):
+# the warm single flush's plus one ristretto decode's six fsquare_chain;
+# cold adds the two A fills' six each.
+SR_MIXED_WARM = dict(padd=11, pdbl=6, fsquare_chain=12, uptree=1, fenwick_reduce=1, bucket_fold=1)
+SR_MIXED_COLD = dict(SR_MIXED_WARM, fsquare_chain=24)
+SR_REPS = 5  # timed warm calls of the card route and of the split arm each
+# The mixed asynchronous light check: a 4,096-validator set, the last 20%
+# sr25519, the trusting check (trust 1/3) of a commit all of them signed,
+# its row LIGHT_MIXED_BAD tampered in the failing case.
+LIGHT_MIXED_SR = 819
+LIGHT_MIXED_BAD = 4_000
 N_COFACTORLESS = 300  # the cofactorless commit: its host loop is pure Python where OpenSSL is missing
 PADD_SWEEP = (32, 192, 1_024, 4_096, 4_097, 16_384, 24_576)
 # The light paths. BASELINE config 3 at bench.py's size (_CONFIG_SIZES
@@ -775,6 +804,14 @@ def kernel_checks(dev, rng, card: dict) -> list:
         fsq_case("host_small_cuda", 128, "A or R decompression of 128 rows"),
         fsq_case("mixed_sr25519_10k tampered", 6_144,
                  "A and R decompression of the bisection's 2,048-row sub-check"),
+        # the one-MSM mixed flush: its Ed25519 R (8,192 lanes) and sr25519 R
+        # (2,048, the ristretto decode's chain), the cold call's A fills (8,000
+        # Ed25519 keys; 2,000 sr25519 keys padded to 2,048); the mixed light
+        # check's cold fill of 3,277 Ed25519 keys
+        fsq_case("mixed_sr25519_10k", 8_192, "Ed25519 R decompression of the mixed flush"),
+        fsq_case("mixed_sr25519_10k", 2_048, "sr25519 R ristretto decode of the mixed flush"),
+        fsq_case("mixed_sr25519_10k cold", 8_000, "A fill: decompression of 8,000 Ed25519 keys"),
+        fsq_case("light_mixed cold", 3_277, "A fill: decompression of 3,277 Ed25519 keys"),
         # the light paths: the trusting check's 3,072 rows (8,192 lanes) and the
         # light check's 4,096 (10,240), cached A; the recovery ladder on 4,096
         # lanes; the skipping chain's 1,024-row checks (3,072 lanes); the
@@ -1011,6 +1048,41 @@ def msm_reference_check(dev, rng, base) -> None:
     if compress(fused) != compress(unfused):
         raise SystemExit("fused and unfused MSM totals differ at 20,480 lanes")
     print(f"msm total ({n} lanes): fused == unfused by canonical encoding", flush=True)
+
+
+def ristretto_check(dev, rng) -> None:
+    """ops/ristretto_torch.ristretto_decode on the card (pow_p58 on the
+    fsquare_chain kernel) against the same function on a CPU tensor (the
+    plain chain), limb for limb and verdict for verdict, at the decode's
+    lane counts on the mixed paths: 2,048 (mixed_sr25519_10k's sr25519 R
+    block and A fill) and 1,024 (the mixed light check's); seeded multiples
+    of the basepoint, every ninth lane an odd (invalid) encoding. Prints
+    each decode's call ms (events)."""
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+    from tendermint_tpu_torch.crypto import sr25519
+    from tendermint_tpu_torch.ops import ristretto_torch
+
+    step = ref.point_mul(int(rng.integers(1, 1 << 62)), ref.BASE)
+    p = ref.point_mul(int(rng.integers(1, 1 << 62)), ref.BASE)
+    encs = []
+    for i in range(2_048):
+        e = bytearray(sr25519.ristretto_encode(p))
+        if i % 9 == 8:
+            e[0] |= 1
+        encs.append(np.frombuffer(bytes(e), dtype=np.uint8))
+        p = ref.point_add(p, step)
+    for lanes in (2_048, 1_024):
+        cols = torch.from_numpy(np.ascontiguousarray(np.stack(encs[:lanes]).T))
+        on_card = cols.to(dev)
+        got, ok = ristretto_torch.ristretto_decode(on_card)
+        want, ok_w = ristretto_torch.ristretto_decode(cols)
+        err = max_err(got.cpu(), want)
+        if err != 0 or not torch.equal(ok.cpu(), ok_w) or int(ok_w.sum()) != lanes - lanes // 9:
+            raise SystemExit(f"ristretto_decode at {lanes} lanes: card differs from plain "
+                             f"(max |err| {err}) or verdicts differ")
+        ms = timed(lambda: ristretto_torch.ristretto_decode(on_card))
+        print(f"ristretto_decode ({lanes} lanes) on the card equals its plain version: max |err| "
+              f"0, {int(ok.sum())} valid lanes; call_ms={ms:.3f} (events)", flush=True)
 
 
 def _sign_rows(args):
@@ -1362,6 +1434,75 @@ def commit_phase(dev, corpus, launches: dict) -> None:
             del os.environ["TMTPU_BISECT"]
 
 
+def device_sort_phase(dev, corpus, launches: dict) -> None:
+    """The device-sort arm (TMTPU_DEVICE_SORT=1: the cached-A flush sorts
+    its windows on the card, msm_torch.sort_windows_device) against the
+    host sort (0) on the warm 10k single flush, the stream off: 7
+    interleaved pairs of verify_commit (label "rlc", mode "cached", the
+    LAST_FLUSH device_sort flag), one profiled call of each, and the
+    TAMPERED rows through verify_batch under each (the bisection's cached
+    sub-checks sort on the card too): equal masks, labels and recovery
+    flushes."""
+    from tendermint_tpu_torch.crypto import batch
+
+    vals, block_id, commit, msgs = corpus
+    pubkeys = [v.pub_key.bytes() for v in vals.validators]
+    bad_sigs = [cs.signature for cs in commit.signatures]
+    for i in TAMPERED:
+        bad_sigs[i] = flip(bad_sigs[i])
+    path_of = {"0": "warm", "1": "warm_dsort"}
+
+    def verify(flag: str) -> dict:
+        os.environ["TMTPU_DEVICE_SORT"] = flag
+        reset_launches()
+        t0 = time.perf_counter()
+        vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        f = dict(batch.LAST_FLUSH)
+        same_counts(launches, path_of[flag], read_launches(path_of[flag]))
+        if (f.get("path"), f.get("mode"), f.get("device_sort", False)) != (
+                "rlc", "cached", flag == "1"):
+            raise SystemExit(f"device sort {flag}: flush {f}")
+        return ms
+
+    stream = batch._stream_enabled()
+    batch.configure_prep(stream=False)
+    try:
+        verify("1")  # warm: the sort's own launches
+        times = {"0": [], "1": []}
+        for _ in range(7):
+            for flag in ("0", "1"):
+                times[flag].append(verify(flag))
+        med = {k: statistics.median(v) for k, v in times.items()}
+        tampered = {}
+        for flag in ("0", "1"):
+            os.environ["TMTPU_DEVICE_SORT"] = flag
+            reset_launches()
+            mask = batch.verify_batch(pubkeys, msgs, bad_sigs, device=dev)
+            launches[f"{path_of[flag]} tampered"] = read_launches(f"{path_of[flag]} tampered")
+            f = batch.LAST_FLUSH
+            tampered[flag] = (mask.tobytes(), f.get("path"), f.get("recovery_flushes"))
+        bad = tuple(int(i) for i in np.flatnonzero(~mask))
+        if tampered["0"] != tampered["1"] or bad != TAMPERED:
+            raise SystemExit(f"device sort: tampered masks or labels differ: "
+                             f"{[(t[1], t[2]) for t in tampered.values()]}, False at {bad}")
+        print(f"device sort (10k warm single flush, stream off; 7 interleaved pairs): "
+              f"TMTPU_DEVICE_SORT=1 median_ms={med['1']:.1f} "
+              f"ms={[round(t, 1) for t in times['1']]} against the host sort median_ms="
+              f"{med['0']:.1f} ms={[round(t, 1) for t in times['0']]}; launches per call "
+              f"{launches['warm_dsort']} (host sort {launches['warm']}); tampered rows {bad}: "
+              f"the same mask, path {tampered['1'][1]} and recovery flushes "
+              f"{tampered['1'][2]} under both", flush=True)
+        for flag in ("0", "1"):
+            os.environ["TMTPU_DEVICE_SORT"] = flag
+            profile_path(f"{path_of[flag]} (device sort A/B)", lambda: vals.verify_commit(
+                CHAIN_ID, block_id, HEIGHT, commit, device=dev), med[flag])
+    finally:
+        os.environ.pop("TMTPU_DEVICE_SORT", None)
+        batch.configure_prep(stream=stream)
+
+
 def host_small_phase(dev, corpus, launches: dict) -> None:
     """The host arm: BASELINE config 1 (128 rows through Ed25519BatchVerifier
     with no backend and no device) takes the host combined check with no
@@ -1546,24 +1687,37 @@ def build_mixed_sr25519(rng):
 
 
 def mixed_sr25519_phase(dev, sr: dict, launches: dict) -> None:
-    """verify_batch(key_types=...) on the mixed Ed25519 + sr25519 set: once
-    to warm, 3 timed calls (launch counts the same on each; the 8,000
-    Ed25519 rows run the pipelined 2-chunk stream, the default route since
-    slice 9, where they ran the cached single flush before), then one
-    Ed25519 row and one sr25519 row tampered, whose mask must be False
-    exactly there (the Ed25519 rows' bisection on the card). The Ed25519 rows run the card path, the sr25519 rows the
-    native verifier on the host; a 64-row sample of each mask is held
-    against the port's pure-Python verifiers."""
+    """verify_batch(key_types=...) on the mixed Ed25519 + sr25519 set, the
+    reference's one-MSM route ("rlc-mixed", mode "mixed", no sr25519 row on
+    the host): a cold call (the set's keys are new to the A cache: both
+    types are filled), SR_REPS timed warm calls after one more, one
+    profiled; the split arm (_verify_batch_mixed_exact, the route before
+    this slice: the Ed25519 rows on the card, pipelined, the sr25519 rows by
+    the native verifier) warmed once and timed SR_REPS times beside it; then
+    one Ed25519 row and one sr25519 row tampered: the combined check fails
+    and the split recovers the exact mask (path "mixed", rlc_fallback).
+    Launch counts: SR_MIXED_COLD, SR_MIXED_WARM. A 64-row sample of each
+    mask is held against the port's pure-Python verifiers."""
     from tendermint_tpu_torch.crypto import batch
     from tendermint_tpu_torch.crypto import ed25519_ref as E
     from tendermint_tpu_torch.crypto import sr25519
 
     pks, msgs, types = sr["pubkeys"], sr["msgs"], sr["types"]
+    n_ed = N_VALIDATORS - N_SR
+    blocks = (batch._lane_bucket(N_VALIDATORS + 1), batch._lane_bucket(n_ed),
+              batch._lane_bucket(N_SR))
 
     def call(sigs):
         reset_launches()
         t0 = time.perf_counter()
         mask = batch.verify_batch(pks, msgs, sigs, device=dev, key_types=types)
+        torch.cuda.synchronize()
+        return mask, (time.perf_counter() - t0) * 1e3, dict(batch.LAST_FLUSH)
+
+    def split():
+        reset_launches()
+        t0 = time.perf_counter()
+        mask = batch._verify_batch_mixed_exact(pks, msgs, sr["sigs"], types, dev, None)
         torch.cuda.synchronize()
         return mask, (time.perf_counter() - t0) * 1e3, dict(batch.LAST_FLUSH)
 
@@ -1574,34 +1728,79 @@ def mixed_sr25519_phase(dev, sr: dict, launches: dict) -> None:
                 raise SystemExit(f"mixed_sr25519_10k: row {i} ({types[i]}) differs from the "
                                  f"pure-Python verifier")
 
+    def one_msm(flush, mask, tag):
+        if (not mask.all() or flush.get("path") != "rlc-mixed" or flush.get("mode") != "mixed"
+                or "sr25519_rows" in flush or flush.get("lanes") != sum(blocks)
+                or flush.get("sr_rows") != N_SR):
+            raise SystemExit(f"mixed_sr25519_10k {tag}: {int((~mask).sum())} rows False, "
+                             f"flush {flush}")
+
     rng = np.random.default_rng(SEED + 7)
-    n_ed = N_VALIDATORS - N_SR
     sample = sorted(set(int(i) for i in rng.integers(0, n_ed, 32))
                     | set(int(i) for i in rng.integers(n_ed, N_VALIDATORS, 32)))
+    mask, cold_ms, cold = call(sr["sigs"])  # the keys are new: both A fills run
+    one_msm(cold, mask, "cold")
+    counts = launches["mixed_sr25519_10k cold"] = read_launches("mixed_sr25519_10k cold")
+    if {k: counts[k] for k in SR_MIXED_COLD} != SR_MIXED_COLD:
+        raise SystemExit(f"mixed_sr25519_10k cold launches {counts}, predicted {SR_MIXED_COLD}")
     call(sr["sigs"])  # warm
-    times, sr_ms = [], []
-    for _ in range(3):
+    times, flushes = [], []
+    for _ in range(SR_REPS):
         mask, ms, flush = call(sr["sigs"])
         same_counts(launches, "mixed_sr25519_10k", read_launches("mixed_sr25519_10k"))
-        if not mask.all() or flush.get("sr25519_rows") != N_SR or flush.get("mode") != "pipelined":
-            raise SystemExit(f"mixed_sr25519_10k: {int((~mask).sum())} rows False, flush {flush}")
+        one_msm(flush, mask, "warm")
         times.append(ms)
-        sr_ms.append(flush["sr25519_s"] * 1e3)
+        flushes.append(flush)
+    if {k: launches["mixed_sr25519_10k"][k] for k in SR_MIXED_WARM} != SR_MIXED_WARM:
+        raise SystemExit(f"mixed_sr25519_10k launches {launches['mixed_sr25519_10k']}, "
+                         f"predicted {SR_MIXED_WARM}")
     held(mask, sr["sigs"], sample)
+    split()  # warm
+    s_times, s_flushes = [], []
+    for _ in range(SR_REPS):
+        s_mask, ms, flush = split()
+        same_counts(launches, "mixed_sr25519_10k split", read_launches("mixed_sr25519_10k split"))
+        if (not s_mask.all() or flush.get("sr25519_rows") != N_SR
+                or flush.get("mode") != "pipelined"):
+            raise SystemExit(f"mixed_sr25519_10k split: {int((~s_mask).sum())} rows False, "
+                             f"flush {flush}")
+        s_times.append(ms)
+        s_flushes.append(flush)
+
+    def med(fl, key):
+        return statistics.median(f[key] for f in fl) * 1e3
+
+    print(f"mixed_sr25519_10k ({N_SR} sr25519 of {N_VALIDATORS}), one-MSM route rlc-mixed: "
+          f"cold_ms={cold_ms:.1f} (A fills {cold['a_fill_s'] * 1e3:.1f} ms) median_ms="
+          f"{statistics.median(times):.1f} ms={[round(t, 1) for t in times]} host_prep_ms="
+          f"{med(flushes, 'prep_s'):.1f} (sr25519 challenges {med(flushes, 'challenge_s'):.1f} "
+          f"ms) lanes={sum(blocks)} ({blocks[0]} A + {blocks[1]} Ed25519 R + {blocks[2]} "
+          f"sr25519 R) "
+          f"fused={flushes[0]['fused']}; launches cold={launches['mixed_sr25519_10k cold']} "
+          f"warm per call={launches['mixed_sr25519_10k']}", flush=True)
+    print(f"mixed_sr25519_10k split arm (Ed25519 rows pipelined on the card, sr25519 rows on "
+          f"the host): median_ms={statistics.median(s_times):.1f} "
+          f"ms={[round(t, 1) for t in s_times]} sr25519_host_ms={med(s_flushes, 'sr25519_s'):.1f}"
+          f"; launches per call={launches['mixed_sr25519_10k split']}; card route / split "
+          f"median {statistics.median(times) / statistics.median(s_times):.3f}", flush=True)
+    profile_path("mixed_sr25519_10k", lambda: call(sr["sigs"]), statistics.median(times))
+    profile_path("mixed_sr25519_10k split", split, statistics.median(s_times))
+
     bad_sigs = list(sr["sigs"])
     for i in SR_TAMPERED:
         bad_sigs[i] = flip(bad_sigs[i])
     mask, bad_ms, flush = call(bad_sigs)
     counts = launches["mixed_sr25519_10k tampered"] = read_launches("mixed_sr25519_10k tampered")
     bad = tuple(int(i) for i in np.flatnonzero(~mask))
-    if bad != SR_TAMPERED or "recovery_s" not in flush:
-        raise SystemExit(f"mixed_sr25519_10k tampered mask: False at {bad}, expected {SR_TAMPERED}")
+    if (bad != SR_TAMPERED or flush.get("path") != "mixed" or not flush.get("rlc_fallback")
+            or "recovery_s" not in flush or flush.get("sr25519_rows") != N_SR):
+        raise SystemExit(f"mixed_sr25519_10k tampered: False at {bad}, expected {SR_TAMPERED}; "
+                         f"flush {flush}")
     held(mask, bad_sigs, sorted(set(sample) | set(SR_TAMPERED)))
-    print(f"mixed_sr25519_10k ({N_SR} sr25519 of {N_VALIDATORS}): median_ms="
-          f"{statistics.median(times):.1f} ms={[round(t, 1) for t in times]} "
-          f"sr25519_host_ms={statistics.median(sr_ms):.1f} "
-          f"launches per call={launches['mixed_sr25519_10k']}; tampered rows {bad}: "
-          f"ms={bad_ms:.1f} (recovery ms={flush['recovery_s'] * 1e3:.1f}, sr25519 host ms="
+    print(f"mixed_sr25519_10k tampered rows {bad}: ms={bad_ms:.1f} (the failed combined check "
+          f"{flush['combined_s'] * 1e3:.1f} ms, then the split: path {flush['path']}, "
+          f"rlc_fallback, Ed25519 recovery ms={flush['recovery_s'] * 1e3:.1f} with "
+          f"{flush.get('recovery_flushes')} recovery flushes, sr25519 host ms="
           f"{flush['sr25519_s'] * 1e3:.1f}) launches={counts}; masks equal the pure-Python "
           f"verifiers on {len(sample) + len(SR_TAMPERED)} rows", flush=True)
 
@@ -1928,6 +2127,55 @@ def build_light(rng):
                 chain={lb.height: lb for lb in blocks[2:]})
 
 
+def _mixed_pubkeys(args):
+    """The pubkey of each (key type, seed): Ed25519 by ed25519_ref, sr25519
+    by the port's schnorrkel key derivation."""
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+    from tendermint_tpu_torch.crypto import sr25519
+
+    return [sr25519.gen_sr25519(seed).pub_key().bytes() if kind == "sr25519"
+            else ref.point_compress(ref.point_mul(ref.secret_expand(seed)[0], ref.BASE))
+            for kind, seed in args]
+
+
+def build_light_mixed(rng):
+    """The mixed light check's corpus, signed on a fork pool before the card
+    is touched: LIGHT_N validators of power 10, LIGHT_MIXED_SR of them
+    sr25519 (the last keys made), a light header at height 1, every
+    validator's precommit for it, and the commit with row LIGHT_MIXED_BAD's
+    signature flipped."""
+    from tendermint_tpu_torch.crypto.keys import pubkey_from_type_and_bytes
+    from tendermint_tpu_torch.types.basic import BlockIDFlag
+    from tendermint_tpu_torch.types.block import Commit, CommitSig
+    from tendermint_tpu_torch.types.validator_set import Validator, ValidatorSet
+
+    t0 = time.perf_counter()
+    kinds = ["ed25519"] * (LIGHT_N - LIGHT_MIXED_SR) + ["sr25519"] * LIGHT_MIXED_SR
+    keys = [(k, rng.bytes(32)) for k in kinds]
+    workers = os.cpu_count() or 1
+    with mp.get_context("fork").Pool(workers) as pool:
+        pubs = pool_map(pool, _mixed_pubkeys, keys, workers)
+        vals = ValidatorSet([Validator(pubkey_from_type_and_bytes(k, pk), 10)
+                             for (k, _), pk in zip(keys, pubs)])
+        header = light_header(1, vals, vals, b"")
+        bid, meta, jobs = _commit_rows(header, vals, dict(zip(pubs, keys)))
+        signed = pool_map(pool, _sign_mixed_rows, [(k, seed, m) for (k, seed), _, m in jobs],
+                          workers)
+        pool.close()
+        pool.join()
+    sigs = [sig for _, sig in signed]
+    commit = Commit(1, 0, bid, [CommitSig(BlockIDFlag.COMMIT, a, ts, sig)
+                                for (a, ts), sig in zip(meta, sigs)])
+    tampered = Commit(1, 0, bid, [
+        CommitSig(BlockIDFlag.COMMIT, a, ts, flip(sig) if i == LIGHT_MIXED_BAD else sig)
+        for i, ((a, ts), sig) in enumerate(zip(meta, sigs))])
+    bad = jobs[LIGHT_MIXED_BAD]
+    print(f"light mixed corpus: {LIGHT_N} validators ({LIGHT_MIXED_SR} sr25519) signed in "
+          f"{time.perf_counter() - t0:.1f} s ({workers} processes)", flush=True)
+    return dict(vals=vals, commit=commit, tampered=tampered,
+                bad_row=(bad[0][0], bad[1], bad[2], flip(sigs[LIGHT_MIXED_BAD])))
+
+
 @contextlib.contextmanager
 def captured_finishes():
     """Every verify_batch_finish inside the block: its mask and the flush's
@@ -2228,6 +2476,74 @@ def light_phase(dev, lc: dict, launches: dict) -> None:
           f"and finishes one after the other: ms={sep_ms:.1f}, labels "
           f"{[p for _, p in separate]}); launches={launches['light_accumulated']}", flush=True)
     print(f"light phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def light_mixed_phase(dev, lm: dict, launches: dict) -> None:
+    """The mixed asynchronous light check: begin_verify_commit_light_trusting
+    and its finish (trust 1/3) over a 4,096-validator set holding
+    LIGHT_MIXED_SR sr25519 validators, the one-MSM mixed flush submitted
+    unsynced ("rlc-async", mode "mixed"): a cold call (both A fills), one
+    more to warm, 5 timed, one profiled; then the commit with one tampered
+    row, whose combined check fails and whose finish recovers by the exact
+    per-type split (path "mixed", rlc_fallback): False exactly at that row,
+    which the port's pure-Python verifier refuses too."""
+    from fractions import Fraction
+
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto import ed25519_ref as E
+    from tendermint_tpu_torch.crypto import sr25519
+
+    vals, level = lm["vals"], Fraction(1, 3)
+    n_sr = sum(v.pub_key.type_name() == "sr25519" for v in vals.validators)
+
+    def check(commit, path):
+        reset_launches()
+        with captured_finishes() as seen:
+            t0 = time.perf_counter()
+            vals.begin_verify_commit_light_trusting(CHAIN_ID, commit, level, device=dev)()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        counts = read_launches(path)
+        (mask, label), = seen
+        return mask, label, ms, dict(batch.LAST_FLUSH), counts
+
+    def passing(mask, label, flush, tag):
+        if (label != "rlc-async" or flush.get("mode") != "mixed" or not mask.all()
+                or len(mask) != LIGHT_N or flush.get("sr_rows") != n_sr):
+            raise SystemExit(f"light_mixed {tag}: label {label}, {int((~mask).sum())} rows "
+                             f"False, flush {flush}")
+
+    mask, label, cold_ms, flush, counts = check(lm["commit"], "light_mixed cold")
+    launches["light_mixed cold"] = counts
+    passing(mask, label, flush, "cold")
+    check(lm["commit"], "light_mixed")  # warm
+    times, flushes = [], []
+    for _ in range(5):
+        mask, label, ms, flush, counts = check(lm["commit"], "light_mixed")
+        same_counts(launches, "light_mixed", counts)
+        passing(mask, label, flush, "warm")
+        times.append(ms)
+        flushes.append(flush)
+    mask, label, bad_ms, flush, counts = check(lm["tampered"], "light_mixed tampered")
+    launches["light_mixed tampered"] = counts
+    kind, pk, msg, sig = lm["bad_row"]
+    py = sr25519._sr25519_verify_py if kind == "sr25519" else E.verify_cofactored
+    if (label != "mixed" or not flush.get("rlc_fallback")
+            or np.flatnonzero(~mask).tolist() != [LIGHT_MIXED_BAD] or py(pk, msg, sig)):
+        raise SystemExit(f"light_mixed tampered: label {label}, False at "
+                         f"{np.flatnonzero(~mask).tolist()}, flush {flush}")
+    print(f"light_mixed ({LIGHT_N} validators, {n_sr} sr25519; trusting check of "
+          f"{LIGHT_N} rows, {flushes[0]['lanes']} lanes): begin/finish label rlc-async mode "
+          f"mixed, cold_ms={cold_ms:.1f} median_ms={statistics.median(times):.1f} "
+          f"ms={[round(t, 1) for t in times]} host_prep_ms="
+          f"{statistics.median(f['prep_s'] for f in flushes) * 1e3:.1f} (sr25519 challenges "
+          f"{statistics.median(f['challenge_s'] for f in flushes) * 1e3:.1f} ms); launches cold="
+          f"{launches['light_mixed cold']} per call={launches['light_mixed']}; tampered row "
+          f"{LIGHT_MIXED_BAD} ({kind}): ms={bad_ms:.1f} label {label}, rlc_fallback, False "
+          f"there only (the pure-Python verifier refuses it); launches="
+          f"{launches['light_mixed tampered']}", flush=True)
+    profile_path("light_mixed", lambda: check(lm["commit"], "light_mixed"),
+                 statistics.median(times))
 
 
 def catchup_block(h: int, vals_hash: bytes, proposer: bytes, last_bid, last_commit, rng):
@@ -3327,6 +3643,7 @@ def main() -> int:
     mixed_sr = build_mixed_sr25519(np.random.default_rng(SEED + 8))
     cofactorless = build_cofactorless_commit(corpus)
     light = build_light(np.random.default_rng(SEED + 10))
+    light_mixed = build_light_mixed(np.random.default_rng(SEED + 12))
     catchup = build_catchup(np.random.default_rng(SEED + 11))
     poisoned = build_poisoned(corpus)
     bls = build_bls_set()
@@ -3364,14 +3681,17 @@ def main() -> int:
     rows, base = kernel_checks(dev, rng, card)
     rows += bls_kernel_checks(dev, rng, card)
     msm_reference_check(dev, rng, base)
+    ristretto_check(dev, rng)
     record_shapes(rows)
     print(f"kernel checks: {time.perf_counter() - t0:.1f} s since the build began", flush=True)
     launches = {}
     for phase, args in (
-            (commit_phase, (corpus, launches)), (streamed_phase, (corpus, launches)),
+            (commit_phase, (corpus, launches)), (device_sort_phase, (corpus, launches)),
+            (streamed_phase, (corpus, launches)),
             (host_small_phase, (corpus, launches)), (mixed_commit_phase, (mixed, launches)),
             (mixed_sr25519_phase, (mixed_sr, launches)), (bls_phase, (bls, launches)),
             (cofactorless_phase, (cofactorless, launches)), (light_phase, (light, launches)),
+            (light_mixed_phase, (light_mixed, launches)),
             (commit_1k_phase, (corpus, launches)),
             (vote_storm_phase, (corpus, launches, memo_default)),
             (catchup_phase, (catchup, launches)), (memo_phase, (corpus, launches, memo_default)),

@@ -51,13 +51,25 @@ and no recovery from a device error (ROADMAP.md section C). The host arm's
 two catches (a host combined check that raises counts as failed) touch no
 device.
 
+A set holding other key types (`key_types`) takes, as the reference's does,
+ONE mixed combined check on the card ("rlc-mixed": Ed25519 R lanes
+decompressed as Edwards points, sr25519 R lanes decoded as ristretto255
+points, both types' keys from the typed A cache, the sr25519 challenges
+from merlin transcripts run in lockstep) when it is on the card arm, holds
+RLC_MIN rows or more, is within the planner's budget and has only Ed25519
+and sr25519 rows; when that check fails, or the set is not eligible, the
+exact per-type split (`_verify_batch_mixed_exact`, "mixed": Ed25519 rows
+through verify_batch, sr25519 rows by the native schnorrkel verifier,
+BLS12-381 rows by bls_ref, others False).
+
 Submit / finish (`verify_batch_submit`, `verify_batch_finish`, the
-reference's rule): an all-Ed25519 set of RLC_MIN rows or more on the card
-arm, and within the planner's budget, queues one combined check and
-returns; its finish syncs it ("rlc-async") or recovers the exact mask by
-one per-signature pass ("persig-async"). Anything else runs verify_batch
-at submit. Inside `accumulate_flushes()` (thread-local) submits join a
-FlushAccumulator, whose one verify_batch call every finish slices.
+reference's rule): a set of Ed25519 (or Ed25519 and sr25519) rows, RLC_MIN
+or more on the card arm and within the planner's budget, queues one
+combined check and returns; its finish syncs it ("rlc-async") or recovers
+the exact mask by one per-signature pass ("persig-async"), a mixed set by
+the per-type split. Anything else runs verify_batch at submit. Inside
+`accumulate_flushes()` (thread-local) submits join a FlushAccumulator,
+whose one verify_batch call every finish slices.
 
 Before any route, the verified-row memo (`VerifiedRowMemo`, 65,536 rows,
 env TMTPU_VERIFIED_MEMO_ROWS, on by default as in the reference) answers
@@ -81,11 +93,14 @@ serial loop in cofactorless mode, so a mask never depends on the route
 (crypto/ed25519_ref.verify_cofactored).
 
 Host prep runs in native C (native/): challenge hashes, RLC scalars, the
-window sort. Decompressed public keys are cached ON THE DEVICE across calls:
-the first single flush of a set runs the plain kernel, which decompresses A
-in-kernel and fills the cache; once every included key is cached, the
-cached-A kernel decompresses only R. The pipelined and streamed paths
-decompress A and R in every chunk, as the reference's do.
+window sort (on the device instead with TMTPU_DEVICE_SORT=1, cached-A
+Ed25519 flushes only, off by default as in the reference). Decoded public
+keys are cached ON THE DEVICE across calls, keyed by key type: the first
+single flush of a set runs the plain kernel, which decompresses A in-kernel
+and fills the cache; once every included key is cached, the cached-A kernel
+decompresses only R. A mixed flush fills the cache for both types first.
+The pipelined and streamed paths decompress A and R in every chunk, as the
+reference's do.
 """
 
 from __future__ import annotations
@@ -109,6 +124,7 @@ from tendermint_tpu_torch.libs import trace as _trace
 
 RLC_MIN = 512
 L8 = 8 * L  # full curve-group order: the A-lane scalar modulus
+RLC_KEY_TYPES = ("ed25519", "sr25519")  # the key types a combined check takes
 
 BACKENDS = ("cuda", "cpu")
 
@@ -547,11 +563,14 @@ def prepare_batch(pubkeys, msgs, sigs):
 
 
 # ---------------------------------------------------------------------------
-# Decompressed-pubkey cache on the device: pubkey bytes -> column of
-# _A["store"] (None = invalid encoding). Fills hold the lock and never rewrite
-# a column of a store in use: the store grows by copy, and a full reset
-# starts a new tensor. So (columns, store) read in one locked section stay a
-# consistent pair for the flush that read them.
+# Decoded-pubkey cache on the device: key -> column of _A["store"] (None =
+# invalid encoding). The key is typed, because one 32-byte string decodes
+# differently as an Edwards point and as a ristretto255 point: an Ed25519 key
+# is its 32 bytes, an sr25519 key b"s" + its 32 bytes (33 bytes, so the two
+# never collide; _cache_key). Fills hold the lock and never rewrite a column
+# of a store in use: the store grows by copy, and a full reset starts a new
+# tensor. So (columns, store) read in one locked section stay a consistent
+# pair for the flush that read them.
 
 _A_LOCK = threading.Lock()
 _A_CACHE: dict = {}
@@ -566,10 +585,16 @@ def reset_a_cache() -> None:
         _A["len"] = 0
 
 
-def fill_a_cache(rows: np.ndarray, pts: torch.Tensor, ok) -> None:
-    """Cache decompressed pubkeys: rows (m, 32) uint8 encodings, pts
-    (4, 20, m) int32 coordinates on the device, ok (m,) bool (False = invalid
-    encoding, cached as None)."""
+def _cache_key(pk: bytes, key_type: str = "ed25519") -> bytes:
+    """The A cache's key: the encoding for Ed25519, b"s" + it for sr25519."""
+    return b"s" + pk if key_type == "sr25519" else pk
+
+
+def fill_a_cache(rows: np.ndarray, pts: torch.Tensor, ok, key_type: str = "ed25519") -> None:
+    """Cache decoded pubkeys of one key type: rows (m, 32) uint8 encodings,
+    pts (4, 20, m) int32 coordinates on the device (Edwards decompression
+    for "ed25519", ristretto255 decode for "sr25519"), ok (m,) bool (False =
+    invalid encoding, cached as None)."""
     ok = np.asarray(ok.cpu() if isinstance(ok, torch.Tensor) else ok, dtype=bool)
     with _A_LOCK:
         store = _A["store"]
@@ -578,7 +603,7 @@ def fill_a_cache(rows: np.ndarray, pts: torch.Tensor, ok) -> None:
             store, _A["len"] = None, 0
         new_cols, new_src = [], []
         for j in range(rows.shape[0]):
-            key = rows[j].tobytes()
+            key = _cache_key(rows[j].tobytes(), key_type)
             if key in _A_CACHE:
                 continue
             if not ok[j]:
@@ -629,24 +654,27 @@ def _a_block(rows: np.ndarray, cols: np.ndarray, store: torch.Tensor, na: int,
 
 
 class _RlcCall:
-    """An RLC flush submitted to the device, not yet synced."""
+    """An RLC flush submitted to the device, not yet synced. A mixed flush
+    ("mixed") also carries the rows of its Ed25519 and sr25519 R lanes and
+    their lane buckets; `detail` holds what its finish adds to LAST_FLUSH."""
 
     __slots__ = ("precheck", "n", "na", "mode", "dev", "pts", "a_rows", "prep_s", "t0",
-                 "overlap_s")
+                 "overlap_s", "ed_pos", "sr_pos", "ne", "ns", "detail")
 
-    def __init__(self, precheck, n, na, mode, dev, pts, a_rows, prep_s, t0, overlap_s):
+    def __init__(self, precheck, n, na, mode, dev, pts, a_rows, prep_s, t0, overlap_s,
+                 ed_pos=None, sr_pos=None, ne=0, ns=0, detail=None):
         self.precheck, self.n, self.na, self.mode = precheck, n, na, mode
         self.dev, self.pts, self.a_rows, self.prep_s, self.t0 = dev, pts, a_rows, prep_s, t0
         self.overlap_s = overlap_s  # staged: hashing overlapped with the A block; else None
+        self.ed_pos, self.sr_pos, self.ne, self.ns = ed_pos, sr_pos, ne, ns
+        self.detail = detail or {}
 
 
-def _rlc_lanes(precheck, a_rows, r_rows, s_rows, h_rows, na: int):
-    """Lanes and window sort of one RLC flush over n = len(precheck) rows:
+def _rlc_layout(precheck, a_rows, r_rows, s_rows, h_rows, na: int):
+    """Lanes and scalars of one RLC flush over n = len(precheck) rows:
     [A_0..A_{n-1}, B, pads -> na | R_0..R_{n-1}, pads -> na]; excluded and pad
     lanes carry the basepoint with scalar 0 (bucket 0 is never summed).
-    Returns (pts (2 na, 32) uint8, perm, ends)."""
-    from tendermint_tpu_torch.ops import msm_torch
-
+    Returns (pts (2 na, 32) uint8, scalars (2 na, 32) uint8)."""
     n = len(precheck)
     z16, w_rows, u = _rlc_scalars_fast(precheck, s_rows, h_rows)
     b_enc = np.frombuffer(point_compress(BASE), dtype=np.uint8)
@@ -657,21 +685,34 @@ def _rlc_lanes(precheck, a_rows, r_rows, s_rows, h_rows, na: int):
     scalars[:n] = w_rows
     scalars[n] = np.frombuffer(((L - u) % L).to_bytes(32, "little"), dtype=np.uint8)
     scalars[na : na + n, :16] = z16
+    return pts, scalars
+
+
+def _rlc_lanes(precheck, a_rows, r_rows, s_rows, h_rows, na: int):
+    """_rlc_layout and its window sort: (pts (2 na, 32) uint8, perm, ends)."""
+    from tendermint_tpu_torch.ops import msm_torch
+
+    pts, scalars = _rlc_layout(precheck, a_rows, r_rows, s_rows, h_rows, na)
     perm, ends = msm_torch.sort_windows(scalars, zero16_from=na)
     return pts, perm, ends
 
 
-def _rlc_submit(pubkeys, msgs, sigs, device) -> _RlcCall:
-    """Host prep + device submit of the combined check (no sync).
+def _rlc_submit(pubkeys, msgs, sigs, device, key_types=None) -> _RlcCall:
+    """Host prep + device submit of the combined check (no sync). A set
+    holding sr25519 rows (`key_types`) is the mixed flush (_rlc_submit_mixed).
 
     Staged (the default): the precheck and the hasher's blobs on this
     thread, the challenge hashes on the prep worker while the cache decision
     is made and, on the cached-A kernel, the A block is built; the hashes
     are awaited just before the scalars need them (a hashing failure
     re-raises here). The mask is the same either way: w = z h is 0 wherever
-    z is, so zeroing h after the cache exclusion equals zeroing it before."""
+    z is, so zeroing h after the cache exclusion equals zeroing it before.
+    With TMTPU_DEVICE_SORT=1 the cached-A kernel sorts its windows on the
+    device (msm_torch.sort_windows_device) and the host sort is skipped."""
     from tendermint_tpu_torch.ops import msm_torch
 
+    if key_types is not None and any(t == "sr25519" for t in key_types):
+        return _rlc_submit_mixed(pubkeys, msgs, sigs, key_types, device)
     t0 = time.perf_counter()
     n = len(pubkeys)
     staged = _staged_enabled()
@@ -708,15 +749,163 @@ def _rlc_submit(pubkeys, msgs, sigs, device) -> _RlcCall:
         h_rows, h_t0, h_t1 = hash_fut.result()
         h_rows[~precheck] = 0
         overlap_s = _overlap_seconds([(h_t0, h_t1)], [a_span] if a_span else [])
-    pts, perm, ends = _rlc_lanes(precheck, a_rows, r_rows, s_rows, h_rows, na)
+    pts, scalars = _rlc_layout(precheck, a_rows, r_rows, s_rows, h_rows, na)
+    dsort = cached and msm_torch._device_sort_enabled()
+    if not dsort:
+        perm, ends = msm_torch.sort_windows(scalars, zero16_from=na)
     prep_s = time.perf_counter() - t0
     if cached:
         if a_dev is None:
             a_dev = _a_block(rows, cols, store, na, device)
-        dev = msm_torch.rlc_check_cached_submit(a_dev, pts[na:], perm, ends)
-        return _RlcCall(precheck, n, na, "cached", dev, None, None, prep_s, t0, overlap_s)
+        if dsort:
+            dev = msm_torch.rlc_check_cached_dsort_submit(a_dev, pts[na:], scalars)
+        else:
+            dev = msm_torch.rlc_check_cached_submit(a_dev, pts[na:], perm, ends)
+        return _RlcCall(precheck, n, na, "cached", dev, None, None, prep_s, t0, overlap_s,
+                        detail={"device_sort": True} if dsort else None)
     dev, dpts = msm_torch.rlc_check_submit(pts, perm, ends, device)
     return _RlcCall(precheck, n, na, "plain", dev, dpts, a_rows, prep_s, t0, overlap_s)
+
+
+# ---------------------------------------------------------------------------
+# The mixed flush: Ed25519 and sr25519 rows in ONE combined check, lanes
+# [A block | Ed25519 R | sr25519 R] (the reference's mixed _rlc_submit). An
+# sr25519 row is a Schnorr equation of the same form over ristretto255,
+# [s]B = R + [k]A with k the merlin challenge, so it enters the sum as an
+# Ed25519 row does, with k in place of h: z = 0 (mod 8) removes the torsion
+# by which ristretto's quotient group differs from the curve.
+
+
+def _precheck_and_challenge_sr(pubkeys, msgs, sigs):
+    """schnorrkel rows' precheck and challenges: the signature is 64 bytes
+    and the key 32, the marker bit sig[63] & 0x80 is set, s = sig[32:63] +
+    (sig[63] & 0x7f) is below L; k = the merlin challenge "sign:c" mod L of
+    the signing-context transcript, the transcripts of each message length
+    advanced in lockstep (merlin.BatchTranscript). Returns (precheck,
+    a_rows, r_rows, s_rows, k_rows), the last three (n, 32) uint8; k is zero
+    where the precheck fails."""
+    from tendermint_tpu_torch.crypto.merlin import BatchTranscript
+    from tendermint_tpu_torch.crypto.sr25519 import SIGNING_CTX
+
+    n = len(pubkeys)
+    pubkeys = [bytes(p) for p in pubkeys]
+    sigs = [bytes(s) for s in sigs]
+    msgs = [bytes(m) for m in msgs]
+    len_ok = np.fromiter(
+        (len(p) == 32 and len(s) == 64 for p, s in zip(pubkeys, sigs)), dtype=bool, count=n)
+    a_rows = np.frombuffer(b"".join(p if k else bytes(32) for p, k in zip(pubkeys, len_ok)),
+                           dtype=np.uint8).reshape(n, 32)
+    sig_arr = np.frombuffer(b"".join(s if k else bytes(64) for s, k in zip(sigs, len_ok)),
+                            dtype=np.uint8).reshape(n, 64)
+    s_rows = sig_arr[:, 32:].copy()
+    marker = (s_rows[:, 31] & 0x80) != 0
+    s_rows[:, 31] &= 0x7F
+    precheck = len_ok & marker & _s_canonical_rows(s_rows)
+    k_rows = np.zeros((n, 32), dtype=np.uint8)
+    groups: dict = {}
+    for i in np.flatnonzero(precheck):
+        groups.setdefault(len(msgs[i]), []).append(i)
+    for mlen, idx in groups.items():
+        idx = np.asarray(idx)
+        m = len(idx)
+        bt = BatchTranscript(b"SigningContext", m)
+        bt.append_message(b"", SIGNING_CTX)
+        bt.append_message(b"sign-bytes", np.frombuffer(b"".join(msgs[i] for i in idx),
+                                                       dtype=np.uint8).reshape(m, mlen))
+        bt.append_message(b"proto-name", b"Schnorr-sig")
+        bt.append_message(b"sign:pk", a_rows[idx])
+        bt.append_message(b"sign:R", sig_arr[idx, :32])
+        wide = bt.challenge_bytes(b"sign:c", 64)
+        k_rows[idx] = np.frombuffer(b"".join(
+            (int.from_bytes(w.tobytes(), "little") % L).to_bytes(32, "little") for w in wide),
+            dtype=np.uint8).reshape(m, 32)
+    return precheck, a_rows, sig_arr[:, :32], s_rows, k_rows
+
+
+def _prefill_typed(a_rows, precheck, sr, ckeys, device) -> None:
+    """Decode every included key missing from the A cache, Ed25519 keys by
+    Edwards decompression and sr25519 keys by the ristretto255 decode, in
+    two passes: a full cache reset during the second type's fill drops the
+    first type's new entries, and the second pass refills them (after a
+    reset the store holds the whole set)."""
+    from tendermint_tpu_torch.ops import msm_torch, ristretto_torch
+
+    for _attempt in range(2):
+        for kt, of_type in (("ed25519", ~sr), ("sr25519", sr)):
+            with _A_LOCK:
+                missing = [i for i in np.flatnonzero(precheck & of_type)
+                           if ckeys[i] not in _A_CACHE]
+            if missing:
+                uniq = {a_rows[i].tobytes(): i for i in missing}
+                enc = a_rows[list(uniq.values())]
+                decode = (ristretto_torch.decode_rows if kt == "sr25519"
+                          else msm_torch.decompress_rows)
+                pts, ok = decode(enc, device)
+                fill_a_cache(enc, pts, ok, kt)
+        with _A_LOCK:
+            if all(ckeys[i] in _A_CACHE for i in np.flatnonzero(precheck)):
+                return
+
+
+def _rlc_submit_mixed(pubkeys, msgs, sigs, key_types, device) -> _RlcCall:
+    """Host prep + device submit of the mixed combined check (no sync):
+    the Ed25519 rows' precheck and native hashes, the sr25519 rows' precheck
+    and batched merlin challenges (timed on their own: LAST_FLUSH
+    challenge_s), both key types' A entries prefilled and cached-invalid
+    keys excluded; na = _lane_bucket(n + 1), Ne and Ns the lane buckets of
+    each type's rows (at least 1); Ed25519 R pads are the basepoint
+    encoding, sr25519 R pads 32 zero bytes (the ristretto identity), both
+    with scalar 0. Scalars [w..., (L - u) mod L, pads | z of Ed25519 R | z
+    of sr25519 R]; the window sort on the host."""
+    from tendermint_tpu_torch.ops import msm_torch
+
+    t0 = time.perf_counter()
+    n = len(pubkeys)
+    sr = np.fromiter((t == "sr25519" for t in key_types), dtype=bool, count=n)
+    ed_pos, sr_pos = np.flatnonzero(~sr), np.flatnonzero(sr)
+    precheck = np.zeros(n, dtype=bool)
+    a_rows, r_rows, s_rows, h_rows = (np.zeros((n, 32), dtype=np.uint8) for _ in range(4))
+    challenge_s = 0.0
+    for idx, prep in ((ed_pos, _precheck_and_hash_fast), (sr_pos, _precheck_and_challenge_sr)):
+        if idx.size:
+            tp = time.perf_counter()
+            out = prep([pubkeys[i] for i in idx], [msgs[i] for i in idx], [sigs[i] for i in idx])
+            for dst, src in zip((precheck, a_rows, r_rows, s_rows, h_rows), out):
+                dst[idx] = src
+            if prep is _precheck_and_challenge_sr:
+                challenge_s = time.perf_counter() - tp
+    ckeys = [_cache_key(a_rows[i].tobytes(), key_types[i]) for i in range(n)]
+    t_fill = time.perf_counter()
+    _prefill_typed(a_rows, precheck, sr, ckeys, device)
+    fill_s = time.perf_counter() - t_fill
+    with _A_LOCK:
+        for i in np.flatnonzero(precheck):
+            if _A_CACHE[ckeys[i]] is None:  # cached-invalid encoding
+                precheck[i] = False
+        rows = np.flatnonzero(precheck)
+        store = _A["store"]
+        cols = np.fromiter((_A_CACHE[ckeys[i]] for i in rows), dtype=np.int64, count=len(rows))
+    na = _lane_bucket(n + 1)
+    ne, ns = _lane_bucket(max(len(ed_pos), 1)), _lane_bucket(max(len(sr_pos), 1))
+    a_dev = _a_block(rows, cols, store, na, device)
+    z16, w_rows, u = _rlc_scalars_fast(precheck, s_rows, h_rows)
+    ed_r = np.tile(np.frombuffer(point_compress(BASE), dtype=np.uint8), (ne, 1))
+    sr_r = np.zeros((ns, 32), dtype=np.uint8)
+    for blk, pos in ((ed_r, ed_pos), (sr_r, sr_pos)):
+        pc = precheck[pos]
+        blk[: len(pos)][pc] = r_rows[pos][pc]
+    scalars = np.zeros((na + ne + ns, 32), dtype=np.uint8)
+    scalars[:n] = w_rows
+    scalars[n] = np.frombuffer(((L - u) % L).to_bytes(32, "little"), dtype=np.uint8)
+    scalars[na : na + len(ed_pos), :16] = z16[ed_pos]
+    scalars[na + ne : na + ne + len(sr_pos), :16] = z16[sr_pos]
+    perm, ends = msm_torch.sort_windows(scalars, zero16_from=na)
+    prep_s = time.perf_counter() - t0
+    dev = msm_torch.rlc_check_cached_mixed_submit(a_dev, ed_r, sr_r, perm, ends)
+    return _RlcCall(precheck, n, na, "mixed", dev, None, None, prep_s, t0, None,
+                    ed_pos=ed_pos, sr_pos=sr_pos, ne=ne, ns=ns,
+                    detail=dict(challenge_s=challenge_s, a_fill_s=fill_s, ed_rows=len(ed_pos),
+                                sr_rows=len(sr_pos)))
 
 
 def _rlc_finish(call: _RlcCall) -> Optional[np.ndarray]:
@@ -727,7 +916,12 @@ def _rlc_finish(call: _RlcCall) -> Optional[np.ndarray]:
     out = call.dev.cpu().numpy()  # [batch_ok, lane_ok...]
     precheck, n, na = call.precheck, call.n, call.na
     ok = out[1:]
-    if call.mode == "cached":
+    lanes = 2 * na
+    if call.mode == "mixed":
+        lanes = na + call.ne + call.ns
+        lanes_ok = all(bool(blk[: len(pos)][precheck[pos]].all()) for blk, pos in (
+            (ok[: call.ne], call.ed_pos), (ok[call.ne : call.ne + call.ns], call.sr_pos)))
+    elif call.mode == "cached":
         lanes_ok = bool(ok[:n][precheck].all())
     else:
         lanes_ok = bool(ok[:n][precheck].all() and ok[na : na + n][precheck].all())
@@ -736,7 +930,7 @@ def _rlc_finish(call: _RlcCall) -> Optional[np.ndarray]:
             fill_a_cache(call.a_rows[rows], call.pts[..., torch.from_numpy(rows).to(call.pts.device)],
                          ok[rows])
     LAST_FLUSH.update(mode=call.mode, prep_s=call.prep_s, total_s=time.perf_counter() - call.t0,
-                      lanes=2 * na, fused=msm_torch.fused_for_lanes(2 * na))
+                      lanes=lanes, fused=msm_torch.fused_for_lanes(lanes), **call.detail)
     if call.overlap_s is not None:
         LAST_FLUSH.update(prep_overlap_s=call.overlap_s, chunks=1, chunk_lanes=2 * na)
     return precheck if (bool(out[0]) and lanes_ok) else None
@@ -1306,6 +1500,35 @@ def _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend) -
     return out
 
 
+def _mixed_rlc_eligible(n: int, key_types, be: str) -> bool:
+    """The reference's rule for the one-MSM mixed flush: the card arm,
+    TMTPU_RLC on, RLC_MIN rows or more, within the planner's budget (an
+    over-budget mixed set takes the split, whose Ed25519 rows stream), and
+    every row Ed25519 or sr25519 (the split refuses any other type)."""
+    return (be == "cuda" and _rlc_enabled() and n >= RLC_MIN and not planner_engaged(n)
+            and all(t in RLC_KEY_TYPES for t in key_types))
+
+
+def _verify_batch_mixed_routed(pubkeys, msgs, sigs, key_types, device, backend) -> tuple:
+    """verify_batch's routing of a set holding other key types (the
+    reference's _verify_batch_routed, mixed branch): (mask, arm, label). An
+    eligible set (_mixed_rlc_eligible) runs ONE mixed combined check on the
+    card ("rlc-mixed"); when it fails, the exact per-type split gives the
+    mask ("mixed", LAST_FLUSH rlc_fallback and the failed check's seconds
+    in combined_s). Anything else takes the split directly. A device error
+    raises (D1)."""
+    be = backend_default() if backend is None else _card_alias(backend)
+    if _mixed_rlc_eligible(len(pubkeys), key_types, be):
+        t0 = time.perf_counter()
+        mask = _rlc_finish(_rlc_submit(pubkeys, msgs, sigs, resolve(device), key_types))
+        if mask is not None:
+            _PATH.label = "rlc-mixed"
+            return mask, "cuda", "rlc-mixed"
+        combined_s = time.perf_counter() - t0
+        mask = _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend)
+        LAST_FLUSH.update(rlc_fallback=True, combined_s=combined_s)
+        return mask, be, "mixed"
+    return _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend), be, "mixed"
 
 
 def _verify_batch_routed(pubkeys, msgs, sigs, device, backend) -> tuple:
@@ -1357,7 +1580,8 @@ def verify_batch(
 ) -> np.ndarray:
     """Verify N (pubkey, msg, sig) triples; returns bool[N]. key_types: per-row
     key type, None meaning all ed25519; a set with other types takes the
-    per-type routing of _verify_batch_mixed_exact (path "mixed"). backend:
+    one-MSM mixed flush (path "rlc-mixed") or the per-type split (path
+    "mixed"), as _verify_batch_mixed_routed decides. backend:
     "cuda" (the card arm on `device`; "jax", the reference's name, is read
     as "cuda"), "cpu" (the host arm) or None (TMTPU_CRYPTO_BACKEND, the
     verify mode, the row count and a card `device` decide; see the module
@@ -1412,12 +1636,11 @@ def verify_batch(
         span = tr.span("verify_batch", n=len(pubkeys))
         span.__enter__()
     try:
+        LAST_FLUSH.clear()
         if key_types is not None and any(t != "ed25519" for t in key_types):
-            mask = _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend)
-            be = backend_default() if backend is None else _card_alias(backend)
-            path = "mixed"
+            mask, be, path = _verify_batch_mixed_routed(pubkeys, msgs, sigs, key_types, device,
+                                                        backend)
         else:
-            LAST_FLUSH.clear()
             mask, be, path = _verify_batch_routed(pubkeys, msgs, sigs, device, backend)
     except BaseException as e:
         if span is not None:
@@ -1431,7 +1654,8 @@ def verify_batch(
     _trace.record_flush(
         backend=be, path=path, n=len(pubkeys), total_s=time.perf_counter() - t0,
         n_valid=int(mask.sum()), prep_s=detail.get("prep_s"),
-        rlc_fallback=bool(detail.get("recovery_flushes")), fused=detail.get("fused"),
+        rlc_fallback=bool(detail.get("recovery_flushes") or detail.get("rlc_fallback")),
+        fused=detail.get("fused"),
         chunks=detail.get("chunks"), chunk_lanes=detail.get("chunk_lanes"),
         prep_overlap_s=detail.get("prep_overlap_s"),
         recovery_flushes=detail.get("recovery_flushes"), quarantined=quarantined, tracer_=tr)
@@ -1576,15 +1800,15 @@ def verify_batch_submit(
     accumulate_flushes() scope the rows join the accumulator. Otherwise
     the submit is eligible for the asynchronous single flush (the
     reference's rule, tendermint_tpu/crypto/batch.py verify_batch_submit)
-    when the backend resolves to "cuda", TMTPU_RLC is not "0", the set is
-    all-Ed25519, it holds at least max(RLC_MIN, _CUDA_MIN_BATCH) rows
-    (RLC_MIN alone when a backend or a card `device` is named) and it is
-    not planner-engaged. An eligible submit whose rows are all in the
+    when the backend resolves to "cuda", TMTPU_RLC is not "0", every row is
+    Ed25519 or sr25519, the set holds at least max(RLC_MIN, _CUDA_MIN_BATCH)
+    rows (RLC_MIN alone when a backend or a card `device` is named) and it
+    is not planner-engaged. An eligible submit whose rows are all in the
     verified-row memo comes back resolved (path "memo"); else _rlc_submit
-    queues the combined check on `device` and returns without syncing.
-    Anything else runs verify_batch eagerly (a mixed set its exact per-type
-    split, D3), whose own memo reading covers it, and the handle comes back
-    resolved. Inside a scheduler's lane_scope (and outside an accumulator)
+    queues the combined check on `device` (the mixed flush for a set with
+    sr25519 rows) and returns without syncing. Anything else runs
+    verify_batch eagerly, whose own memo reading covers it, and the handle
+    comes back resolved. Inside a scheduler's lane_scope (and outside an accumulator)
     the rows go to that lane and the handle comes back resolved: the lane's
     combined flush is the overlap. The reference's sharded runner has no
     counterpart yet (ROADMAP A8), nor has its circuit breaker (D1); its
@@ -1602,8 +1826,9 @@ def verify_batch_submit(
     be = backend_default() if backend is None else _card_alias(backend)
     mixed = key_types is not None and any(t != "ed25519" for t in key_types)
     floor = _CUDA_MIN_BATCH if backend is None and not _names_card(device) else 0
-    if not (be == "cuda" and _rlc_enabled() and not mixed and n >= max(RLC_MIN, floor)
-            and not planner_engaged(n)):
+    if not (be == "cuda" and _rlc_enabled() and n >= max(RLC_MIN, floor)
+            and not planner_engaged(n)
+            and (not mixed or all(t in RLC_KEY_TYPES for t in key_types))):
         return BatchHandle(mask=verify_batch(pubkeys, msgs, sigs, device=device,
                                              key_types=key_types, backend=backend))
     digests = None
@@ -1617,27 +1842,31 @@ def verify_batch_submit(
             return BatchHandle(mask=np.ones(n, dtype=bool))
     dev = resolve(device)
     t0 = time.perf_counter()
-    return BatchHandle(call=_rlc_submit(pubkeys, msgs, sigs, dev),
-                       args=(pubkeys, msgs, sigs, dev, t0), digests=digests)
+    kt = key_types if mixed else None
+    return BatchHandle(call=_rlc_submit(pubkeys, msgs, sigs, dev, kt),
+                       args=(pubkeys, msgs, sigs, dev, t0, kt, device, backend),
+                       digests=digests)
 
 
 def verify_batch_finish(h: BatchHandle) -> np.ndarray:
     """The mask of a submitted verification. A queued combined check is
-    synced (LAST_FLUSH path "rlc-async"); when it fails, one per-signature
-    pass over all rows gives the exact mask (path "persig-async", one
-    recovery flush), as the reference's finish recovers: it does not
-    bisect. Either way the rows that verified True enter the verified-row
-    memo. Finishing twice returns the same mask. Handles in flight share
-    no device buffer (each flush allocates its own tensors; the A cache
-    grows by copy and never rewrites a column a queued flush reads), so
-    they may finish in any order; LAST_FLUSH is the last finish's."""
+    synced (LAST_FLUSH path "rlc-async", mode "mixed" for a mixed set);
+    when it fails, one per-signature pass over all rows gives the exact mask
+    (path "persig-async", one recovery flush), as the reference's finish
+    recovers: it does not bisect. A failed mixed check recovers by the exact
+    per-type split instead (path "mixed", rlc_fallback). Either way the
+    rows that verified True enter the verified-row memo. Finishing twice
+    returns the same mask. Handles in flight share no device buffer (each
+    flush allocates its own tensors; the A cache grows by copy and never
+    rewrites a column a queued flush reads), so they may finish in any
+    order; LAST_FLUSH is the last finish's."""
     if h._mask is not None:
         return h._mask
     if h._acc is not None:
         start, end = h._acc_range
         h._mask = h._acc.flush()[start:end]
         return h._mask
-    pubkeys, msgs, sigs, dev, t0 = h._args
+    pubkeys, msgs, sigs, dev, t0, key_types, device, backend = h._args
     tr = _trace.tracer if _trace.tracer.enabled else None  # one flag read
     LAST_FLUSH.clear()
     if tr is not None:
@@ -1646,7 +1875,14 @@ def verify_batch_finish(h: BatchHandle) -> np.ndarray:
     else:
         mask = _rlc_finish(h._call)
     detail = dict(LAST_FLUSH)
-    if mask is not None:
+    if mask is None and key_types is not None:
+        # the mixed check failed: the exact per-type split, whose own flushes
+        # record themselves, as the reference's finish recovers
+        t_rec = time.perf_counter()
+        mask = _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend)
+        LAST_FLUSH.update(path="mixed", rlc_fallback=True, combined_s=detail.get("total_s"),
+                          recovery_s=time.perf_counter() - t_rec)
+    elif mask is not None:
         LAST_FLUSH["path"] = "rlc-async"
         _trace.record_flush(
             backend="cuda", path="rlc-async", n=len(pubkeys), total_s=time.perf_counter() - t0,

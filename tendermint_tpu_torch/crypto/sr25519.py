@@ -7,8 +7,9 @@ encode and decode over the edwards25519 field (the public ristretto255
 spec), the transcripts of crypto/merlin.py, schnorrkel's "substrate"
 signing context, signing, and verification in pure Python
 (_sr25519_verify_py) and in native C (sr25519_verify, native/sr25519.c).
-sr25519 rows of a mixed set run on the host (crypto/batch.verify_batch
-with key_types); the card takes the Ed25519 rows.
+A mixed Ed25519 + sr25519 set of RLC_MIN rows or more verifies on the card
+in one combined check (crypto/batch.py, ops/ristretto_torch.py); the exact
+per-type split, and smaller sets, verify sr25519 rows here on the host.
 """
 
 from __future__ import annotations

@@ -24,7 +24,12 @@ and the pairwise window fold, on ops/cuda_fe.padd / pdbl. The tree levels are
 plain Python loops (no scan forms: those existed for the XLA:CPU compiler).
 
 The submit functions return one packed bool tensor `[batch_ok, lane_ok...]`
-on the device, so the caller's finish does one device-to-host copy. The
+on the device, so the caller's finish does one device-to-host copy. Two
+cached-A variants: the mixed Ed25519 + sr25519 flush
+(`rlc_check_cached_mixed_submit`: lanes [A | Ed25519 R | sr25519 R], the
+sr25519 R lanes decoded by ops/ristretto_torch.py) and, under
+TMTPU_DEVICE_SORT=1, the window sort on the device (`sort_windows_device`,
+torch.argsort and searchsorted: a sort stage, not a ported kernel). The
 streamed flush planner (crypto/batch.py) uses the partial trio instead:
 `rlc_partial_submit` (the MSM without its identity check),
 `partial_fold_submit` and `partial_identity_submit`.
@@ -32,6 +37,7 @@ streamed flush planner (crypto/batch.py) uses the partial trio instead:
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
@@ -43,6 +49,7 @@ from tendermint_tpu_torch.ops import fe25519 as fe
 from tendermint_tpu_torch.ops.ed25519_torch import decompress, identity, point_neg, point_select
 from tendermint_tpu_torch.ops.msm_geometry import (
     LANE, brev, chunk_for_lanes, chunk_geometry)
+from tendermint_tpu_torch.ops.ristretto_torch import ristretto_decode
 
 WINDOW_BITS = 8
 NWIN = 32  # 256 bits / 8
@@ -379,6 +386,53 @@ def _rlc_core_cached(a_pts: torch.Tensor, r_bytes: torch.Tensor, perm: torch.Ten
     return torch.cat([bok.reshape(1), r_ok])
 
 
+def sort_windows_device(digits: torch.Tensor):
+    """The window sort on the device, sort_windows' twin: digits (N, NWIN)
+    uint8 tensor (window w = byte w of the scalar) -> (perm (NWIN, N) int32,
+    ends (NWIN, NBUCKETS) int32), by argsort and searchsorted. Not stable:
+    bucket sums and Fenwick prefixes depend only on the set of lanes at each
+    digit value, never on their order within a bucket."""
+    d_t = digits.T.to(torch.int32).contiguous()  # (T, N)
+    perm = torch.argsort(d_t, dim=1)
+    sorted_d = torch.gather(d_t, 1, perm)
+    vals = torch.arange(NBUCKETS, dtype=torch.int32, device=digits.device)
+    ends = torch.searchsorted(sorted_d, vals.expand(d_t.shape[0], NBUCKETS).contiguous(),
+                              right=True)
+    return perm.to(torch.int32), ends.to(torch.int32)
+
+
+def _rlc_core_cached_dsort(a_pts: torch.Tensor, r_bytes: torch.Tensor, digits: torch.Tensor,
+                           fused: bool) -> torch.Tensor:
+    """_rlc_core_cached with the window sort on the device: the host sends
+    the scalars' digit rows (N, NWIN) uint8 and perm / ends are derived
+    here (sort_windows_device)."""
+    perm, ends = sort_windows_device(digits)
+    return _rlc_core_cached(a_pts, r_bytes, perm, ends, fused)
+
+
+def _rlc_core_cached_mixed(a_pts: torch.Tensor, ed_r_bytes: torch.Tensor,
+                           sr_r_bytes: torch.Tensor, perm: torch.Tensor, ends: torch.Tensor,
+                           fused: bool) -> torch.Tensor:
+    """Mixed-key cached-A variant: lanes = [A block (both key types,
+    predecoded) | Ed25519 R (32, Ne) | sr25519 R (32, Ns)]; Ed25519 R lanes
+    are decompressed as Edwards points, sr25519 R lanes decoded as
+    ristretto255 points, invalid lanes of either selected to the identity.
+    Returns packed bool (1+Ne+Ns,): [batch_ok, ed_r_ok..., sr_r_ok...]."""
+    er, er_ok = decompress(ed_r_bytes)
+    er = point_select(er_ok, er, identity(er_ok.shape, er_ok.device))
+    sr, sr_ok = ristretto_decode(sr_r_bytes)
+    sr = point_select(sr_ok, sr, identity(sr_ok.shape, sr_ok.device))
+    bok = _msm_check(torch.cat([a_pts, er, sr], dim=-1), perm, ends, fused)
+    return torch.cat([bok.reshape(1), er_ok, sr_ok])
+
+
+def _device_sort_enabled() -> bool:
+    """TMTPU_DEVICE_SORT (read per call, default off as in the reference):
+    the pure-Ed25519 cached-A flush sorts its windows on the device. The
+    mixed flush always sorts on the host."""
+    return os.environ.get("TMTPU_DEVICE_SORT", "0") != "0"
+
+
 def _rlc_partial_core(pts_bytes: torch.Tensor, perm: torch.Tensor, ends: torch.Tensor,
                       fused: bool):
     """One streamed-planner chunk: the MSM over this chunk's lanes without
@@ -438,6 +492,30 @@ def rlc_check_cached_submit(a_pts: torch.Tensor, r_bytes: np.ndarray, perm: np.n
     b = torch.from_numpy(np.ascontiguousarray(r_bytes.T)).to(dev)
     return _rlc_core_cached(a_pts, b, *_upload(perm, ends, dev),
                             fused_for_lanes(a_pts.shape[-1] + r_bytes.shape[0]))
+
+
+def rlc_check_cached_dsort_submit(a_pts: torch.Tensor, r_bytes: np.ndarray,
+                                  digits: np.ndarray) -> torch.Tensor:
+    """Cached-A flush with the window sort on the device: digits (Na+Nr, 32)
+    uint8, the scalars' bytes. Returns packed bool (1+Nr,) on the device,
+    unsynced."""
+    dev = a_pts.device
+    b = torch.from_numpy(np.ascontiguousarray(r_bytes.T)).to(dev)
+    d = torch.from_numpy(np.ascontiguousarray(digits)).to(dev)
+    return _rlc_core_cached_dsort(a_pts, b, d, fused_for_lanes(a_pts.shape[-1] + r_bytes.shape[0]))
+
+
+def rlc_check_cached_mixed_submit(a_pts: torch.Tensor, ed_r_bytes: np.ndarray,
+                                  sr_r_bytes: np.ndarray, perm: np.ndarray,
+                                  ends: np.ndarray) -> torch.Tensor:
+    """Mixed Ed25519 + sr25519 cached-A flush: a_pts (4, 20, Na) on the
+    device, ed_r_bytes (Ne, 32), sr_r_bytes (Ns, 32), perm / ends over the
+    Na+Ne+Ns lanes. Returns packed bool (1+Ne+Ns,) on the device, unsynced."""
+    dev = a_pts.device
+    eb = torch.from_numpy(np.ascontiguousarray(ed_r_bytes.T)).to(dev)
+    sb = torch.from_numpy(np.ascontiguousarray(sr_r_bytes.T)).to(dev)
+    n = a_pts.shape[-1] + ed_r_bytes.shape[0] + sr_r_bytes.shape[0]
+    return _rlc_core_cached_mixed(a_pts, eb, sb, *_upload(perm, ends, dev), fused_for_lanes(n))
 
 
 def rlc_partial_submit(pts_bytes: np.ndarray, perm: np.ndarray, ends: np.ndarray, device):

@@ -24,7 +24,7 @@ from tendermint_tpu.crypto import batch as jbatch
 from tendermint_tpu.crypto import sr25519 as jsr
 from tendermint_tpu.libs import trace as jtrace
 from tendermint_tpu_torch.crypto import batch as tbatch
-from tests.torch_routing_util import knobs, rows_with  # noqa: F401  (fixture)
+from tests.torch_routing_util import install_mixed_twins, knobs, rows_with  # noqa: F401
 
 torch.set_num_threads(2)
 
@@ -145,18 +145,27 @@ def _mixed_rows():
 
 
 def test_mixed_set_submit_is_the_eager_split(knobs, monkeypatch):
-    """A set holding sr25519 rows takes the eager verify_batch (the exact
-    per-type split, D3) even where an all-Ed25519 set of its size would be
-    eligible (RLC_MIN lowered to 8, backend "cuda"): the handle comes back
-    resolved, path "mixed", with the reference's mask."""
-    monkeypatch.setattr(tbatch, "RLC_MIN", 8)
+    """A set holding sr25519 rows, RLC_MIN lowered to 8 in both packages,
+    backend "cuda": the submit queues the one-MSM mixed check unsynced, as
+    the reference's submit does (no longer the eager split); the finish
+    finds the bad Ed25519 and sr25519 rows and recovers by the exact
+    per-type split (path "mixed", rlc_fallback), with the mask of the
+    reference's own submit / finish (its mixed flush on host twins,
+    tests/torch_routing_util.install_mixed_twins) and of its host path."""
+    for mod in (tbatch, jbatch):
+        monkeypatch.setattr(mod, "RLC_MIN", 8)
+    install_mixed_twins(monkeypatch)
     pks, msgs, sigs, types = _mixed_rows()
     h = tbatch.verify_batch_submit(pks, msgs, sigs, device="cpu", key_types=types,
                                    backend="cuda")
-    assert h._mask is not None and tbatch.LAST_FLUSH["path"] == "mixed"
-    want = jbatch.verify_batch(pks, msgs, sigs, backend="cpu", key_types=types)
+    assert h._mask is None and h._call.mode == "mixed"
     got = tbatch.verify_batch_finish(h)
-    assert got.tobytes() == np.asarray(want).tobytes()
+    assert tbatch.LAST_FLUSH["path"] == "mixed" and tbatch.LAST_FLUSH["rlc_fallback"]
+    jh = jbatch.verify_batch_submit(pks, msgs, sigs, "jax", types)
+    assert jh._mask is None
+    jmask = np.asarray(jbatch.verify_batch_finish(jh))
+    want = jbatch.verify_batch(pks, msgs, sigs, backend="cpu", key_types=types)
+    assert got.tobytes() == jmask.tobytes() == np.asarray(want).tobytes()
     assert np.flatnonzero(~got).tolist() == [2, 7]
 
 

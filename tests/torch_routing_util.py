@@ -1,6 +1,6 @@
 """Shared inputs and knobs of the port's routing tests
 (tests/test_torch_host_routing.py, test_torch_pipelined.py,
-test_torch_bisect.py).
+test_torch_bisect.py, test_torch_rlc_mixed.py).
 
 Seeded rows with the edge inputs, the same knobs set in both packages, and
 one comparison: the port's verify_batch (device="cpu", the kernels' plain
@@ -21,6 +21,8 @@ from tendermint_tpu_torch.crypto import batch as tbatch
 from tendermint_tpu_torch.crypto import keys as tkeys
 from tests.sigutil import torsion_defect_sig
 from tests.test_flush_planner import _install_host_twins
+
+_REF_FILL_A_CACHE = jbatch._fill_a_cache  # the twins below make it a no-op
 
 NOT_ON_CURVE = next(y.to_bytes(32, "little") for y in range(2, 100)
                     if ref.point_decompress(y.to_bytes(32, "little")) is None)
@@ -131,3 +133,86 @@ def check(pks, msgs, sigs, backend=None) -> dict:
     assert flush.get("recovery_flushes") == flushes
     flush["mask"] = got
     return flush
+
+
+# ---------------------------------------------------------------------------
+# The reference's mixed flush on host twins. Its one-MSM mixed route decodes
+# keys into its typed A cache (msm_jax.decompress_rows, ristretto_jax.
+# decode_rows) and runs msm_jax.rlc_check_cached_mixed_submit; its Ed25519
+# cached flush (the split's Ed25519 rows, once their keys are cached) runs
+# msm_jax.rlc_check_cached_submit. Each twin computes the same function on
+# host points: ed25519_ref decompression, the host ristretto255 decode and
+# the host Pippenger MSM (batch._host_msm), so no JAX kernel is compiled.
+
+
+def _limb_int(col) -> int:
+    return sum(int(v) << (13 * i) for i, v in enumerate(np.asarray(col).astype(np.int64))) % ref.P
+
+
+def _coords_of(points):
+    """[extended point or None] -> ((x, y, z, t) each (20, m) int32, ok (m,))."""
+    from tendermint_tpu.ops import fe25519 as jfe
+
+    m = len(points)
+    coords = tuple(np.zeros((20, m), dtype=np.int32) for _ in range(4))
+    ok = np.zeros(m, dtype=bool)
+    for j, pt in enumerate(points):
+        if pt is not None:
+            ok[j] = True
+            for c in range(4):
+                coords[c][:, j] = jfe.from_int(pt[c] % ref.P)
+    return coords, ok
+
+
+def _scalar_ints(scalars) -> list:
+    if isinstance(scalars, np.ndarray):
+        return [int.from_bytes(bytes(row), "little") for row in scalars]
+    return [int(s) for s in scalars]
+
+
+def _host_check(points, scalars) -> bool:
+    """sum [s_i] P_i == identity over the lanes with a point, as the kernels
+    decide it (an all-zero Z reads as failed)."""
+    pairs = [(p, s) for p, s in zip(points, scalars) if p is not None and s]
+    total = jbatch._host_msm(pairs) or ref.IDENTITY
+    return bool(total[2] % ref.P != 0 and ref.point_equal(total, ref.IDENTITY))
+
+
+def install_mixed_twins(monkeypatch) -> None:
+    """Host twins of the reference's mixed flush and its cached Ed25519
+    flush, its real _fill_a_cache over twin decoders, and fresh A-cache
+    globals (restored after the test, so no other test's reference flush
+    sees keys cached here). Use after the knobs fixture."""
+    from tendermint_tpu.crypto import sr25519 as jsr
+    from tendermint_tpu.ops import msm_jax, ristretto_jax
+
+    def a_points(a_coords):
+        cols = [np.asarray(c) for c in a_coords]
+        return [tuple(_limb_int(cols[c][:, j]) for c in range(4)) for j in range(cols[0].shape[-1])]
+
+    def decompress_rows(rows):
+        return _coords_of([ref.point_decompress(bytes(r)) for r in rows])
+
+    def decode_rows(rows):
+        return _coords_of([jsr.ristretto_decode(bytes(r)) for r in rows])
+
+    def cached_submit(a_coords, r_bytes, scalars, presorted=None):
+        r = [ref.point_decompress(bytes(x)) for x in r_bytes]
+        bok = _host_check(a_points(a_coords) + r, _scalar_ints(scalars))
+        return np.concatenate([[bok], [p is not None for p in r]])
+
+    def mixed_submit(a_coords, ed_r_bytes, sr_r_bytes, scalars):
+        er = [ref.point_decompress(bytes(x)) for x in ed_r_bytes]
+        sr = [jsr.ristretto_decode(bytes(x)) for x in sr_r_bytes]
+        bok = _host_check(a_points(a_coords) + er + sr, _scalar_ints(scalars))
+        return np.concatenate([[bok], [p is not None for p in er + sr]])
+
+    monkeypatch.setattr(msm_jax, "decompress_rows", decompress_rows)
+    monkeypatch.setattr(ristretto_jax, "decode_rows", decode_rows)
+    monkeypatch.setattr(msm_jax, "rlc_check_cached_submit", cached_submit)
+    monkeypatch.setattr(msm_jax, "rlc_check_cached_mixed_submit", mixed_submit)
+    monkeypatch.setattr(jbatch, "_fill_a_cache", _REF_FILL_A_CACHE)
+    monkeypatch.setattr(jbatch, "_A_CACHE", {})
+    monkeypatch.setattr(jbatch, "_A_STORE", np.empty((4, 20, 1024), dtype=np.int32))
+    monkeypatch.setattr(jbatch, "_A_STORE_LEN", 0)
+    monkeypatch.setattr(jbatch, "_DEV_A_CACHE", {})
