@@ -196,7 +196,28 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      timing-dependent flush sizes, the quarantine lane's small ladders),
      and every shape a path gave a kernel must then be the shape of a row,
      or the script exits naming it;
-  16. a `kernels` JSON line (a row off every path counts 0 launches), the
+  16. "g1_msm_10k": the general-base G1 MSM (ops/bls12_torch.g1_msm) over
+     the BLS set's 10,000 keys with scalars below r from the seed: all-ones
+     scalars equal the fold's aggregate key and the host Jacobian sum, the
+     limb tail and the host tail agree on the card's buckets, a 512-key
+     prefix equals bls_ref's sum of scalar multiples, and g1_msm is linear
+     in the scalars; 5 timed calls with the B7 launches of each (the same on
+     every call), one profiled, and a kernel row for each fp381_mul shape
+     the path gives, on the arguments of its first call;
+  17. "metrics": the port's Prometheus exposition (libs/metrics.py) read
+     before and after one warm 10k verify_commit, one 10k
+     verify_aggregate_commit and one 512-row votes-lane flush through an
+     installed scheduler built with metrics= and slo=: the flush, row,
+     scheme, aggregate-size, lane and SLO deltas must be exact, device_up 1
+     and build or load seconds recorded; then verify_stats()'s device block
+     and the recorder's own cost (µs a record_flush, 10,000 calls);
+  18. "profile_report": libs/profiler.trace_function around one warm 10k
+     single flush, then tools/profile_report.report on its run directory
+     (under $TMTPU_PROFILE_DIR, else libs/profiler.default_base_dir(); its
+     report.json beside the trace): every Ed25519 kernel launch in a
+     named stage, uptree, fenwick_reduce and bucket_fold one launch each,
+     and the stage table with the share that fell to no stage;
+  19. a `kernels` JSON line (a row off every path counts 0 launches), the
      card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
 (the warm, pipelined and streamed paths per call); every kernel of a path must
@@ -204,8 +225,8 @@ launch on it: the six Ed25519 kernels on the Ed25519 paths (pipelined,
 tampered, tampered_persig, mixed_commit, mixed_sr25519_10k, the four light
 paths, light_mixed, the consensus and catch-up paths and the scheduler paths
 included),
-the two BLS kernels on the BLS paths, none on host_small, the verify-at-add arm, the evidence check
-and the memo's answers. Exits non-zero without a result when no CUDA device
+the two BLS kernels on the BLS paths, fp381_mul on g1_msm_10k, none on host_small, the
+verify-at-add arm, the evidence check and the memo's answers. Exits non-zero without a result when no CUDA device
 is available.
 """
 
@@ -511,8 +532,9 @@ def profiled_ms(fn, name: str, reps: int):
     """The profiler's per-launch records of kernel `name` over `reps` warm
     calls of `fn`: (median ms, symbol, other device ms per call: uptree's
     layout copy and counter memset), or None where it kept too few."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from tendermint_tpu_torch.libs.profiler import is_device_record
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -524,7 +546,7 @@ def profiled_ms(fn, name: str, reps: int):
 
     durs, syms, other_us = [], set(), 0.0
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if not is_device_record(e):
             continue
         sym = which(e.name)
         if sym is not None:
@@ -1145,23 +1167,28 @@ def _pubkey_rows(args):
 
 
 def profile_path(path: str, fn, median_ms: float) -> None:
-    """One call of a path under torch.profiler: device busy time (sum of
-    kernel times; one stream, so kernels do not overlap), the idle share
-    against the path's unprofiled median, and the kernels by device time."""
-    from torch.autograd import DeviceType
+    """One call of a path under torch.profiler, device activity only (host
+    op records would cost the script seconds on the long paths): device
+    busy time (sum of kernel times; one stream, so kernels do not overlap),
+    the idle share against the path's unprofiled median, and the kernels by
+    device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from tendermint_tpu_torch.libs.profiler import device_rows
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = device_rows(prof)
     busy_us = sum(e.self_device_time_total for e in rows)
     if busy_us <= 0:
         print(f"profile {path}: the profiler recorded no device time (device busy: not measured)")
         return
     n_kernels = sum(e.count for e in rows)
     print(f"profile {path}: device_busy_ms={busy_us / 1e3:.2f} kernels={n_kernels} "
-          f"idle_share={1 - busy_us / 1e3 / median_ms:.3f} (vs median {median_ms:.1f} ms)")
+          f"idle_share={1 - busy_us / 1e3 / median_ms:.3f} (vs median {median_ms:.1f} ms; "
+          f"profiled in {time.perf_counter() - t0:.1f} s)")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:14]:
         print(f"profile {path}:   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
               f"{e.key[:90]}")
@@ -3394,17 +3421,19 @@ def scheduler_mixed_phase(dev, corpus, cu, lc, launches) -> None:
 
 
 def profile_window(path: str, fn) -> None:
-    """fn() under torch.profiler: its wall, the device busy time (the kernel
-    records of every thread), the idle share and the kernel count."""
-    from torch.autograd import DeviceType
+    """fn() under torch.profiler, device activity only: its wall, the device
+    busy time (the kernel records of every thread), the idle share and the
+    kernel count."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from tendermint_tpu_torch.libs.profiler import device_rows
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows = device_rows(prof)
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     if busy_ms <= 0:
         print(f"profile {path}: the profiler recorded no device time (device busy: not measured)")
@@ -3630,6 +3659,345 @@ def bls_phase(dev, bls: dict, launches: dict) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The general-base G1 MSM, the verify path's metrics and the profile report.
+
+G1_REPS = 5  # timed g1_msm calls
+G1_PREFIX = 512  # keys of the check against bls_ref's sums of scalar multiples
+RECORDER_CALLS = 10_000  # record_flush calls timed for the recorder's own cost
+PROFILE_TRIES = 3  # capture sessions until CUPTI keeps every launch's record
+
+
+@contextlib.contextmanager
+def recorded_products():
+    """Inside the block every fp381_mul call of ops/bls12_torch notes its
+    shape (products a lane, lanes) and keeps the arguments of the first
+    call of each shape: yields {shape: (a, b)}."""
+    from tendermint_tpu_torch.ops import bls12_torch
+
+    real = bls12_torch.fp381_mul
+    seen: dict = {}
+
+    def call(a, b):
+        key = (a.numel() // (33 * a.shape[-1]), a.shape[-1])
+        if key not in seen:
+            seen[key] = (a.clone(), b.clone())
+        return real(a, b)
+
+    bls12_torch.fp381_mul = call
+    try:
+        yield seen
+    finally:
+        bls12_torch.fp381_mul = real
+
+
+def fp381_case_of(path, a, b, variant):
+    """fp381_mul against its plain version on recorded arguments, routed as
+    shipped."""
+    from tendermint_tpu_torch.ops import cuda_bls
+
+    products = a.numel() // 33
+    return dict(name="fp381_mul", path=path, variant=variant, lanes=products,
+                symbol=ENTRY_SYMBOL[cuda_bls.fp381_mul_entry(products)],
+                kern=lambda: cuda_bls.fp381_mul(a, b), plain=lambda: cuda_bls.fp381_mul_plain(a, b),
+                mads=FP381_MUL, items=products, bytes=3 * FP_BYTES * products)
+
+
+def g1_stage(shape, n: int) -> str:
+    """Which step of g1_msm gives fp381_mul this (products, lanes) shape."""
+    k, lanes = shape
+    if lanes == 8 * n:
+        return f"segment sums: {k} x {lanes:,} rows (8 windows x {n:,} keys)"
+    if lanes == 32 * 256:
+        return f"window sums, doubling rounds: {k} x {lanes:,} (32 windows x 256 buckets)"
+    if lanes == 1:
+        return f"window combine: {k} x 1 lane (8 doublings and an add a window)"
+    return f"window sums, halving round: {k} x {lanes:,}"
+
+
+def g1_msm_phase(dev, bls: dict, card: dict, launches: dict) -> list:
+    """g1_msm_10k: the general-base G1 MSM (ops/bls12_torch.g1_msm) over
+    the 10,000 keys of the aggregate-commit set, scalars below r from the
+    seed. All-ones scalars give the fold's aggregate key and the host
+    Jacobian sum; the limb tail and the host tail agree on the same card
+    buckets; a 512-key prefix equals bls_ref's sum of scalar multiples;
+    g1_msm(P, s) + g1_msm(P, t) = g1_msm(P, s + t mod r). Then G1_REPS timed
+    calls, each with its B7 launch count (the same on every call), one
+    profiled, and a kernel row for every fp381_mul shape the path gives
+    (returned)."""
+    from tendermint_tpu_torch.crypto import bls_ref as B
+    from tendermint_tpu_torch.ops import bls12_torch as G
+    from tendermint_tpu_torch.types.validator_set import _bls_pubkey_entry
+
+    entries = [_bls_pubkey_entry(v.pub_key.bytes()) for v in bls["vals"].validators]
+    coords = [e[0] for e in entries]
+    n = len(coords)
+    rng = np.random.default_rng(SEED + 14)
+
+    def scalars(m):
+        return [int.from_bytes(rng.bytes(32), "little") % B.R for _ in range(m)]
+
+    def jac(aff):
+        return B.G1_IDENTITY if aff is None else (B._G1Field(aff[0]), B._G1Field(aff[1]),
+                                                   B._G1Field(1))
+
+    def affine(pt):
+        a = B._jac_to_affine(pt)
+        return None if a is None else (a[0].v, a[1].v)
+
+    ones = G.g1_msm(coords, [1] * n, dev)
+    fold = G.fold_points(np.stack([e[1] for e in entries], axis=-1), dev)
+    acc = B.G1_IDENTITY
+    for c in coords:
+        acc = B._jac_add(acc, jac(c))
+    if not ones == fold == affine(acc):
+        raise SystemExit("g1_msm with all-ones scalars differs from the fold or the host sum")
+    s, t = scalars(n), scalars(n)
+    buckets = G.g1_buckets(coords, s, dev)
+    limb = G.point_to_affine_int(G._combine_windows(G._weighted_window_sums(buckets)))
+    if limb != G._host_tail(buckets):
+        raise SystemExit("g1_msm: the limb tail and the host tail differ on the card's buckets")
+    sp = scalars(G1_PREFIX)
+    want = B.G1_IDENTITY
+    for c, k in zip(coords, sp):
+        want = B._jac_add(want, B._jac_mul(jac(c), k))
+    if G.g1_msm(coords[:G1_PREFIX], sp, dev) != affine(want):
+        raise SystemExit(f"g1_msm on {G1_PREFIX} keys differs from bls_ref's sum")
+    gs, gt = G.g1_msm(coords, s, dev), G.g1_msm(coords, t, dev)
+    gst = G.g1_msm(coords, [(a + b) % B.R for a, b in zip(s, t)], dev)
+    if gs != limb or affine(B._jac_add(jac(gs), jac(gt))) != gst:
+        raise SystemExit("g1_msm is not linear: P.s + P.t != P.(s + t)")
+    print(f"g1_msm_10k checks: all-ones == fold == host sum; limb tail == host tail; "
+          f"{G1_PREFIX}-key prefix == bls_ref; linear in the scalars", flush=True)
+    times = []
+    for _ in range(G1_REPS):
+        sc = scalars(n)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        G.g1_msm(coords, sc, dev)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        same_counts(launches, "g1_msm_10k", read_launches("g1_msm_10k", ("fp381_mul",)))
+    med = statistics.median(times)
+    print(f"g1_msm_10k {n}: median_ms={med:.1f} ms={[round(x, 1) for x in times]} "
+          f"B7 launches per call={launches['g1_msm_10k']['fp381_mul']}", flush=True)
+    profile_path("g1_msm_10k", lambda: G.g1_msm(coords, s, dev), med)
+    with recorded_products() as seen:
+        G.g1_msm(coords, s, dev)
+    print(f"g1_msm_10k gives fp381_mul {len(seen)} shapes: {sorted(seen)}", flush=True)
+    return check_cases([fp381_case_of("g1_msm_10k", a, b, g1_stage(key, n))
+                        for key, (a, b) in sorted(seen.items(), key=lambda kv: -kv[0][1])], card)
+
+
+def metrics_phase(dev, corpus, bls: dict, launches: dict) -> None:
+    """The verify path's Prometheus series, read as exposition text before
+    and after one warm 10k verify_commit (the default route), one 10k
+    verify_aggregate_commit, and one votes-lane flush of DRAIN rows through
+    an installed scheduler built with metrics= and slo= (the SLO engine
+    also the flush feed's default): every delta must be exact. Then the
+    device block of verify_stats() and the recorder's own cost, µs a
+    record_flush over RECORDER_CALLS calls with the SLO engine registered."""
+    from tendermint_tpu_torch import config
+    from tendermint_tpu_torch.crypto import batch, scheduler
+    from tendermint_tpu_torch.libs import metrics, slo, trace
+    from tendermint_tpu_torch.types import validator_set as VS
+
+    vals, block_id, commit, msgs = corpus
+    ns = "tendermint_batch_verify_"
+
+    def scrape(reg) -> dict:
+        return {(name, tuple(sorted(labels.items()))): v
+                for body in metrics.parse_exposition(reg.expose()).values()
+                for name, labels, v in body["samples"]}
+
+    def key(name, **labels):
+        return (name, tuple(sorted(labels.items())))
+
+    def expect(before, after, name, want, **labels):
+        got = after.get(key(name, **labels), 0.0) - before.get(key(name, **labels), 0.0)
+        if got != want:
+            raise SystemExit(f"metrics: {name}{labels} moved by {got}, expected {want}")
+
+    def flushes_moved(before, after):
+        return sum(v - before.get(k, 0.0) for k, v in after.items()
+                   if k[0] == ns + "flushes_total")
+
+    g = metrics.global_registry()
+    now = scrape(g)
+    built = {kind: now.get(key(ns + "compile_seconds_total", kind=kind), 0.0)
+             for kind in ("build", "load")}
+    if not sum(built.values()) > 0:
+        raise SystemExit(f"metrics: no kernel build or load seconds recorded: {built}")
+
+    def commit_call():
+        vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev)
+        torch.cuda.synchronize()
+
+    commit_call()  # warm
+    reset_launches()
+    b = scrape(g)
+    commit_call()
+    launches["metrics_commit"] = read_launches("metrics_commit")
+    a, last = scrape(g), trace.verify_stats()["last_flush"]
+    backend, path = commit_route = last["backend"], last["path"]
+    if path != batch.LAST_FLUSH["path"]:
+        raise SystemExit(f"metrics: the recorder's path {path} != LAST_FLUSH's")
+    expect(b, a, ns + "flushes_total", 1, backend=backend, path=path)
+    expect(b, a, ns + "sigs_total", N_VALIDATORS, backend=backend, path=path)
+    expect(b, a, ns + "backend_rows_total", N_VALIDATORS, backend="ed25519")
+    expect(b, a, ns + "backend_flushes_total", 1, backend="ed25519")
+    expect(b, a, ns + "batch_size_count", 1)
+    expect(b, a, ns + "flush_seconds_count", 1, path=path)
+    if flushes_moved(b, a) != 1 or a[key("tendermint_device_up")] != 1:
+        raise SystemExit("metrics: the commit moved other flush series, or device_up is not 1")
+
+    reset_launches()
+    b = scrape(g)
+    bls["vals"].verify_aggregate_commit(CHAIN_ID, bls["bid"], BLS_HEIGHT, bls["good"], device=dev)
+    torch.cuda.synchronize()
+    launches["metrics_bls"] = read_launches("metrics_bls", BLS_KERNELS)
+    a, signers = scrape(g), VS.LAST_AGGREGATE["signers"]
+    expect(b, a, ns + "backend_rows_total", signers, backend="bls12_381")
+    expect(b, a, ns + "backend_flushes_total", 1, backend="bls12_381")
+    if a[key(ns + "aggregate_size")] != signers or flushes_moved(b, a) != 0:
+        raise SystemExit(f"metrics: aggregate_size {a[key(ns + 'aggregate_size')]} != {signers}, "
+                         "or the aggregate commit moved a flush series")
+
+    reg = metrics.Registry()
+    engine = slo.SLOEngine(config.SLOConfig(), metrics=metrics.SLOMetrics(reg))
+    sched = scheduler.VerifyScheduler(device=dev, metrics=metrics.SchedulerMetrics(reg), slo=engine)
+    pks = [v.pub_key.bytes() for v in vals.validators[:DRAIN]]
+    sigs = [cs.signature for cs in commit.signatures[:DRAIN]]
+    scheduler.set_default(sched)
+    slo.set_default(engine)
+    try:
+        sched.verify_rows("votes", pks, msgs[:DRAIN], sigs)  # warm
+        reset_launches()
+        b, bl = scrape(g), scrape(reg)
+        mask = sched.verify_rows("votes", pks, msgs[:DRAIN], sigs)
+        torch.cuda.synchronize()
+        launches["metrics_votes"] = read_launches("metrics_votes")
+        a, al, stats = scrape(g), scrape(reg), trace.verify_stats()
+        backend, path = stats["last_flush"]["backend"], stats["last_flush"]["path"]
+    finally:
+        scheduler.set_default(None)
+        slo.set_default(None)
+        sched.close()
+    if not mask.all():
+        raise SystemExit("metrics: the votes-lane rows did not all verify")
+    if stats["last_flush"].get("device_dispatches") != sum(launches["metrics_votes"].values()):
+        raise SystemExit(f"metrics: the votes flush recorded {stats['last_flush'].get('device_dispatches')} "
+                         f"dispatches, its launches were {launches['metrics_votes']}")
+    expect(b, a, ns + "flushes_total", 1, backend=backend, path=path)
+    expect(b, a, ns + "sigs_total", DRAIN, backend=backend, path=path)
+    expect(b, a, ns + "backend_rows_total", DRAIN, backend="ed25519")
+    lane = "tendermint_verify_lane_"
+    expect(bl, al, lane + "wait_seconds_count", 1, lane="votes")
+    expect(bl, al, lane + "wait_seconds_sum", 0, lane="votes")
+    expect(bl, al, lane + "flush_rows_count", 1, lane="votes")
+    expect(bl, al, lane + "flush_rows_sum", DRAIN, lane="votes")
+    expect(bl, al, "tendermint_slo_observations_total", 1, slo="verify_lane_wait_votes",
+           verdict="good")
+    walls = sum(al.get(key("tendermint_slo_observations_total", slo="verify_flush_wall",
+                           verdict=v), 0.0) - bl.get(key("tendermint_slo_observations_total",
+                                                         slo="verify_flush_wall", verdict=v), 0.0)
+                for v in ("good", "breach"))
+    if walls != 1:
+        raise SystemExit(f"metrics: verify_flush_wall took {walls} observations, expected 1")
+    print(f"metrics: commit ({N_VALIDATORS} rows, {'/'.join(commit_route)}), aggregate "
+          f"({signers} signers) and votes lane ({DRAIN} rows, {backend}/{path}): every "
+          f"delta exact; compile_seconds build={built['build']:.2f} load={built['load']:.4f}; "
+          f"launches commit={launches['metrics_commit']} votes={launches['metrics_votes']}",
+          flush=True)
+    print(f"metrics: verify_stats device={stats['device']} votes lane series: " + "; ".join(
+        line for line in reg.expose().splitlines() if 'lane="votes"' in line
+        and not line.startswith(lane + "wait_seconds_bucket")), flush=True)
+
+    slo.set_default(engine)
+    try:
+        t0 = time.perf_counter()
+        for _ in range(RECORDER_CALLS):
+            trace.record_flush(backend="recorder", path="recorder-cost", n=DRAIN, total_s=0.01,
+                               n_valid=DRAIN, prep_s=0.002, transfer_s=0.001, jit_bucket=1024,
+                               padding_lanes=1024 - DRAIN - 1, cache_hits=DRAIN, cache_misses=0,
+                               fused=True, h2d_bytes=1 << 16, device_dispatches=5_000, chunks=1,
+                               chunk_lanes=2048, prep_overlap_s=0.0)
+        us = (time.perf_counter() - t0) / RECORDER_CALLS * 1e6
+    finally:
+        slo.set_default(None)
+    n_rec = scrape(g)[key(ns + "flushes_total", backend="recorder", path="recorder-cost")]
+    if n_rec != RECORDER_CALLS:
+        raise SystemExit(f"metrics: {n_rec} recorder flushes counted, expected {RECORDER_CALLS}")
+    print(f"metrics: record_flush costs {us:.2f} us a call ({RECORDER_CALLS} calls, series, "
+          f"SLO feed and stats; tracer off)", flush=True)
+
+
+def profile_report_phase(dev, corpus, launches: dict) -> None:
+    """profile_report: libs/profiler.trace_function around one warm 10k
+    single flush (stream off), then tools/profile_report.report on its run
+    directory. Every Ed25519 kernel launch the counters saw must be in the
+    trace in a named stage (the point kernels by their record_function
+    range), and uptree, fenwick_reduce and bucket_fold must each hold
+    exactly one launch. Up to PROFILE_TRIES sessions, until CUPTI keeps
+    every launch's record, and fails after that; a recorded kernel outside
+    its stage, or a launched kernel with no record at all, fails at once. Prints the stage table and the share that fell to no stage."""
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.libs import profiler
+    from tendermint_tpu_torch.tools import profile_report
+
+    vals, block_id, commit, _ = corpus
+
+    def call():
+        vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev)
+
+    base = os.environ.get("TMTPU_PROFILE_DIR") or profiler.default_base_dir()
+    stream = batch._stream_enabled()
+    batch.configure_prep(stream=False)
+    try:
+        call()  # warm: the cached-A single flush
+        torch.cuda.synchronize()
+        for attempt in range(1, PROFILE_TRIES + 1):
+            reset_launches()
+            t0 = time.perf_counter()
+            _, run_dir = profiler.trace_function(call, base_dir=base)
+            capture_s = time.perf_counter() - t0
+            same_counts(launches, "profile_warm", read_launches("profile_warm"))
+            if batch.LAST_FLUSH.get("mode") != "cached":
+                raise SystemExit(f"profile_report: not the cached single flush: {batch.LAST_FLUSH}")
+            rep = profile_report.report(run_dir, top=1 << 30)
+            found = {}
+            for name in ED25519_KERNELS:
+                ops = [o for o in rep["ops"] if any(sym in o["name"] for sym in KERNEL_SYMBOL[name])]
+                found[name] = {o["stage"]: o["count"] for o in ops}
+                wrong = set(found[name]) & {"other", "glue"}
+                if wrong or sum(found[name].values()) > launches["profile_warm"][name]:
+                    raise SystemExit(f"profile_report: {name} misattributed: {found[name]}")
+                if launches["profile_warm"][name] and not found[name]:
+                    raise SystemExit(f"profile_report: {name} launched "
+                                     f"{launches['profile_warm'][name]} times, none in the trace")
+            complete = all(sum(found[k].values()) == launches["profile_warm"][k]
+                           for k in ED25519_KERNELS)
+            print(f"profile_report try {attempt}: {run_dir} ({capture_s:.1f} s), kernels found "
+                  f"by stage {found}, launched {launches['profile_warm']}", flush=True)
+            if complete:
+                break
+        else:
+            raise SystemExit(f"profile_report: kernel records missing in {PROFILE_TRIES} "
+                             "sessions; not every launch is attributed")
+        stages = {r["name"]: r["count"] for r in rep["stages"]}
+        for name in ("uptree", "fenwick_reduce", "bucket_fold"):
+            if stages.get(name) != 1:
+                raise SystemExit(f"profile_report: stage {name} holds {stages.get(name)} launches")
+        with open(os.path.join(run_dir, "report.json"), "w") as f:
+            json.dump(rep, f)
+        table = profile_report.render_markdown(dict(rep, ops=rep["ops"][:12]))
+        print("\n".join(f"profile_report: {line}" for line in table.splitlines() if line),
+              flush=True)
+    finally:
+        batch.configure_prep(stream=stream)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3648,6 +4016,12 @@ def main() -> int:
     poisoned = build_poisoned(corpus)
     bls = build_bls_set()
     dev = torch.device("cuda")
+    from tendermint_tpu_torch.libs import trace
+
+    t_init = time.perf_counter()
+    torch.cuda.init()
+    torch.zeros(1, device=dev)
+    trace.record_device_init(time.perf_counter() - t_init)
     card_line = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     card_line = card_line.splitlines()[0]
     clock_mhz = float(sh(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -3699,6 +4073,14 @@ def main() -> int:
             (light_serve_phase, (light, launches)),
             (scheduler_mixed_phase, (corpus, catchup, light, launches)),
             (poisoned_votes_phase, (poisoned, launches))):
+        t_phase = time.perf_counter()
+        phase(dev, *args)
+        print(f"{phase.__name__}: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    rows += g1_msm_phase(dev, bls, card, launches)
+    print(f"g1_msm_phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    for phase, args in ((metrics_phase, (corpus, bls, launches)),
+                        (profile_report_phase, (corpus, launches))):
         t_phase = time.perf_counter()
         phase(dev, *args)
         print(f"{phase.__name__}: {time.perf_counter() - t_phase:.1f} s", flush=True)

@@ -1,14 +1,44 @@
-"""Configuration of the port's verification scheduler and light service:
-the port's copies of `SchedulerConfig` and `LightServiceConfig` from
-tendermint_tpu/config/config.py (:263-340), with the same fields and
-defaults. convert.py carries the reference's instances across field by
-field. The rest of the node's configuration waits for the node (ROADMAP
-A10).
+"""Configuration of the port's SLO engine, verification scheduler and light
+service: the port's copies of `SLOConfig`, `SchedulerConfig` and
+`LightServiceConfig` from tendermint_tpu/config/config.py (:210-340), with
+the same fields and defaults. convert.py carries the reference's instances
+across field by field. The rest of the node's configuration waits for the
+node (ROADMAP A10).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+
+
+@dataclass
+class SLOConfig:
+    """libs/slo.py: declared latency budgets (seconds) and the burn-rate
+    guard. An observation over its budget is a breach; an error-budget burn
+    rate >= burn_rate_trip over both windows trips the objective."""
+
+    enabled: bool = True
+    # target compliance ratio: 1 - target is the error budget
+    target: float = 0.99
+    # multi-window burn-rate evaluation (seconds) and trip threshold
+    window_fast: float = 60.0
+    window_slow: float = 600.0
+    burn_rate_trip: float = 4.0
+    # observations in the fast window before a trip can fire
+    min_samples: int = 6
+    # budgets (seconds)
+    proposal_propagation: float = 1.0
+    prevote_quorum_delay: float = 2.0
+    commit_interval: float = 15.0
+    verify_flush_wall: float = 2.0
+    light_verify_p99: float = 0.5
+    tx_commit_latency: float = 10.0
+    rpc_request_p99: float = 1.0
+    verify_lane_wait_votes: float = 0.05
+    verify_lane_wait_light: float = 0.1
+    verify_lane_wait_admission: float = 0.1
+    verify_lane_wait_catchup: float = 5.0
+    verify_lane_wait_quarantine: float = 30.0
 
 
 @dataclass

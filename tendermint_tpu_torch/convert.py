@@ -20,9 +20,10 @@
 - `validator_set_from_reference`: a ValidatorSet of the JAX package -> the
   port's, with each validator's key type, power, address and proposer
   priority, and the same proposer.
-- `scheduler_config_from_reference`, `light_service_config_from_reference`:
-  the JAX package's SchedulerConfig / LightServiceConfig -> the port's
-  config.py dataclasses, field by field.
+- `scheduler_config_from_reference`, `light_service_config_from_reference`,
+  `slo_config_from_reference`: the JAX package's SchedulerConfig /
+  LightServiceConfig / SLOConfig -> the port's config.py dataclasses, field
+  by field.
 """
 
 from __future__ import annotations
@@ -145,3 +146,10 @@ def light_service_config_from_reference(ref):
     from tendermint_tpu_torch.config import LightServiceConfig
 
     return _dataclass_from(LightServiceConfig, ref)
+
+
+def slo_config_from_reference(ref):
+    """An SLOConfig of the JAX package -> the port's, field by field."""
+    from tendermint_tpu_torch.config import SLOConfig
+
+    return _dataclass_from(SLOConfig, ref)

@@ -88,6 +88,17 @@ per thread: a vote flush on its caller's thread and the scheduler's
 dispatch thread route at the same time, while LAST_FLUSH stays
 process-global (last flush wins).
 
+Observability, as in the reference: every flush's record_flush carries the
+prep, transfer and build seconds, the lane bucket and padding, the A
+cache's hits and misses, the bytes uploaded and the launches the submit
+made (`h2d_bytes`, `device_dispatches`: deltas of per-thread counters, so
+each flush counts its own thread's launches), and feeds the flush series of libs/metrics.py;
+`record_backend_rows` counts each row once under its own scheme; the
+verified-row memo counts its hits; and each device round trip (the single
+flush's finish, the per-signature ladder, the streamed planner's sync) is a
+libs/trace.mark_device_call: a device error marks the device down and
+re-raises.
+
 Every route is COFACTORED with canonical encodings and s < L, except the
 serial loop in cofactorless mode, so a mask never depends on the route
 (crypto/ed25519_ref.verify_cofactored).
@@ -116,8 +127,10 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from tendermint_tpu_torch import native
+from tendermint_tpu_torch.libs.profiler import PERSIG
 from tendermint_tpu_torch.crypto.ed25519_ref import BASE, L, point_compress
 from tendermint_tpu_torch.device import resolve
 from tendermint_tpu_torch.libs import trace as _trace
@@ -130,6 +143,32 @@ BACKENDS = ("cuda", "cpu")
 
 # A call that names no backend runs on the host below this many rows.
 _CUDA_MIN_BATCH = int(os.environ.get("TMTPU_JAX_MIN", "256"))
+
+
+def record_backend_rows(backend: str, rows: int) -> None:
+    """One (rows, flush) observation on the per-scheme series
+    (tendermint_batch_verify_backend_*): each routing site that settles rows
+    of a scheme calls it once for them; verify_aggregate_commit counts each
+    signer as one bls12_381 row."""
+    from tendermint_tpu_torch.libs import metrics as _metrics
+
+    m = _metrics.batch_metrics()
+    m.backend_rows.labels(backend).inc(rows)
+    m.backend_flushes.labels(backend).inc()
+
+
+@contextlib.contextmanager
+def _on_device(sync: bool = False):
+    """Device work: an error marks the device down (libs/trace.
+    mark_device_call) and re-raises, with no fallback (ROADMAP D1); a
+    completed round trip (`sync`) marks it up."""
+    try:
+        yield
+    except Exception as e:
+        _trace.mark_device_call(ok=False, error=repr(e))
+        raise
+    if sync:
+        _trace.mark_device_call(ok=True)
 
 
 def _names_card(device) -> bool:
@@ -240,6 +279,10 @@ class VerifiedRowMemo:
             nh = int(out.sum())
             self.hits += nh
             self.misses += len(digests) - nh
+        if nh:
+            from tendermint_tpu_torch.libs import metrics as _metrics
+
+            _metrics.batch_metrics().memo_hits.inc(nh)
         return out
 
     def insert(self, digests, mask) -> None:
@@ -549,6 +592,7 @@ def prepare_batch(pubkeys, msgs, sigs):
     h_digits[64,B], precheck[n], n), B = the pow2 bucket of n."""
     n = len(pubkeys)
     b = _bucket(max(n, 1))
+    LAST_FLUSH.update(jit_bucket=b, padding_lanes=b - n)
     a = np.zeros((b, 32), dtype=np.uint8)
     r = np.zeros((b, 32), dtype=np.uint8)
     s = np.zeros((b, 32), dtype=np.uint8)
@@ -714,6 +758,7 @@ def _rlc_submit(pubkeys, msgs, sigs, device, key_types=None) -> _RlcCall:
     if key_types is not None and any(t == "sr25519" for t in key_types):
         return _rlc_submit_mixed(pubkeys, msgs, sigs, key_types, device)
     t0 = time.perf_counter()
+    counters0 = msm_torch.flush_counters()
     n = len(pubkeys)
     staged = _staged_enabled()
     if staged:
@@ -730,6 +775,9 @@ def _rlc_submit(pubkeys, msgs, sigs, device, key_types=None) -> _RlcCall:
         precheck, a_rows, r_rows, s_rows, h_rows = _precheck_and_hash_fast(pubkeys, msgs, sigs)
     keys = [bytes(p) for p in pubkeys]
     with _A_LOCK:
+        # the A cache's hit rate, sampled before any fill or exclusion
+        hits = sum(1 for i in np.flatnonzero(precheck) if keys[i] in _A_CACHE)
+        cache = dict(cache_hits=hits, cache_misses=int(precheck.sum()) - hits)
         for i in np.flatnonzero(precheck):
             if _A_CACHE.get(keys[i], True) is None:  # cached-invalid encoding
                 precheck[i] = False
@@ -740,11 +788,13 @@ def _rlc_submit(pubkeys, msgs, sigs, device, key_types=None) -> _RlcCall:
         if cached:  # the columns are valid only together with this store
             cols = np.fromiter((_A_CACHE[keys[i]] for i in rows), dtype=np.int64, count=len(rows))
     na = _lane_bucket(n + 1)
+    detail = dict(cache, jit_bucket=na, padding_lanes=2 * na - (2 * n + 1))
     a_dev = a_span = overlap_s = None
     if staged:
         if cached:  # the A block is built while the prep worker hashes
             t_a = time.perf_counter()
-            a_dev = _a_block(rows, cols, store, na, device)
+            with _on_device():
+                a_dev = _a_block(rows, cols, store, na, device)
             a_span = (t_a, time.perf_counter())
         h_rows, h_t0, h_t1 = hash_fut.result()
         h_rows[~precheck] = 0
@@ -754,17 +804,32 @@ def _rlc_submit(pubkeys, msgs, sigs, device, key_types=None) -> _RlcCall:
     if not dsort:
         perm, ends = msm_torch.sort_windows(scalars, zero16_from=na)
     prep_s = time.perf_counter() - t0
-    if cached:
-        if a_dev is None:
-            a_dev = _a_block(rows, cols, store, na, device)
-        if dsort:
-            dev = msm_torch.rlc_check_cached_dsort_submit(a_dev, pts[na:], scalars)
+    with _on_device():
+        if cached:
+            if a_dev is None:
+                a_dev = _a_block(rows, cols, store, na, device)
+            if dsort:
+                dev = msm_torch.rlc_check_cached_dsort_submit(a_dev, pts[na:], scalars)
+                detail["device_sort"] = True
+            else:
+                dev = msm_torch.rlc_check_cached_submit(a_dev, pts[na:], perm, ends)
+            dpts, mode = None, "cached"
         else:
-            dev = msm_torch.rlc_check_cached_submit(a_dev, pts[na:], perm, ends)
-        return _RlcCall(precheck, n, na, "cached", dev, None, None, prep_s, t0, overlap_s,
-                        detail={"device_sort": True} if dsort else None)
-    dev, dpts = msm_torch.rlc_check_submit(pts, perm, ends, device)
-    return _RlcCall(precheck, n, na, "plain", dev, dpts, a_rows, prep_s, t0, overlap_s)
+            dev, dpts = msm_torch.rlc_check_submit(pts, perm, ends, device)
+            mode = "plain"
+    _submit_counters(detail, counters0)
+    return _RlcCall(precheck, n, na, mode, dev, dpts, None if cached else a_rows, prep_s, t0,
+                    overlap_s, detail=detail)
+
+
+def _submit_counters(detail: dict, before: dict) -> None:
+    """The submit's device traffic into its flush detail: the bytes it
+    uploaded and the kernels it launched (msm_torch.flush_counters deltas)."""
+    from tendermint_tpu_torch.ops import msm_torch
+
+    now = msm_torch.flush_counters()
+    detail["h2d_bytes"] = now["h2d_bytes"] - before["h2d_bytes"]
+    detail["device_dispatches"] = now["dispatches"] - before["dispatches"]
 
 
 # ---------------------------------------------------------------------------
@@ -860,6 +925,7 @@ def _rlc_submit_mixed(pubkeys, msgs, sigs, key_types, device) -> _RlcCall:
     from tendermint_tpu_torch.ops import msm_torch
 
     t0 = time.perf_counter()
+    counters0 = msm_torch.flush_counters()
     n = len(pubkeys)
     sr = np.fromiter((t == "sr25519" for t in key_types), dtype=bool, count=n)
     ed_pos, sr_pos = np.flatnonzero(~sr), np.flatnonzero(sr)
@@ -875,8 +941,12 @@ def _rlc_submit_mixed(pubkeys, msgs, sigs, key_types, device) -> _RlcCall:
             if prep is _precheck_and_challenge_sr:
                 challenge_s = time.perf_counter() - tp
     ckeys = [_cache_key(a_rows[i].tobytes(), key_types[i]) for i in range(n)]
+    with _A_LOCK:  # the hit rate, sampled before the fill
+        hits = sum(1 for i in np.flatnonzero(precheck) if ckeys[i] in _A_CACHE)
+    misses = int(precheck.sum()) - hits
     t_fill = time.perf_counter()
-    _prefill_typed(a_rows, precheck, sr, ckeys, device)
+    with _on_device():
+        _prefill_typed(a_rows, precheck, sr, ckeys, device)
     fill_s = time.perf_counter() - t_fill
     with _A_LOCK:
         for i in np.flatnonzero(precheck):
@@ -887,7 +957,6 @@ def _rlc_submit_mixed(pubkeys, msgs, sigs, key_types, device) -> _RlcCall:
         cols = np.fromiter((_A_CACHE[ckeys[i]] for i in rows), dtype=np.int64, count=len(rows))
     na = _lane_bucket(n + 1)
     ne, ns = _lane_bucket(max(len(ed_pos), 1)), _lane_bucket(max(len(sr_pos), 1))
-    a_dev = _a_block(rows, cols, store, na, device)
     z16, w_rows, u = _rlc_scalars_fast(precheck, s_rows, h_rows)
     ed_r = np.tile(np.frombuffer(point_compress(BASE), dtype=np.uint8), (ne, 1))
     sr_r = np.zeros((ns, 32), dtype=np.uint8)
@@ -901,11 +970,15 @@ def _rlc_submit_mixed(pubkeys, msgs, sigs, key_types, device) -> _RlcCall:
     scalars[na + ne : na + ne + len(sr_pos), :16] = z16[sr_pos]
     perm, ends = msm_torch.sort_windows(scalars, zero16_from=na)
     prep_s = time.perf_counter() - t0
-    dev = msm_torch.rlc_check_cached_mixed_submit(a_dev, ed_r, sr_r, perm, ends)
+    with _on_device():
+        a_dev = _a_block(rows, cols, store, na, device)
+        dev = msm_torch.rlc_check_cached_mixed_submit(a_dev, ed_r, sr_r, perm, ends)
+    detail = dict(challenge_s=challenge_s, a_fill_s=fill_s, ed_rows=len(ed_pos),
+                  sr_rows=len(sr_pos), cache_hits=hits, cache_misses=misses, jit_bucket=na,
+                  padding_lanes=na + ne + ns - (2 * n + 1))
+    _submit_counters(detail, counters0)
     return _RlcCall(precheck, n, na, "mixed", dev, None, None, prep_s, t0, None,
-                    ed_pos=ed_pos, sr_pos=sr_pos, ne=ne, ns=ns,
-                    detail=dict(challenge_s=challenge_s, a_fill_s=fill_s, ed_rows=len(ed_pos),
-                                sr_rows=len(sr_pos)))
+                    ed_pos=ed_pos, sr_pos=sr_pos, ne=ne, ns=ns, detail=detail)
 
 
 def _rlc_finish(call: _RlcCall) -> Optional[np.ndarray]:
@@ -913,7 +986,10 @@ def _rlc_finish(call: _RlcCall) -> Optional[np.ndarray]:
     when the caller must recover the exact mask."""
     from tendermint_tpu_torch.ops import msm_torch
 
-    out = call.dev.cpu().numpy()  # [batch_ok, lane_ok...]
+    t_sync = time.perf_counter()
+    with _on_device(sync=True):
+        out = call.dev.cpu().numpy()  # [batch_ok, lane_ok...]
+    transfer_s = time.perf_counter() - t_sync
     precheck, n, na = call.precheck, call.n, call.na
     ok = out[1:]
     lanes = 2 * na
@@ -930,7 +1006,8 @@ def _rlc_finish(call: _RlcCall) -> Optional[np.ndarray]:
             fill_a_cache(call.a_rows[rows], call.pts[..., torch.from_numpy(rows).to(call.pts.device)],
                          ok[rows])
     LAST_FLUSH.update(mode=call.mode, prep_s=call.prep_s, total_s=time.perf_counter() - call.t0,
-                      lanes=lanes, fused=msm_torch.fused_for_lanes(lanes), **call.detail)
+                      transfer_s=transfer_s, lanes=lanes, fused=msm_torch.fused_for_lanes(lanes),
+                      **call.detail)
     if call.overlap_s is not None:
         LAST_FLUSH.update(prep_overlap_s=call.overlap_s, chunks=1, chunk_lanes=2 * na)
     return precheck if (bool(out[0]) and lanes_ok) else None
@@ -1185,9 +1262,12 @@ def _persig_flush(pubkeys, msgs, sigs, device) -> np.ndarray:
     from tendermint_tpu_torch.ops.ed25519_torch import verify_prepared
 
     a, r, s_d, h_d, precheck, n = prepare_batch(pubkeys, msgs, sigs)
-    t = [torch.from_numpy(x).to(device) for x in (a, r, s_d, h_d)]
-    _PATH.label = "persig"
-    mask = verify_prepared(*t).cpu().numpy()[:n]
+    t_dev = time.perf_counter()
+    with _on_device(sync=True), record_function(PERSIG):
+        t = [torch.from_numpy(x).to(device) for x in (a, r, s_d, h_d)]
+        _PATH.label = "persig"
+        mask = verify_prepared(*t).cpu().numpy()[:n]
+    LAST_FLUSH["transfer_s"] = time.perf_counter() - t_dev
     return mask & precheck
 
 
@@ -1220,6 +1300,7 @@ def _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device, chunks=None,
     from tendermint_tpu_torch.ops import msm_torch
 
     t0 = time.perf_counter()
+    counters0 = msm_torch.flush_counters()
     n = len(pubkeys)
     na_c = planner_budget() // 2
     if chunks is None:
@@ -1237,7 +1318,8 @@ def _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device, chunks=None,
     def sync_oldest():
         k, flags, ev = inflight.popleft()
         if ev is not None:
-            ev.synchronize()  # this chunk's kernels and flag copy, not later ones
+            with _on_device():
+                ev.synchronize()  # this chunk's kernels and flag copy, not later ones
         ok = flags.numpy()
         dev_busy.append((submit_t[k], time.perf_counter()))
         pc = prechecks[k]
@@ -1253,16 +1335,17 @@ def _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device, chunks=None,
         prechecks[k] = precheck
         if k + 1 < len(chunks):
             fut = pool.submit(_prep_stream_chunk, pubkeys, msgs, sigs, *chunks[k + 1], na_c)
-        part, ok = msm_torch.rlc_partial_submit(pts, perm, ends, device)
-        submit_t[k] = time.perf_counter()
-        acc = part if acc is None else msm_torch.partial_fold_submit(acc, part)
-        if device.type == "cuda":
-            flags = torch.empty(ok.shape, dtype=torch.bool, pin_memory=True)
-            flags.copy_(ok, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record()
-        else:
-            flags, ev = ok, None
+        with _on_device():
+            part, ok = msm_torch.rlc_partial_submit(pts, perm, ends, device)
+            submit_t[k] = time.perf_counter()
+            acc = part if acc is None else msm_torch.partial_fold_submit(acc, part)
+            if device.type == "cuda":
+                flags = torch.empty(ok.shape, dtype=torch.bool, pin_memory=True)
+                flags.copy_(ok, non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record()
+            else:
+                flags, ev = ok, None
         inflight.append((k, flags, ev))
         peak = max(peak, len(inflight) * 2 * na_c)
         if len(inflight) >= 2:
@@ -1270,13 +1353,18 @@ def _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device, chunks=None,
     while inflight:
         lanes_ok &= sync_oldest()
     t_sync = time.perf_counter()
-    batch_ok = bool(msm_torch.partial_identity_submit(acc).item())
+    with _on_device(sync=True):
+        batch_ok = bool(msm_torch.partial_identity_submit(acc).item())
     dev_busy.append((t_sync, time.perf_counter()))
+    detail = {}
+    _submit_counters(detail, counters0)
     LAST_FLUSH.update(mode=mode, fused=msm_torch.fused_for_lanes(2 * na_c),
                       chunks=len(chunks), chunk_lanes=2 * na_c, peak_lanes_in_flight=peak,
                       lanes=len(chunks) * 2 * na_c, prep_s=sum(e - s for s, e in prep_spans),
                       prep_wait_s=wait_s, prep_overlap_s=_overlap_seconds(prep_spans, dev_busy),
-                      total_s=time.perf_counter() - t0)
+                      transfer_s=dev_busy[-1][1] - t_sync, jit_bucket=na_c,
+                      padding_lanes=len(chunks) * 2 * na_c - (2 * n + len(chunks)),
+                      total_s=time.perf_counter() - t0, **detail)
     if batch_ok and lanes_ok:
         return np.concatenate(prechecks)
     return None
@@ -1318,8 +1406,10 @@ def _verify_batch_streamed(pubkeys, msgs, sigs, device) -> np.ndarray:
         parts.append(verify_batch_cuda(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], device))
         recovered.append(dict(rows=hi - lo, path=_PATH.label, mode=LAST_FLUSH.get("mode"),
                               recovery_flushes=LAST_FLUSH.get("recovery_flushes", 0)))
+    last = {k: LAST_FLUSH[k] for k in _RECOVERY_KEYS if k in LAST_FLUSH}
     LAST_FLUSH.clear()
-    LAST_FLUSH.update(detail, recovery_s=time.perf_counter() - t0, recovered_chunks=recovered)
+    LAST_FLUSH.update(detail, **last, rlc_fallback=True, recovery_s=time.perf_counter() - t0,
+                      recovered_chunks=recovered)
     flushes = sum(c["recovery_flushes"] for c in recovered)
     if flushes:
         LAST_FLUSH["recovery_flushes"] = flushes
@@ -1329,6 +1419,12 @@ def _verify_batch_streamed(pubkeys, msgs, sigs, device) -> np.ndarray:
 
 # ---------------------------------------------------------------------------
 # Exact-mask recovery after a failed combined check, knobs read per call.
+
+
+# The flush-detail keys whose last values after a recovery are the
+# recovery's last flush's, as the reference's shared detail ends.
+_RECOVERY_KEYS = ("jit_bucket", "padding_lanes", "transfer_s", "cache_hits", "cache_misses",
+                  "h2d_bytes", "device_dispatches")
 
 
 def _bisect_enabled() -> bool:
@@ -1422,8 +1518,10 @@ def verify_batch_cuda(pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Seq
     pipelined combined check (or a pipelined geometry that declines, as in
     the reference), the exact mask comes from the bisection or, with
     TMTPU_BISECT=0, one per-signature pass; LAST_FLUSH keeps the failed
-    flush's detail and gains recovery_flushes and recovery_s. With TMTPU_RLC=0
-    every size runs one per-signature pass, as the reference's does."""
+    flush's detail, the recovery's last values of _RECOVERY_KEYS (as the
+    reference's detail ends), rlc_fallback, recovery_flushes and recovery_s.
+    With TMTPU_RLC=0 every size runs one per-signature pass, as the
+    reference's does."""
     n = len(pubkeys)
     if n < RLC_MIN or not _rlc_enabled():
         LAST_FLUSH.update(mode="persig")
@@ -1446,8 +1544,10 @@ def verify_batch_cuda(pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Seq
         mask, flushes = _bisect_recover(pubkeys, msgs, sigs, device)
     else:
         mask, flushes = _persig_flush(pubkeys, msgs, sigs, device), 1
+    last = {k: LAST_FLUSH[k] for k in _RECOVERY_KEYS if k in LAST_FLUSH}
     LAST_FLUSH.clear()
-    LAST_FLUSH.update(detail, recovery_flushes=flushes, recovery_s=time.perf_counter() - t0)
+    LAST_FLUSH.update(detail, **last, rlc_fallback=True, recovery_flushes=flushes,
+                      recovery_s=time.perf_counter() - t0)
     return mask
 
 
@@ -1482,7 +1582,10 @@ def _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend) -
     bls_idx = [i for i, t in enumerate(key_types) if t == "bls12_381"]
     ed_idx = [i for i, t in enumerate(key_types) if t == "ed25519"]
     sr_idx = [i for i, t in enumerate(key_types) if t == "sr25519"]
+    if sr_idx:
+        record_backend_rows("sr25519", len(sr_idx))
     if bls_idx:
+        record_backend_rows("bls12_381", len(bls_idx))
         from tendermint_tpu_torch.crypto import bls_ref
 
         for i in bls_idx:
@@ -1509,6 +1612,14 @@ def _mixed_rlc_eligible(n: int, key_types, be: str) -> bool:
             and all(t in RLC_KEY_TYPES for t in key_types))
 
 
+def _record_typed_rows(key_types) -> None:
+    """A settled combined check's rows, once under each of its two types."""
+    for kt in RLC_KEY_TYPES:
+        kn = sum(1 for t in key_types if t == kt)
+        if kn:
+            record_backend_rows(kt, kn)
+
+
 def _verify_batch_mixed_routed(pubkeys, msgs, sigs, key_types, device, backend) -> tuple:
     """verify_batch's routing of a set holding other key types (the
     reference's _verify_batch_routed, mixed branch): (mask, arm, label). An
@@ -1523,6 +1634,7 @@ def _verify_batch_mixed_routed(pubkeys, msgs, sigs, key_types, device, backend) 
         mask = _rlc_finish(_rlc_submit(pubkeys, msgs, sigs, resolve(device), key_types))
         if mask is not None:
             _PATH.label = "rlc-mixed"
+            _record_typed_rows(key_types)
             return mask, "cuda", "rlc-mixed"
         combined_s = time.perf_counter() - t0
         mask = _verify_batch_mixed_exact(pubkeys, msgs, sigs, key_types, device, backend)
@@ -1536,6 +1648,7 @@ def _verify_batch_routed(pubkeys, msgs, sigs, device, backend) -> tuple:
     _verify_batch_routed): (mask, arm, route label). An arm that is neither
     the host nor the card raises ValueError."""
     be = backend_default() if backend is None else _card_alias(backend)
+    record_backend_rows("ed25519", len(pubkeys))
     if (backend is None and be == "cuda" and len(pubkeys) < _CUDA_MIN_BATCH
             and not _names_card(device)):
         be = "cpu"
@@ -1562,6 +1675,16 @@ def _score_rows(sources, mask) -> Optional[int]:
     except Exception:
         return None
     return quarantined
+
+
+_DETAIL_FIELDS = ("transfer_s", "jit_bucket", "padding_lanes", "cache_hits", "cache_misses",
+                  "fused", "h2d_bytes", "device_dispatches", "chunks", "chunk_lanes",
+                  "prep_overlap_s")
+
+
+def _detail_fields(detail: dict) -> dict:
+    """The flush detail's record_flush fields (absent: None)."""
+    return {k: detail.get(k) for k in _DETAIL_FIELDS}
 
 
 def _record_memo_hits(nh: int, t_memo: float, sources) -> None:
@@ -1630,6 +1753,7 @@ def verify_batch(
         if mask is not None:
             return mask
     tr = _trace.tracer if _trace.tracer.enabled else None  # one flag read
+    compile0 = _trace.compile_seconds_total()
     t0 = time.perf_counter()
     span = None
     if tr is not None:
@@ -1650,14 +1774,13 @@ def verify_batch(
     LAST_FLUSH["path"] = path
     _MEMO.insert(digests, mask)
     detail = dict(LAST_FLUSH)
+    compile_s = _trace.compile_seconds_total() - compile0
     quarantined = None if sources is None else _score_rows(sources, mask)
     _trace.record_flush(
         backend=be, path=path, n=len(pubkeys), total_s=time.perf_counter() - t0,
         n_valid=int(mask.sum()), prep_s=detail.get("prep_s"),
-        rlc_fallback=bool(detail.get("recovery_flushes") or detail.get("rlc_fallback")),
-        fused=detail.get("fused"),
-        chunks=detail.get("chunks"), chunk_lanes=detail.get("chunk_lanes"),
-        prep_overlap_s=detail.get("prep_overlap_s"),
+        compile_s=compile_s if compile_s > 0 else None, **_detail_fields(detail),
+        rlc_fallback=bool(detail.get("rlc_fallback")),
         recovery_flushes=detail.get("recovery_flushes"), quarantined=quarantined, tracer_=tr)
     if span is not None:
         span.set(path=path, backend=be)
@@ -1875,6 +1998,10 @@ def verify_batch_finish(h: BatchHandle) -> np.ndarray:
     else:
         mask = _rlc_finish(h._call)
     detail = dict(LAST_FLUSH)
+    if key_types is None:
+        record_backend_rows("ed25519", len(pubkeys))
+    elif mask is not None:  # a failed mixed check's split records its own rows
+        _record_typed_rows(key_types)
     if mask is None and key_types is not None:
         # the mixed check failed: the exact per-type split, whose own flushes
         # record themselves, as the reference's finish recovers
@@ -1886,9 +2013,8 @@ def verify_batch_finish(h: BatchHandle) -> np.ndarray:
         LAST_FLUSH["path"] = "rlc-async"
         _trace.record_flush(
             backend="cuda", path="rlc-async", n=len(pubkeys), total_s=time.perf_counter() - t0,
-            n_valid=int(mask.sum()), prep_s=detail.get("prep_s"), fused=detail.get("fused"),
-            chunks=detail.get("chunks"), chunk_lanes=detail.get("chunk_lanes"),
-            prep_overlap_s=detail.get("prep_overlap_s"), tracer_=tr)
+            n_valid=int(mask.sum()), prep_s=detail.get("prep_s"), **_detail_fields(detail),
+            tracer_=tr)
     else:
         t_rec = time.perf_counter()
         mask = _persig_flush(pubkeys, msgs, sigs, dev)
@@ -1897,7 +2023,8 @@ def verify_batch_finish(h: BatchHandle) -> np.ndarray:
         _trace.record_flush(
             backend="cuda", path="persig-async", n=len(pubkeys),
             total_s=time.perf_counter() - t0, n_valid=int(mask.sum()),
-            transfer_s=time.perf_counter() - t_rec, rlc_fallback=True, tracer_=tr)
+            transfer_s=LAST_FLUSH.get("transfer_s"), jit_bucket=LAST_FLUSH.get("jit_bucket"),
+            padding_lanes=LAST_FLUSH.get("padding_lanes"), rlc_fallback=True, tracer_=tr)
     _MEMO.insert(h._digests, mask)
     h._mask, h._call, h._args, h._digests = mask, None, None, None
     return mask

@@ -19,9 +19,9 @@ after every tagged flush) and keeps a small state machine per source:
 The scheduler routes quarantined sources to its quarantine lane, so their
 rows never share a vote, light or admission flush again. Scoring is
 advisory and never changes a verdict: punish callbacks are exception-
-guarded and `is_quarantined` is a lock-free frozenset lookup. The
-reference's gauge hook (the poisoned-sources series) waits for the
-metrics port (ROADMAP A9).
+guarded and `is_quarantined` is a lock-free frozenset lookup. After each
+record_rows and reset, the count of quarantined sources is published on
+tendermint_batch_verify_poisoned_sources (libs/metrics.py).
 """
 
 from __future__ import annotations
@@ -110,6 +110,7 @@ class SuspicionScorer:
                 cb(src, info)
             except Exception:  # punishment never breaks verification
                 pass
+        self._publish_gauge()
 
     def _advance_locked(self, src: str, *, bad: int, clean: int) -> list:
         st = self._state.get(src)
@@ -163,6 +164,14 @@ class SuspicionScorer:
     def _rebuild_quarantined_locked(self) -> None:
         self._quarantined = frozenset(k for k, st in self._state.items() if st.quarantined)
 
+    def _publish_gauge(self) -> None:
+        try:
+            from tendermint_tpu_torch.libs import metrics as _metrics
+
+            _metrics.batch_metrics().poisoned_sources.set(len(self._quarantined))
+        except Exception:  # observability never breaks the verify path
+            pass
+
     def is_quarantined(self, source: str) -> bool:
         return source in self._quarantined
 
@@ -206,6 +215,7 @@ class SuspicionScorer:
             self._quarantined = frozenset()
             self._paroles = 0
             self._punished_total = 0
+        self._publish_gauge()
 
 
 _DEFAULT = SuspicionScorer()

@@ -43,9 +43,12 @@ All three block the calling thread until the lane's flush lands. A closed
 scheduler, or a verdict that misses `wait_timeout`, verifies inline on the
 caller's thread (on the same device).
 
-The reference's `metrics=` and `slo=` hooks wait for the metrics port
-(ROADMAP A9); its `mesh_ladder` stats entry waits for the sharded mesh
-(A8).
+With `metrics=` (libs/metrics.SchedulerMetrics) the scheduler feeds the
+tendermint_verify_lane_* series (queue depth per lane, each flush's queue
+wait and rows per lane, vote preemptions); with `slo=` (libs/slo.SLOEngine)
+each flush's lane waits are verify_lane_wait_<lane> observations. The
+reference's `mesh_ladder` stats entry waits for the sharded mesh (ROADMAP
+A8).
 """
 
 from __future__ import annotations
@@ -197,10 +200,13 @@ class LaneAccumulator:
 class VerifyScheduler:
     """The node-wide device coordinator (module docstring)."""
 
-    def __init__(self, config=None, backend: Optional[str] = None, device=None):
+    def __init__(self, config=None, backend: Optional[str] = None, device=None,
+                 metrics=None, slo=None):
         """config: config.SchedulerConfig (None: defaults); backend: the
         crypto backend of the combined flushes (None or "": the crypto
-        default); device: where they run (None: the card)."""
+        default); device: where they run (None: the card); metrics:
+        libs/metrics.SchedulerMetrics or None; slo: libs/slo.SLOEngine or
+        None (fed verify_lane_wait_* per flush)."""
         if config is None:
             from tendermint_tpu_torch.config import SchedulerConfig
 
@@ -208,6 +214,8 @@ class VerifyScheduler:
         self.config = config
         self.backend = backend or (getattr(config, "backend", "") or None)
         self.device = device
+        self.metrics = metrics
+        self.slo = slo
         self._lanes: Dict[str, _LaneState] = {n: _LaneState(n) for n in LANES}
         self._base: Dict[str, _Budgets] = {
             "votes": _Budgets(int(config.votes_max_rows), float(config.votes_max_wait)),
@@ -292,6 +300,8 @@ class VerifyScheduler:
             st = self._lanes[lane]
             st.queue.append((ticket, list(pubkeys), list(msgs), list(sigs), kt, src))
             st.rows += n
+            if self.metrics is not None:
+                self.metrics.lane_depth.labels(lane).set(st.rows)
             self._cv.notify_all()
         return ticket
 
@@ -350,6 +360,8 @@ class VerifyScheduler:
         with self._cv:
             if any(self._lanes[name].queue for name in LANES if name != "votes"):
                 self.preemptions += 1
+                if self.metrics is not None:
+                    self.metrics.preemptions.inc()
         mask = self._inline(pubkeys, msgs, sigs, key_types, sources)
         wall = time.monotonic() - t0
         with self._cv:
@@ -362,6 +374,11 @@ class VerifyScheduler:
                                    "rows": {"votes": n}, "wait_s": {"votes": 0.0},
                                    "error": None})
         self.wait_stats.observe("votes", 0.0)
+        if self.metrics is not None:
+            self.metrics.lane_wait.labels("votes").observe(0.0)
+            self.metrics.lane_flush_rows.labels("votes").observe(n)
+        if self.slo is not None:
+            self.slo.observe("verify_lane_wait_votes", 0.0)
         return mask
 
     def _wait_or_fallback(self, ticket: Ticket, rows=None) -> np.ndarray:
@@ -543,6 +560,8 @@ class VerifyScheduler:
                         st.rows = 0
                 if preempted:
                     self.preemptions += 1
+                    if self.metrics is not None:
+                        self.metrics.preemptions.inc()
                 closed = self._closed
             if entries:
                 self._flush(entries, lanes)
@@ -601,8 +620,16 @@ class VerifyScheduler:
                 st = self._lanes[lane]
                 st.flushes += 1
                 st.rows_total += lane_rows[lane]
-        for lane in lane_rows:
-            self.wait_stats.observe(lane, t_flush - lane_oldest[lane])
+                if self.metrics is not None:
+                    self.metrics.lane_depth.labels(lane).set(st.rows)
+        for lane, rows in lane_rows.items():
+            wait = t_flush - lane_oldest[lane]
+            self.wait_stats.observe(lane, wait)
+            if self.metrics is not None:
+                self.metrics.lane_wait.labels(lane).observe(wait)
+                self.metrics.lane_flush_rows.labels(lane).observe(rows)
+            if self.slo is not None:
+                self.slo.observe(f"verify_lane_wait_{lane}", wait)
         for ticket, start, end in slices:
             ticket.flush_seq = seq
             ticket.wait_s = t_flush - ticket.enqueued_t
@@ -648,6 +675,8 @@ class VerifyScheduler:
             st.queue.clear()
             st.rows = 0
             self.preemptions += 1
+            if self.metrics is not None:
+                self.metrics.preemptions.inc()
         self._flush(entries, {"votes"})
 
     # -- introspection / lifecycle --------------------------------------------

@@ -6,17 +6,28 @@ JSONL export (`Span`, `Tracer`, the `tracer` singleton), and every flush
 of crypto/batch.py is aggregated by `record_flush` into the per-(backend,
 path) totals, counters and last-flush breakdown that `verify_stats()`
 serves, with the default scheduler's lane state in its `scheduler` block.
+`record_flush` also feeds the flush series of libs/metrics.py
+(tendermint_batch_verify_*) and the SLO engine's verify_flush_wall
+(libs/slo.feed_flush) on every flush: there is no switch, as in the
+reference.
+
+Device health: crypto/batch.py calls `mark_device_call` at each device
+round trip (ok, or the error before it re-raises; there is no fallback),
+`record_device_init` records the card's first initialization, and
+`device_health()` (verify_stats' `device` block) and the
+tendermint_device_* gauges read them. Compile accounting: every nvcc build
+and every load of a built kernel library (ops/cuda_fe.build_library) is a
+`record_compile`; `compile_seconds_total()` lets a flush count the build
+seconds it paid. `record_slope_samples` keeps a slope fit's raw (k,
+seconds) pairs for verify_stats.
 
 Overhead contract, as in the reference: when `tracer.enabled` is False the
 instrumented paths make no tracer call beyond one flag read (they hoist
 `tracer if tracer.enabled else None`), and the ring never exceeds its size.
 TMTPU_TRACE=0 turns it off at import.
 
-Not ported (ROADMAP A9): the Prometheus series that record_flush also
-feeds there (libs/metrics.py), the SLO flush feed, device health
-(`device_health`, `record_device_init`, `mark_device_call`), compile
-accounting (`record_compile`), and verify_stats' `device`, `breaker` and
-`mesh` blocks.
+Not ported: verify_stats' `breaker` block (the port has no circuit breaker,
+ROADMAP D1) and its `mesh` block (the sharded mesh, A8).
 """
 
 from __future__ import annotations
@@ -155,7 +166,18 @@ _COUNTS = {
     "quarantined_rows": 0,
 }
 _STAGE_SECONDS = {"prep": 0.0, "compile": 0.0, "transfer": 0.0, "total": 0.0}
-_FLUSH_SAMPLES: deque = deque(maxlen=128)  # (n, total_s, path) of rlc* flushes
+# A slope fit's raw (k, seconds) pairs (record_slope_samples), and the
+# (n, total_s, path) samples of the last rlc* flushes.
+_SLOPE_FIT: Dict[str, Any] = {}
+_FLUSH_SAMPLES: deque = deque(maxlen=128)
+
+_DEVICE_LOCK = threading.Lock()
+_DEVICE: Dict[str, Any] = {
+    "up": None,  # None = no device call attempted yet
+    "init_seconds": None,
+    "last_call_monotonic": None,
+    "last_error": None,
+}
 
 
 def record_flush(
@@ -188,7 +210,44 @@ def record_flush(
     """One batch-verify flush completed (crypto/batch.py calls it for every
     flush on every arm). `tracer_` is the caller's already-resolved tracer,
     or None when tracing is off, so this adds no flag read of its own; with
-    one, the flush is also a "batch_verify.flush" event in the ring."""
+    one, the flush is also a "batch_verify.flush" event in the ring. The
+    flush series and the SLO feed move as the reference's do."""
+    from tendermint_tpu_torch.libs import metrics as _metrics
+    from tendermint_tpu_torch.libs import slo as _slo
+
+    _slo.feed_flush(total_s)
+    m = _metrics.batch_metrics()
+    m.flushes.labels(backend, path).inc()
+    m.sigs.labels(backend, path).inc(n)
+    m.batch_size.observe(n)
+    m.flush_seconds.labels(path).observe(total_s)
+    if prep_s is not None:
+        m.prep_seconds.observe(prep_s)
+    # compile_s rides only the breakdown: record_compile counted it already
+    if transfer_s is not None:
+        m.transfer_seconds.inc(transfer_s)
+    if jit_bucket is not None:
+        m.jit_bucket.set(jit_bucket)
+    if padding_lanes is not None:
+        m.padding_lanes.set(padding_lanes)
+    if cache_hits:
+        m.pubkey_cache_hits.inc(cache_hits)
+    if cache_misses:
+        m.pubkey_cache_misses.inc(cache_misses)
+    if rlc_fallback:
+        m.rlc_fallbacks.inc()
+    if recovery_flushes:
+        m.recovery_flushes.inc(recovery_flushes)
+    if quarantined:
+        m.quarantined_rows.inc(quarantined)
+    if chunks is not None:
+        m.chunks_per_flush.observe(chunks)
+    if prep_overlap_s:
+        m.prep_overlap_seconds.inc(prep_overlap_s)
+    # memo_hits rides only the breakdown: VerifiedRowMemo.lookup counts it
+    if prep_s and prep_overlap_s is not None:
+        m.prep_hidden_ratio.set(min(1.0, prep_overlap_s / prep_s))
+
     last = {"backend": backend, "path": path, "n": n, "total_ms": round(total_s * 1e3, 4)}
     if n_valid is not None:
         last["n_valid"] = n_valid
@@ -254,20 +313,32 @@ def record_flush(
         tracer_.event("batch_verify.flush", **last)
 
 
+def record_slope_samples(samples, slope_ms: Optional[float] = None,
+                         fused: Optional[bool] = None, source: str = "bench") -> None:
+    """Keep a slope fit's raw (k, seconds) pairs, so verify_stats serves
+    them for re-fitting."""
+    with _STATS_LOCK:
+        _SLOPE_FIT.clear()
+        _SLOPE_FIT.update(samples=[list(s) for s in samples], slope_ms=slope_ms, fused=fused,
+                          source=source, recorded_at=time.time())
+
+
 def verify_stats() -> dict:
     """Aggregated flush telemetry: per-(backend, path) totals, the per-stage
-    time split, the counters, the last flush's breakdown, the (rows,
-    seconds, path) samples of the last rlc* flushes, and the default
-    scheduler's `scheduler` block when one is installed. The reference's
-    bench-fed slope fit is not ported."""
+    time split, the counters, the last flush's breakdown, the slope samples
+    (the last recorded fit, and the (rows, seconds, path) samples of the
+    last rlc* flushes), the `device` block (device_health()), and the
+    default scheduler's `scheduler` block when one is installed."""
     with _STATS_LOCK:
         out = {
             "totals": {f"{backend}/{path}": dict(t) for (backend, path), t in _TOTALS.items()},
             "stage_seconds": dict(_STAGE_SECONDS),
             "counters": dict(_COUNTS),
             "last_flush": dict(_LAST_FLUSH),
-            "slope_samples": {"flush_samples": [list(s) for s in _FLUSH_SAMPLES]},
+            "slope_samples": {"fit": dict(_SLOPE_FIT) or None,
+                              "flush_samples": [list(s) for s in _FLUSH_SAMPLES]},
         }
+    out["device"] = device_health()
     # lazy: crypto/batch imports this module; the scheduler imports batch
     from tendermint_tpu_torch.crypto import scheduler as _scheduler
 
@@ -278,12 +349,95 @@ def verify_stats() -> dict:
 
 
 def reset_stats() -> None:
-    """Zero the aggregated flush telemetry (tests)."""
+    """Zero the aggregated flush telemetry (tests); not the metrics."""
     with _STATS_LOCK:
         _TOTALS.clear()
         _LAST_FLUSH.clear()
+        _SLOPE_FIT.clear()
         _FLUSH_SAMPLES.clear()
         for k in _COUNTS:
             _COUNTS[k] = 0
         for k in _STAGE_SECONDS:
             _STAGE_SECONDS[k] = 0.0
+
+
+# ---------------------------------------------------------------------------
+# Device health.
+
+
+def record_device_init(seconds: float, ok: bool = True, error: str = "") -> None:
+    """The card's initialization finished (ok) or failed."""
+    from tendermint_tpu_torch.libs import metrics as _metrics
+
+    m = _metrics.batch_metrics()
+    with _DEVICE_LOCK:
+        _DEVICE["init_seconds"] = seconds
+        _DEVICE["up"] = bool(ok)
+        _DEVICE["last_error"] = error or None
+        if ok:
+            _DEVICE["last_call_monotonic"] = time.monotonic()
+    m.device_init_seconds.set(seconds)
+    m.device_up.set(1.0 if ok else 0.0)
+    if ok:
+        m.device_last_call_timestamp.set(time.time())
+    if tracer.enabled:
+        tracer.event("device.init", seconds=round(seconds, 4), ok=bool(ok))
+
+
+def mark_device_call(ok: bool = True, error: str = "") -> None:
+    """A device round trip completed (ok) or failed (not ok): `device_up`."""
+    from tendermint_tpu_torch.libs import metrics as _metrics
+
+    m = _metrics.batch_metrics()
+    with _DEVICE_LOCK:
+        _DEVICE["up"] = bool(ok)
+        if ok:
+            _DEVICE["last_call_monotonic"] = time.monotonic()
+            _DEVICE["last_error"] = None
+        else:
+            _DEVICE["last_error"] = error or "device call failed"
+    m.device_up.set(1.0 if ok else 0.0)
+    if ok:
+        m.device_last_call_timestamp.set(time.time())
+
+
+def device_health() -> dict:
+    """{"device_up": 0/1/None, "init_seconds", "last_call_age_s",
+    "last_error"}; device_up None means no device call was attempted in
+    this process."""
+    with _DEVICE_LOCK:
+        up = _DEVICE["up"]
+        last = _DEVICE["last_call_monotonic"]
+        return {
+            "device_up": None if up is None else int(up),
+            "init_seconds": _DEVICE["init_seconds"],
+            "last_call_age_s": round(time.monotonic() - last, 3) if last is not None else None,
+            "last_error": _DEVICE["last_error"],
+        }
+
+
+# ---------------------------------------------------------------------------
+# Compile accounting.
+
+_COMPILE_LOCK = threading.Lock()
+_COMPILE_TOTAL = 0.0  # seconds of kernel builds and library loads
+
+
+def record_compile(name: str, seconds: float, kind: str) -> None:
+    """A kernel library's nvcc build ("build") or load ("load") took
+    `seconds` (ops/cuda_fe.build_library)."""
+    global _COMPILE_TOTAL
+    from tendermint_tpu_torch.libs import metrics as _metrics
+
+    with _COMPILE_LOCK:
+        _COMPILE_TOTAL += seconds
+    _metrics.batch_metrics().compile_seconds.labels(kind).inc(seconds)
+    if tracer.enabled:
+        tracer.event(f"kernel.{kind}", kernel=name, seconds=round(seconds, 4))
+
+
+def compile_seconds_total() -> float:
+    """Monotonic build-and-load seconds; a flush reads it before and after
+    to count what it paid (crypto/batch.verify_batch)."""
+    with _COMPILE_LOCK:
+        return _COMPILE_TOTAL

@@ -24,9 +24,12 @@ service made without a scheduler owns a private one on that device and
 stops it in `close()`.
 
 The service anchors on the earliest header its provider serves, verified
-against its own validator set before use. Not ported: `LocalNodeProvider`
-(it reads a node's stores; ROADMAP A10), the RPC routes, and the metrics
-and SLO hooks (A9).
+against its own validator set before use. With `metrics=`
+(libs/metrics.LightServiceMetrics) it feeds the tendermint_light_* series
+(requests by outcome, cache hits, coalesced lanes per flush, sheds,
+conflicting headers); with `slo=` (libs/slo.SLOEngine) every request's
+latency is a light_verify_p99 observation. Not ported: `LocalNodeProvider`
+(it reads a node's stores; ROADMAP A10) and the RPC routes.
 """
 
 from __future__ import annotations
@@ -157,6 +160,8 @@ class LightService:
         config,
         *,
         store: Optional[LightStore] = None,
+        metrics=None,
+        slo=None,
         trust_level: Optional[Fraction] = None,
         now_ns: Optional[Callable[[], int]] = None,
         scheduler=None,
@@ -167,6 +172,8 @@ class LightService:
         self.provider = provider
         self.config = config
         self.store = store or LightStore(MemDB())
+        self.metrics = metrics  # libs/metrics.LightServiceMetrics or None
+        self.slo = slo  # libs/slo.SLOEngine or None
         self.device = device
         # every batch's commit-check rows ride the scheduler's light lane,
         # whose max_wait is pinned below to this service's coalesce_window;
@@ -235,6 +242,7 @@ class LightService:
         Raises a structured LightServiceError on refusal/failure."""
         if height <= 0:
             raise ErrHeightNotAvailable(f"height must be positive, got {height}")
+        t0 = time.perf_counter()
         self.requests_total += 1
         try:
             lb, source = await self._verify_height_inner(height)
@@ -245,12 +253,15 @@ class LightService:
             self._count_outcome(
                 "conflict" if isinstance(e, ErrConflictingHeader) else "error"
             )
+            self._observe_latency(time.perf_counter() - t0)
             raise
         if expected_hash and lb.hash() != expected_hash:
             self._record_conflict()
             self._count_outcome("conflict")
+            self._observe_latency(time.perf_counter() - t0)
             raise ErrConflictingHeader(height, lb.hash(), expected_hash)
         self._count_outcome(source)
+        self._observe_latency(time.perf_counter() - t0)
         return lb, source
 
     def _hot_get(self, height: int) -> Optional[LightBlock]:
@@ -286,6 +297,8 @@ class LightService:
         if cached is not None:
             with self._counter_lock:
                 self.cache_hits += 1
+            if self.metrics is not None:
+                self.metrics.cache_hits.inc()
             return cached, "cache"
         # single-flight: the FIRST requester for an uncached height leads;
         # everyone else awaits its future (one verification, not K)
@@ -307,6 +320,8 @@ class LightService:
             # verification — a cache hit, counted only on success
             with self._counter_lock:
                 self.cache_hits += 1
+            if self.metrics is not None:
+                self.metrics.cache_hits.inc()
             return value, "cache"  # served from the leader's verification
         loop = asyncio.get_running_loop()
         fut = loop.create_future()
@@ -333,6 +348,8 @@ class LightService:
         if self.max_pending > 0 and self._pending >= self.max_pending:
             with self._counter_lock:
                 self.sheds += 1
+            if self.metrics is not None:
+                self.metrics.shed.inc()
             raise ErrLightOverloaded(
                 f"light service at max_pending={self.max_pending}"
             )
@@ -566,6 +583,8 @@ class LightService:
                 self._seen_flush_seqs.add(seq)
                 self.flushes += 1
             self.lanes_total += lanes
+        if self.metrics is not None:
+            self.metrics.coalesced_lanes.observe(lanes)
         return results, {"lanes": lanes, "jobs": len(jobs)}
 
     def _submit_job(self, job: _Job, now_ns: int):
@@ -622,10 +641,18 @@ class LightService:
     def _count_outcome(self, outcome: str) -> None:
         with self._counter_lock:
             self.outcomes[outcome] = self.outcomes.get(outcome, 0) + 1
+        if self.metrics is not None:
+            self.metrics.requests.labels(outcome).inc()
 
     def _record_conflict(self) -> None:
         with self._counter_lock:
             self.conflicts += 1
+        if self.metrics is not None:
+            self.metrics.conflicting_headers.inc()
+
+    def _observe_latency(self, seconds: float) -> None:
+        if self.slo is not None:
+            self.slo.observe("light_verify_p99", seconds)
 
     def status(self) -> dict:
         """Span and policy, no counters (the reference's `light_status`).

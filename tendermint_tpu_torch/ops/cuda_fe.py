@@ -45,11 +45,22 @@ import threading
 
 import torch
 
+from tendermint_tpu_torch.libs import trace as _trace
 from tendermint_tpu_torch.ops import fe25519 as fe
 
 NL = fe.NLIMBS
 
 LAUNCHES = {"padd": 0, "pdbl": 0, "fsquare_chain": 0}
+
+
+class _ThreadLaunches(threading.local):
+    def __init__(self):
+        self.count = 0
+
+
+# the launches of all eight wrappers made by the current thread
+# (msm_torch.flush_counters: a flush's dispatches are its own thread's)
+THREAD_LAUNCHES = _ThreadLaunches()
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -140,7 +151,10 @@ BUILD_LOG: dict = {}  # stem -> {"seconds": build + load time, "ptxas": nvcc's -
 def build_library(stem: str, sources, bind) -> ctypes.CDLL:
     """Build (once per source hash) and load `csrc/<stem>.cu` (its headers in
     `sources` count toward the hash); `bind(lib)` sets the ctypes signatures.
-    A failed build raises with nvcc's stderr."""
+    A failed build raises with nvcc's stderr. The nvcc build and the load
+    are each a libs/trace.record_compile ("build", "load"); the build runs
+    in a record_function range "compile:<stem>" (tools/profile_report.py's
+    compile stage)."""
     lib = _LIBS.get(stem)
     if lib is not None:
         return lib
@@ -157,15 +171,19 @@ def build_library(stem: str, sources, bind) -> ctypes.CDLL:
             fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=".so-", suffix=".so")
             os.close(fd)
             cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, stem + ".cu")]
-            res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+            with torch.profiler.record_function(f"compile:{stem}"):
+                res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
             if res.returncode != 0:
                 os.unlink(tmp)
                 raise RuntimeError(f"nvcc build of {stem} failed: {' '.join(cmd)}\n{res.stderr}")
             with open(log_path, "w") as f:
                 f.write(res.stderr)
             os.replace(tmp, so_path)
+            _trace.record_compile(stem, time.perf_counter() - t0, "build")
+        t_load = time.perf_counter()
         lib = ctypes.CDLL(so_path)
         bind(lib)
+        _trace.record_compile(stem, time.perf_counter() - t_load, "load")
         ptxas = ""
         if os.path.exists(log_path):
             with open(log_path) as f:
@@ -210,6 +228,7 @@ def _launched(name: str, err: int, launches: dict = LAUNCHES) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA launch of {name} failed: cudaError {err}")
     launches[name] += 1
+    THREAD_LAUNCHES.count += 1
 
 
 def _stream(x: torch.Tensor) -> int:

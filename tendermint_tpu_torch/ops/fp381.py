@@ -20,7 +20,8 @@ The Montgomery product (and the square, as a product of a value with
 itself: the reference's symmetric square sums the same terms) is
 ops/cuda_bls.fp381_mul: the CUDA kernel for a tensor on the card, its plain
 torch version for one on the CPU. The host conversions (python ints <->
-limbs) are numpy.
+limbs) and the packed transfer layout (`pack` / `unpack`: 13 words of
+radix 2^30) are numpy.
 """
 
 from __future__ import annotations
@@ -40,6 +41,9 @@ NBITS = RADIX * NLIMBS  # 396
 R_MONT = (1 << NBITS) % P
 R_INV = pow(1 << NBITS, P - 2, P)
 PPRIME = (-pow(P, -1, 1 << RADIX)) % (1 << RADIX)  # -p^-1 mod 2^12
+
+PACK_RADIX = 30
+PACK_WORDS = 13  # 13 * 30 = 390 bits >= 381
 
 
 def _limbs_of(x: int) -> List[int]:
@@ -81,11 +85,15 @@ def mont_to_int(limbs) -> int:
 
 
 def mont_from_ints(xs: Sequence[int]) -> np.ndarray:
-    """ints -> (33, n) int32 Montgomery limb block."""
-    out = np.zeros((NLIMBS, len(xs)), dtype=np.int32)
-    for j, x in enumerate(xs):
-        out[:, j] = mont_from_int(x)
-    return out
+    """ints -> (33, n) int32 Montgomery limb block: each x * R mod p as 50
+    little-endian bytes, unpacked to bits and regrouped 12 a limb."""
+    n = len(xs)
+    if n == 0:
+        return np.zeros((NLIMBS, 0), dtype=np.int32)
+    blob = b"".join((x % P * R_MONT % P).to_bytes(50, "little") for x in xs)
+    bits = np.unpackbits(np.frombuffer(blob, dtype=np.uint8).reshape(n, 50), axis=1,
+                         bitorder="little")[:, :NBITS].reshape(n, NLIMBS, RADIX)
+    return np.ascontiguousarray((bits.astype(np.int32) @ (1 << np.arange(RADIX, dtype=np.int32))).T)
 
 
 def mont_to_ints(limbs) -> List[int]:
@@ -96,6 +104,29 @@ def mont_to_ints(limbs) -> List[int]:
         v = sum(int(arr[i, j]) << (RADIX * i) for i in range(NLIMBS)) % P
         out.append(v * R_INV % P)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Packed transfer layout: 13 int32 words of radix 2^30 (canonical values only).
+
+
+def pack(values: Sequence[int]) -> np.ndarray:
+    """canonical ints -> (13, n) int32 packed words (radix 2^30)."""
+    out = np.zeros((PACK_WORDS, len(values)), dtype=np.int32)
+    m = (1 << PACK_RADIX) - 1
+    for j, v in enumerate(values):
+        if not 0 <= v < P:
+            raise ValueError("pack expects canonical field elements")
+        for i in range(PACK_WORDS):
+            out[i, j] = (v >> (PACK_RADIX * i)) & m
+    return out
+
+
+def unpack(words) -> List[int]:
+    """(13, n) packed words -> n python ints."""
+    arr = np.asarray(words, dtype=np.int64).reshape(PACK_WORDS, -1)
+    return [sum(int(arr[i, j]) << (PACK_RADIX * i) for i in range(PACK_WORDS))
+            for j in range(arr.shape[1])]
 
 
 def _host(limbs) -> np.ndarray:

@@ -24,7 +24,11 @@ and the pairwise window fold, on ops/cuda_fe.padd / pdbl. The tree levels are
 plain Python loops (no scan forms: those existed for the XLA:CPU compiler).
 
 The submit functions return one packed bool tensor `[batch_ok, lane_ok...]`
-on the device, so the caller's finish does one device-to-host copy. Two
+on the device, so the caller's finish does one device-to-host copy. The
+decompression and the MSM of every submit run inside
+torch.profiler.record_function ranges named "decompress" and "msm", the
+reference's stage names, so a profile attributes the point kernels that
+both launch (tools/profile_report.py); a range adds no launch. Two
 cached-A variants: the mixed Ed25519 + sr25519 flush
 (`rlc_check_cached_mixed_submit`: lanes [A | Ed25519 R | sr25519 R], the
 sr25519 R lanes decoded by ops/ristretto_torch.py) and, under
@@ -38,12 +42,15 @@ streamed flush planner (crypto/batch.py) uses the partial trio instead:
 from __future__ import annotations
 
 import os
+import threading
 from typing import Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from tendermint_tpu_torch import native
+from tendermint_tpu_torch.libs.profiler import DECOMPRESS, MSM
 from tendermint_tpu_torch.ops import cuda_fe, cuda_msm
 from tendermint_tpu_torch.ops import fe25519 as fe
 from tendermint_tpu_torch.ops.ed25519_torch import decompress, identity, point_neg, point_select
@@ -370,9 +377,11 @@ def _rlc_core(pts_bytes: torch.Tensor, perm: torch.Tensor, ends: torch.Tensor, f
     """pts_bytes (32, N) uint8 [A block | R block]. Returns (packed bool
     (1+N,) [batch_ok, lane_ok...], decompressed points (4, 20, N) with
     invalid lanes as the identity)."""
-    p, ok = decompress(pts_bytes)
-    p = point_select(ok, p, identity(ok.shape, ok.device))
-    bok = _msm_check(p, perm, ends, fused)
+    with record_function(DECOMPRESS):
+        p, ok = decompress(pts_bytes)
+        p = point_select(ok, p, identity(ok.shape, ok.device))
+    with record_function(MSM):
+        bok = _msm_check(p, perm, ends, fused)
     return torch.cat([bok.reshape(1), ok]), p
 
 
@@ -380,9 +389,11 @@ def _rlc_core_cached(a_pts: torch.Tensor, r_bytes: torch.Tensor, perm: torch.Ten
                      ends: torch.Tensor, fused: bool) -> torch.Tensor:
     """Cached-A variant: lanes = [A block (predecompressed) | R block].
     Returns packed bool (1+Nr,): [batch_ok, r_ok...]."""
-    r, r_ok = decompress(r_bytes)
-    r = point_select(r_ok, r, identity(r_ok.shape, r_ok.device))
-    bok = _msm_check(torch.cat([a_pts, r], dim=-1), perm, ends, fused)
+    with record_function(DECOMPRESS):
+        r, r_ok = decompress(r_bytes)
+        r = point_select(r_ok, r, identity(r_ok.shape, r_ok.device))
+    with record_function(MSM):
+        bok = _msm_check(torch.cat([a_pts, r], dim=-1), perm, ends, fused)
     return torch.cat([bok.reshape(1), r_ok])
 
 
@@ -418,11 +429,13 @@ def _rlc_core_cached_mixed(a_pts: torch.Tensor, ed_r_bytes: torch.Tensor,
     are decompressed as Edwards points, sr25519 R lanes decoded as
     ristretto255 points, invalid lanes of either selected to the identity.
     Returns packed bool (1+Ne+Ns,): [batch_ok, ed_r_ok..., sr_r_ok...]."""
-    er, er_ok = decompress(ed_r_bytes)
-    er = point_select(er_ok, er, identity(er_ok.shape, er_ok.device))
-    sr, sr_ok = ristretto_decode(sr_r_bytes)
-    sr = point_select(sr_ok, sr, identity(sr_ok.shape, sr_ok.device))
-    bok = _msm_check(torch.cat([a_pts, er, sr], dim=-1), perm, ends, fused)
+    with record_function(DECOMPRESS):
+        er, er_ok = decompress(ed_r_bytes)
+        er = point_select(er_ok, er, identity(er_ok.shape, er_ok.device))
+        sr, sr_ok = ristretto_decode(sr_r_bytes)
+        sr = point_select(sr_ok, sr, identity(sr_ok.shape, sr_ok.device))
+    with record_function(MSM):
+        bok = _msm_check(torch.cat([a_pts, er, sr], dim=-1), perm, ends, fused)
     return torch.cat([bok.reshape(1), er_ok, sr_ok])
 
 
@@ -437,21 +450,25 @@ def _rlc_partial_core(pts_bytes: torch.Tensor, perm: torch.Tensor, ends: torch.T
                       fused: bool):
     """One streamed-planner chunk: the MSM over this chunk's lanes without
     its identity check. Returns (partial point (4, 20), lane ok (N,))."""
-    p, ok = decompress(pts_bytes)
-    p = point_select(ok, p, identity(ok.shape, ok.device))
-    if fused:
-        return _msm_total_fused(p, perm, ends), ok
-    return _msm_total(p, perm, fenwick_nodes_device(ends, p.shape[-1])), ok
+    with record_function(DECOMPRESS):
+        p, ok = decompress(pts_bytes)
+        p = point_select(ok, p, identity(ok.shape, ok.device))
+    with record_function(MSM):
+        if fused:
+            return _msm_total_fused(p, perm, ends), ok
+        return _msm_total(p, perm, fenwick_nodes_device(ends, p.shape[-1])), ok
 
 
 def _partial_fold_core(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Fold two (4, 20) partial points: one unified add."""
-    return cuda_fe.padd(a.contiguous(), b.contiguous())
+    with record_function(MSM):
+        return cuda_fe.padd(a.contiguous(), b.contiguous())
 
 
 def _partial_identity_core(a: torch.Tensor) -> torch.Tensor:
     """The streamed flush's combined-check verdict on the accumulated point."""
-    return point_is_identity(a)
+    with record_function(MSM):
+        return point_is_identity(a)
 
 
 def basepoint_coords() -> np.ndarray:
@@ -468,19 +485,44 @@ def decompress_rows(rows: np.ndarray, device=None):
 
     dev = resolve(device)
     b = torch.from_numpy(np.ascontiguousarray(rows.T)).to(dev)
-    return decompress(b)
+    with record_function(DECOMPRESS):
+        return decompress(b)
+
+
+class _FlushThreadState(threading.local):
+    def __init__(self):
+        self.h2d_bytes = 0
+
+
+_FLUSH_TLS = _FlushThreadState()
+
+
+def _to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array on `device`; its bytes count toward this thread's
+    h2d_bytes (flush_counters)."""
+    arr = np.ascontiguousarray(arr)
+    _FLUSH_TLS.h2d_bytes += arr.nbytes
+    return torch.from_numpy(arr).to(device)
+
+
+def flush_counters() -> dict:
+    """The submit path's device traffic so far, both counted per thread:
+    "h2d_bytes", the bytes this thread's submits uploaded, and "dispatches",
+    the kernel launches this thread made through the eight wrappers.
+    crypto/batch.py records the deltas over a submit in its flush detail,
+    so two threads flushing at once each count their own."""
+    return {"h2d_bytes": _FLUSH_TLS.h2d_bytes, "dispatches": cuda_fe.THREAD_LAUNCHES.count}
 
 
 def _upload(perm: np.ndarray, ends: np.ndarray, device):
-    return (torch.from_numpy(perm.astype(np.int32)).to(device),
-            torch.from_numpy(ends).to(device))
+    return _to_device(perm.astype(np.int32), device), _to_device(ends, device)
 
 
 def rlc_check_submit(pts_bytes: np.ndarray, perm: np.ndarray, ends: np.ndarray, device):
     """Plain flush: pts_bytes (N, 32) [A block | R block]; perm/ends from
     sort_windows. Returns (packed bool (1+N,), decompressed points) on the
     device, unsynced."""
-    b = torch.from_numpy(np.ascontiguousarray(pts_bytes.T)).to(device)
+    b = _to_device(pts_bytes.T, device)
     return _rlc_core(b, *_upload(perm, ends, device), fused_for_lanes(pts_bytes.shape[0]))
 
 
@@ -489,7 +531,7 @@ def rlc_check_cached_submit(a_pts: torch.Tensor, r_bytes: np.ndarray, perm: np.n
     """Cached-A flush: a_pts (4, 20, Na) on the device, r_bytes (Nr, 32).
     Returns packed bool (1+Nr,) on the device, unsynced."""
     dev = a_pts.device
-    b = torch.from_numpy(np.ascontiguousarray(r_bytes.T)).to(dev)
+    b = _to_device(r_bytes.T, dev)
     return _rlc_core_cached(a_pts, b, *_upload(perm, ends, dev),
                             fused_for_lanes(a_pts.shape[-1] + r_bytes.shape[0]))
 
@@ -500,8 +542,8 @@ def rlc_check_cached_dsort_submit(a_pts: torch.Tensor, r_bytes: np.ndarray,
     uint8, the scalars' bytes. Returns packed bool (1+Nr,) on the device,
     unsynced."""
     dev = a_pts.device
-    b = torch.from_numpy(np.ascontiguousarray(r_bytes.T)).to(dev)
-    d = torch.from_numpy(np.ascontiguousarray(digits)).to(dev)
+    b = _to_device(r_bytes.T, dev)
+    d = _to_device(digits, dev)
     return _rlc_core_cached_dsort(a_pts, b, d, fused_for_lanes(a_pts.shape[-1] + r_bytes.shape[0]))
 
 
@@ -512,8 +554,8 @@ def rlc_check_cached_mixed_submit(a_pts: torch.Tensor, ed_r_bytes: np.ndarray,
     device, ed_r_bytes (Ne, 32), sr_r_bytes (Ns, 32), perm / ends over the
     Na+Ne+Ns lanes. Returns packed bool (1+Ne+Ns,) on the device, unsynced."""
     dev = a_pts.device
-    eb = torch.from_numpy(np.ascontiguousarray(ed_r_bytes.T)).to(dev)
-    sb = torch.from_numpy(np.ascontiguousarray(sr_r_bytes.T)).to(dev)
+    eb = _to_device(ed_r_bytes.T, dev)
+    sb = _to_device(sr_r_bytes.T, dev)
     n = a_pts.shape[-1] + ed_r_bytes.shape[0] + sr_r_bytes.shape[0]
     return _rlc_core_cached_mixed(a_pts, eb, sb, *_upload(perm, ends, dev), fused_for_lanes(n))
 
@@ -521,7 +563,7 @@ def rlc_check_cached_mixed_submit(a_pts: torch.Tensor, ed_r_bytes: np.ndarray,
 def rlc_partial_submit(pts_bytes: np.ndarray, perm: np.ndarray, ends: np.ndarray, device):
     """One streamed chunk: pts_bytes (N, 32) [A block | R block]. Returns
     (partial point (4, 20), lane ok (N,)) on the device, unsynced."""
-    b = torch.from_numpy(np.ascontiguousarray(pts_bytes.T)).to(device)
+    b = _to_device(pts_bytes.T, device)
     return _rlc_partial_core(b, *_upload(perm, ends, device),
                              fused_for_lanes(pts_bytes.shape[0]))
 

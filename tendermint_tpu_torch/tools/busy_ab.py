@@ -79,10 +79,17 @@ def corpus(path: str):
 
 def child(tree: str, corpus_path: str) -> dict:
     """One tree: load its package, check the tampered mask, profile."""
+    import importlib.util
+
+    # the device-record filter is this checkout's, so every tree is read alike
+    spec = importlib.util.spec_from_file_location(
+        "_busy_ab_profiler", os.path.join(os.path.dirname(os.path.dirname(HERE)),
+                                          "libs", "profiler.py"))
+    profiler = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(profiler)
     sys.path.insert(0, tree)
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import tendermint_tpu_torch
@@ -108,7 +115,7 @@ def child(tree: str, corpus_path: str) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             batch.verify_batch(pubkeys, msgs, bad_sigs, device=dev)
             torch.cuda.synchronize()
-        rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        rows = profiler.device_rows(prof)
         busy.append(sum(e.self_device_time_total for e in rows) / 1e3)
         kernels.append(sum(e.count for e in rows))
         top = {e.key: [round(e.self_device_time_total / 1e3, 4), e.count]

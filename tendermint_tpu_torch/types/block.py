@@ -383,7 +383,9 @@ class AggregateCommit:
     Every BLS signer signs the same canonical precommit bytes, with the
     commit's single `timestamp_ns`. `signers` is a little-endian
     bit-per-validator-index bitmap over the validator set the commit is
-    verified against. The wire codec is not ported yet."""
+    verified against. `encode` / `decode` are the reference's wire codec,
+    byte for byte: height (1), round (2), block ID (3), timestamp (4),
+    signers (5), signature (6)."""
 
     height: int
     round: int
@@ -432,3 +434,39 @@ class AggregateCommit:
             raise ValueError("aggregate signature must be 96 bytes")
         if not any(self.signers):
             raise ValueError("empty signer bitmap")
+
+    def encode(self) -> bytes:
+        w = pw.Writer()
+        w.varint_field(1, self.height)
+        w.varint_field(2, self.round)
+        w.message_field(3, self.block_id.encode(), always=True)
+        w.message_field(4, pw.encode_timestamp(*ts_seconds_nanos(self.timestamp_ns)), always=True)
+        w.bytes_field(5, self.signers)
+        w.bytes_field(6, self.agg_signature)
+        return w.bytes()
+
+    @classmethod
+    def decode(cls, data: bytes) -> "AggregateCommit":
+        height = round_ = ts = 0
+        block_id = BlockID()
+        signers = sig = b""
+        for f, _, v in pw.Reader(data):
+            if f == 1:
+                height = pw.int64_from_varint(v)
+            elif f == 2:
+                round_ = pw.int64_from_varint(v)
+            elif f == 3:
+                block_id = BlockID.decode(v)
+            elif f == 4:
+                sec = nanos = 0
+                for ff, _, vv in pw.Reader(v):
+                    if ff == 1:
+                        sec = pw.int64_from_varint(vv)
+                    elif ff == 2:
+                        nanos = pw.int64_from_varint(vv)
+                ts = sec * 1_000_000_000 + nanos
+            elif f == 5:
+                signers = v
+            elif f == 6:
+                sig = v
+        return cls(height, round_, block_id, ts, signers, sig)

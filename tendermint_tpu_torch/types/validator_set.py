@@ -429,8 +429,12 @@ class ValidatorSet:
         (Miller loop on the card, final exponentiation on the host), then
         signer power > 2/3 of the total. Raises CommitVerifyError /
         NotEnoughVotingPowerError (ValueError from validate_basic).
-        Each call's stage times go to LAST_AGGREGATE."""
+        Before the fold, the signers count as bls12_381 rows
+        (record_backend_rows) and set the aggregate_size gauge, as in the
+        reference. Each call's stage times go to LAST_AGGREGATE."""
         from tendermint_tpu_torch.crypto import bls_ref
+        from tendermint_tpu_torch.crypto.batch import record_backend_rows
+        from tendermint_tpu_torch.libs.metrics import batch_metrics
         from tendermint_tpu_torch.crypto.keys import pop_verified
         from tendermint_tpu_torch.ops import bls12_torch, pairing_torch
         from tendermint_tpu_torch.types.block import AggregateCommit
@@ -469,6 +473,8 @@ class ValidatorSet:
                 )
             limbs.append(_bls_pubkey_entry(val.pub_key.bytes())[1])
             powers.append(val.voting_power)
+        record_backend_rows("bls12_381", len(idxs))
+        batch_metrics().aggregate_size.set(len(idxs))
         t1 = time.perf_counter()
         apk = bls12_torch.fold_points(np.stack(limbs, axis=-1), device)
         t2 = time.perf_counter()

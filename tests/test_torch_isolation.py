@@ -52,7 +52,7 @@ def test_package_and_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_mods = int(res.stdout.split()[0])
-    assert n_mods >= 57
+    assert n_mods >= 62
     for mod in ("ops.cuda_fe", "ops.cuda_msm", "ops.msm_geometry", "ops.msm_torch",
                 "crypto.batch", "ops.fp381", "ops.cuda_bls", "ops.bls12_torch",
                 "ops.tower", "ops.pairing_torch", "crypto.bls_ref", "crypto.keys", "types.validator_set",
@@ -61,7 +61,8 @@ def test_package_and_smoke_import_no_jax():
                 "libs.kvdb", "types.vote", "types.evidence", "types.vote_set", "types.part_set",
                 "blocksync", "blocksync.verify", "config", "libs.trace", "libs.txtrace",
                 "crypto.provenance", "crypto.scheduler", "light.coalescer", "light.service",
-                "ops.ristretto_torch"):
+                "ops.ristretto_torch", "libs.metrics", "libs.slo", "libs.profiler",
+                "tools.profile_report"):
         assert f"tendermint_tpu_torch.{mod}" in res.stdout.split(), mod
 
 
