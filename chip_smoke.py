@@ -217,14 +217,32 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      report.json beside the trace): every Ed25519 kernel launch in a
      named stage, uptree, fenwick_reduce and bucket_fold one launch each,
      and the stage table with the share that fell to no stage;
-  19. a `kernels` JSON line (a row off every path counts 0 launches), the
+  19. "consensus_10k": the port's ConsensusState (consensus/cs_state.py)
+     with deferred vote verification on the card (device None, the
+     reference's routing) over BASELINE config 5's validator set
+     (mixed_sr25519_10k's keys, 8,000 Ed25519 and 2,000 sr25519, power 10),
+     the node one Ed25519 validator with a FilePV, the verified-row memo on,
+     the kvstore app, a WAL in a temporary directory and 1,000 64-byte txs;
+     3 heights, each: the proposal (the node's executor builds it, or the
+     node proposes), every other validator's prevote and precommit signed on
+     a pool forked before the card is touched (outside the timed window),
+     the votes injected in bursts of 512 (one receive-loop drain each); 100
+     bad precommits at height 3. Prints each height's injection-to-commit
+     time and launches (the shapes join the shape check), each deferred
+     flush's rows, route and ms, their median and votes/s, the LastCommit
+     checks of heights 2-3 (path "memo", 0 launches), height 2's device busy
+     time and idle share, and the phase's seconds with signing apart; every
+     flush's mask equals the host arm's (only the 100 planted rows False),
+     the committed LastCommits and height 3's seen commit verify on the host
+     arm without the planted rows, and consensus must not have halted;
+  20. a `kernels` JSON line (a row off every path counts 0 launches), the
      card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
 (the warm, pipelined and streamed paths per call); every kernel of a path must
 launch on it: the six Ed25519 kernels on the Ed25519 paths (pipelined,
 tampered, tampered_persig, mixed_commit, mixed_sr25519_10k, the four light
-paths, light_mixed, the consensus and catch-up paths and the scheduler paths
-included),
+paths, light_mixed, the consensus and catch-up paths, the scheduler paths
+and consensus_10k's heights included),
 the two BLS kernels on the BLS paths, fp381_mul on g1_msm_10k, none on host_small, the
 verify-at-add arm, the evidence check and the memo's answers. Exits non-zero without a result when no CUDA device
 is available.
@@ -352,6 +370,18 @@ CATCHUP_BAD_BLOCK, CATCHUP_BAD_ROWS, CATCHUP_WRONG_ID = 5, 43, 11
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SEED, SERVE_WINDOW, SERVE_SERIAL = 32, 600, 7, 0.02, 60
 POISON_ROWS, POISON_CALLS, POISONED_CALLS, POISON_RATE, POISON_SEED = 512, 64, 16, 0.01, 20
 PEERS = 8
+# consensus_10k: BASELINE config 5's validator set (mixed_sr25519_10k's keys:
+# 8,000 Ed25519 and 2,000 sr25519 validators, power 10) under the port's
+# ConsensusState with deferred vote verification on the card, CONSENSUS_HEIGHTS
+# heights; CONSENSUS_TXS kvstore txs of CONSENSUS_TX_BYTES bytes through
+# check_tx before height 1; at the last height the first CONSENSUS_BAD
+# precommits carry a bad signature. Votes arrive in bursts of DRAIN, one
+# receive-loop drain each. The propose timeout is raised from test_config's
+# 0.4 s to CONSENSUS_PROPOSE_S: the proposal and its parts are injected as
+# soon as the node enters PROPOSE, and this covers building a 1,000-tx block
+# on a loaded host.
+CONSENSUS_HEIGHTS, CONSENSUS_TXS, CONSENSUS_TX_BYTES, CONSENSUS_BAD = 3, 1_000, 64, 100
+CONSENSUS_PROPOSE_S = 5.0
 
 REPLACES = {
     "padd": "tendermint_tpu/ops/pallas_fe.py:249",
@@ -1710,7 +1740,7 @@ def build_mixed_sr25519(rng):
     print(f"mixed sr25519 corpus: {N_VALIDATORS} rows ({N_SR} sr25519) signed in "
           f"{time.perf_counter() - t0:.1f} s ({workers} processes)", flush=True)
     return dict(pubkeys=[pk for pk, _ in rows], msgs=[m for _, _, m in jobs],
-                sigs=[sig for _, sig in rows], types=types)
+                sigs=[sig for _, sig in rows], types=types, seeds=[seed for _, seed, _ in jobs])
 
 
 def mixed_sr25519_phase(dev, sr: dict, launches: dict) -> None:
@@ -3998,14 +4028,393 @@ def profile_report_phase(dev, corpus, launches: dict) -> None:
         batch.configure_prep(stream=stream)
 
 
+
+_COMB = None  # j * 16^i * B for i < 64, j < 16: _base_mul's table, built once a process
+
+
+def _base_mul(s: int):
+    """s * B for the Ed25519 base point (extended coordinates): one addition
+    a 4-bit digit of s from a fixed-base table, 64 in all, in place of
+    ed25519_ref.point_mul's ~380 doublings and additions."""
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+
+    global _COMB
+    if _COMB is None:
+        rows, p = [], ref.BASE
+        for _ in range(64):
+            row = [ref.IDENTITY, p]
+            for _ in range(14):
+                row.append(ref.point_add(row[-1], p))
+            rows.append(row)
+            p = ref.point_add(row[-1], p)
+        _COMB = rows
+    q = ref.IDENTITY
+    for i in range(64):
+        nib = (s >> (4 * i)) & 15
+        if nib:
+            q = ref.point_add(q, _COMB[i][nib])
+    return q
+
+
+def _sign_votes(jobs):
+    """(key type, seed, public key, message) -> signature: Ed25519 as
+    ed25519_ref signs, sr25519 as crypto/sr25519.sr25519_sign does (its
+    witness draws os.urandom), each nonce point by _base_mul. Runs on the
+    consensus phase's signing pool."""
+    from tendermint_tpu_torch.crypto import ed25519_ref as ref
+    from tendermint_tpu_torch.crypto import sr25519 as sr
+
+    out = []
+    for kind, seed, pk, msg in jobs:
+        if kind == "sr25519":
+            priv = sr.Sr25519PrivKey(seed)
+            t = sr._sign_transcript(sr._context_transcript(msg), pk)
+            wt = t.clone()
+            wt.append_message(b"signing-nonce", priv._nonce + os.urandom(32))
+            r = sr._scalar_from_wide(wt.challenge_bytes(b"witness", 64))
+            r_bytes = sr.ristretto_encode(_base_mul(r))
+            t.append_message(b"sign:R", r_bytes)
+            k = sr._scalar_from_wide(t.challenge_bytes(b"sign:c", 64))
+            s_bytes = bytearray(((k * priv._scalar + r) % ref.L).to_bytes(32, "little"))
+            s_bytes[31] |= 0x80  # schnorrkel marker
+            out.append(r_bytes + bytes(s_bytes))
+        else:
+            a, prefix = ref.secret_expand(seed)
+            r = ref.sha512_mod_l(prefix + msg)
+            r_enc = ref.point_compress(_base_mul(r))
+            h = ref.sha512_mod_l(r_enc + pk + msg)
+            out.append(r_enc + ((r + h * a) % ref.L).to_bytes(32, "little"))
+    return out
+
+
+def _host_masks(flushes):
+    """Each flush's rows (pubkeys, messages, signatures, key types) on the
+    port's host arm, verify_batch(backend="cpu") with the memo off: the
+    masks. Runs on the consensus phase's signing pool."""
+    from tendermint_tpu_torch.crypto import batch
+
+    batch.configure_verified_memo(0)
+    return [batch.verify_batch(pks, msgs, sigs, key_types=kts, backend="cpu").tolist()
+            for pks, msgs, sigs, kts in flushes]
+
+
+def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
+                        memo_default: int) -> None:
+    """consensus_10k: the port's ConsensusState (consensus/cs_state.py) on
+    BASELINE config 5's validator set, mixed_sr25519_10k's 10,000 keys, with
+    deferred vote verification and `device` None (the reference's routing:
+    the card from 256 rows), the verified-row memo on as a node runs it, the
+    kvstore app over local ABCI, memory stores, a WAL in a temporary
+    directory and CONSENSUS_TXS txs in the mempool. The node is one Ed25519
+    validator with a FilePV. For each of CONSENSUS_HEIGHTS heights: the
+    proposal block from the node's executor (or the node's own, when it
+    proposes) injected with its parts, every other validator's prevote and
+    precommit signed on the signing pool (outside the timed window), then
+    the votes injected in bursts of DRAIN, one asyncio.sleep(0) between
+    bursts (one receive-loop drain each). At the last height the first
+    CONSENSUS_BAD precommits carry a bad signature. Prints each height's
+    injection-to-commit time and launches, each deferred flush (rows, route,
+    ms), the LastCommit checks (path "memo", 0 launches), height 2's device
+    busy time and idle share, and holds every flush's mask to the host
+    arm's, each committed LastCommit to the host arm, and consensus to not
+    having halted."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tendermint_tpu_torch import config
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.consensus import cs_state
+    from tendermint_tpu_torch.consensus.messages import (BlockPartMessage, ProposalMessage,
+                                                         VoteMessage)
+    from tendermint_tpu_torch.consensus.replay import Handshaker
+    from tendermint_tpu_torch.consensus.round_state import RoundStepType
+    from tendermint_tpu_torch.consensus.wal import WAL
+    from tendermint_tpu_torch.crypto import batch, keys, scheduler
+    from tendermint_tpu_torch.evidence.pool import EvidencePool
+    from tendermint_tpu_torch.libs.kvdb import MemDB
+    from tendermint_tpu_torch.libs.profiler import device_rows
+    from tendermint_tpu_torch.mempool.mempool import Mempool
+    from tendermint_tpu_torch.privval.file_pv import FilePV
+    from tendermint_tpu_torch.proxy.multi import AppConns, local_client_creator
+    from tendermint_tpu_torch.state.execution import BlockExecutor
+    from tendermint_tpu_torch.state.sm_state import state_from_genesis
+    from tendermint_tpu_torch.state.store import StateStore
+    from tendermint_tpu_torch.store.blockstore import BlockStore
+    from tendermint_tpu_torch.types import canonical, vote_set
+    from tendermint_tpu_torch.types.basic import BlockID, SignedMsgType
+    from tendermint_tpu_torch.types.block import Commit
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+    from tendermint_tpu_torch.types.part_set import PartSet
+    from tendermint_tpu_torch.types.proposal import Proposal
+    from tendermint_tpu_torch.types.vote import Vote
+
+    if scheduler.default_scheduler() is not None:
+        raise SystemExit("consensus_10k: a default scheduler is still installed")
+    t_phase = time.perf_counter()
+    cs_dev = None if dev.type == "cuda" else dev
+    seed_of = dict(zip(sr["pubkeys"], sr["seeds"]))
+    type_of = dict(zip(sr["pubkeys"], sr["types"]))
+    gen = GenesisDoc(chain_id=CHAIN_ID, validators=[
+        GenesisValidator(keys.pubkey_from_type_and_bytes(t, pk), 10)
+        for t, pk in zip(sr["types"], sr["pubkeys"])])
+    gen.validate_and_complete()
+    state = state_from_genesis(gen)
+    vals = state.validators.validators
+    own = next(i for i, v in enumerate(vals) if v.pub_key.type_name() == "ed25519")
+    app = KVStoreApplication()
+    proxy = AppConns(local_client_creator(app))
+    state_store, block_store = StateStore(MemDB()), BlockStore(MemDB())
+    state_store.save(state)
+    mempool = Mempool(proxy.mempool)
+    rng = np.random.default_rng(SEED + 15)
+    for i in range(CONSENSUS_TXS):
+        tx = (b"tx%06d=" % i + rng.bytes(CONSENSUS_TX_BYTES).hex().encode())[:CONSENSUS_TX_BYTES]
+        if mempool.check_tx(tx).code != 0:
+            raise SystemExit(f"consensus_10k: check_tx refused tx {i}")
+    evpool = EvidencePool(MemDB(), state_store, block_store)
+    evpool.set_state(state)
+    ex = BlockExecutor(state_store, proxy.consensus, mempool, evpool, block_store=block_store,
+                       device=cs_dev)
+    state = Handshaker(state_store, state, block_store, gen, device=cs_dev).handshake(proxy)
+    cfg = config.test_config().consensus
+    cfg.defer_vote_verification = True
+    cfg.vote_flush_interval = 0.05
+    cfg.timeout_propose = CONSENSUS_PROPOSE_S
+    wal_dir = tempfile.mkdtemp(prefix="consensus_10k-")
+    cs = cs_state.ConsensusState(
+        cfg, state, ex, block_store, mempool, evpool,
+        WAL(os.path.join(wal_dir, "wal"), group_commit=cfg.wal_group_commit,
+            group_commit_max_latency=cfg.wal_group_commit_max_latency),
+        priv_validator=FilePV(keys.gen_ed25519(seed_of[vals[own].pub_key.bytes()])),
+        device=cs_dev)
+    setup_s = time.perf_counter() - t_phase
+
+    cur = {"h": 0}
+    flushes, checks, commit_at = [], [], {}
+    real_vb, real_apply, real_validate = vote_set.verify_batch, ex.apply_block, ex.validate_block
+
+    def recorded_verify_batch(pks, msgs, sigs, **kw):
+        t0 = time.perf_counter()
+        mask = real_vb(pks, msgs, sigs, **kw)
+        f = batch.LAST_FLUSH
+        flushes.append(dict(h=cur["h"], rows=len(pks), path=f.get("path"), mode=f.get("mode"),
+                            ms=(time.perf_counter() - t0) * 1e3, mask=np.asarray(mask, bool),
+                            args=(list(pks), list(msgs), list(sigs), list(kw["key_types"]))))
+        return mask
+
+    def apply_block(st, block_id, block, **kw):
+        out = real_apply(st, block_id, block, **kw)
+        commit_at.setdefault(block.header.height, time.perf_counter())
+        return out
+
+    def validate_block(st, block, **kw):
+        n0 = sum(six_launches().values())
+        real_validate(st, block, **kw)
+        if block.header.height > 1:
+            checks.append((block.header.height, batch.LAST_FLUSH.get("path"),
+                           sum(six_launches().values()) - n0,
+                           sum(not s.absent() for s in block.last_commit.signatures)))
+
+    vote_set.verify_batch = recorded_verify_batch
+    ex.apply_block, ex.validate_block = apply_block, validate_block
+    batch.configure_verified_memo(memo_default)
+    per_height, sign_s, planted = {}, [], set()
+    busy = {}
+
+    async def height(h: int) -> None:
+        while not (cs.rs.height == h and cs.rs.step >= RoundStepType.PROPOSE):
+            if cs.halt_error is not None:
+                return
+            await asyncio.sleep(0.002)
+        rs = cs.rs
+        proposer = rs.validators.get_proposer()
+        if proposer.address == vals[own].address:  # the node proposes: read its block
+            while rs.proposal_block is None:
+                if cs.halt_error is not None:
+                    return
+                await asyncio.sleep(0.002)
+            block, parts = rs.proposal_block, rs.proposal_block_parts
+        else:
+            commit = Commit(0, 0, BlockID(), ()) if h == 1 else rs.last_commit.make_commit()
+            block = ex.create_proposal_block(h, cs.state, commit, proposer.address,
+                                             time.time_ns())
+            parts = PartSet.from_data(block.encode())
+            prop = Proposal(h, 0, -1, BlockID(block.hash(), parts.header), time.time_ns())
+            pk = proposer.pub_key.bytes()
+            prop = prop.with_signature(_sign_votes(
+                [(type_of[pk], seed_of[pk], pk, prop.sign_bytes(CHAIN_ID))])[0])
+            await cs.add_peer_message(ProposalMessage(prop), "proposer")
+            for i in range(parts.total):
+                await cs.add_peer_message(BlockPartMessage(h, 0, parts.get_part(i)), "proposer")
+        bid = BlockID(block.hash(), parts.header)
+        t_sign = time.perf_counter()
+        ts = max(time.time_ns(), cs.state.last_block_time_ns + 1_000_000)
+        others = [i for i in range(len(vals)) if i != own]
+        votes = []
+        for t in (SignedMsgType.PREVOTE, SignedMsgType.PRECOMMIT):
+            msgs = canonical.vote_sign_bytes_many(CHAIN_ID, t, h, 0, [(bid, ts)] * len(others))
+            jobs = [(type_of[vals[i].pub_key.bytes()], seed_of[vals[i].pub_key.bytes()],
+                     vals[i].pub_key.bytes(), m) for i, m in zip(others, msgs)]
+            sigs = await asyncio.get_running_loop().run_in_executor(
+                None, pool_map, pool, _sign_votes, jobs, workers)
+            for k, (i, m, sig) in enumerate(zip(others, msgs, sigs)):
+                if h == CONSENSUS_HEIGHTS and t == SignedMsgType.PRECOMMIT and k < CONSENSUS_BAD:
+                    sig = flip(sig)
+                    planted.add((vals[i].pub_key.bytes(), sig))
+                v = Vote(t, h, 0, bid, ts, vals[i].address, i, sig)
+                v.seed_sign_bytes(CHAIN_ID, m)
+                votes.append(v)
+        sign_s.append(time.perf_counter() - t_sign)
+        cur["h"] = h
+        n_flush0 = len(flushes)
+        prof = profile(activities=[ProfilerActivity.CUDA]) if h == 2 and dev.type == "cuda" else None
+        if prof is not None:
+            prof.__enter__()
+        reset_launches()
+        t0 = time.perf_counter()
+        for b in range(0, len(votes), DRAIN):
+            for v in votes[b:b + DRAIN]:
+                await cs.add_peer_message(VoteMessage(v), f"p{b // DRAIN % PEERS}")
+            await asyncio.sleep(0)
+            if cs.halt_error is not None:
+                break
+        while h not in commit_at and cs.halt_error is None:
+            await asyncio.sleep(0.001)
+        while cs.halt_error is None and (cs._queue.qsize() or (
+                cs.rs.height == h and cs.rs.votes.has_pending()) or (
+                cs.rs.last_commit is not None and cs.rs.last_commit.pending_count())):
+            await asyncio.sleep(0.002)
+        t_end = time.perf_counter()
+        if prof is not None:
+            torch.cuda.synchronize()
+            prof.__exit__(None, None, None)
+            rows = device_rows(prof)
+            busy.update(us=sum(e.self_device_time_total for e in rows),
+                        kernels=sum(e.count for e in rows), wall_s=t_end - t0)
+        if cs.halt_error is not None:
+            return
+        per_height[h] = dict(commit_ms=(commit_at[h] - t0) * 1e3, window_ms=(t_end - t0) * 1e3,
+                             flushes=flushes[n_flush0:], votes=len(votes),
+                             launches=read_launches(f"consensus_10k h{h}"))
+        launches[f"consensus_10k h{h}"] = per_height[h]["launches"]
+
+    async def drive() -> None:
+        await cs.start()
+        try:
+            for h in range(1, CONSENSUS_HEIGHTS + 1):
+                await height(h)
+                if cs.halt_error is not None:
+                    break
+        finally:
+            await cs.stop()
+
+    try:
+        asyncio.run(drive())
+    finally:
+        vote_set.verify_batch = real_vb
+        ex.apply_block, ex.validate_block = real_apply, real_validate
+        batch.configure_verified_memo(0)
+        shutil.rmtree(wal_dir, ignore_errors=True)
+    if cs.halt_error is not None:
+        raise SystemExit(f"consensus_10k: consensus halted: {cs.halt_error!r}")
+    run_s = time.perf_counter() - t_phase - setup_s - sum(sign_s)
+
+    for h, ph in sorted(per_height.items()):
+        fl = ph["flushes"]
+        wide = [f for f in fl if f["rows"] >= DRAIN]
+        rows = sum(f["rows"] for f in fl)
+        print(f"consensus_10k h{h}: injection to commit {ph['commit_ms']:.1f} ms, all "
+              f"{len(fl)} flushes done {ph['window_ms']:.1f} ms; {ph['votes']} votes injected, "
+              f"{rows} rows verified ({rows / (sum(f['ms'] for f in fl) / 1e3):.0f} rows/s of "
+              f"flush time, {ph['votes'] / (ph['window_ms'] / 1e3):.0f} votes/s of window); "
+              f"flush median {statistics.median(f['ms'] for f in fl):.1f} ms over "
+              f"{len(fl)}, at >= {DRAIN} rows {statistics.median(f['ms'] for f in wide):.1f} ms "
+              f"over {len(wide)}; launches {ph['launches']}", flush=True)
+        print(f"consensus_10k h{h} flushes (rows, route/mode, ms): " + ", ".join(
+            f"({f['rows']}, {f['path']}/{f['mode']}, {f['ms']:.1f})" for f in fl), flush=True)
+    all_fl = [f for ph in per_height.values() for f in ph["flushes"]]
+    print(f"consensus_10k: {len(all_fl)} deferred flushes, median "
+          f"{statistics.median(f['ms'] for f in all_fl):.1f} ms, "
+          f"{sum(f['rows'] for f in all_fl) / (sum(f['ms'] for f in all_fl) / 1e3):.0f} "
+          f"votes/s of flush time", flush=True)
+
+    # every flush's mask against the host arm's on the same rows, the rows in
+    # pieces of DRAIN so that the pool's workers share the large flushes
+    t_host = time.perf_counter()
+    pieces = [(k, lo) for k, f in enumerate(all_fl) for lo in range(0, f["rows"], DRAIN)]
+    masks = pool_map(pool, _host_masks, [tuple(a[lo:lo + DRAIN] for a in all_fl[k]["args"])
+                                           for k, lo in pieces], workers)
+    host = [[] for _ in all_fl]
+    for (k, _), m in zip(pieces, masks):
+        host[k] += m
+    bad = 0
+    for f, want in zip(all_fl, host):
+        if f["mask"].tolist() != want:
+            raise SystemExit(f"consensus_10k: a {f['rows']}-row flush ({f['path']}) differs "
+                             "from the host arm's mask")
+        pks, _, sigs, _ = f["args"]
+        for ok, pk, sig in zip(want, pks, sigs):
+            if ok == ((pk, sig) in planted):
+                raise SystemExit("consensus_10k: a verdict other than the planted rows' is False, "
+                                 "or a planted row passed")
+            bad += not ok
+    if bad != CONSENSUS_BAD or sum((~f["mask"]).sum() for f in per_height[CONSENSUS_HEIGHTS]["flushes"]) != CONSENSUS_BAD:
+        raise SystemExit(f"consensus_10k: {bad} rows rejected, expected the {CONSENSUS_BAD} planted")
+    # the LastCommit checks of heights 2.. are answered from the memo
+    want_checks = {h for h in range(2, CONSENSUS_HEIGHTS + 1)}
+    if {c[0] for c in checks} != want_checks or any(
+            c[1] != "memo" or c[2] != 0 for c in checks):
+        raise SystemExit(f"consensus_10k: LastCommit checks not all from the memo: {checks}")
+    # each committed LastCommit, and the last seen commit, on the host arm
+    commits = [(h, block_store.load_block(h).last_commit) for h in range(2, CONSENSUS_HEIGHTS + 1)]
+    commits.append((CONSENSUS_HEIGHTS + 1, block_store.load_seen_commit(CONSENSUS_HEIGHTS)))
+    jobs, owner = [], []
+    for h, c in commits:
+        idxs = [i for i, s in enumerate(c.signatures) if not s.absent()]
+        rows = ([vals[i].pub_key.bytes() for i in idxs], c.vote_sign_bytes_many(CHAIN_ID, idxs),
+                [c.signatures[i].signature for i in idxs], [vals[i].pub_key.type_name() for i in idxs])
+        for lo in range(0, len(idxs), DRAIN):
+            jobs.append(tuple(a[lo:lo + DRAIN] for a in rows))
+            owner.append(h)
+    for h, mask in zip(owner, pool_map(pool, _host_masks, jobs, workers)):
+        if not all(mask):
+            raise SystemExit(f"consensus_10k: the commit carried by height {h} fails on the host arm")
+    last = commits[-1][1]
+    excluded = sum(1 for i, s in enumerate(last.signatures)
+                   if (vals[i].pub_key.bytes(), s.signature) in planted)
+    if excluded:
+        raise SystemExit(f"consensus_10k: the height-{CONSENSUS_HEIGHTS} commit holds {excluded} planted rows")
+    host_s = time.perf_counter() - t_host
+    print(f"consensus_10k checks: {len(all_fl)} flush masks equal the host arm's "
+          f"({sum(f['rows'] for f in all_fl)} rows, only the {CONSENSUS_BAD} planted rows False); "
+          f"LastCommit checks (height, path, launches, rows) {checks}; the commits carried by "
+          f"heights 2-{CONSENSUS_HEIGHTS} and the height-{CONSENSUS_HEIGHTS} seen commit "
+          f"({sum(not s.absent() for s in last.signatures)} rows, none planted) verify on the "
+          f"host arm; app hash {cs.state.app_hash.hex()} ({app.size} txs); consensus did not "
+          f"halt", flush=True)
+    if busy:
+        if busy["us"] > 0:
+            print(f"consensus_10k h2 profile: device_busy_ms={busy['us'] / 1e3:.2f} "
+                  f"kernels={busy['kernels']} idle_share={1 - busy['us'] / 1e6 / busy['wall_s']:.3f} "
+                  f"(window {busy['wall_s'] * 1e3:.1f} ms, profiled)", flush=True)
+        else:
+            print("consensus_10k h2 profile: the profiler recorded no device time (device busy: "
+                  "not measured)", flush=True)
+    print(f"consensus_10k: {time.perf_counter() - t_phase:.1f} s (setup {setup_s:.1f}, signing "
+          f"{sum(sign_s):.1f} = {[round(x, 1) for x in sign_s]}, consensus {run_s:.1f}, host "
+          f"checks {host_s:.1f}); node validator {own} ({vals[own].pub_key.type_name()}), "
+          f"proposers {[block_store.load_block(h).header.proposer_address == vals[own].address for h in range(1, CONSENSUS_HEIGHTS + 1)]}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    from tendermint_tpu_torch import native
-    from tendermint_tpu_torch.ops import cuda_bls, cuda_fe, cuda_msm
-
-    # The signing pool forks before this process first touches the card.
+    # The signing pools fork before this process first touches the card.
     corpus = build_commit(np.random.default_rng(SEED + 1))
     mixed = build_mixed_commit(corpus)
     mixed_sr = build_mixed_sr25519(np.random.default_rng(SEED + 8))
@@ -4015,6 +4424,23 @@ def main() -> int:
     catchup = build_catchup(np.random.default_rng(SEED + 11))
     poisoned = build_poisoned(corpus)
     bls = build_bls_set()
+    # consensus_10k signs each height's votes once its block is known, after
+    # the card is in use: its pool forks now
+    workers = os.cpu_count() or 1
+    signing_pool = mp.get_context("fork").Pool(workers)
+    try:
+        return run_phases(corpus, mixed, mixed_sr, cofactorless, light, light_mixed, catchup,
+                          poisoned, bls, signing_pool, workers)
+    finally:
+        signing_pool.terminate()
+        signing_pool.join()
+
+
+def run_phases(corpus, mixed, mixed_sr, cofactorless, light, light_mixed, catchup, poisoned,
+               bls, signing_pool, workers: int) -> int:
+    from tendermint_tpu_torch import native
+    from tendermint_tpu_torch.ops import cuda_bls, cuda_fe, cuda_msm
+
     dev = torch.device("cuda")
     from tendermint_tpu_torch.libs import trace
 
@@ -4080,7 +4506,9 @@ def main() -> int:
     rows += g1_msm_phase(dev, bls, card, launches)
     print(f"g1_msm_phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     for phase, args in ((metrics_phase, (corpus, bls, launches)),
-                        (profile_report_phase, (corpus, launches))):
+                        (profile_report_phase, (corpus, launches)),
+                        (consensus_10k_phase, (mixed_sr, signing_pool, workers, launches,
+                                               memo_default))):
         t_phase = time.perf_counter()
         phase(dev, *args)
         print(f"{phase.__name__}: {time.perf_counter() - t_phase:.1f} s", flush=True)

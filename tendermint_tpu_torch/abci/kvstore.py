@@ -1,0 +1,189 @@
+"""The kvstore example application (reference abci/example/kvstore): the
+port's copy of `KVStoreApplication` from tendermint_tpu/abci/kvstore.py.
+
+Transactions are `key=value` (or a bare key, stored as its own value); the
+app hash is the big-endian tx count (reference kvstore.go:66, :113); state
+sync snapshots are a JSON dump in chunks. The signed, Merkle, persistent and
+counter apps wait for the node (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import json
+import struct
+from typing import Dict, List, Optional
+
+from tendermint_tpu_torch.abci import types as abci
+from tendermint_tpu_torch.libs.kvdb import KVDB, MemDB
+
+VALIDATOR_TX_PREFIX = b"val:"
+
+
+SNAPSHOT_CHUNK_SIZE = 65536
+
+
+class KVStoreApplication(abci.Application):
+    def __init__(self, db: Optional[KVDB] = None, snapshot_interval: int = 0,
+                 snapshot_keep: int = 5):
+        self.db = db or MemDB()
+        self.size = int.from_bytes(self.db.get(b"__size__") or b"\x00", "big")
+        self.height = int.from_bytes(self.db.get(b"__height__") or b"\x00", "big")
+        self.app_hash = self.db.get(b"__apphash__") or b""
+        self.staged: List[tuple] = []
+        # state-sync snapshots: height -> (Snapshot, [chunk bytes])
+        self.snapshot_interval = snapshot_interval
+        self.snapshot_keep = snapshot_keep
+        self._snapshots: Dict[int, tuple] = {}
+        self._restore: Optional[dict] = None  # in-flight restore
+
+    def info(self, req: abci.RequestInfo) -> abci.ResponseInfo:
+        return abci.ResponseInfo(
+            data=json.dumps({"size": self.size}),
+            version="0.1.0",
+            app_version=1,
+            last_block_height=self.height,
+            last_block_app_hash=self.app_hash,
+        )
+
+    def check_tx(self, req: abci.RequestCheckTx) -> abci.ResponseCheckTx:
+        if not req.tx:
+            return abci.ResponseCheckTx(code=1, log="empty tx")
+        return abci.ResponseCheckTx(code=abci.CODE_TYPE_OK, gas_wanted=1)
+
+    def deliver_tx(self, req: abci.RequestDeliverTx) -> abci.ResponseDeliverTx:
+        if b"=" in req.tx:
+            key, value = req.tx.split(b"=", 1)
+        else:
+            key = value = req.tx
+        self.staged.append((key, value))
+        events = [
+            abci.Event(
+                type="app",
+                attributes=[(b"creator", b"tendermint_tpu", True), (b"key", key, True)],
+            )
+        ]
+        return abci.ResponseDeliverTx(code=abci.CODE_TYPE_OK, events=events)
+
+    def _compute_app_hash(self) -> bytes:
+        # app hash = encoded size (mirrors reference kvstore.go:113)
+        return struct.pack(">Q", self.size)
+
+    def commit(self) -> abci.ResponseCommit:
+        for key, value in self.staged:
+            self.db.set(b"kv/" + key, value)
+            self.size += 1
+        self.staged.clear()
+        self.height += 1
+        self.app_hash = self._compute_app_hash()
+        self.db.set(b"__size__", self.size.to_bytes(8, "big"))
+        self.db.set(b"__height__", self.height.to_bytes(8, "big"))
+        self.db.set(b"__apphash__", self.app_hash)
+        if self.snapshot_interval and self.height % self.snapshot_interval == 0:
+            self._take_snapshot()
+        return abci.ResponseCommit(data=self.app_hash)
+
+    # -- state-sync snapshots (reference: the ABCI snapshot protocol the
+    # reference kvstore leaves unimplemented; format 1 = JSON dump) ---------
+
+    def _take_snapshot(self) -> None:
+        import hashlib
+
+        payload = json.dumps(
+            {
+                "height": self.height,
+                "size": self.size,
+                "app_hash": self.app_hash.hex(),
+                "items": [
+                    [k[len(b"kv/"):].hex(), v.hex()]
+                    for k, v in sorted(self.db.iterate_prefix(b"kv/"))
+                ],
+            },
+            separators=(",", ":"),
+        ).encode()
+        chunks = [
+            payload[i : i + SNAPSHOT_CHUNK_SIZE]
+            for i in range(0, len(payload), SNAPSHOT_CHUNK_SIZE)
+        ] or [b""]
+        snap = abci.Snapshot(
+            height=self.height,
+            format=1,
+            chunks=len(chunks),
+            hash=hashlib.sha256(payload).digest(),
+        )
+        self._snapshots[self.height] = (snap, chunks)
+        while len(self._snapshots) > self.snapshot_keep:
+            del self._snapshots[min(self._snapshots)]
+
+    def list_snapshots(self) -> abci.ResponseListSnapshots:
+        return abci.ResponseListSnapshots(
+            snapshots=[s for s, _ in self._snapshots.values()]
+        )
+
+    def load_snapshot_chunk(self, req: abci.RequestLoadSnapshotChunk) -> abci.ResponseLoadSnapshotChunk:
+        entry = self._snapshots.get(req.height)
+        if entry is None or entry[0].format != req.format:
+            return abci.ResponseLoadSnapshotChunk()
+        snap, chunks = entry
+        if not (0 <= req.chunk < len(chunks)):
+            return abci.ResponseLoadSnapshotChunk()
+        return abci.ResponseLoadSnapshotChunk(chunk=chunks[req.chunk])
+
+    def offer_snapshot(self, req: abci.RequestOfferSnapshot) -> abci.ResponseOfferSnapshot:
+        s = req.snapshot
+        if s is None:
+            return abci.ResponseOfferSnapshot(result=abci.OFFER_SNAPSHOT_REJECT)
+        if s.format != 1:
+            return abci.ResponseOfferSnapshot(result=abci.OFFER_SNAPSHOT_REJECT_FORMAT)
+        self._restore = {"snapshot": s, "app_hash": req.app_hash, "chunks": {}}
+        return abci.ResponseOfferSnapshot(result=abci.OFFER_SNAPSHOT_ACCEPT)
+
+    def apply_snapshot_chunk(self, req: abci.RequestApplySnapshotChunk) -> abci.ResponseApplySnapshotChunk:
+        import hashlib
+
+        if self._restore is None:
+            return abci.ResponseApplySnapshotChunk(result=abci.APPLY_SNAPSHOT_CHUNK_ABORT)
+        self._restore["chunks"][req.index] = req.chunk
+        snap = self._restore["snapshot"]
+        if len(self._restore["chunks"]) < snap.chunks:
+            return abci.ResponseApplySnapshotChunk(result=abci.APPLY_SNAPSHOT_CHUNK_ACCEPT)
+
+        payload = b"".join(self._restore["chunks"][i] for i in range(snap.chunks))
+        if hashlib.sha256(payload).digest() != snap.hash:
+            self._restore = None
+            return abci.ResponseApplySnapshotChunk(
+                result=abci.APPLY_SNAPSHOT_CHUNK_REJECT_SNAPSHOT
+            )
+        doc = json.loads(payload.decode())
+        # the payload's claimed app hash must match the light-client-trusted
+        # hash tendermint handed us in OfferSnapshot — a self-consistent but
+        # forged payload fails here
+        trusted = self._restore["app_hash"]
+        if trusted and bytes.fromhex(doc["app_hash"]) != trusted:
+            self._restore = None
+            return abci.ResponseApplySnapshotChunk(
+                result=abci.APPLY_SNAPSHOT_CHUNK_REJECT_SNAPSHOT
+            )
+        for k, _ in list(self.db.iterate_prefix(b"kv/")):
+            self.db.delete(k)
+        for k_hex, v_hex in doc["items"]:
+            self.db.set(b"kv/" + bytes.fromhex(k_hex), bytes.fromhex(v_hex))
+        self.size = doc["size"]
+        self.height = doc["height"]
+        self.app_hash = bytes.fromhex(doc["app_hash"])
+        self.db.set(b"__size__", self.size.to_bytes(8, "big"))
+        self.db.set(b"__height__", self.height.to_bytes(8, "big"))
+        self.db.set(b"__apphash__", self.app_hash)
+        self._restore = None
+        return abci.ResponseApplySnapshotChunk(result=abci.APPLY_SNAPSHOT_CHUNK_ACCEPT)
+
+    def query(self, req: abci.RequestQuery) -> abci.ResponseQuery:
+        if req.path == "/store" or req.path == "":
+            value = self.db.get(b"kv/" + req.data)
+            return abci.ResponseQuery(
+                code=abci.CODE_TYPE_OK,
+                key=req.data,
+                value=value or b"",
+                height=self.height,
+                log="exists" if value is not None else "does not exist",
+            )
+        return abci.ResponseQuery(code=1, log=f"unknown path {req.path}")

@@ -1,14 +1,15 @@
-"""Configuration of the port's SLO engine, verification scheduler and light
-service: the port's copies of `SLOConfig`, `SchedulerConfig` and
-`LightServiceConfig` from tendermint_tpu/config/config.py (:210-340), with
-the same fields and defaults. convert.py carries the reference's instances
-across field by field. The rest of the node's configuration waits for the
-node (ROADMAP A10).
+"""Configuration of the port: copies of `SLOConfig`, `SchedulerConfig`,
+`LightServiceConfig`, `ConsensusConfig` and `MempoolConfig` from
+tendermint_tpu/config/config.py (:133, :210-340, :343), with the same fields
+and defaults, and `Config` / `test_config()` as far as the consensus slice
+reads them. convert.py carries the reference's instances across field by
+field. The rest of the node's configuration (base, RPC, p2p, state sync,
+crypto, instrumentation) and its TOML form wait for the node (ROADMAP A10).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 
 @dataclass
@@ -101,3 +102,93 @@ class SchedulerConfig:
     admission_precheck: bool = True
     # a consumer blocked on its verdict verifies inline after this many seconds
     wait_timeout: float = 30.0
+
+
+@dataclass
+class MempoolConfig:
+    """mempool/mempool.py. The WAL, TTL, eviction and per-sender fields are
+    read by parts of the reference's mempool the port has not taken yet;
+    they keep their defaults so a carried configuration reads the same."""
+
+    wal_dir: str = ""  # empty disables the mempool WAL (reference default)
+    recheck: bool = True
+    broadcast: bool = True
+    size: int = 5000
+    max_txs_bytes: int = 1073741824
+    cache_size: int = 10000
+    keep_invalid_txs_in_cache: bool = False
+    max_tx_bytes: int = 1048576
+    ttl_num_blocks: int = 0
+    ttl_seconds: float = 0.0
+    eviction: bool = True
+    max_txs_per_sender: int = 0
+
+
+@dataclass
+class ConsensusConfig:
+    """consensus/cs_state.py (reference config/config.go ConsensusConfig)."""
+
+    wal_path: str = "data/cs.wal/wal"
+    timeout_propose: float = 3.0
+    timeout_propose_delta: float = 0.5
+    timeout_prevote: float = 1.0
+    timeout_prevote_delta: float = 0.5
+    timeout_precommit: float = 1.0
+    timeout_precommit_delta: float = 0.5
+    timeout_commit: float = 1.0
+    skip_timeout_commit: bool = False
+    create_empty_blocks: bool = True
+    create_empty_blocks_interval: float = 0.0
+    peer_gossip_sleep_duration: float = 0.1
+    peer_query_maj23_sleep_duration: float = 2.0
+    double_sign_check_height: int = 0
+    # queue votes and verify them in one batched flush per receive-loop
+    # drain (no reference counterpart)
+    defer_vote_verification: bool = False
+    vote_flush_interval: float = 0.05
+    # WAL group commit (consensus/wal.py): non-sync writes of one drain are
+    # one buffered write, fsynced once the oldest has waited this long;
+    # write_sync (the node's own messages) still fsyncs before it returns
+    wal_group_commit: bool = True
+    wal_group_commit_max_latency: float = 0.02
+
+    def propose_timeout(self, round_: int) -> float:
+        return self.timeout_propose + self.timeout_propose_delta * round_
+
+    def prevote_timeout(self, round_: int) -> float:
+        return self.timeout_prevote + self.timeout_prevote_delta * round_
+
+    def precommit_timeout(self, round_: int) -> float:
+        return self.timeout_precommit + self.timeout_precommit_delta * round_
+
+    def commit_time(self) -> float:
+        return self.timeout_commit
+
+    def wait_for_txs(self) -> bool:
+        return not self.create_empty_blocks or self.create_empty_blocks_interval > 0
+
+
+@dataclass
+class Config:
+    """The sections of the reference's Config that the consensus slice
+    reads."""
+
+    mempool: MempoolConfig = field(default_factory=MempoolConfig)
+    consensus: ConsensusConfig = field(default_factory=ConsensusConfig)
+
+
+def test_config() -> Config:
+    """Short timeouts for in-process runs (reference config.TestConfig)."""
+    cfg = Config()
+    cfg.consensus.timeout_propose = 0.4
+    cfg.consensus.timeout_propose_delta = 0.1
+    cfg.consensus.timeout_prevote = 0.2
+    cfg.consensus.timeout_prevote_delta = 0.1
+    cfg.consensus.timeout_precommit = 0.2
+    cfg.consensus.timeout_precommit_delta = 0.1
+    cfg.consensus.timeout_commit = 0.1
+    cfg.consensus.skip_timeout_commit = True
+    return cfg
+
+
+test_config.__test__ = False  # not a pytest case when imported into a test module

@@ -23,7 +23,13 @@
 - `scheduler_config_from_reference`, `light_service_config_from_reference`,
   `slo_config_from_reference`: the JAX package's SchedulerConfig /
   LightServiceConfig / SLOConfig -> the port's config.py dataclasses, field
-  by field.
+  by field; `consensus_config_from_reference` and
+  `mempool_config_from_reference` likewise.
+- `genesis_from_reference`, `state_from_reference`: a GenesisDoc or a State
+  of the JAX package -> the port's, through the JSON both write alike.
+- `proposal_from_reference`: a Proposal through its wire bytes.
+- `file_pv_from_reference`: a FilePV with the same key, files and last-sign
+  state.
 """
 
 from __future__ import annotations
@@ -153,3 +159,52 @@ def slo_config_from_reference(ref):
     from tendermint_tpu_torch.config import SLOConfig
 
     return _dataclass_from(SLOConfig, ref)
+
+
+def consensus_config_from_reference(ref):
+    """A ConsensusConfig of the JAX package -> the port's, field by field."""
+    from tendermint_tpu_torch.config import ConsensusConfig
+
+    return _dataclass_from(ConsensusConfig, ref)
+
+
+def mempool_config_from_reference(ref):
+    """A MempoolConfig of the JAX package -> the port's, field by field."""
+    from tendermint_tpu_torch.config import MempoolConfig
+
+    return _dataclass_from(MempoolConfig, ref)
+
+
+def genesis_from_reference(gen):
+    """A GenesisDoc through its JSON, which both packages write and read
+    alike."""
+    from tendermint_tpu_torch.types.genesis import GenesisDoc
+
+    return GenesisDoc.from_json(gen.to_json())
+
+
+def state_from_reference(state):
+    """A State through the state store's JSON encoding."""
+    from tendermint_tpu_torch.state.sm_state import State
+
+    return State.from_json(state.to_json())
+
+
+def proposal_from_reference(proposal):
+    from tendermint_tpu_torch.types.proposal import Proposal
+
+    return Proposal.decode(proposal.encode())
+
+
+def file_pv_from_reference(pv):
+    """A FilePV with the reference's key, files and last-sign state (read,
+    not imported: priv_key.bytes() and last_sign_state's five fields)."""
+    from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey
+    from tendermint_tpu_torch.privval.file_pv import FilePV, FilePVLastSignState
+
+    out = FilePV(Ed25519PrivKey(pv.priv_key.bytes()), pv.key_file, None)
+    s = pv.last_sign_state
+    out.last_sign_state = FilePVLastSignState(s.height, s.round, s.step, s.signature,
+                                              s.sign_bytes)
+    out.state_file = pv.state_file
+    return out

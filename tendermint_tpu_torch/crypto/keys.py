@@ -165,6 +165,10 @@ class Ed25519PrivKey:
         return ED25519_KEY_TYPE
 
 
+def gen_ed25519(seed: bytes | None = None) -> Ed25519PrivKey:
+    """A key from a 32-byte seed, or a fresh random one."""
+    return Ed25519PrivKey(seed if seed is not None else os.urandom(PRIVKEY_SIZE))
+
 
 # ---------------------------------------------------------------------------
 # BLS12-381 (aggregate commits; crypto/bls_ref.py)

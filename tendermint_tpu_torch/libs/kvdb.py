@@ -2,8 +2,8 @@
 (the reference's tm-db role).
 
 MemDB (ephemeral) and SQLiteDB (durable, one file, stdlib sqlite3), with
-tm-db's interface: get/set/delete/has and prefix iteration in key order.
-Write batches wait for a caller in the port that stores blocks (ROADMAP A8).
+tm-db's interface: get/set/delete/has, prefix iteration in key order, and
+write batches (one transaction on SQLiteDB) for the block and state stores.
 """
 
 from __future__ import annotations
@@ -11,7 +11,7 @@ from __future__ import annotations
 import os
 import sqlite3
 import threading
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 
 class KVDB:
@@ -29,6 +29,12 @@ class KVDB:
 
     def iterate_prefix(self, prefix: bytes) -> Iterator[Tuple[bytes, bytes]]:
         raise NotImplementedError
+
+    def write_batch(self, sets: List[Tuple[bytes, bytes]], deletes: List[bytes] = ()) -> None:
+        for k, v in sets:
+            self.set(k, v)
+        for k in deletes:
+            self.delete(k)
 
     def close(self) -> None:
         pass
@@ -101,6 +107,16 @@ class SQLiteDB(KVDB):
         for k, v in rows:
             if bytes(k).startswith(prefix):
                 yield bytes(k), bytes(v)
+
+    def write_batch(self, sets, deletes=()) -> None:
+        with self._lock:
+            self._conn.executemany(
+                "INSERT INTO kv (k, v) VALUES (?, ?) ON CONFLICT(k) DO UPDATE SET v = excluded.v",
+                [(k, v) for k, v in sets],
+            )
+            if deletes:
+                self._conn.executemany("DELETE FROM kv WHERE k = ?", [(k,) for k in deletes])
+            self._conn.commit()
 
     def close(self) -> None:
         with self._lock:

@@ -11,14 +11,16 @@ a scrape of the reference:
   `record_backend_rows` and the verified-row memo, by the device-health and
   compile calls of libs/trace.py, and by crypto/provenance.py's
   poisoned-sources gauge;
-- `SLOMetrics`, `LightServiceMetrics`, `SchedulerMetrics`: built by their
-  owner on its own registry and handed to libs/slo.SLOEngine(metrics=),
-  light/service.LightService(metrics=) and
-  crypto/scheduler.VerifyScheduler(metrics=).
+- `SLOMetrics`, `LightServiceMetrics`, `SchedulerMetrics`, `PubSubMetrics`:
+  built by their owner on its own registry and handed to
+  libs/slo.SLOEngine(metrics=), light/service.LightService(metrics=),
+  crypto/scheduler.VerifyScheduler(metrics=) and
+  libs/pubsub.PubSubServer(metrics=) (types/event_bus.EventBus(metrics=)).
+  The reference keeps its pubsub counter on the global registry; here the
+  global registry holds the batch family only.
 
-The consensus, mempool, p2p, state, RPC, pubsub, chaos, fleet, observatory,
-mesh and node families wait for the modules that feed them (ROADMAP A8,
-A10).
+The consensus, mempool, p2p, state, RPC, chaos, fleet, observatory, mesh
+and node families wait for the modules that feed them (ROADMAP A8, A10).
 """
 
 from __future__ import annotations
@@ -497,6 +499,18 @@ class LightServiceMetrics:
             f"{ns}_conflicting_headers_total",
             "Conflicting-header detections (client-expected hash or a "
             "second verification path disagreed with the verified header).",
+        )
+
+
+class PubSubMetrics:
+    """libs/pubsub.py subscription-buffer health: a full buffer drops its
+    oldest event and counts it here."""
+
+    def __init__(self, reg: Registry):
+        self.dropped = reg.counter(
+            f"{NAMESPACE}_pubsub_dropped_messages_total",
+            "Events dropped oldest-first from a slow subscriber's full buffer.",
+            ("subscriber",),
         )
 
 

@@ -1,6 +1,6 @@
-"""Canonical vote sign-bytes (byte-exact gogoproto marshaling).
+"""Canonical vote and proposal sign-bytes (byte-exact gogoproto marshaling).
 
-The port's copy of the vote half of tendermint_tpu/types/canonical.py
+The port's copy of tendermint_tpu/types/canonical.py
 (reference types/canonical.go, proto/tendermint/types/canonical.proto):
 fields ascending, zero scalars omitted, nil BlockID omitted, height/round as
 sfixed64, timestamp always emitted, the result length-delimited.
@@ -42,6 +42,29 @@ def canonical_vote_bytes(msg_type, height: int, round_: int, block_id: BlockID,
     w.message_field(5, _timestamp_bytes(timestamp_ns), always=True)
     w.string_field(6, chain_id)
     return w.bytes()
+
+
+def canonical_proposal_bytes(height: int, round_: int, pol_round: int, block_id: BlockID,
+                             timestamp_ns: int, chain_id: str) -> bytes:
+    """CanonicalProposal marshal (type=1, height=2, round=3, pol_round=4 int64,
+    block_id=5, timestamp=6, chain_id=7)."""
+    w = pw.Writer()
+    w.varint_field(1, int(SignedMsgType.PROPOSAL))
+    w.sfixed64_field(2, height)
+    w.sfixed64_field(3, round_)
+    w.varint_field(4, pol_round)  # int64 varint; -1 encodes as 10 bytes
+    w.message_field(5, canonical_block_id_bytes(block_id))
+    w.message_field(6, _timestamp_bytes(timestamp_ns), always=True)
+    w.string_field(7, chain_id)
+    return w.bytes()
+
+
+def proposal_sign_bytes(chain_id: str, height: int, round_: int, pol_round: int,
+                        block_id: BlockID, timestamp_ns: int) -> bytes:
+    """Length-delimited canonical proposal (reference types/proposal.go
+    ProposalSignBytes)."""
+    return pw.length_delimited(
+        canonical_proposal_bytes(height, round_, pol_round, block_id, timestamp_ns, chain_id))
 
 
 def vote_sign_bytes(chain_id: str, msg_type, height: int, round_: int, block_id: BlockID,

@@ -41,6 +41,11 @@ class Vote:
         object.__setattr__(self, "_sign_bytes", (chain_id, data))
         return data
 
+    def seed_sign_bytes(self, chain_id: str, data: bytes) -> None:
+        """Prime the sign-bytes memo from a batched encoder
+        (canonical.vote_sign_bytes_many); `data` is what sign_bytes returns."""
+        object.__setattr__(self, "_sign_bytes", (chain_id, data))
+
     def verify(self, chain_id: str, pubkey) -> bool:
         """One host verification (reference types/vote.go:149): the key's
         address must be the vote's, then the key verifies the sign bytes."""

@@ -52,7 +52,7 @@ def test_package_and_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_mods = int(res.stdout.split()[0])
-    assert n_mods >= 62
+    assert n_mods >= 93
     for mod in ("ops.cuda_fe", "ops.cuda_msm", "ops.msm_geometry", "ops.msm_torch",
                 "crypto.batch", "ops.fp381", "ops.cuda_bls", "ops.bls12_torch",
                 "ops.tower", "ops.pairing_torch", "crypto.bls_ref", "crypto.keys", "types.validator_set",
@@ -62,7 +62,15 @@ def test_package_and_smoke_import_no_jax():
                 "blocksync", "blocksync.verify", "config", "libs.trace", "libs.txtrace",
                 "crypto.provenance", "crypto.scheduler", "light.coalescer", "light.service",
                 "ops.ristretto_torch", "libs.metrics", "libs.slo", "libs.profiler",
-                "tools.profile_report"):
+                "tools.profile_report",
+                "libs.hotstats", "libs.fail", "libs.pubsub", "abci", "abci.types",
+                "abci.client", "abci.kvstore", "proxy", "proxy.multi", "types.params",
+                "types.genesis", "types.proposal", "types.event_bus", "state",
+                "state.sm_state", "state.store", "store", "store.blockstore",
+                "state.execution", "evidence", "evidence.pool", "mempool",
+                "mempool.mempool", "privval", "privval.file_pv", "consensus",
+                "consensus.messages", "consensus.round_state", "consensus.wal",
+                "consensus.replay", "consensus.cs_state"):
         assert f"tendermint_tpu_torch.{mod}" in res.stdout.split(), mod
 
 
