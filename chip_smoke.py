@@ -231,18 +231,41 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      time and launches (the shapes join the shape check), each deferred
      flush's rows, route and ms, their median and votes/s, the LastCommit
      checks of heights 2-3 (path "memo", 0 launches), height 2's device busy
-     time and idle share, and the phase's seconds with signing apart; every
+     time and idle share and its hotstats stage totals (encode, verify,
+     pubsub, wal), and the phase's seconds with signing apart; every
      flush's mask equals the host arm's (only the 100 planted rows False),
      the committed LastCommits and height 3's seen commit verify on the host
      arm without the planted rows, and consensus must not have halted;
-  20. a `kernels` JSON line (a row off every path counts 0 launches), the
+  20. "tx_admission": bench.py bench_tx_admission at its own parameters on
+     the port's Node (node/node.py, device None): one validator running
+     signed_kvstore with deferred votes on the votes lane, memdb, mempool
+     500,000 / cache 1,000,000 / TTL 2 blocks / recheck off, the scheduler
+     at its defaults, prewarm off; 6 baseline heights, then 256-tx batches
+     from 4 threads through check_tx_batch: the serial arm (6,000 txs,
+     sig_precheck off, the app verifies each tx) and the batched arm
+     (30,000 txs on the admission lane, profiled), each at most 8 s; then one
+     256-tx batch with 3 flipped signatures. The corpus (16 keys) is signed
+     on the fork pool in main(). Prints each arm's admissions/s and their
+     ratio, the app's serial_verifies / precheck_consumed and
+     prechecked_total, the admission flushes (rows, route, ms; the recorder's
+     labels; the scheduler's flush_log), the votes lane's p99 flush wall at
+     baseline and under the flood and the preemptions, each arm's launches,
+     the batched arm's device busy and idle share, keys._HAVE_OPENSSL, the
+     node's mempool, consensus height and scheduler series, one tx's journey
+     (received to delivered) and the phase's seconds with signing apart;
+     every admission flush's mask equals the host arm's, the batched arm
+     paid no app-side verify, exactly the 3 planted txs are refused, each
+     committed LastCommit verifies on the host arm, and the node did not
+     halt or store an error;
+  21. a `kernels` JSON line (a row off every path counts 0 launches), the
      card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
 (the warm, pipelined and streamed paths per call); every kernel of a path must
 launch on it: the six Ed25519 kernels on the Ed25519 paths (pipelined,
 tampered, tampered_persig, mixed_commit, mixed_sr25519_10k, the four light
-paths, light_mixed, the consensus and catch-up paths, the scheduler paths
-and consensus_10k's heights included),
+paths, light_mixed, the consensus and catch-up paths, the scheduler paths,
+consensus_10k's heights and tx_admission's batched arm included; the
+tampered batch launches the ladder's three),
 the two BLS kernels on the BLS paths, fp381_mul on g1_msm_10k, none on host_small, the
 verify-at-add arm, the evidence check and the memo's answers. Exits non-zero without a result when no CUDA device
 is available.
@@ -365,10 +388,11 @@ CATCHUP_BAD_BLOCK, CATCHUP_BAD_ROWS, CATCHUP_WRONG_ID = 5, 43, 11
 # bench_poisoned_flush's shape, POISON_ROWS-row vote batches from the 10k
 # corpus, POISON_CALLS calls at 0 and POISONED_CALLS at 1% poison (seed 20;
 # each poisoned call after the first runs two per-signature ladders at once,
-# ~3 s, so that arm is cut from 64 calls to 16). PEERS: the peers the vote
+# ~3 s, so that arm is cut from 64 calls to 8: 16 until the whole run passed
+# 900 s of its 1,200-s limit with tx_admission). PEERS: the peers the vote
 # paths tag their rows with.
 SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SEED, SERVE_WINDOW, SERVE_SERIAL = 32, 600, 7, 0.02, 60
-POISON_ROWS, POISON_CALLS, POISONED_CALLS, POISON_RATE, POISON_SEED = 512, 64, 16, 0.01, 20
+POISON_ROWS, POISON_CALLS, POISONED_CALLS, POISON_RATE, POISON_SEED = 512, 64, 8, 0.01, 20
 PEERS = 8
 # consensus_10k: BASELINE config 5's validator set (mixed_sr25519_10k's keys:
 # 8,000 Ed25519 and 2,000 sr25519 validators, power 10) under the port's
@@ -382,6 +406,17 @@ PEERS = 8
 # on a loaded host.
 CONSENSUS_HEIGHTS, CONSENSUS_TXS, CONSENSUS_TX_BYTES, CONSENSUS_BAD = 3, 1_000, 64, 100
 CONSENSUS_PROPOSE_S = 5.0
+# tx_admission: bench.py bench_tx_admission at its own parameters on the
+# port's Node: ADM_KEYS signing keys, check_tx_batch batches of ADM_BATCH
+# txs from ADM_SENDERS threads, a baseline window of ADM_BASELINE heights
+# after height 2, then a serial arm (sig_precheck off, ADM_SERIAL_TXS txs)
+# and a batched arm (the admission lane, ADM_BATCHED_TXS txs), each at most
+# ADM_FLOOD_S seconds; then one tampered batch of ADM_BATCH txs whose
+# ADM_TAMPERED rows carry a flipped signature. The corpus is signed on the
+# fork pool before the card is touched.
+ADM_KEYS, ADM_BATCH, ADM_SENDERS, ADM_BASELINE = 16, 256, 4, 6
+ADM_FLOOD_S, ADM_SERIAL_TXS, ADM_BATCHED_TXS = 8.0, 6_000, 30_000
+ADM_TAMPERED = (17, 128, 255)
 
 REPLACES = {
     "padd": "tendermint_tpu/ops/pallas_fe.py:249",
@@ -4134,6 +4169,7 @@ def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
     from tendermint_tpu_torch.consensus.wal import WAL
     from tendermint_tpu_torch.crypto import batch, keys, scheduler
     from tendermint_tpu_torch.evidence.pool import EvidencePool
+    from tendermint_tpu_torch.libs import hotstats
     from tendermint_tpu_torch.libs.kvdb import MemDB
     from tendermint_tpu_torch.libs.profiler import device_rows
     from tendermint_tpu_torch.mempool.mempool import Mempool
@@ -4222,7 +4258,7 @@ def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
     ex.apply_block, ex.validate_block = apply_block, validate_block
     batch.configure_verified_memo(memo_default)
     per_height, sign_s, planted = {}, [], set()
-    busy = {}
+    busy, hot = {}, {}
 
     async def height(h: int) -> None:
         while not (cs.rs.height == h and cs.rs.step >= RoundStepType.PROPOSE):
@@ -4273,6 +4309,9 @@ def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
         prof = profile(activities=[ProfilerActivity.CUDA]) if h == 2 and dev.type == "cuda" else None
         if prof is not None:
             prof.__enter__()
+        if h == 2:  # the host time around the flushes, split by stage
+            hotstats.stats.reset()
+            hotstats.stats.enabled = True
         reset_launches()
         t0 = time.perf_counter()
         for b in range(0, len(votes), DRAIN):
@@ -4288,6 +4327,9 @@ def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
                 cs.rs.last_commit is not None and cs.rs.last_commit.pending_count())):
             await asyncio.sleep(0.002)
         t_end = time.perf_counter()
+        if h == 2:
+            hotstats.stats.enabled = False
+            hot.update(hotstats.stats.snapshot(), wall_s=t_end - t0)
         if prof is not None:
             torch.cuda.synchronize()
             prof.__exit__(None, None, None)
@@ -4395,6 +4437,11 @@ def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
           f"({sum(not s.absent() for s in last.signatures)} rows, none planted) verify on the "
           f"host arm; app hash {cs.state.app_hash.hex()} ({app.size} txs); consensus did not "
           f"halt", flush=True)
+    if hot:
+        print(f"consensus_10k h2 hotstats (window {hot['wall_s'] * 1e3:.1f} ms; stages nest, "
+              f"verify holds the flushes): " + ", ".join(
+                  f"{st} {hot['seconds'][st] * 1e3:.1f} ms / {hot['counts'][st]}"
+                  for st in ("encode", "verify", "pubsub", "wal")), flush=True)
     if busy:
         if busy["us"] > 0:
             print(f"consensus_10k h2 profile: device_busy_ms={busy['us'] / 1e3:.2f} "
@@ -4407,6 +4454,388 @@ def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
           f"{sum(sign_s):.1f} = {[round(x, 1) for x in sign_s]}, consensus {run_s:.1f}, host "
           f"checks {host_s:.1f}); node validator {own} ({vals[own].pub_key.type_name()}), "
           f"proposers {[block_store.load_block(h).header.proposer_address == vals[own].address for h in range(1, CONSENSUS_HEIGHTS + 1)]}",
+          flush=True)
+
+
+def build_tx_admission(pool, workers: int) -> dict:
+    """tx_admission's corpus, signed on the fork pool before the card is
+    touched (_sign_votes, whose nonce points _base_mul computes): the serial
+    arm's, the batched arm's and the tampered batch's signed-tx envelopes
+    (types/signed_tx.py) under ADM_KEYS keys, payloads as bench.py's."""
+    from tendermint_tpu_torch.crypto import keys
+    from tendermint_tpu_torch.types import signed_tx
+
+    t0 = time.perf_counter()
+    seeds = [bytes([k + 1]) * 32 for k in range(ADM_KEYS)]
+    pks = [keys.gen_ed25519(s).pub_key().bytes() for s in seeds]
+    out = {}
+    for tag, count in (("ser", ADM_SERIAL_TXS), ("bat", ADM_BATCHED_TXS), ("tam", ADM_BATCH)):
+        payloads = [b"%s-%d=x" % (tag.encode(), i) for i in range(count)]
+        jobs = [("ed25519", seeds[i % ADM_KEYS], pks[i % ADM_KEYS], signed_tx.SIGN_PREFIX + p)
+                for i, p in enumerate(payloads)]
+        sigs = pool_map(pool, _sign_votes, jobs, workers)
+        out[tag] = [signed_tx.MAGIC + pks[i % ADM_KEYS] + sig + p
+                    for i, (sig, p) in enumerate(zip(sigs, payloads))]
+    for i in ADM_TAMPERED:
+        tx = out["tam"][i]
+        out["tam"][i] = tx[:36] + flip(tx[36:100]) + tx[100:]
+    out["sign_s"] = time.perf_counter() - t0
+    print(f"tx_admission corpus: {sum(len(out[t]) for t in ('ser', 'bat', 'tam'))} signed txs "
+          f"from {ADM_KEYS} keys on {workers} workers, {out['sign_s']:.1f} s", flush=True)
+    return out
+
+
+def tx_admission_phase(dev, adm: dict, pool, workers: int, launches: dict,
+                       memo_default: int) -> None:
+    """tx_admission: bench.py bench_tx_admission on the port's Node
+    (node/node.py) with `device` None, the reference's routing (the card
+    from 256 rows): a single validator running signed_kvstore, deferred
+    vote verification (the votes lane), memdb, no RPC, mempool size 500,000,
+    cache 1,000,000, TTL 2 blocks, recheck off, the scheduler at its
+    defaults, prewarm off. A baseline window of ADM_BASELINE heights, then
+    the serial arm (sig_precheck off: the app verifies each tx) and the
+    batched arm (the admission lane; under torch.profiler on the card), each
+    from ADM_SENDERS threads through check_tx_batch for at most ADM_FLOOD_S,
+    then the tampered batch. Prints each arm's admissions/s and their ratio,
+    the app's counters, the admission flushes (the wrapper's own record, the
+    flight recorder's labels and the scheduler's flush_log), the votes
+    lane's p99 flush wall at baseline and under the flood, each arm's
+    launches, the batched arm's device busy time and idle share, whether
+    OpenSSL verifies the serial arm, the node's exposition for the mempool,
+    consensus height and scheduler series, one tx's journey and the phase's
+    seconds. Holds every admission flush's mask to the host arm's on the
+    same rows, the batched arm to no app-side verify, the tampered batch to
+    exactly its planted rejections, each committed LastCommit to the host
+    arm, and the node to not having halted."""
+    import asyncio
+    import shutil
+    import tempfile
+    import threading
+    from collections import Counter, deque
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from tendermint_tpu_torch.abci.kvstore import SignedKVStoreApplication
+    from tendermint_tpu_torch.config import test_config
+    from tendermint_tpu_torch.crypto import batch, keys, scheduler, tmhash
+    from tendermint_tpu_torch.libs import forensics, trace
+    from tendermint_tpu_torch.libs.profiler import device_rows
+    from tendermint_tpu_torch.node.node import Node
+    from tendermint_tpu_torch.privval.file_pv import FilePV
+    from tendermint_tpu_torch.types import signed_tx
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    if scheduler.default_scheduler() is not None:
+        raise SystemExit("tx_admission: a default scheduler is still installed")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tx_admission-")
+    cfg = test_config()
+    cfg.base.db_backend = "memdb"
+    cfg.rpc.laddr = ""
+    cfg.root_dir = ""
+    cfg.consensus.wal_path = os.path.join(tmp, "wal")
+    cfg.instrumentation.forensics_dir = os.path.join(tmp, "forensics")
+    cfg.consensus.defer_vote_verification = True
+    cfg.mempool.size, cfg.mempool.cache_size = 500_000, 1_000_000
+    cfg.mempool.ttl_num_blocks, cfg.mempool.recheck = 2, False
+    app = SignedKVStoreApplication()
+    priv = FilePV(keys.gen_ed25519(b"\x72" * 32))
+    gen = GenesisDoc(chain_id="bench-tx-admission",
+                     validators=[GenesisValidator(priv.get_pub_key(), 10)])
+    node = Node(cfg, gen, priv_validator=priv, app=app,
+                device=None if dev.type == "cuda" else dev)
+    node._start_crypto_prewarm = lambda: None  # prewarm off, as bench.py has it
+    sched, mp_ = node.scheduler, node.mempool
+    # the phase's flushes all stay in the journal and the recorder's ring
+    # (the votes lane flushes once a vote: thousands of flushes an arm)
+    sched.flush_log = deque(sched.flush_log, maxlen=1 << 20)
+    trace.tracer.configure(ring_size=1 << 17)
+
+    # every flush of admission rows, recorded on the dispatch thread: rows,
+    # route label and mode, ms, mask, and the rows themselves
+    adm_flushes, arm = [], {"name": "baseline"}
+    real_verify = sched._verify_chunked
+
+    def recorded(pks, msgs, sigs, kt, sources=None):
+        t0 = time.perf_counter()
+        mask = real_verify(pks, msgs, sigs, kt, sources)
+        n_adm = sum(m.startswith(signed_tx.SIGN_PREFIX) for m in msgs)
+        if n_adm:
+            f = batch.LAST_FLUSH
+            adm_flushes.append(dict(arm=arm["name"], rows=len(pks), adm=n_adm,
+                                    path=f.get("path"), mode=f.get("mode"),
+                                    ms=(time.perf_counter() - t0) * 1e3,
+                                    mask=np.asarray(mask, bool),
+                                    args=(list(pks), list(msgs), list(sigs),
+                                          list(kt) if kt is not None else ["ed25519"] * len(pks))))
+        return mask
+
+    sched._verify_chunked = recorded
+    batches = {t: [adm[t][i:i + ADM_BATCH] for i in range(0, len(adm[t]), ADM_BATCH)]
+               for t in ("ser", "bat")}
+
+    def flood(bl, stop_t):
+        counts, lock, idx = {"ok": 0, "rej": 0}, threading.Lock(), {"i": 0}
+
+        def worker():
+            while True:
+                with lock:
+                    i = idx["i"]
+                    idx["i"] += 1
+                if i >= len(bl) or time.monotonic() >= stop_t:
+                    return
+                out = mp_.check_tx_batch(bl[i], sender="bench-%d" % (i % ADM_SENDERS))
+                ok = sum(1 for r in out if r is not None and r.code == 0)
+                with lock:
+                    counts["ok"] += ok
+                    counts["rej"] += len(out) - ok
+
+        threads = [threading.Thread(target=worker, daemon=True) for _ in range(ADM_SENDERS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return counts["ok"], counts["rej"], time.perf_counter() - t0
+
+    def vote_walls(t0, t1):
+        return [f["wall_s"] for f in list(sched.flush_log)
+                if "votes" in f["rows"] and t0 <= f["t"] <= t1]
+
+    res, busy = {}, {}
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        await node.start()
+        try:
+            await node.wait_for_height(2, timeout=120)
+            reset_launches()
+            tb0, h0 = time.monotonic(), node.block_store.height
+            await node.wait_for_height(h0 + ADM_BASELINE, timeout=180)
+            res["baseline"] = (vote_walls(tb0, time.monotonic()), node.block_store.height - h0)
+            launches["tx_admission baseline"] = read_launches("tx_admission baseline", ())
+
+            for name, tag, precheck in (("serial", "ser", False), ("batched", "bat", True)):
+                arm["name"] = name
+                mp_.sig_precheck = precheck
+                before = (app.serial_verifies, app.precheck_consumed, mp_.prechecked_total)
+                trace.tracer.clear()
+                prof = (profile(activities=[ProfilerActivity.CUDA])
+                        if name == "batched" and dev.type == "cuda" else None)
+                if prof is not None:
+                    prof.__enter__()
+                reset_launches()
+                tf0, h1 = time.monotonic(), node.block_store.height
+                out = await loop.run_in_executor(None, flood, batches[tag],
+                                                 time.monotonic() + ADM_FLOOD_S)
+                tf1 = time.monotonic()
+                if prof is not None:
+                    torch.cuda.synchronize()
+                    prof.__exit__(None, None, None)
+                    rows = device_rows(prof)
+                    busy.update(us=sum(e.self_device_time_total for e in rows),
+                                kernels=sum(e.count for e in rows), wall_s=out[2])
+                arm_fl = [f for f in adm_flushes if f["arm"] == name]
+                ladder = ("padd", "pdbl", "fsquare_chain")
+                need = (() if dev.type != "cuda" or not arm_fl else
+                        ED25519_KERNELS if any(str(f["path"]).startswith("rlc") for f in arm_fl)
+                        else ladder if any(f["path"] == "persig" for f in arm_fl) else ())
+                launches[f"tx_admission {name}"] = read_launches(f"tx_admission {name}", need)
+                events = [e["attrs"] for e in trace.tracer.dump()
+                          if e["name"] == "batch_verify.flush" and e["attrs"]["n"] > 1]
+                res[name] = dict(out=out, before=before, after=(
+                    app.serial_verifies, app.precheck_consumed, mp_.prechecked_total),
+                    votes=vote_walls(tf0, tf1), heights=node.block_store.height - h1,
+                    events=events, log=[f for f in list(sched.flush_log) if tf0 <= f["t"] <= tf1])
+
+            # the tampered batch: exactly its planted rows refused
+            arm["name"] = "tampered"
+            reset_launches()
+            out = await loop.run_in_executor(None, lambda: mp_.check_tx_batch(
+                adm["tam"], sender="tx-admission-tamper"))
+            launches["tx_admission tampered"] = read_launches(
+                "tx_admission tampered", () if dev.type != "cuda" else ("padd", "pdbl",
+                                                                         "fsquare_chain"))
+            res["tampered"] = [r.code if r is not None else None for r in out]
+            key = tmhash.sum256(adm["tam"][0])
+            for _ in range(40):  # its journey ends delivered within a few heights
+                j = node.tx_tracker.waterfall(key)
+                if j is not None and j["terminal"] is not None:
+                    break
+                await node.wait_for_height(node.block_store.height + 1, timeout=120)
+            res["journey"] = node.tx_tracker.waterfall(key)
+            res["exposition"] = [line for line in node.metrics.expose().splitlines()
+                                 if line.startswith(("tendermint_mempool_",
+                                                     "tendermint_consensus_height",
+                                                     "tendermint_verify_lane_"))
+                                 and "_bucket" not in line]
+            res["scheduler"] = sched.stats()
+        finally:
+            await node.stop()
+
+    try:
+        asyncio.run(run())
+        # the batched arm's widest flush and the tampered batch alone on a
+        # quiet process (node stopped, memo off), warm: the same work with
+        # no consensus loop or sender thread holding the GIL
+        batch.configure_verified_memo(0)
+        alone = {}
+        for tag, f in (("widest", max((f for f in adm_flushes if f["arm"] == "batched"),
+                                      key=lambda f: f["rows"], default=None)),
+                       ("tampered", next((f for f in adm_flushes if f["arm"] == "tampered"),
+                                         None))):
+            if f is None:
+                continue
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                mask = batch.verify_batch(*f["args"][:3], device=None if dev.type == "cuda"
+                                          else dev)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            if mask.tolist() != f["mask"].tolist():
+                raise SystemExit(f"tx_admission: the {tag} flush alone gives another mask")
+            alone[tag] = (f["rows"], batch.LAST_FLUSH.get("path"), times, f["ms"])
+    finally:
+        sched._verify_chunked = real_verify
+        trace.tracer.configure(ring_size=cfg.instrumentation.trace_ring_size)
+        batch.configure_verified_memo(0)
+        forensics.configure(None)  # the node's heartbeat ring lives in tmp
+        shutil.rmtree(tmp, ignore_errors=True)
+    if node.consensus.halt_error is not None:
+        raise SystemExit(f"tx_admission: consensus halted: {node.consensus.halt_error!r}")
+    if node.prewarm_error is not None:
+        raise SystemExit(f"tx_admission: prewarm error stored: {node.prewarm_error!r}")
+    errors = [f for f in list(sched.flush_log) + res["batched"]["log"] if f["error"]]
+    if errors:
+        raise SystemExit(f"tx_admission: {len(errors)} scheduler flushes failed: {errors[0]}")
+    run_s = time.perf_counter() - t_phase
+
+    def pct(xs, p):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, int(p * len(xs)))] if xs else None
+
+    def ms(x):
+        return "n/a" if x is None else f"{x * 1e3:.3f} ms"
+
+    rates = {}
+    for name in ("serial", "batched"):
+        r = res[name]
+        ok, rej, wall = r["out"]
+        rates[name] = ok / wall if wall else 0.0
+        d = [a - b for a, b in zip(r["after"], r["before"])]
+        print(f"tx_admission {name}: {ok} admitted, {rej} refused in {wall:.3f} s = "
+              f"{rates[name]:.1f} admissions/s; {r['heights']} heights committed meanwhile; "
+              f"serial_verifies +{d[0]}, precheck_consumed +{d[1]}, prechecked_total +{d[2]}; "
+              f"launches {launches[f'tx_admission {name}']}", flush=True)
+        if name == "serial" and (d[1] or d[2] or d[0] != ok + rej):
+            raise SystemExit(f"tx_admission: the serial arm consumed verdicts: {d}")
+        if name == "batched" and (d[0] or d[1] != ok + rej or d[2] != ok + rej):
+            raise SystemExit(f"tx_admission: a batched-arm admission paid an app-side verify "
+                             f"or consumed no verdict: {d}")
+    print(f"tx_admission: batched/serial {rates['batched'] / rates['serial']:.2f}x; the serial "
+          f"arm's per-tx verify is {'OpenSSL' if keys._HAVE_OPENSSL else 'pure Python'} "
+          f"(keys._HAVE_OPENSSL={keys._HAVE_OPENSSL}); app serial_verifies="
+          f"{app.serial_verifies} precheck_consumed={app.precheck_consumed} "
+          f"mempool prechecked_total={mp_.prechecked_total}", flush=True)
+
+    bat = [f for f in adm_flushes if f["arm"] == "batched"]
+    if not bat:
+        raise SystemExit("tx_admission: the batched arm made no admission flush")
+    rows = [f["rows"] for f in bat]
+    print(f"tx_admission batched flushes: {len(bat)}, rows min/median/max {min(rows)}/"
+          f"{statistics.median(rows)}/{max(rows)}, routes "
+          f"{dict(Counter(f'{f['path']}/{f['mode']}' for f in bat))}, ms median "
+          f"{statistics.median(f['ms'] for f in bat):.1f} max {max(f['ms'] for f in bat):.1f}, "
+          f"{sum(rows) / (sum(f['ms'] for f in bat) / 1e3):.0f} rows/s of flush time", flush=True)
+    print("tx_admission batched flushes (rows, route/mode, ms): " + ", ".join(
+        f"({f['rows']}, {f['path']}/{f['mode']}, {f['ms']:.1f})" for f in bat), flush=True)
+    ev = res["batched"]["events"]
+    print(f"tx_admission recorder (batched arm, flushes of more than 1 row): {len(ev)} flushes, "
+          f"labels {dict(Counter(e['path'] for e in ev))}, "
+          f"{sum(e['total_ms'] for e in ev):.1f} ms in all", flush=True)
+    log_adm = [f for f in res["batched"]["log"] if "admission" in f["rows"]]
+    print(f"tx_admission flush_log (batched arm): {len(log_adm)} flushes with admission rows, rows "
+          f"min/median/max {min(f['rows']['admission'] for f in log_adm)}/"
+          f"{statistics.median(f['rows']['admission'] for f in log_adm)}/"
+          f"{max(f['rows']['admission'] for f in log_adm)}, wall median "
+          f"{statistics.median(f['wall_s'] for f in log_adm) * 1e3:.1f} ms, admission wait p99 "
+          f"{ms(pct([f['wait_s']['admission'] for f in log_adm], 0.99))}", flush=True)
+    base_votes, base_h = res["baseline"]
+    flood_votes = res["batched"]["votes"]
+    print(f"tx_admission votes lane: baseline {len(base_votes)} flushes over {base_h} heights, "
+          f"wall p99 {ms(pct(base_votes, 0.99))}; under the batched flood {len(flood_votes)} "
+          f"flushes, wall p99 {ms(pct(flood_votes, 0.99))}; serial arm "
+          f"{ms(pct(res['serial']['votes'], 0.99))}; preemptions "
+          f"{res['scheduler']['preemptions']}", flush=True)
+    print(f"tx_admission launches: baseline {launches['tx_admission baseline']}; tampered "
+          f"{launches['tx_admission tampered']}", flush=True)
+    if busy:
+        if busy["us"] > 0:
+            print(f"tx_admission batched profile: device_busy_ms={busy['us'] / 1e3:.2f} "
+                  f"kernels={busy['kernels']} idle_share="
+                  f"{1 - busy['us'] / 1e6 / busy['wall_s']:.3f} (window "
+                  f"{busy['wall_s'] * 1e3:.1f} ms, the whole batched arm, profiled)", flush=True)
+        else:
+            print("tx_admission batched profile: the profiler recorded no device time (device "
+                  "busy: not measured)", flush=True)
+
+    for tag, (n, path, times, node_ms) in alone.items():
+        print(f"tx_admission {tag} flush alone: {n} rows, {path}, "
+              f"{', '.join(f'{t:.1f}' for t in times)} ms (warm, no node running) against "
+              f"{node_ms:.1f} ms inside the node", flush=True)
+
+    codes = res["tampered"]
+    want = SignedKVStoreApplication.CODE_BAD_SIGNATURE
+    if [i for i, c in enumerate(codes) if c == want] != list(ADM_TAMPERED) or any(
+            c != 0 for i, c in enumerate(codes) if i not in ADM_TAMPERED):
+        raise SystemExit(f"tx_admission: the tampered batch's codes are not exactly its planted "
+                         f"rejections: {Counter(codes)}")
+    tam = [f for f in adm_flushes if f["arm"] == "tampered"]
+    print(f"tx_admission tampered: {len(codes) - len(ADM_TAMPERED)} admitted, rows "
+          f"{list(ADM_TAMPERED)} refused with CODE_BAD_SIGNATURE; its flushes (rows, route/mode, "
+          f"ms) " + ", ".join(f"({f['rows']}, {f['path']}/{f['mode']}, {f['ms']:.1f})"
+                              for f in tam), flush=True)
+
+    # every admission flush's mask against the host arm's on the same rows
+    t_host = time.perf_counter()
+    pieces = [(k, lo) for k, f in enumerate(adm_flushes) for lo in range(0, f["rows"], DRAIN)]
+    masks = pool_map(pool, _host_masks, [tuple(a[lo:lo + DRAIN] for a in adm_flushes[k]["args"])
+                                           for k, lo in pieces], workers)
+    host = [[] for _ in adm_flushes]
+    for (k, _), m in zip(pieces, masks):
+        host[k] += m
+    for f, want_mask in zip(adm_flushes, host):
+        if f["mask"].tolist() != want_mask:
+            raise SystemExit(f"tx_admission: a {f['rows']}-row admission flush ({f['path']}) "
+                             "differs from the host arm's mask")
+    # each committed block's LastCommit on the host arm
+    bs = node.block_store
+    jobs = []
+    for h in range(2, bs.height + 1):
+        c = bs.load_block(h).last_commit
+        vals = node.state_store.load_validators(h - 1)
+        idxs = [i for i, sg in enumerate(c.signatures) if not sg.absent()]
+        jobs.append(([vals.validators[i].pub_key.bytes() for i in idxs],
+                     c.vote_sign_bytes_many(gen.chain_id, idxs),
+                     [c.signatures[i].signature for i in idxs], ["ed25519"] * len(idxs)))
+    if not all(all(m) for m in pool_map(pool, _host_masks, jobs, workers)):
+        raise SystemExit("tx_admission: a committed LastCommit fails on the host arm")
+    host_s = time.perf_counter() - t_host
+    print(f"tx_admission checks: {len(adm_flushes)} admission flushes "
+          f"({sum(f['rows'] for f in adm_flushes)} rows) equal the host arm's masks; the "
+          f"LastCommits of heights 2-{bs.height} verify on the host arm; no flush error, no "
+          f"prewarm error, consensus did not halt", flush=True)
+    print("tx_admission exposition: " + "; ".join(res["exposition"]), flush=True)
+    j = res["journey"]
+    print("tx_admission journey of tx " + (j["hash"][:16] if j else "?") + ": " + (", ".join(
+        f"{st['stage']} +{st['offset_ms']:.1f} ms" for st in j["stages"]) if j else "not tracked"),
+          flush=True)
+    if not j or [st["stage"] for st in j["stages"]][-3:] != ["proposed", "committed", "delivered"]:
+        raise SystemExit(f"tx_admission: the tracked tx's journey does not reach committed: {j}")
+    print(f"tx_admission: {time.perf_counter() - t_phase + adm['sign_s']:.1f} s with signing "
+          f"{adm['sign_s']:.1f} s apart (node run {run_s:.1f}, host checks {host_s:.1f})",
           flush=True)
 
 
@@ -4429,15 +4858,16 @@ def main() -> int:
     workers = os.cpu_count() or 1
     signing_pool = mp.get_context("fork").Pool(workers)
     try:
+        adm = build_tx_admission(signing_pool, workers)
         return run_phases(corpus, mixed, mixed_sr, cofactorless, light, light_mixed, catchup,
-                          poisoned, bls, signing_pool, workers)
+                          poisoned, bls, adm, signing_pool, workers)
     finally:
         signing_pool.terminate()
         signing_pool.join()
 
 
 def run_phases(corpus, mixed, mixed_sr, cofactorless, light, light_mixed, catchup, poisoned,
-               bls, signing_pool, workers: int) -> int:
+               bls, adm, signing_pool, workers: int) -> int:
     from tendermint_tpu_torch import native
     from tendermint_tpu_torch.ops import cuda_bls, cuda_fe, cuda_msm
 
@@ -4508,7 +4938,9 @@ def run_phases(corpus, mixed, mixed_sr, cofactorless, light, light_mixed, catchu
     for phase, args in ((metrics_phase, (corpus, bls, launches)),
                         (profile_report_phase, (corpus, launches)),
                         (consensus_10k_phase, (mixed_sr, signing_pool, workers, launches,
-                                               memo_default))):
+                                               memo_default)),
+                        (tx_admission_phase, (adm, signing_pool, workers, launches,
+                                              memo_default))):
         t_phase = time.perf_counter()
         phase(dev, *args)
         print(f"{phase.__name__}: {time.perf_counter() - t_phase:.1f} s", flush=True)

@@ -1,10 +1,15 @@
-"""The kvstore example application (reference abci/example/kvstore): the
-port's copy of `KVStoreApplication` from tendermint_tpu/abci/kvstore.py.
+"""The example applications (reference abci/example/kvstore, counter): the
+port's copy of tendermint_tpu/abci/kvstore.py.
 
 Transactions are `key=value` (or a bare key, stored as its own value); the
 app hash is the big-endian tx count (reference kvstore.go:66, :113); state
-sync snapshots are a JSON dump in chunks. The signed, Merkle, persistent and
-counter apps wait for the node (ROADMAP A10).
+sync snapshots are a JSON dump in chunks. SignedKVStoreApplication takes a
+signed-tx envelope on every tx and consumes the node's admission-lane
+verdict (RequestCheckTx.sig_precheck) in place of its own serial verify;
+PersistentKVStoreApplication adds validator-update txs
+("val:pubkeyhex!power"); CounterApplication checks serial nonces (reference
+abci/example/counter/counter.go:11). The Merkle app waits for the RPC slice
+with crypto/proof_ops.py (ROADMAP A2).
 """
 
 from __future__ import annotations
@@ -187,3 +192,145 @@ class KVStoreApplication(abci.Application):
                 log="exists" if value is not None else "does not exist",
             )
         return abci.ResponseQuery(code=1, log=f"unknown path {req.path}")
+
+
+class SignedKVStoreApplication(KVStoreApplication):
+    """KVStore requiring a signed-tx envelope (types/signed_tx.py) on every
+    tx — the stub application behind device-batched CheckTx admission.
+
+    CheckTx is the ABCI split in action: when the node pre-verified the
+    envelope's signature through the scheduler's admission lane, the
+    request carries `sig_precheck` = OK|BAD and the app CONSUMES the
+    verdict; with no verdict (NONE — plain node, remote submitter,
+    precheck disabled) it verifies serially on the host, which is exactly
+    the per-tx loop the admission lane replaces (and the serial arm the
+    `tx_admission` phase of chip_smoke.py measures).
+
+    DeliverTx unwraps the payload and applies it as a normal key=value tx.
+    It trusts CheckTx-gated admission and does not re-verify — fine for a
+    stub/bench app; a production app distrusting proposers would check
+    `sig_precheck` at DeliverTx too (the envelope rides in the block, so
+    anyone can)."""
+
+    CODE_BAD_ENVELOPE = 10
+    CODE_BAD_SIGNATURE = 11
+
+    def __init__(self, db: Optional[KVDB] = None, **kw):
+        super().__init__(db, **kw)
+        self.serial_verifies = 0  # host verifies paid (no precheck verdict)
+        self.precheck_consumed = 0  # verdicts consumed from the node
+
+    def check_tx(self, req: abci.RequestCheckTx) -> abci.ResponseCheckTx:
+        from tendermint_tpu_torch.types import signed_tx as stx
+
+        env = stx.decode_signed_tx(req.tx)
+        if env is None:
+            return abci.ResponseCheckTx(
+                code=self.CODE_BAD_ENVELOPE, log="not a signed-tx envelope"
+            )
+        if req.sig_precheck == abci.SIG_PRECHECK_OK:
+            self.precheck_consumed += 1
+            ok = True
+        elif req.sig_precheck == abci.SIG_PRECHECK_BAD:
+            self.precheck_consumed += 1
+            ok = False
+        else:
+            self.serial_verifies += 1
+            ok = stx.verify_signed_tx(env)
+        if not ok:
+            return abci.ResponseCheckTx(
+                code=self.CODE_BAD_SIGNATURE, log="invalid tx signature"
+            )
+        return abci.ResponseCheckTx(code=abci.CODE_TYPE_OK, gas_wanted=1)
+
+    def deliver_tx(self, req: abci.RequestDeliverTx) -> abci.ResponseDeliverTx:
+        from tendermint_tpu_torch.types import signed_tx as stx
+
+        env = stx.decode_signed_tx(req.tx)
+        if env is None:
+            return abci.ResponseDeliverTx(
+                code=self.CODE_BAD_ENVELOPE, log="not a signed-tx envelope"
+            )
+        return super().deliver_tx(abci.RequestDeliverTx(tx=env.payload))
+
+
+class PersistentKVStoreApplication(KVStoreApplication):
+    """Adds validator updates via "val:<pubkey_hex>!<power>" txs
+    (reference: abci/example/kvstore/persistent_kvstore.go)."""
+
+    def __init__(self, db: Optional[KVDB] = None):
+        super().__init__(db)
+        self.val_updates: List[abci.ValidatorUpdate] = []
+
+    def init_chain(self, req: abci.RequestInitChain) -> abci.ResponseInitChain:
+        for v in req.validators:
+            self._set_validator(v)
+        return abci.ResponseInitChain()
+
+    def _set_validator(self, v: abci.ValidatorUpdate) -> None:
+        key = b"valkey/" + v.pub_key_bytes
+        if v.power == 0:
+            self.db.delete(key)
+        else:
+            self.db.set(key, str(v.power).encode())
+
+    def deliver_tx(self, req: abci.RequestDeliverTx) -> abci.ResponseDeliverTx:
+        if req.tx.startswith(VALIDATOR_TX_PREFIX):
+            body = req.tx[len(VALIDATOR_TX_PREFIX):]
+            try:
+                pubkey_hex, power_s = body.split(b"!", 1)
+                pubkey = bytes.fromhex(pubkey_hex.decode())
+                power = int(power_s)
+            except Exception:
+                return abci.ResponseDeliverTx(code=2, log="invalid validator tx")
+            if len(pubkey) != 32 or power < 0:
+                return abci.ResponseDeliverTx(code=2, log="invalid validator tx")
+            update = abci.ValidatorUpdate("ed25519", pubkey, power)
+            self.val_updates.append(update)
+            self._set_validator(update)
+            return abci.ResponseDeliverTx(code=abci.CODE_TYPE_OK)
+        return super().deliver_tx(req)
+
+    def end_block(self, req: abci.RequestEndBlock) -> abci.ResponseEndBlock:
+        updates, self.val_updates = self.val_updates, []
+        return abci.ResponseEndBlock(validator_updates=updates)
+
+
+class CounterApplication(abci.Application):
+    """Serial-nonce app (reference: abci/example/counter/counter.go)."""
+
+    def __init__(self, serial: bool = True):
+        self.serial = serial
+        self.tx_count = 0
+        self.height = 0
+
+    def info(self, req: abci.RequestInfo) -> abci.ResponseInfo:
+        return abci.ResponseInfo(
+            data=f"txs:{self.tx_count}", last_block_height=self.height,
+            last_block_app_hash=(
+                struct.pack(">Q", self.tx_count) if self.height else b""
+            ),
+        )
+
+    def _check_value(self, tx: bytes, expected: int) -> bool:
+        if len(tx) > 8:
+            return False
+        value = int.from_bytes(tx, "big")
+        return value == expected
+
+    def check_tx(self, req: abci.RequestCheckTx) -> abci.ResponseCheckTx:
+        if self.serial and not self._check_value(req.tx, self.tx_count):
+            return abci.ResponseCheckTx(code=2, log="invalid nonce")
+        return abci.ResponseCheckTx()
+
+    def deliver_tx(self, req: abci.RequestDeliverTx) -> abci.ResponseDeliverTx:
+        if self.serial and not self._check_value(req.tx, self.tx_count):
+            return abci.ResponseDeliverTx(code=2, log="invalid nonce")
+        self.tx_count += 1
+        return abci.ResponseDeliverTx()
+
+    def commit(self) -> abci.ResponseCommit:
+        self.height += 1
+        if self.tx_count == 0:
+            return abci.ResponseCommit()
+        return abci.ResponseCommit(data=struct.pack(">Q", self.tx_count))

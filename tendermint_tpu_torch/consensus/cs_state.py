@@ -22,9 +22,10 @@ one VoteSet.flush per (type, round) that gained votes, each one
 crypto/batch.verify_batch call (the card from 256 rows when `device` is
 None). A failure inside the flush or the loop halts consensus
 (halt-don't-corrupt): it is logged, kept in `halt_error`, and the loop
-stops; nothing falls back to a host verify. The metrics, the timeline and
-the tx tracker wait for the node (ROADMAP A10); the SLO feed (`slo=`,
-libs/slo.py) is ported.
+stops; nothing falls back to a host verify. The node (node/node.py) hands
+it the consensus metrics (`metrics=`, libs/metrics.ConsensusMetrics), the
+timeline ring (`timeline=`, consensus/timeline.py), the SLO engine (`slo=`)
+and the tx tracker (`tx_tracker=`: the proposed and committed stages).
 """
 
 from __future__ import annotations
@@ -108,19 +109,39 @@ class ConsensusState:
         wal: WAL,
         event_bus: Optional[EventBus] = None,
         priv_validator=None,
+        metrics=None,
+        timeline=None,
         slo=None,
+        tx_tracker=None,
         device=None,
     ):
         """device: where the deferred vote flushes verify (HeightVoteSet ->
         VoteSet -> verify_batch); None keeps the reference's routing, the
-        card from 256 rows."""
+        card from 256 rows. metrics: libs/metrics.ConsensusMetrics;
+        timeline: consensus/timeline.ConsensusTimeline; tx_tracker:
+        libs/txtrace.TxTracker (the proposed and committed stages)."""
         self.config = config
         self.device = device
+        self.metrics = metrics
+        # tx lifecycle tracker (libs/txtrace.py): consensus contributes the
+        # proposed(height,round) and committed(height,index) stages; gated on
+        # the tracer flag like the timeline, muted during replay
+        self.tx_tracker = tx_tracker
+        # per-height/round timeline ring (consensus/timeline.py); recording
+        # is gated on tracer.enabled so a disabled recorder costs the hot
+        # path only flag checks
+        self.timeline = timeline
         # SLO engine (libs/slo.py): commit-interval and prevote-quorum-delay
         # observations feed it here
         self.slo = slo
-        # (height, round) already observed as prevote_quorum_delay
+        # (height, round, step, perf_counter) of the current step, and
+        # (height, round, perf_counter) of the current round: the clocks
+        # behind step_duration_seconds / round_duration_seconds
+        self._step_clock = None
+        self._round_clock = None
+        # (height, round) pairs already recorded by the prevote-delay gauges
         self._quorum_prevote_marked = None
+        self._full_prevote_marked = None
         # the exception that halted the receive loop, if one did
         self.halt_error: Optional[BaseException] = None
         self.block_exec = block_exec
@@ -348,6 +369,8 @@ class ConsensusState:
         elif step == RoundStepType.NEW_ROUND:
             self._enter_propose(ti.height, 0)
         elif step == RoundStepType.PROPOSE:
+            if self.metrics is not None:
+                self.metrics.proposal_timeout_total.inc()
             self._publish_rs(EVENT_TIMEOUT_PROPOSE)
             self._enter_prevote(ti.height, ti.round)
         elif step == RoundStepType.PREVOTE_WAIT:
@@ -477,8 +500,68 @@ class ConsensusState:
         # read-only).
         if self._running:
             self.wal.write(EventRoundState(rs.height, rs.round, int(rs.step)))
+        self._mark_step()
         self.n_steps += 1
         self._publish_rs(EVENT_NEW_ROUND_STEP)
+
+    def _tl(self):
+        """The timeline iff recording is on: tracing disabled reduces every
+        timeline call site to this one flag check."""
+        tl = self.timeline
+        if tl is None or not _tracer.enabled or self.replay_mode:
+            return None
+        return tl
+
+    def _track_block_txs(self, stage: str, height: int, round_: int, block) -> None:
+        """Stamp a lifecycle stage for every tracked tx of `block`: one flag
+        check when tracing is off or no tracker is wired (the hashing inside
+        record_block never runs)."""
+        tt = self.tx_tracker
+        if (
+            tt is None or not tt.enabled or self.replay_mode
+            or block is None or not block.txs
+        ):
+            return
+        tt.record_block(stage, height, round_, block.txs)
+
+    def _mark_step(self) -> None:
+        """Close the previous step's duration and open the new one (the
+        reference's metrics.MarkStep, CometBFT consensus/metrics.go
+        RecordConsMetrics)."""
+        rs = self.rs
+        cur = (rs.height, rs.round, rs.step)
+        prev = self._step_clock
+        if prev is not None and prev[:3] == cur:
+            return  # _new_step without a step change (e.g. precommit-wait arm)
+        now = time.perf_counter()
+        if prev is not None and self.metrics is not None and not self.replay_mode:
+            self.metrics.step_duration_seconds.labels(prev[2].name.lower()).observe(
+                now - prev[3]
+            )
+        self._step_clock = (rs.height, rs.round, rs.step, now)
+        tl = self._tl()
+        if tl is not None:
+            tl.record_step(rs.height, rs.round, rs.step.name)
+            # a point event in the flight recorder's ring, so a trace
+            # interleaves consensus steps with verify spans
+            _tracer.event(
+                "consensus.step",
+                height=rs.height, round=rs.round, step=rs.step.name,
+            )
+
+    def _mark_round(self, height: int, round_: int) -> None:
+        """Round clock: observe the previous round's duration when the round
+        escalates; _finalize_commit observes the committing round."""
+        now = time.perf_counter()
+        prev = self._round_clock
+        if prev is not None and prev[0] == height and prev[1] == round_:
+            return
+        if (
+            prev is not None and self.metrics is not None and not self.replay_mode
+            and prev[0] == height and prev[1] < round_
+        ):
+            self.metrics.round_duration_seconds.observe(now - prev[2])
+        self._round_clock = (height, round_, now)
 
     def _publish_rs(self, event_type: str) -> None:
         if self.event_bus is not None:
@@ -513,6 +596,7 @@ class ConsensusState:
             validators = validators.copy()
             validators.increment_proposer_priority(round_ - rs.round)
 
+        self._mark_round(height, round_)
         rs.round = round_
         rs.step = RoundStepType.NEW_ROUND
         rs.validators = validators
@@ -522,6 +606,9 @@ class ConsensusState:
             rs.proposal_block_parts = None
         rs.votes.set_round(round_ + 1)  # track next round too
         rs.triggered_timeout_precommit = False
+        self._mark_step()  # NEW_ROUND has no _new_step of its own
+        if self.metrics is not None and not self.replay_mode:
+            self.metrics.rounds.set(round_)
         self._publish_rs(EVENT_NEW_ROUND)
 
         wait_for_txs = (
@@ -598,6 +685,9 @@ class ConsensusState:
             if not self.replay_mode:
                 logger.error("enterPropose: error signing proposal: %s", e)
             return
+        m = self._live_metrics()
+        if m is not None:
+            m.proposal_create_count.inc()
         self.send_internal(ProposalMessage(proposal))
         for i in range(block_parts.total):
             self.send_internal(BlockPartMessage(height, round_, block_parts.get_part(i)))
@@ -640,15 +730,27 @@ class ConsensusState:
         if proposal.height != rs.height or proposal.round != rs.round:
             return
         if proposal.pol_round < -1 or (proposal.pol_round >= 0 and proposal.pol_round >= proposal.round):
+            m = self._live_metrics()
+            if m is not None:
+                m.proposal_receive_count.labels("rejected").inc()
             raise VoteSetError("error invalid proposal POL round")
         proposer = rs.validators.get_proposer()
         if not proposer.pub_key.verify(
             proposal.sign_bytes(self.state.chain_id), proposal.signature
         ):
+            m = self._live_metrics()
+            if m is not None:
+                m.proposal_receive_count.labels("rejected").inc()
             raise VoteSetError("error invalid proposal signature")
         rs.proposal = proposal
         if rs.proposal_block_parts is None:
             rs.proposal_block_parts = PartSet(proposal.block_id.part_set_header)
+        m = self._live_metrics()
+        if m is not None:
+            m.proposal_receive_count.labels("accepted").inc()
+        tl = self._tl()
+        if tl is not None:
+            tl.record_proposal(proposal.height, proposal.round)
         logger.info("received proposal %s", proposal.height)
 
     def _add_proposal_block_part(self, msg: BlockPartMessage, peer_id: str) -> None:
@@ -671,6 +773,10 @@ class ConsensusState:
             rs.proposal_block = Block.decode(data)
             logger.info("received complete proposal block %s %s", rs.proposal_block.header.height,
                         rs.proposal_block.hash().hex()[:12])
+            # tx lifecycle: every tracked tx of the now-complete proposal is
+            # `proposed` (our own proposals land here too: their parts ride
+            # internal BlockPartMessages through this same path)
+            self._track_block_txs("proposed", rs.height, rs.round, rs.proposal_block)
             self._publish_rs(EVENT_COMPLETE_PROPOSAL)
 
             prevotes = rs.votes.prevotes(rs.round)
@@ -888,6 +994,39 @@ class ConsensusState:
 
         logger.info("finalizing commit of block %d txs=%d hash=%s",
                     block.header.height, len(block.txs), block.hash().hex()[:12])
+        tl = self._tl()
+        if tl is not None:
+            tl.record_commit(height, rs.commit_round, txs=len(block.txs))
+        self._track_block_txs("committed", height, rs.commit_round, block)
+        if self.metrics is not None:
+            m = self.metrics
+            if (
+                not self.replay_mode
+                and self._round_clock is not None
+                and self._round_clock[:2] == (height, rs.commit_round)
+            ):
+                # replay re-runs commits at replay speed, and a commit of an
+                # EARLIER round after escalation (late precommits) belongs
+                # to a round the clock no longer tracks: both would record
+                # bogus near-zero samples in the low buckets
+                m.round_duration_seconds.observe(
+                    time.perf_counter() - self._round_clock[2]
+                )
+            m.commit_verify_seconds.observe(_tv1 - _tv0)
+            m.num_txs.set(len(block.txs))
+            m.total_txs.inc(len(block.txs))
+            m.block_size_bytes.set(block_parts.byte_size)
+            m.rounds.set(rs.round)
+            vals = rs.validators
+            m.validators.set(vals.size())
+            m.validators_power.set(vals.total_voting_power())
+            missing = sum(1 for cs_ in block.last_commit.signatures if not cs_.for_block())
+            m.missing_validators.set(missing)
+            m.byzantine_validators.set(len(block.evidence))
+            if self.state.last_block_height > 0:
+                m.block_interval_seconds.observe(
+                    max(0.0, (block.header.time_ns - self.state.last_block_time_ns) / 1e9)
+                )
         if (
             self.slo is not None and not self.replay_mode
             and self.state.last_block_height > 0
@@ -905,6 +1044,8 @@ class ConsensusState:
         # EndHeight marker: blockstore has the block; recovery runs ApplyBlock
         # via handshake if we crash after this point.
         self.wal.write_end_height(height)
+        if tl is not None:
+            tl.record_end_height(height)
         fail.fail_point("cs_after_wal_endheight")
 
         state_copy = self.state.copy()
@@ -914,6 +1055,8 @@ class ConsensusState:
         fail.fail_point("cs_after_apply_block")
 
         self._update_to_state(new_state)
+        if self.metrics is not None:
+            self.metrics.height.set(new_state.last_block_height)
         if self.priv_validator is not None:
             self.priv_validator_pub_key = self.priv_validator.get_pub_key()
         self._schedule_round0()
@@ -1038,10 +1181,18 @@ class ConsensusState:
         rs = self.rs
         # Late precommit for the previous height (during commit timeout).
         if vote.height + 1 == rs.height and vote.type == SignedMsgType.PRECOMMIT:
-            if rs.step != RoundStepType.NEW_HEIGHT or rs.last_commit is None:
+            if rs.step != RoundStepType.NEW_HEIGHT:
+                m = self._live_metrics()
+                if m is not None:
+                    m.late_votes.labels(vote.type.name.lower()).inc()
+                return False
+            if rs.last_commit is None:
                 return False
             added = rs.last_commit.add_vote(vote)
             if not added:
+                m = self._live_metrics()
+                if m is not None:
+                    m.duplicate_votes.inc()
                 return False
             if added != "pending":  # unverified: published at flush instead
                 self._publish_vote(vote)
@@ -1050,13 +1201,22 @@ class ConsensusState:
             return True
 
         if vote.height != rs.height:
+            m = self._live_metrics()
+            if vote.height < rs.height and m is not None:
+                m.late_votes.labels(vote.type.name.lower()).inc()
             return False
 
         added = rs.votes.add_vote(vote, peer_id)
         if not added:
             # VoteSet.add_vote returns falsy ONLY for exact duplicates
             # (same validator, block, signature) — everything else raises
+            m = self._live_metrics()
+            if m is not None:
+                m.duplicate_votes.inc()
             return False
+        tl = self._tl()
+        if tl is not None:
+            tl.record_vote(vote.height, vote.round, vote.type.name)
         if added == "pending":
             # Deferred verification: the vote is queued, not verified — do
             # NOT publish (the reactor would broadcast HasVote and peers
@@ -1136,21 +1296,35 @@ class ConsensusState:
                 self._enter_new_round(height, vround)
                 self._enter_precommit_wait(height, vround)
 
+    def _live_metrics(self):
+        """Metrics sink, muted during WAL replay: catch-up re-processes old
+        messages at replay speed and must not re-count them."""
+        return None if self.replay_mode else self.metrics
+
     def _mark_prevote_delays(self, prevotes, vround: int, block_id) -> None:
-        """prevote_quorum_delay: seconds from the proposal's signed timestamp
-        to +2/3 prevotes (reference: CometBFT consensus/state.go addVote's
-        QuorumPrevoteDelay), observed once per (height, round)."""
+        """quorum_prevote_delay / full_prevote_delay: seconds from the
+        proposal's signed timestamp to 2/3 (resp. all) prevote arrival
+        (reference: CometBFT consensus/state.go addVote's
+        QuorumPrevoteDelay/FullPrevoteDelay gauges). Recorded once per
+        (height, round) so trailing prevotes don't inflate the value."""
         rs = self.rs
         if (
-            self.slo is None or self.replay_mode
+            (self.metrics is None and self.slo is None) or self.replay_mode
             or rs.proposal is None or rs.proposal.round != vround
         ):
             return
+        delay = max(0.0, (time.time_ns() - rs.proposal.timestamp_ns) / 1e9)
         key = (rs.height, vround)
         if block_id is not None and self._quorum_prevote_marked != key:
             self._quorum_prevote_marked = key
-            self.slo.observe("prevote_quorum_delay",
-                             max(0.0, (time.time_ns() - rs.proposal.timestamp_ns) / 1e9))
+            if self.metrics is not None:
+                self.metrics.quorum_prevote_delay.set(delay)
+            if self.slo is not None:
+                self.slo.observe("prevote_quorum_delay", delay)
+        if prevotes.has_all() and self._full_prevote_marked != key:
+            self._full_prevote_marked = key
+            if self.metrics is not None:
+                self.metrics.full_prevote_delay.set(delay)
 
     def _sign_vote(self, msg_type: SignedMsgType, block_hash: bytes, psh: PartSetHeader) -> Optional[Vote]:
         rs = self.rs

@@ -24,7 +24,10 @@
   `slo_config_from_reference`: the JAX package's SchedulerConfig /
   LightServiceConfig / SLOConfig -> the port's config.py dataclasses, field
   by field; `consensus_config_from_reference` and
-  `mempool_config_from_reference` likewise.
+  `mempool_config_from_reference` likewise; `config_from_reference` the
+  whole Config, every section.
+- `signed_tx_from_reference`: a types/signed_tx.SignedTx of the JAX package
+  -> the port's, field by field (the envelope bytes are shared as they are).
 - `genesis_from_reference`, `state_from_reference`: a GenesisDoc or a State
   of the JAX package -> the port's, through the JSON both write alike.
 - `proposal_from_reference`: a Proposal through its wire bytes.
@@ -173,6 +176,28 @@ def mempool_config_from_reference(ref):
     from tendermint_tpu_torch.config import MempoolConfig
 
     return _dataclass_from(MempoolConfig, ref)
+
+
+def config_from_reference(ref):
+    """A whole Config of the JAX package -> the port's: every section field
+    by field, and root_dir."""
+    from dataclasses import fields
+
+    from tendermint_tpu_torch.config import Config
+
+    out = Config()
+    for f in fields(Config):
+        if f.name == "root_dir":
+            out.root_dir = ref.root_dir
+        else:
+            setattr(out, f.name, _dataclass_from(type(getattr(out, f.name)), getattr(ref, f.name)))
+    return out
+
+
+def signed_tx_from_reference(env):
+    from tendermint_tpu_torch.types.signed_tx import SignedTx
+
+    return SignedTx(env.pubkey, env.signature, env.payload)
 
 
 def genesis_from_reference(gen):

@@ -97,7 +97,8 @@ each flush counts its own thread's launches), and feeds the flush series of libs
 verified-row memo counts its hits; and each device round trip (the single
 flush's finish, the per-signature ladder, the streamed planner's sync) is a
 libs/trace.mark_device_call: a device error marks the device down and
-re-raises.
+re-raises. Each of them stamps its site into the forensics heartbeat first
+(libs/forensics.beat).
 
 Every route is COFACTORED with canonical encodings and s < L, except the
 serial loop in cofactorless mode, so a mask never depends on the route
@@ -133,6 +134,7 @@ from tendermint_tpu_torch import native
 from tendermint_tpu_torch.libs.profiler import PERSIG
 from tendermint_tpu_torch.crypto.ed25519_ref import BASE, L, point_compress
 from tendermint_tpu_torch.device import resolve
+from tendermint_tpu_torch.libs import forensics as _forensics
 from tendermint_tpu_torch.libs import trace as _trace
 
 RLC_MIN = 512
@@ -158,10 +160,14 @@ def record_backend_rows(backend: str, rows: int) -> None:
 
 
 @contextlib.contextmanager
-def _on_device(sync: bool = False):
-    """Device work: an error marks the device down (libs/trace.
-    mark_device_call) and re-raises, with no fallback (ROADMAP D1); a
-    completed round trip (`sync`) marks it up."""
+def _on_device(site: str, sync: bool = False):
+    """Device work at `site` (rlc_submit, rlc_finish, persig): the forensics
+    heartbeat stamps the site first, before anything that can hang
+    (libs/forensics.py; one None check when forensics is off), as the
+    reference's `_device_fault` does. An error marks the device down
+    (libs/trace.mark_device_call) and re-raises, with no fallback (ROADMAP
+    D1); a completed round trip (`sync`) marks it up."""
+    _forensics.beat(site)
     try:
         yield
     except Exception as e:
@@ -793,7 +799,7 @@ def _rlc_submit(pubkeys, msgs, sigs, device, key_types=None) -> _RlcCall:
     if staged:
         if cached:  # the A block is built while the prep worker hashes
             t_a = time.perf_counter()
-            with _on_device():
+            with _on_device("rlc_submit"):
                 a_dev = _a_block(rows, cols, store, na, device)
             a_span = (t_a, time.perf_counter())
         h_rows, h_t0, h_t1 = hash_fut.result()
@@ -804,7 +810,7 @@ def _rlc_submit(pubkeys, msgs, sigs, device, key_types=None) -> _RlcCall:
     if not dsort:
         perm, ends = msm_torch.sort_windows(scalars, zero16_from=na)
     prep_s = time.perf_counter() - t0
-    with _on_device():
+    with _on_device("rlc_submit"):
         if cached:
             if a_dev is None:
                 a_dev = _a_block(rows, cols, store, na, device)
@@ -945,7 +951,7 @@ def _rlc_submit_mixed(pubkeys, msgs, sigs, key_types, device) -> _RlcCall:
         hits = sum(1 for i in np.flatnonzero(precheck) if ckeys[i] in _A_CACHE)
     misses = int(precheck.sum()) - hits
     t_fill = time.perf_counter()
-    with _on_device():
+    with _on_device("rlc_submit"):
         _prefill_typed(a_rows, precheck, sr, ckeys, device)
     fill_s = time.perf_counter() - t_fill
     with _A_LOCK:
@@ -970,7 +976,7 @@ def _rlc_submit_mixed(pubkeys, msgs, sigs, key_types, device) -> _RlcCall:
     scalars[na + ne : na + ne + len(sr_pos), :16] = z16[sr_pos]
     perm, ends = msm_torch.sort_windows(scalars, zero16_from=na)
     prep_s = time.perf_counter() - t0
-    with _on_device():
+    with _on_device("rlc_submit"):
         a_dev = _a_block(rows, cols, store, na, device)
         dev = msm_torch.rlc_check_cached_mixed_submit(a_dev, ed_r, sr_r, perm, ends)
     detail = dict(challenge_s=challenge_s, a_fill_s=fill_s, ed_rows=len(ed_pos),
@@ -987,7 +993,7 @@ def _rlc_finish(call: _RlcCall) -> Optional[np.ndarray]:
     from tendermint_tpu_torch.ops import msm_torch
 
     t_sync = time.perf_counter()
-    with _on_device(sync=True):
+    with _on_device("rlc_finish", sync=True):
         out = call.dev.cpu().numpy()  # [batch_ok, lane_ok...]
     transfer_s = time.perf_counter() - t_sync
     precheck, n, na = call.precheck, call.n, call.na
@@ -1263,7 +1269,7 @@ def _persig_flush(pubkeys, msgs, sigs, device) -> np.ndarray:
 
     a, r, s_d, h_d, precheck, n = prepare_batch(pubkeys, msgs, sigs)
     t_dev = time.perf_counter()
-    with _on_device(sync=True), record_function(PERSIG):
+    with _on_device("persig", sync=True), record_function(PERSIG):
         t = [torch.from_numpy(x).to(device) for x in (a, r, s_d, h_d)]
         _PATH.label = "persig"
         mask = verify_prepared(*t).cpu().numpy()[:n]
@@ -1318,7 +1324,7 @@ def _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device, chunks=None,
     def sync_oldest():
         k, flags, ev = inflight.popleft()
         if ev is not None:
-            with _on_device():
+            with _on_device("rlc_finish"):
                 ev.synchronize()  # this chunk's kernels and flag copy, not later ones
         ok = flags.numpy()
         dev_busy.append((submit_t[k], time.perf_counter()))
@@ -1335,7 +1341,7 @@ def _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device, chunks=None,
         prechecks[k] = precheck
         if k + 1 < len(chunks):
             fut = pool.submit(_prep_stream_chunk, pubkeys, msgs, sigs, *chunks[k + 1], na_c)
-        with _on_device():
+        with _on_device("rlc_submit"):
             part, ok = msm_torch.rlc_partial_submit(pts, perm, ends, device)
             submit_t[k] = time.perf_counter()
             acc = part if acc is None else msm_torch.partial_fold_submit(acc, part)
@@ -1353,7 +1359,7 @@ def _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device, chunks=None,
     while inflight:
         lanes_ok &= sync_oldest()
     t_sync = time.perf_counter()
-    with _on_device(sync=True):
+    with _on_device("rlc_finish", sync=True):
         batch_ok = bool(msm_torch.partial_identity_submit(acc).item())
     dev_busy.append((t_sync, time.perf_counter()))
     detail = {}

@@ -19,8 +19,18 @@ a scrape of the reference:
   The reference keeps its pubsub counter on the global registry; here the
   global registry holds the batch family only.
 
-The consensus, mempool, p2p, state, RPC, chaos, fleet, observatory, mesh
-and node families wait for the modules that feed them (ROADMAP A8, A10).
+- `NodeMetrics`: one registry per node (node/node.py) holding the consensus,
+  mempool, p2p, state, blocksync, statesync, RPC, overload, SLO, light,
+  scheduler and tx-lifecycle families; the node hands each to its owner
+  (ConsensusState, Mempool, BlockExecutor, OverloadController,
+  VerifyScheduler, LightService, TxTracker). The p2p, blocksync, statesync
+  and RPC families are declared so that a node's exposition has the
+  reference's series names; nothing of the port feeds them until the p2p,
+  RPC and state sync slices (ROADMAP A2-A4). `expose()` is the node's
+  series and then the global registry's.
+
+The chaos, fleet, observatory and mesh families wait for the modules that
+feed them (ROADMAP A5, A6).
 """
 
 from __future__ import annotations
@@ -547,6 +557,399 @@ class SchedulerMetrics:
         )
 
 
+class ConsensusMetrics:
+    """reference: consensus/metrics.go:28."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_consensus"
+        self.height = reg.gauge(f"{ns}_height", "Height of the chain.")
+        self.rounds = reg.gauge(f"{ns}_rounds", "Number of rounds at the latest height.")
+        self.validators = reg.gauge(f"{ns}_validators", "Number of validators.")
+        self.validators_power = reg.gauge(
+            f"{ns}_validators_power", "Total voting power of validators."
+        )
+        self.missing_validators = reg.gauge(
+            f"{ns}_missing_validators", "Validators absent from the last commit."
+        )
+        self.byzantine_validators = reg.gauge(
+            f"{ns}_byzantine_validators", "Validators with evidence this height."
+        )
+        self.num_txs = reg.gauge(f"{ns}_num_txs", "Transactions in the latest block.")
+        self.block_size_bytes = reg.gauge(
+            f"{ns}_block_size_bytes", "Size of the latest block."
+        )
+        self.total_txs = reg.counter(f"{ns}_total_txs", "Total committed transactions.")
+        self.block_interval_seconds = reg.histogram(
+            f"{ns}_block_interval_seconds", "Time between this and the last block."
+        )
+        self.commit_verify_seconds = reg.histogram(
+            f"{ns}_commit_verify_seconds",
+            "Wall time of (batched) commit signature verification.",
+        )
+        # step/round latency (reference: CometBFT consensus/metrics.go
+        # StepDurationSeconds/RoundDurationSeconds, added v0.38)
+        step_buckets = (0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
+        self.step_duration_seconds = reg.histogram(
+            f"{ns}_step_duration_seconds",
+            "Wall seconds spent in each consensus step.",
+            ("step",), buckets=step_buckets,
+        )
+        self.round_duration_seconds = reg.histogram(
+            f"{ns}_round_duration_seconds",
+            "Wall seconds from round entry to commit or round escalation.",
+            buckets=step_buckets,
+        )
+        self.quorum_prevote_delay = reg.gauge(
+            f"{ns}_quorum_prevote_delay",
+            "Seconds from the proposal timestamp to +2/3 prevote quorum (last round).",
+        )
+        self.full_prevote_delay = reg.gauge(
+            f"{ns}_full_prevote_delay",
+            "Seconds from the proposal timestamp to 100% of prevotes (last round).",
+        )
+        self.proposal_receive_count = reg.counter(
+            f"{ns}_proposal_receive_count",
+            "Proposals processed, by outcome.", ("status",)
+        )
+        self.proposal_create_count = reg.counter(
+            f"{ns}_proposal_create_count", "Proposals created by this node."
+        )
+        self.proposal_timeout_total = reg.counter(
+            f"{ns}_proposal_timeout_total",
+            "Propose-step timeouts (the node prevoted nil for lack of a proposal).",
+        )
+        self.late_votes = reg.counter(
+            f"{ns}_late_votes_total",
+            "Votes received for an earlier height.", ("vote_type",)
+        )
+        self.duplicate_votes = reg.counter(
+            f"{ns}_duplicate_votes_total", "Exact-duplicate votes dropped."
+        )
+        self.block_parts = reg.counter(
+            f"{ns}_block_parts_total",
+            "Block parts received from peer gossip.", ("matches_current",)
+        )
+        self.block_gossip_receive_latency = reg.histogram(
+            f"{ns}_block_gossip_receive_latency",
+            "Seconds from the proposal timestamp (round start before the "
+            "proposal arrives) to each gossiped block part's arrival.",
+            buckets=step_buckets,
+        )
+        # cross-node trace propagation (chain observatory, ISSUE 8): per-hop
+        # latencies from the origin stamp carried in the p2p envelope,
+        # clock-skew corrected against the direct peer's ping/pong estimate
+        self.proposal_propagation_seconds = reg.histogram(
+            f"{ns}_proposal_propagation_seconds",
+            "Seconds from a proposal's origin stamp to its first local "
+            "receipt (skew-corrected).",
+            buckets=step_buckets,
+        )
+        self.vote_propagation_seconds = reg.histogram(
+            f"{ns}_vote_propagation_seconds",
+            "Seconds from a vote's origin stamp to its local receipt "
+            "(skew-corrected).",
+            buckets=step_buckets,
+        )
+
+
+class MempoolMetrics:
+    """reference: mempool/metrics.go."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_mempool"
+        self.size = reg.gauge(f"{ns}_size", "Transactions in the mempool.")
+        self.size_bytes = reg.gauge(
+            f"{ns}_size_bytes", "Total bytes of transactions in the mempool."
+        )
+        self.tx_size_bytes = reg.histogram(
+            f"{ns}_tx_size_bytes", "Transaction sizes.",
+            buckets=(32, 128, 512, 2048, 8192, 65536, 1048576),
+        )
+        self.failed_txs = reg.counter(f"{ns}_failed_txs", "CheckTx failures.")
+        self.recheck_times = reg.counter(f"{ns}_recheck_times", "Recheck runs.")
+        # admission control (mempool/mempool.py overload protection)
+        self.evicted_txs = reg.counter(
+            f"{ns}_evicted_txs_total",
+            "Resident txs evicted (LRU/lowest-priority) to admit new ones.",
+        )
+        self.expired_txs = reg.counter(
+            f"{ns}_expired_txs_total", "Txs purged by TTL on the post-commit update."
+        )
+        self.rejected_txs = reg.counter(
+            f"{ns}_rejected_txs_total",
+            "Txs refused at admission, by reason (full/cache/quota/too_large).",
+            ("reason",),
+        )
+        self.full = reg.gauge(
+            f"{ns}_full", "1 while the mempool is at capacity (the reactor sheds gossip)."
+        )
+
+
+class P2PMetrics:
+    """reference: p2p/metrics.go."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_p2p"
+        self.peers = reg.gauge(f"{ns}_peers", "Connected peers.")
+        self.peer_receive_bytes_total = reg.counter(
+            f"{ns}_peer_receive_bytes_total", "Bytes received per channel.", ("chID",)
+        )
+        self.peer_send_bytes_total = reg.counter(
+            f"{ns}_peer_send_bytes_total", "Bytes sent per channel.", ("chID",)
+        )
+        # flowrate gauges fed from the MConnection Monitors (libs/flowrate.py)
+        # by the switch's periodic sampler (p2p/switch.py _flowrate_routine)
+        self.send_rate_bytes = reg.gauge(
+            f"{ns}_send_rate_bytes",
+            "EWMA aggregate send rate across all peers (bytes/s).",
+        )
+        self.recv_rate_bytes = reg.gauge(
+            f"{ns}_recv_rate_bytes",
+            "EWMA aggregate receive rate across all peers (bytes/s).",
+        )
+        self.pending_send_messages = reg.gauge(
+            f"{ns}_pending_send_messages",
+            "Messages waiting in per-channel send queues, summed over peers.",
+        )
+        self.reconnect_attempts = reg.counter(
+            f"{ns}_reconnect_attempts_total",
+            "Persistent-peer reconnect dial attempts (p2p/switch.py backoff loop).",
+        )
+        # inbound admission control (p2p/conn/connection.py token buckets)
+        self.oversized_msgs = reg.counter(
+            f"{ns}_oversized_msgs_total",
+            "Inbound messages that exceeded their channel's recv_message_capacity.",
+            ("chID",),
+        )
+        self.rate_limited_msgs = reg.counter(
+            f"{ns}_rate_limited_msgs_total",
+            "Inbound messages shed by a sheddable channel's token bucket.",
+            ("chID",),
+        )
+        self.rate_limit_disconnects = reg.counter(
+            f"{ns}_rate_limit_disconnects_total",
+            "Peers reported for persistent rate-limit misbehavior.",
+        )
+        # per-peer wall-clock skew from timestamped ping/pong (conn/
+        # connection.py), sampled by the switch's flowrate routine; the
+        # correction applied to cross-node propagation latencies
+        self.clock_skew_seconds = reg.gauge(
+            f"{ns}_clock_skew_seconds",
+            "Estimated remote-minus-local wall-clock offset per peer.",
+            ("peer",),
+        )
+
+
+class StateMetrics:
+    """reference: state/metrics.go."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_state"
+        self.block_processing_time = reg.histogram(
+            f"{ns}_block_processing_time", "ApplyBlock wall seconds.",
+        )
+
+
+class BlockSyncMetrics:
+    """reference: blocksync/metrics.go (Syncing gauge) plus the TPU path's
+    batched-verification timing that the reference's serial loop lacks."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_blocksync"
+        self.syncing = reg.gauge(
+            f"{ns}_syncing", "1 while block sync (fast sync) is running."
+        )
+        self.num_peers = reg.gauge(
+            f"{ns}_num_peers", "Peers the block pool can request from."
+        )
+        self.blocks_applied_total = reg.counter(
+            f"{ns}_blocks_applied_total", "Blocks applied by block sync."
+        )
+        self.latest_block_height = reg.gauge(
+            f"{ns}_latest_block_height", "Next height the pool will fetch."
+        )
+        self.verify_seconds = reg.histogram(
+            f"{ns}_verify_seconds",
+            "Wall seconds per batched commit-verification run (blocks x validators).",
+        )
+        self.peer_timeouts = reg.counter(
+            f"{ns}_peer_timeouts_total",
+            "Block requests that timed out (blocksync/pool.py; the peer "
+            "backs off and is banned only on a sustained pattern).",
+        )
+        # -- ISSUE 12: pipelined catch-up ---------------------------------
+        self.redos_total = reg.counter(
+            f"{ns}_redos_total",
+            "Heights requeued after a failed validation or in-flight redo "
+            "(blocksync/pool.py redo_request).",
+        )
+        self.peer_score = reg.gauge(
+            f"{ns}_peer_score",
+            "EWMA quality score per block-sync peer (1.0 = perfect; peers "
+            "below the ban threshold are disconnected). Series replaced "
+            "each status pass so departed peers drop out.",
+            ("peer",),
+        )
+        self.super_batch_rows = reg.histogram(
+            f"{ns}_super_batch_rows",
+            "Signature rows per cross-height super-batch verification "
+            "(blocks x validators in one catch-up-lane flush).",
+        )
+        self.resume_events_total = reg.counter(
+            f"{ns}_resume_events_total",
+            "Crash-resume events: restarts that re-entered the catch-up "
+            "pipeline from a checkpointed verified window without "
+            "re-verifying it.",
+        )
+        self.degraded_runs_total = reg.counter(
+            f"{ns}_degraded_runs_total",
+            "Verify runs shrunk to single-block CPU verification because "
+            "the verify circuit breaker was OPEN.",
+        )
+
+
+class StateSyncMetrics:
+    """reference: the statesync half of node monitoring (the reference has
+    no statesync metrics.go; series names follow its conventions)."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_statesync"
+        self.syncing = reg.gauge(
+            f"{ns}_syncing", "1 while a state sync (snapshot restore) is running."
+        )
+        self.snapshots_discovered_total = reg.counter(
+            f"{ns}_snapshots_discovered_total", "Distinct snapshots offered by peers."
+        )
+        self.snapshot_height = reg.gauge(
+            f"{ns}_snapshot_height", "Height of the snapshot being restored."
+        )
+        self.snapshot_chunks_total = reg.gauge(
+            f"{ns}_snapshot_chunks_total", "Chunk count of the snapshot being restored."
+        )
+        self.chunks_applied_total = reg.counter(
+            f"{ns}_chunks_applied_total", "Snapshot chunks applied via ABCI."
+        )
+        # -- ISSUE 12: statesync hardening --------------------------------
+        self.chunk_retries_total = reg.counter(
+            f"{ns}_chunk_retries_total",
+            "Chunk fetches re-requested after a timeout or app-demanded "
+            "refetch (exponential backoff, different peer).",
+        )
+        self.bad_chunks_total = reg.counter(
+            f"{ns}_bad_chunks_total",
+            "Chunks the app refused as corrupt/torn (sender punished, "
+            "chunk re-queued from another peer).",
+        )
+        self.resume_events_total = reg.counter(
+            f"{ns}_resume_events_total",
+            "Restores resumed from a crash checkpoint (already-applied "
+            "chunks skipped on the re-offer).",
+        )
+        self.fallbacks_total = reg.counter(
+            f"{ns}_fallbacks_total",
+            "State syncs abandoned for the structured blocksync-from-"
+            "genesis fallback (no viable snapshots/peers left).",
+        )
+
+
+class RPCMetrics:
+    """rpc/server.py load-shedding gate + per-method request telemetry. No
+    reference counterpart — the reference bounds connections at the listener
+    (MaxOpenConnections); here the gate is per-request so health/consensus
+    routes stay served while broadcast/query traffic sheds, and every
+    dispatched request is attributed to its method (ISSUE 10: "why was my
+    request slow?"). Method label cardinality is bounded to the declared
+    route table — unknown methods fold into `_other` (rpc/server.py
+    _method_label)."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_rpc"
+        self.inflight_requests = reg.gauge(
+            f"{ns}_inflight_requests",
+            "Sheddable RPC requests currently executing under the gate.",
+        )
+        self.shed_requests = reg.counter(
+            f"{ns}_shed_requests_total",
+            "Requests refused with 429 (gate full or overload pressure), by method.",
+            ("method",),
+        )
+        self.request_duration = reg.histogram(
+            f"{ns}_request_duration_seconds",
+            "Wall seconds from dispatch to response per method (all "
+            "transports + LocalClient route through the shared _dispatch).",
+            ("method",),
+            buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 2.5,
+                     5.0, 10.0),
+        )
+        self.requests = reg.counter(
+            f"{ns}_requests_total",
+            "Dispatched RPC requests by method and outcome "
+            "(ok/shed/reject/error).",
+            ("method", "outcome"),
+        )
+
+
+class OverloadMetrics:
+    """node/overload.py pressure controller: sampled queue depths folded
+    into a pressure level and shed switches (docs/ROBUSTNESS.md,
+    'Overload protection')."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_overload"
+        self.pressure_level = reg.gauge(
+            f"{ns}_pressure_level",
+            "Overload pressure: 0=normal 1=elevated (txs shed) 2=critical "
+            "(non-critical gossip shed too). Votes are never shed.",
+        )
+        self.pressure = reg.gauge(
+            f"{ns}_pressure",
+            "Saturation [0,1] of each sampled signal.",
+            ("signal",),
+        )
+        self.transitions = reg.counter(
+            f"{ns}_transitions_total",
+            "Pressure-level changes, by direction (up/down).",
+            ("direction",),
+        )
+        self.shed = reg.counter(
+            f"{ns}_shed_total",
+            "Work units shed by surface (mempool_gossip/rpc/p2p arrivals "
+            "dropped while the corresponding switch was flipped).",
+            ("surface",),
+        )
+
+
+class TxLifecycleMetrics:
+    """Transaction lifecycle accounting (libs/txtrace.py): per-stage
+    transition latencies and terminal outcomes of the tx journey
+    received -> checked -> admitted -> gossiped -> proposed -> committed ->
+    delivered. No reference counterpart — the reference's tx story ends at
+    the mempool gauge; this is the layer that answers "where is my
+    transaction?" per hash (the `tx_status` route reads the same ring)."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_tx"
+        self.stage_seconds = reg.histogram(
+            f"{ns}_stage_seconds",
+            "Wall seconds spent reaching each lifecycle stage from the "
+            "previous one (received/checked/admitted/first_gossiped/"
+            "proposed/committed/delivered + terminal rejects).",
+            ("stage",),
+            buckets=(0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 2.5,
+                     5.0, 15.0, 60.0),
+        )
+        self.terminal_total = reg.counter(
+            f"{ns}_terminal_total",
+            "Tx journeys ended, by outcome (delivered/rejected/evicted/"
+            "expired).",
+            ("outcome",),
+        )
+        self.tracked = reg.gauge(
+            f"{ns}_tracked",
+            "Tx journeys currently held in the lifecycle ring.",
+        )
+
+
 # Process-global registry: the series of the process-global crypto pipeline.
 _GLOBAL_LOCK = threading.Lock()
 _GLOBAL_REGISTRY: Optional[Registry] = None
@@ -565,3 +968,42 @@ def global_registry() -> Registry:
 def batch_metrics() -> BatchVerifyMetrics:
     global_registry()
     return _BATCH_METRICS
+
+
+class NodeMetrics:
+    """One registry + all subsystem metric sets
+    (reference: node/node.go:106 DefaultMetricsProvider)."""
+
+    _latest: Optional["NodeMetrics"] = None
+
+    def __init__(self):
+        self.registry = Registry()
+        self.consensus = ConsensusMetrics(self.registry)
+        self.mempool = MempoolMetrics(self.registry)
+        self.p2p = P2PMetrics(self.registry)
+        self.state = StateMetrics(self.registry)
+        self.blocksync = BlockSyncMetrics(self.registry)
+        self.statesync = StateSyncMetrics(self.registry)
+        self.rpc = RPCMetrics(self.registry)
+        self.overload = OverloadMetrics(self.registry)
+        self.slo = SLOMetrics(self.registry)
+        self.light = LightServiceMetrics(self.registry)
+        self.scheduler = SchedulerMetrics(self.registry)
+        self.txtrace = TxLifecycleMetrics(self.registry)
+        NodeMetrics._latest = self
+
+    @classmethod
+    def latest(cls) -> Optional["NodeMetrics"]:
+        """Most recently constructed instance (a measurement reads the node
+        it ran without plumbing the object out)."""
+        return cls._latest
+
+    def snapshot(self) -> dict:
+        """Node-local written series only (the process-global batch-verify
+        series are libs/trace.verify_stats()'s)."""
+        return self.registry.snapshot()
+
+    def expose(self) -> str:
+        # node-local series + the process-global batch-verify/device series
+        # (every in-process node shares the one crypto pipeline)
+        return self.registry.expose() + global_registry().expose()

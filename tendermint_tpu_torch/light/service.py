@@ -28,8 +28,10 @@ against its own validator set before use. With `metrics=`
 (libs/metrics.LightServiceMetrics) it feeds the tendermint_light_* series
 (requests by outcome, cache hits, coalesced lanes per flush, sheds,
 conflicting headers); with `slo=` (libs/slo.SLOEngine) every request's
-latency is a light_verify_p99 observation. Not ported: `LocalNodeProvider`
-(it reads a node's stores; ROADMAP A10) and the RPC routes.
+latency is a light_verify_p99 observation. `LocalNodeProvider` serves
+light blocks from a node's own stores (node/node.py builds the service on
+it when `[light_service] enabled`). Not ported: the RPC routes (ROADMAP
+A2).
 """
 
 from __future__ import annotations
@@ -149,9 +151,58 @@ class _Job:
     trusted: LightBlock
 
 
+class LocalNodeProvider(Provider):
+    """Provider reading the serving node's OWN stores: no RPC round trip,
+    no re-parse (the reference's light service proxies over HTTP even to
+    localhost; here the service lives in the node)."""
+
+    def __init__(self, node):
+        self.node = node
+        self.calls = 0
+
+    def chain_id(self) -> str:
+        return self.node.genesis.chain_id
+
+    def earliest_height(self) -> int:
+        return max(self.node.block_store.base, 1)
+
+    async def light_block(self, height: Optional[int]) -> LightBlock:
+        # the body is synchronous store-read + parse + hash work: off the
+        # shared event loop, so a burst of cache misses never delays
+        # consensus
+        return await asyncio.get_running_loop().run_in_executor(
+            None, self._light_block_sync, height
+        )
+
+    def _light_block_sync(self, height: Optional[int]) -> LightBlock:
+        from tendermint_tpu_torch.types.light import SignedHeader
+
+        self.calls += 1
+        store = self.node.block_store
+        if height is None:
+            height = store.height
+        block = store.load_block(height)
+        if block is None:
+            raise ErrLightBlockNotFound(f"no block at height {height}")
+        commit = None
+        nxt = store.load_block(height + 1)
+        if nxt is not None and nxt.last_commit.height == height:
+            commit = nxt.last_commit
+        else:
+            commit = store.load_seen_commit(height)
+        if commit is None:
+            raise ErrLightBlockNotFound(f"no commit at height {height}")
+        vals = self.node.state_store.load_validators(height)
+        if vals is None:
+            raise ErrLightBlockNotFound(f"no validator set at height {height}")
+        lb = LightBlock(SignedHeader(block.header, commit), vals)
+        lb.validate_basic(self.chain_id())
+        return lb
+
+
 class LightService:
     """The verification-serving subsystem, driven over a Provider (a
-    MockProvider until a node is ported)."""
+    node's LocalNodeProvider, or a MockProvider in tests)."""
 
     def __init__(
         self,

@@ -28,7 +28,8 @@ raises if the launch failed, and adds one to `LAUNCHES[name]`. There is no
 fallback from a CUDA tensor to the plain version.
 
 The kernels are built with nvcc for sm_90a at first use into `_build/` (keyed
-by a hash of the sources and flags) and bound with ctypes (`build_library`,
+by a hash of the sources, the flags and `machine_fingerprint()`: the nvcc
+binary and the card's compute capability) and bound with ctypes (`build_library`,
 which ops/cuda_msm.py uses for its own library too). A failed build raises
 with nvcc's stderr.
 """
@@ -42,6 +43,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from typing import Optional
 
 import torch
 
@@ -123,8 +125,40 @@ def fsquare_chain_plain(x: torch.Tensor, k: int) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------
 # Build and bind. One nvcc per kernel source, each into its own library in
-# _build/, named by a hash of its sources and the flags; builds of different
-# libraries may run at the same time (chip_smoke.py starts them together).
+# _build/, named by a hash of its sources, the flags and the machine
+# fingerprint; builds of different libraries may run at the same time
+# (chip_smoke.py starts them together).
+
+_FINGERPRINT: Optional[str] = None
+
+
+def machine_fingerprint() -> str:
+    """Short stable hash of what a built library depends on besides its
+    sources: the CPU architecture, the nvcc binary (its bytes, so its
+    version), NVCC_FLAGS and the card's compute capability (the port's
+    counterpart of the reference's ops/cache_hardening.machine_fingerprint,
+    which scopes the XLA cache). Keying each library's file name by it
+    makes a `_build/` directory copied between machines or toolchains a
+    miss (rebuilt) instead of a stale library loaded. Without nvcc or a
+    card those parts read "none"."""
+    global _FINGERPRINT
+    if _FINGERPRINT is not None:
+        return _FINGERPRINT
+    import platform
+
+    h = hashlib.sha256()
+    h.update(platform.machine().encode())
+    try:
+        nvcc = _nvcc()
+        with open(shutil.which(nvcc) or nvcc, "rb") as f:
+            h.update(hashlib.sha256(f.read()).digest())
+    except (RuntimeError, OSError):
+        h.update(b"nvcc=none")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    cap = torch.cuda.get_device_capability(0) if torch.cuda.is_available() else "none"
+    h.update(f"sm={cap}".encode())
+    _FINGERPRINT = h.hexdigest()[:12]
+    return _FINGERPRINT
 
 
 def _source_tag(sources) -> str:
@@ -133,6 +167,7 @@ def _source_tag(sources) -> str:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(machine_fingerprint().encode())
     return h.hexdigest()[:16]
 
 

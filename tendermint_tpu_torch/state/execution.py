@@ -13,8 +13,9 @@ validate_block checks the last commit with
 flush of crypto/batch.py, on the card from 256 rows when `device` is None
 (the reference's routing), on the plain kernels for `device="cpu"`. A
 commit made from votes a deferred VoteSet flush already verified is
-answered from the verified-row memo. The tx tracker and the state metrics
-wait for the node (ROADMAP A10).
+answered from the verified-row memo. The node hands it the state metrics
+(`metrics=`: block_processing_time) and the tx tracker (`tx_tracker=`: the
+delivered stage).
 """
 
 from __future__ import annotations
@@ -58,11 +59,17 @@ class BlockExecutor:
         evidence_pool,
         event_bus=None,
         block_store=None,
+        metrics=None,
+        tx_tracker=None,
         device=None,
     ):
         """device: where validate_block's commit checks run (None: the
-        reference's routing, the card from 256 rows)."""
+        reference's routing, the card from 256 rows). metrics:
+        libs/metrics.StateMetrics (block_processing_time); tx_tracker:
+        libs/txtrace.TxTracker (each tracked tx's terminal `delivered`)."""
         self.device = device
+        self.metrics = metrics
+        self.tx_tracker = tx_tracker
         self.state_store = state_store
         self.proxy_app = proxy_app
         self.mempool = mempool
@@ -145,6 +152,18 @@ class BlockExecutor:
         self, state: State, block_id: BlockID, block: Block, trust_last_commit: bool = False
     ) -> State:
         """(reference: state/execution.go:126 ApplyBlock)"""
+        import time as _time
+
+        _t0 = _time.perf_counter()
+        try:
+            return self._apply_block(state, block_id, block, trust_last_commit)
+        finally:
+            if self.metrics is not None:
+                self.metrics.block_processing_time.observe(_time.perf_counter() - _t0)
+
+    def _apply_block(
+        self, state: State, block_id: BlockID, block: Block, trust_last_commit: bool = False
+    ) -> State:
         self.validate_block(state, block, trust_last_commit=trust_last_commit)
 
         abci_responses = self._exec_block_on_proxy_app(state, block)
@@ -215,6 +234,12 @@ class BlockExecutor:
             if res.code != abci.CODE_TYPE_OK:
                 invalid += 1
             deliver_txs.append(res)
+        tt = self.tx_tracker
+        if tt is not None and tt.enabled and block.txs:
+            # tracked journeys end here with the app's verdict; foreign txs
+            # (blocks synced from elsewhere) were never `received` and are
+            # skipped inside record_delivered
+            tt.record_delivered(block.header.height, block.txs, deliver_txs)
         end = self.proxy_app.end_block(abci.RequestEndBlock(height=block.header.height))
         if invalid:
             logger.info("executed block with %d invalid txs", invalid)
@@ -328,6 +353,9 @@ def exec_commit_block(proxy_app: ABCIClient, block: Block, state: State, store=N
     ex = BlockExecutor.__new__(BlockExecutor)
     ex.proxy_app = proxy_app
     ex.mempool = _NullMempool()
+    # handshake replay re-delivers already-committed blocks; their journeys
+    # (if any) ended long ago: never re-stamp them
+    ex.tx_tracker = None
     responses = ex._exec_block_on_proxy_app(state, block)
     res = proxy_app.commit()
     del responses

@@ -8,6 +8,7 @@ sfixed64, timestamp always emitted, the result length-delimited.
 
 from __future__ import annotations
 
+from tendermint_tpu_torch.libs import hotstats
 from tendermint_tpu_torch.libs import protowire as pw
 from tendermint_tpu_torch.types.basic import BlockID, SignedMsgType, ts_seconds_nanos
 
@@ -80,7 +81,11 @@ def vote_sign_bytes_many(chain_id: str, msg_type: SignedMsgType, height: int, ro
     """vote_sign_bytes for rows sharing (chain_id, type, height, round); `rows`
     iterates (block_id, timestamp_ns). The shared prefix and suffix are
     encoded once; per row it is a memo hit or one timestamp encode and a
-    join. Byte-identical to vote_sign_bytes per row."""
+    join. Byte-identical to vote_sign_bytes per row. Its time counts under
+    hotstats' `encode` stage, one count a row."""
+    hs = hotstats.stats if hotstats.stats.enabled else None
+    if hs is not None:
+        t0 = hotstats.perf_counter()
     w = pw.Writer()
     w.varint_field(1, int(msg_type))
     w.sfixed64_field(2, height)
@@ -109,4 +114,6 @@ def vote_sign_bytes_many(chain_id: str, msg_type: SignedMsgType, height: int, ro
             row = enc(len(body)) + body
             row_cache[(bkey, ts)] = row
         out.append(row)
+    if hs is not None:
+        hs.add("encode", hotstats.perf_counter() - t0, n=len(out))
     return out

@@ -11,6 +11,7 @@ from __future__ import annotations
 from dataclasses import dataclass, replace
 
 from tendermint_tpu_torch.crypto.keys import address_from_pubkey_bytes
+from tendermint_tpu_torch.libs import hotstats
 from tendermint_tpu_torch.libs import protowire as pw
 from tendermint_tpu_torch.types import canonical
 from tendermint_tpu_torch.types.basic import BlockID, SignedMsgType, ts_seconds_nanos
@@ -36,8 +37,13 @@ class Vote:
         cached = self.__dict__.get("_sign_bytes")
         if cached is not None and cached[0] == chain_id:
             return cached[1]
+        hs = hotstats.stats if hotstats.stats.enabled else None
+        if hs is not None:
+            t0 = hotstats.perf_counter()
         data = canonical.vote_sign_bytes(
             chain_id, self.type, self.height, self.round, self.block_id, self.timestamp_ns)
+        if hs is not None:
+            hs.add("encode", hotstats.perf_counter() - t0)
         object.__setattr__(self, "_sign_bytes", (chain_id, data))
         return data
 
@@ -90,6 +96,9 @@ class Vote:
         cached = self.__dict__.get("_wire")
         if cached is not None:
             return cached
+        hs = hotstats.stats if hotstats.stats.enabled else None
+        if hs is not None:
+            t0 = hotstats.perf_counter()
         enc = pw.encode_varint
         parts = []
         if int(self.type):
@@ -109,6 +118,8 @@ class Vote:
         if self.signature:
             parts.append(self._T8 + enc(len(self.signature)) + self.signature)
         data = b"".join(parts)
+        if hs is not None:
+            hs.add("encode", hotstats.perf_counter() - t0)
         object.__setattr__(self, "_wire", data)
         return data
 

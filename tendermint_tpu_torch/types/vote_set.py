@@ -26,6 +26,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Set, Tuple
 
 from tendermint_tpu_torch.crypto.batch import verify_batch
+from tendermint_tpu_torch.libs import hotstats
 from tendermint_tpu_torch.types import canonical
 from tendermint_tpu_torch.types.basic import BlockID, BlockIDFlag, SignedMsgType
 from tendermint_tpu_torch.types.vote import Vote
@@ -177,12 +178,22 @@ class VoteSet:
             self._pending_seen.add(seen_key)
             self._pending.append((idx, vote, val, peer_id))
             return "pending"
-        if not val.pub_key.verify(vote.sign_bytes(self.chain_id), vote.signature):
+        if not self._verify_now(vote, val.pub_key):
             raise VoteSetError(f"invalid signature from validator {idx}")
         added, conflicting = self._add_verified(idx, vote, val.voting_power, block_key)
         if conflicting is not None:
             raise ConflictingVotesError(conflicting, vote)
         return added
+
+    def _verify_now(self, vote: Vote, pub_key) -> bool:
+        hs = hotstats.stats if hotstats.stats.enabled else None
+        if hs is None:
+            return pub_key.verify(vote.sign_bytes(self.chain_id), vote.signature)
+        msg = vote.sign_bytes(self.chain_id)  # counted under "encode" by the memo
+        t0 = hotstats.perf_counter()
+        ok = pub_key.verify(msg, vote.signature)
+        hs.add("verify", hotstats.perf_counter() - t0)
+        return ok
 
     def flush(self) -> Tuple[List[Vote], List[int]]:
         """Verify every queued vote in one flush (the default scheduler's votes
@@ -203,12 +214,17 @@ class VoteSet:
         msgs = canonical.vote_sign_bytes_many(
             self.chain_id, self.signed_msg_type, self.height, self.round,
             ((vote.block_id, vote.timestamp_ns) for _, vote, _, _ in self._pending))
+        hs = hotstats.stats if hotstats.stats.enabled else None
+        if hs is not None:
+            t0 = hotstats.perf_counter()
         sched = _scheduler.default_scheduler()
         if sched is not None:
             mask = sched.verify_rows("votes", pubkeys, msgs, sigs, key_types, sources)
         else:
             mask = verify_batch(pubkeys, msgs, sigs, device=self.device, key_types=key_types,
                                 backend=self.backend, sources=sources)
+        if hs is not None:
+            hs.add("verify", hotstats.perf_counter() - t0, n=len(pubkeys))
         committed, failed = [], []
         for ok, (idx, vote, val, _) in zip(mask, self._pending):
             if not ok:

@@ -114,9 +114,10 @@ def test_init_chain_validators_through_the_handshaker():
 def test_mempool_core(recheck):
     """Admission (the cache, empty and oversized txs, the count and bytes
     limits), reaping by bytes and gas, the post-commit update and recheck,
-    on a MempoolConfig carried across by convert. The reference runs with `eviction=False`: the port has no priority
-    eviction yet, and a full pool refuses a new tx, as the reference's does
-    with eviction off."""
+    on a MempoolConfig carried across by convert. Both pools run with
+    `eviction=False`, so a full pool refuses a new tx; priority eviction,
+    the default, is held against the reference in
+    tests/test_torch_mempool_eviction.py."""
     txs = _txs(24, SEED + 2)
     jcfg = REF.config.MempoolConfig(size=20, max_txs_bytes=400, cache_size=8, recheck=recheck,
                                     max_tx_bytes=30)
@@ -126,10 +127,10 @@ def test_mempool_core(recheck):
     def run(P):
         cfg = jcfg if P is REF else pcfg
         app = P.kvstore.KVStoreApplication()
-        extra = {"eviction": False} if P is REF else {}
         mp = P.mempool.Mempool(P.client.LocalClient(app), max_txs=cfg.size,
                                max_txs_bytes=cfg.max_txs_bytes, cache_size=cfg.cache_size,
-                               recheck=cfg.recheck, max_tx_bytes=cfg.max_tx_bytes, **extra)
+                               recheck=cfg.recheck, max_tx_bytes=cfg.max_tx_bytes,
+                               eviction=False)
         notified = []
         mp.set_txs_available_callback(lambda: notified.append(mp.size()))
         out = []

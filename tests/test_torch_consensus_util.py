@@ -19,6 +19,7 @@ votes are the same bytes in both.
 """
 
 import asyncio
+import contextlib
 import dataclasses
 import importlib
 import time as _time
@@ -38,7 +39,11 @@ _MODULES = {
     "block": "types.block", "event_bus": "types.event_bus", "genesis": "types.genesis",
     "part_set": "types.part_set", "proposal": "types.proposal", "vote": "types.vote",
     "keys": "crypto.keys", "params": "types.params", "pubsub": "libs.pubsub",
-    "evidence": "types.evidence",
+    "evidence": "types.evidence", "metrics": "libs.metrics", "txtrace": "libs.txtrace",
+    "timeline": "consensus.timeline", "signed_tx": "types.signed_tx", "hotstats": "libs.hotstats",
+    "scheduler": "crypto.scheduler", "txindex": "state.txindex", "forensics": "libs.forensics",
+    "overload": "node.overload", "tmhash": "crypto.tmhash", "toml": "config.toml",
+    "trace": "libs.trace", "service": "libs.service", "log": "libs.log",
 }
 
 
@@ -67,6 +72,18 @@ class FakeTime:
     perf_counter = staticmethod(_time.perf_counter)
 
 
+class FakeClock(FakeTime):
+    """FakeTime whose perf_counter reads the fake clock too: step, round
+    and stage durations are then what the runner moved the clock by."""
+
+    def perf_counter(self) -> float:
+        return self.now_ns / 1e9
+
+
+# the modules whose `time` a hooked run reads from the fake clock
+HOOKED_TIME = ("cs_state", "timeline", "txtrace", "mempool")
+
+
 def seeds(n: int, seed: int) -> list:
     rng = np.random.default_rng(seed)
     return [rng.bytes(32) for _ in range(n)]
@@ -77,9 +94,17 @@ class Node:
 
     def __init__(self, pkg, val_seeds, wal_path: str, chain_id: str = "cs-torch-chain",
                  defer: bool = False, db=None, cfg_edit=None, device="cpu", txs=(),
-                 own: int = 1):
+                 own: int = 1, hooks: bool = False):
+        """hooks: the node's metrics (ConsensusMetrics, StateMetrics and
+        TxLifecycleMetrics on `self.registry`), the timeline ring and the
+        tx tracker are wired, as node/node.py wires them."""
         self.pkg, self.chain_id, self.own = pkg, chain_id, own
         P = pkg
+        self.hooks = hooks
+        self.registry = P.metrics.Registry() if hooks else None
+        self.timeline = P.timeline.ConsensusTimeline() if hooks else None
+        self.tx_tracker = (P.txtrace.TxTracker(metrics=P.metrics.TxLifecycleMetrics(self.registry))
+                           if hooks else None)
         self.privs = [P.file_pv.FilePV(P.keys.gen_ed25519(s)) for s in val_seeds]
         gen = P.genesis.GenesisDoc(chain_id=chain_id, validators=[
             P.genesis.GenesisValidator(p.get_pub_key(), 10) for p in self.privs])
@@ -94,16 +119,22 @@ class Node:
         self.state_store = P.state_store.StateStore(db("state"))
         self.state_store.save(state)
         self.event_bus = P.event_bus.EventBus()
-        self.mempool = P.mempool.Mempool(self.proxy.mempool)
+        self.mempool = P.mempool.Mempool(self.proxy.mempool, tx_tracker=self.tx_tracker)
         for tx in txs:
             self.mempool.check_tx(tx)
         self.evpool = P.evidence_pool.EvidencePool(db("evidence"), self.state_store,
                                                    self.block_store)
         self.evpool.set_state(state)
         port = {"device": device} if P.which == "port" else {}
+        exec_hooks, cs_hooks = {}, {}
+        if hooks:
+            exec_hooks = dict(metrics=P.metrics.StateMetrics(self.registry),
+                              tx_tracker=self.tx_tracker)
+            cs_hooks = dict(metrics=P.metrics.ConsensusMetrics(self.registry),
+                            timeline=self.timeline, tx_tracker=self.tx_tracker)
         self.block_exec = P.execution.BlockExecutor(
             self.state_store, self.proxy.consensus, self.mempool, self.evpool,
-            event_bus=self.event_bus, block_store=self.block_store, **port)
+            event_bus=self.event_bus, block_store=self.block_store, **exec_hooks, **port)
         cfg = P.config.test_config().consensus
         cfg.defer_vote_verification = defer
         if cfg_edit is not None:
@@ -122,7 +153,8 @@ class Node:
         pv.sign_vote = sign_vote
         self.cs = P.cs_state.ConsensusState(
             cfg, state, self.block_exec, self.block_store, self.mempool, self.evpool,
-            P.wal.WAL(wal_path), event_bus=self.event_bus, priv_validator=pv, **port)
+            P.wal.WAL(wal_path), event_bus=self.event_bus, priv_validator=pv, **cs_hooks,
+            **port)
         q = P.event_bus.query_for_event(P.event_bus.EVENT_NEW_ROUND_STEP)
         self.steps = self.event_bus.subscribe("wait", q, 10_000)
         self.record = self.event_bus.subscribe("record", q, 10_000)
@@ -199,6 +231,17 @@ class Runner:
             if d.step == step and height in (None, d.height) and round_ in (None, d.round):
                 return
 
+    @contextlib.contextmanager
+    def _harness(self):
+        """The runner's own signing and encoding is not the node's work:
+        hotstats does not count it."""
+        hs = self.node.pkg.hotstats.stats
+        prev, hs.enabled = hs.enabled, False
+        try:
+            yield
+        finally:
+            hs.enabled = prev
+
     def _next(self, kind):
         item = self.script[self._pos]
         self._pos += 1
@@ -221,6 +264,13 @@ class Runner:
         if rs.proposal_block is not None:
             self.script.append(("proposal", [], ""))
             return
+        with self._harness():
+            raw, peer = self._sign_proposal(round_)
+        self.script.append(("proposal", raw, peer))
+        await self._inject(raw, peer)
+
+    def _sign_proposal(self, round_: int):
+        node, rs = self.node, self.cs.rs
         P = node.pkg
         idx = node.proposer_idx()
         height = rs.height
@@ -239,9 +289,7 @@ class Runner:
         msgs = [P.messages.ProposalMessage(prop)] + [
             P.messages.BlockPartMessage(height, round_, parts.get_part(i))
             for i in range(parts.total)]
-        raw = [P.messages.encode_message(m) for m in msgs]
-        self.script.append(("proposal", raw, f"stub-{idx}"))
-        await self._inject(raw, f"stub-{idx}")
+        return [P.messages.encode_message(m) for m in msgs], f"stub-{idx}"
 
     def proposal_block_id(self):
         rs, P = self.cs.rs, self.node.pkg
@@ -256,6 +304,13 @@ class Runner:
             for raw_msg, peer in self._next("votes")[0]:
                 await self._inject([raw_msg], peer)
             return
+        with self._harness():
+            out = self._sign_votes(type_name, height, round_, target, idxs, raw, bad)
+        self.script.append(("votes", out))
+        for raw_msg, peer in out:
+            await self._inject([raw_msg], peer)
+
+    def _sign_votes(self, type_name, height, round_, target, idxs, raw, bad):
         P = self.node.pkg
         if target == "proposal":
             bid = self.proposal_block_id()
@@ -281,24 +336,26 @@ class Runner:
             else:
                 vote = pv.sign_vote(self.node.chain_id, vote)
             out.append((P.messages.encode_message(P.messages.VoteMessage(vote)), f"stub-{i}"))
-        self.script.append(("votes", out))
-        for raw_msg, peer in out:
-            await self._inject([raw_msg], peer)
+        return out
 
     def tick(self, ns: int):
         self.clock.now_ns += ns
 
 
 def run_scenario(pkg, scenario, val_seeds, tmp_path, script=None, defer=False,
-                 cfg_edit=None, txs=(), own: int = 1):
+                 cfg_edit=None, txs=(), own: int = 1, hooks: bool = False):
     """Run `scenario(runner)` on one package under a fresh fake clock;
-    returns (outcome, script)."""
-    clock = FakeTime()
-    real = pkg.cs_state.time
-    pkg.cs_state.time = clock
+    returns (outcome, script). With `hooks` the metrics, timeline and tx
+    tracker are wired and read the fake clock (FakeClock) in every module
+    of HOOKED_TIME."""
+    clock = FakeClock() if hooks else FakeTime()
+    names = HOOKED_TIME if hooks else ("cs_state",)
+    real = {n: getattr(pkg, n).time for n in names}
+    for n in names:
+        getattr(pkg, n).time = clock
     try:
         node = Node(pkg, val_seeds, str(tmp_path / f"wal-{pkg.which}"), defer=defer,
-                    cfg_edit=cfg_edit, txs=txs, own=own)
+                    cfg_edit=cfg_edit, txs=txs, own=own, hooks=hooks)
         drv = Runner(node, clock, script)
 
         async def main():
@@ -310,7 +367,8 @@ def run_scenario(pkg, scenario, val_seeds, tmp_path, script=None, defer=False,
 
         asyncio.run(main())
     finally:
-        pkg.cs_state.time = real
+        for n, mod in real.items():
+            getattr(pkg, n).time = mod
     return node.outcome(), drv.script, node
 
 

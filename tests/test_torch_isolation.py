@@ -52,7 +52,7 @@ def test_package_and_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_mods = int(res.stdout.split()[0])
-    assert n_mods >= 93
+    assert n_mods >= 104
     for mod in ("ops.cuda_fe", "ops.cuda_msm", "ops.msm_geometry", "ops.msm_torch",
                 "crypto.batch", "ops.fp381", "ops.cuda_bls", "ops.bls12_torch",
                 "ops.tower", "ops.pairing_torch", "crypto.bls_ref", "crypto.keys", "types.validator_set",
@@ -70,7 +70,10 @@ def test_package_and_smoke_import_no_jax():
                 "state.execution", "evidence", "evidence.pool", "mempool",
                 "mempool.mempool", "privval", "privval.file_pv", "consensus",
                 "consensus.messages", "consensus.round_state", "consensus.wal",
-                "consensus.replay", "consensus.cs_state"):
+                "consensus.replay", "consensus.cs_state",
+                "node", "node.node", "node.overload", "config.config", "config.toml",
+                "types.signed_tx", "consensus.timeline", "libs.forensics", "libs.service",
+                "libs.log", "state.txindex"):
         assert f"tendermint_tpu_torch.{mod}" in res.stdout.split(), mod
 
 
