@@ -381,17 +381,19 @@ CATCHUP_TXS = 4  # 200-byte transactions a block
 # power in block 5's commit, and a wrong block ID in block 11's
 CATCHUP_BAD_BLOCK, CATCHUP_BAD_ROWS, CATCHUP_WRONG_ID = 5, 43, 11
 # The scheduler paths (crypto/scheduler.py). light_serve_1k: bench.py
-# bench_light_serve's traffic (32 clients, 600 requests, Zipf(1.1) heights
-# over 2..heights, seed 7, a 0.02-s coalescing window, max_heights_per_flush
-# heights + 1, no max_pending) on light_skipping's chain; its serial arm is
-# sampled on the first SERVE_SERIAL requests. poisoned_votes: bench.py
+# bench_light_serve's traffic (32 clients, Zipf(1.1) heights over
+# 2..heights, seed 7, a 0.02-s coalescing window, max_heights_per_flush
+# heights + 1, no max_pending) on light_skipping's chain, its 600 requests
+# cut to 256 (8 a client) once the whole run with rpc_light_10k passed
+# 1,000 s of its 1,200-s limit; its serial arm is sampled on the first
+# SERVE_SERIAL requests. poisoned_votes: bench.py
 # bench_poisoned_flush's shape, POISON_ROWS-row vote batches from the 10k
 # corpus, POISON_CALLS calls at 0 and POISONED_CALLS at 1% poison (seed 20;
 # each poisoned call after the first runs two per-signature ladders at once,
 # ~3 s, so that arm is cut from 64 calls to 8: 16 until the whole run passed
 # 900 s of its 1,200-s limit with tx_admission). PEERS: the peers the vote
 # paths tag their rows with.
-SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SEED, SERVE_WINDOW, SERVE_SERIAL = 32, 600, 7, 0.02, 60
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SEED, SERVE_WINDOW, SERVE_SERIAL = 32, 256, 7, 0.02, 60
 POISON_ROWS, POISON_CALLS, POISONED_CALLS, POISON_RATE, POISON_SEED = 512, 64, 8, 0.01, 20
 PEERS = 8
 # consensus_10k: BASELINE config 5's validator set (mixed_sr25519_10k's keys:
@@ -417,6 +419,22 @@ CONSENSUS_PROPOSE_S = 5.0
 ADM_KEYS, ADM_BATCH, ADM_SENDERS, ADM_BASELINE = 16, 256, 4, 6
 ADM_FLOOD_S, ADM_SERIAL_TXS, ADM_BATCHED_TXS = 8.0, 6_000, 30_000
 ADM_TAMPERED = (17, 128, 255)
+# rpc_light_10k: the port's Node as a full node over consensus_10k's 3
+# heights (SQLite copies of its stores), its RPC server on a free port with
+# the light service on, Prometheus on another. RPC_CLIENT_RUNS light clients
+# over HTTPProvider verify height 3 from height 1, each with a fresh store;
+# RPC_CLIENTS HTTP clients each send RPC_REQUESTS requests, light_verify and
+# light_block in turn over heights 1-3 (cut from 20 to keep the phase near
+# 60 s: every answer carries the 10k-signature commit, ~2.3 MB of JSON, and
+# light_block the 10k set, ~1.9 MB more, all built and parsed on the host;
+# PERF.md section 4); the light proxy's verified commit and validators at
+# RPC_PROXY_HEIGHT; and a provider whose client flips two bits of the
+# scalar's top byte in each of the first signatures of the height-3 commit
+# until the valid ones hold no more than 2/3 of the power, which the light
+# client must refuse. Those rows fail the s < L precheck and leave the
+# combined check: a flip that passes the precheck costs the step a
+# bisection of ~9 s a check on this set on an H100 (PERF.md section 7).
+RPC_CLIENT_RUNS, RPC_CLIENTS, RPC_REQUESTS, RPC_PROXY_HEIGHT = 3, 16, 6, 2
 
 REPLACES = {
     "padd": "tendermint_tpu/ops/pallas_fe.py:249",
@@ -4134,7 +4152,7 @@ def _host_masks(flushes):
 
 
 def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
-                        memo_default: int) -> None:
+                        memo_default: int) -> dict:
     """consensus_10k: the port's ConsensusState (consensus/cs_state.py) on
     BASELINE config 5's validator set, mixed_sr25519_10k's 10,000 keys, with
     deferred vote verification and `device` None (the reference's routing:
@@ -4152,7 +4170,8 @@ def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
     ms), the LastCommit checks (path "memo", 0 launches), height 2's device
     busy time and idle share, and holds every flush's mask to the host
     arm's, each committed LastCommit to the host arm, and consensus to not
-    having halted."""
+    having halted. Returns the genesis, the app hash and the state and block
+    stores' databases, for rpc_light_10k."""
     import asyncio
     import shutil
     import tempfile
@@ -4455,6 +4474,391 @@ def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
           f"checks {host_s:.1f}); node validator {own} ({vals[own].pub_key.type_name()}), "
           f"proposers {[block_store.load_block(h).header.proposer_address == vals[own].address for h in range(1, CONSENSUS_HEIGHTS + 1)]}",
           flush=True)
+    return {"genesis": gen, "app_hash": cs.state.app_hash,
+            "dbs": {"state": state_store.db, "blockstore": block_store.db}}
+
+
+def poisoned_commit_json(com: dict, power_of: dict, total: int) -> tuple:
+    """The `commit` route's answer with bits 5 and 6 of byte 63 flipped in
+    each of the first for-block signatures (s >= 2^253 > L, for Ed25519 and
+    sr25519 alike), until the signatures left valid hold no more than 2/3 of
+    `total`: (the answer, the flipped signatures)."""
+    import base64
+    import copy
+
+    out = copy.deepcopy(com)
+    sigs = out["signed_header"]["commit"]["signatures"]
+    valid = sum(power_of[s["validator_address"]] for s in sigs if s["signature"])
+    flipped = set()
+    for s in sigs:
+        if valid <= total * 2 // 3:
+            break
+        if s["signature"]:
+            raw = bytearray(base64.b64decode(s["signature"]))
+            raw[63] ^= 0x60
+            raw = bytes(raw)
+            s["signature"] = base64.b64encode(raw).decode()
+            flipped.add(raw)
+            valid -= power_of[s["validator_address"]]
+    return out, flipped
+
+
+def rpc_light_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> None:
+    """rpc_light_10k: the port's Node (node/node.py) as a full node over
+    consensus_10k's stores (3 heights of BASELINE config 5's set, 8,000
+    Ed25519 + 2,000 sr25519 validators, copied key by key into SQLite files
+    of a temporary root), the kvstore app replayed to height 3 by the
+    Handshaker, `device` None, the verified-row memo off (each check
+    flushes), its RPC server (rpc/server.py) on 127.0.0.1:0 with the light
+    service on and Prometheus (libs/prometheus_server.py) on another free
+    port; no p2p. Traffic, each part its own launch window: RPC_CLIENT_RUNS
+    light clients (light/client.py, SKIPPING) on HTTPProvider trust height 1
+    and verify height 3 (the initialize check, then the trusting and light
+    checks of one skipping step); RPC_CLIENTS concurrent HTTP clients of
+    light_verify / light_block; the light proxy's (light/proxy.py) verified
+    commit and validators at RPC_PROXY_HEIGHT; /metrics from both listeners,
+    /debug/light and /debug/verify_stats; a light client whose provider's
+    HTTP client poisons the height-3 commit (poisoned_commit_json), which
+    must be refused with an invalid-commit error. Prints each run's step
+    (fetch and parse beside the checks), the service's latency p50/p99 cold
+    (answered by a flush) and cached, requests/s, the flushes (rows, route,
+    ms) of each window, the RPC metrics' per-method counts and the
+    transport. Holds every recorded mask to the host arm's on the same rows,
+    the clients' trusted heights and hashes to the node's block IDs, each
+    service answer to LocalNodeProvider's light block, every route to no
+    error, and the poisoned rows to False."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    import aiohttp
+
+    from tendermint_tpu_torch.config import test_config
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.libs import trace
+    from tendermint_tpu_torch.libs.kvdb import MemDB, SQLiteDB
+    from tendermint_tpu_torch.libs.metrics import parse_exposition
+    from tendermint_tpu_torch.light.client import Client, TrustOptions
+    from tendermint_tpu_torch.light.provider import HTTPProvider
+    from tendermint_tpu_torch.light.proxy import LightProxy
+    from tendermint_tpu_torch.light.service import LocalNodeProvider
+    from tendermint_tpu_torch.light.store import LightStore
+    from tendermint_tpu_torch.light.verifier import ErrInvalidHeader
+    from tendermint_tpu_torch.node.node import Node
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+    from tendermint_tpu_torch.types.light import (commit_to_json, header_to_json,
+                                                  validator_set_to_json)
+
+    t_phase = time.perf_counter()
+    node_dev = None if dev.type == "cuda" else dev
+    root = tempfile.mkdtemp(prefix="rpc_light_10k-")
+    os.makedirs(os.path.join(root, "data"))
+    for name, db in chain["dbs"].items():
+        out = SQLiteDB(os.path.join(root, "data", f"{name}.db"))
+        out.write_batch(list(db.iterate_prefix(b"")))
+        out.close()
+    cfg = test_config()
+    cfg.root_dir, cfg.base.db_backend, cfg.base.abci = root, "sqlite", "kvstore"
+    cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    cfg.light_service.enabled = True
+    cfg.instrumentation.prometheus = True
+    cfg.instrumentation.prometheus_listen_addr = "127.0.0.1:0"
+    cfg.instrumentation.forensics_dir = ""
+    cfg.instrumentation.trace_ring_size = 1 << 16
+    cfg.crypto.verified_memo_rows = 0
+    node = Node(cfg, chain["genesis"], device=node_dev)
+    if node.state.last_block_height != CONSENSUS_HEIGHTS or node.state.app_hash != chain["app_hash"]:
+        raise SystemExit(f"rpc_light_10k: the node restarted at height "
+                         f"{node.state.last_block_height}, app hash {node.state.app_hash.hex()}")
+    setup_s = time.perf_counter() - t_phase
+    vals = node.state_store.load_validators(1)
+    power_of = {v.address.hex().upper(): v.voting_power for v in vals.validators}
+    bids = {h: node.block_store.load_block_meta(h)[0].hash for h in range(1, CONSENSUS_HEIGHTS + 1)}
+
+    # every mask the crypto API hands back during the phase, with its rows:
+    # verify_batch (the scheduler's lane flushes), verify_batch_submit /
+    # finish (the light client's checks, and the service's inside its lane)
+    recorded, pending = [], {}
+    real_vb, real_sub, real_fin = batch.verify_batch, batch.verify_batch_submit, batch.verify_batch_finish
+
+    def rows_of(pks, msgs, sigs, key_types):
+        return (list(pks), list(msgs), list(sigs),
+                list(key_types) if key_types is not None else ["ed25519"] * len(pks))
+
+    def vb(pks, msgs, sigs, device=None, key_types=None, backend=None, **kw):
+        mask = real_vb(pks, msgs, sigs, device, key_types, backend, **kw)
+        recorded.append((rows_of(pks, msgs, sigs, key_types), np.asarray(mask, bool)))
+        return mask
+
+    def sub(pks, msgs, sigs, device=None, key_types=None, backend=None):
+        h = real_sub(pks, msgs, sigs, device, key_types, backend)
+        pending[id(h)] = rows_of(pks, msgs, sigs, key_types)
+        return h
+
+    def fin(h):
+        mask = real_fin(h)
+        recorded.append((pending.pop(id(h)), np.asarray(mask, bool)))
+        return mask
+
+    windows, steps, lats, answers = {}, [], [], []
+    metrics_seen = {}
+
+    def window(name: str, per_run: bool = False) -> None:
+        """The launches and the recorder's flushes since the last reset."""
+        events = [e["attrs"] for e in trace.tracer.dump() if e["name"] == "batch_verify.flush"]
+        fl = [(e["n"], e["path"], e["total_ms"]) for e in events]
+        counts = read_launches(f"rpc_light_10k {name}")
+        if per_run:
+            same_counts(launches, f"rpc_light_10k {name}", counts)
+            windows.setdefault(name, []).append(fl)
+        else:
+            launches[f"rpc_light_10k {name}"] = counts
+            windows[name] = [fl]
+        trace.tracer.clear()
+        reset_launches()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    class TimedProvider(HTTPProvider):
+        """HTTPProvider timing each fetch and JSON parse."""
+
+        def __init__(self, client):
+            super().__init__(CHAIN_ID, client)
+            self.fetch_s = 0.0
+
+        async def light_block(self, height):
+            t0 = time.perf_counter()
+            try:
+                return await super().light_block(height)
+            finally:
+                self.fetch_s += time.perf_counter() - t0
+
+    class PoisonedClient(HTTPClient):
+        """An HTTP client whose height-3 commit comes back poisoned."""
+
+        flipped: set = set()
+
+        async def commit(self, height=None):
+            com = await super().commit(height)
+            if height == CONSENSUS_HEIGHTS:
+                com, PoisonedClient.flipped = poisoned_commit_json(
+                    com, power_of, vals.total_voting_power())
+            return com
+
+    async def run_client(client, fresh_store=True):
+        provider = TimedProvider(client)
+        lc = Client(CHAIN_ID, TrustOptions(LIGHT_PERIOD, 1, bids[1]), provider, [],
+                    LightStore(MemDB()), device=node_dev)
+        t0 = time.perf_counter()
+        await lc.initialize()
+        t_init = time.perf_counter()
+        lb = await lc.verify_light_block_at_height(CONSENSUS_HEIGHTS)
+        sync()
+        return lc, lb, dict(init_s=t_init - t0, step_s=time.perf_counter() - t_init,
+                            fetch_s=provider.fetch_s)
+
+    async def drive() -> dict:
+        loop = asyncio.get_running_loop()
+        await node.start()
+        clients = []
+        proxy = None
+        try:
+            t0 = time.perf_counter()
+            if node._prewarm_thread is not None:
+                await loop.run_in_executor(None, node._prewarm_thread.join)
+            node._raise_stored()
+            prewarm_s = time.perf_counter() - t0
+            url = f"http://127.0.0.1:{node.rpc_server.port}"
+            lnp = LocalNodeProvider(node)
+            want = {}
+            for h in range(1, CONSENSUS_HEIGHTS + 1):
+                lb = await lnp.light_block(h)
+                want[h] = ({"header": header_to_json(lb.header),
+                            "commit": commit_to_json(lb.signed_header.commit)},
+                           validator_set_to_json(lb.validator_set))
+            trace.tracer.clear()
+            reset_launches()
+
+            # light clients over HTTP: trust 1, verify 3
+            for _ in range(RPC_CLIENT_RUNS):
+                c = HTTPClient(url)
+                clients.append(c)
+                lc, lb, st = await run_client(c)
+                if lb.hash() != bids[CONSENSUS_HEIGHTS] or {
+                        h: lc.store.light_block(h).hash() for h in lc.store.heights()} != {
+                        1: bids[1], CONSENSUS_HEIGHTS: bids[CONSENSUS_HEIGHTS]}:
+                    raise SystemExit(f"rpc_light_10k client: trusted {lc.store.heights()} differ "
+                                     "from the node's block IDs")
+                steps.append(st)
+                window("client", per_run=True)
+
+            # the light service: RPC_CLIENTS concurrent HTTP clients
+            svc_clients = [HTTPClient(url) for _ in range(RPC_CLIENTS)]
+            clients += svc_clients
+
+            async def one(k, c):
+                for j in range(RPC_REQUESTS):
+                    h = 1 + (k + j) % CONSENSUS_HEIGHTS
+                    method = "light_verify" if j % 2 == 0 else "light_block"
+                    t1 = time.perf_counter()
+                    res = await c.call(method, height=h)
+                    lats.append((res["source"], time.perf_counter() - t1))
+                    answers.append((h, method, res))
+
+            t1 = time.perf_counter()
+            await asyncio.gather(*[one(k, c) for k, c in enumerate(svc_clients)])
+            sync()
+            serve_s = time.perf_counter() - t1
+            window("service")
+
+            # the light proxy in front of the node
+            backend = HTTPClient(url)
+            clients.append(backend)
+            plc = Client(CHAIN_ID, TrustOptions(LIGHT_PERIOD, 1, bids[1]),
+                         HTTPProvider(CHAIN_ID, HTTPClient(url)), [], LightStore(MemDB()),
+                         device=node_dev)
+            clients.append(plc.primary.client)
+            proxy = LightProxy(plc, backend)
+            await proxy.start()
+            proxied = {}
+            async with aiohttp.ClientSession() as sess:
+                for method in ("commit", "validators"):
+                    async with sess.post(f"http://{proxy.addr}/", json={
+                            "jsonrpc": "2.0", "id": 1, "method": method,
+                            "params": {"height": RPC_PROXY_HEIGHT}}) as resp:
+                        body = await resp.json()
+                    if "error" in body or not body["result"].get("light_client_verified"):
+                        raise SystemExit(f"rpc_light_10k proxy {method}: {str(body)[:300]}")
+                    proxied[method] = body["result"]
+                sync()
+                window("proxy")
+
+                # the metrics of both listeners and the debug pages
+                pm = f"http://127.0.0.1:{node.prometheus_server.port}/metrics"
+                for name, u in (("rpc", url + "/metrics"), ("prometheus", pm),
+                                ("debug_light", url + "/debug/light"),
+                                ("verify_stats", url + "/debug/verify_stats"),
+                                ("debug_rpc", url + "/debug/rpc")):
+                    async with sess.get(u) as resp:
+                        if resp.status != 200:
+                            raise SystemExit(f"rpc_light_10k: GET {u} answered {resp.status}")
+                        metrics_seen[name] = (await resp.text() if name in ("rpc", "prometheus")
+                                              else (await resp.json())["result"])
+
+            # the poisoned commit
+            pc = PoisonedClient(url)
+            clients.append(pc)
+            try:
+                await run_client(pc)
+                raise SystemExit("rpc_light_10k poisoned: the light client accepted the "
+                                 "poisoned height-3 commit")
+            except ErrInvalidHeader as e:
+                refused = str(e)
+            sync()
+            window("poisoned")
+            if "invalid commit" not in refused:
+                raise SystemExit(f"rpc_light_10k poisoned: refused with {refused!r}")
+            return dict(prewarm_s=prewarm_s, serve_s=serve_s, want=want, proxied=proxied,
+                        refused=refused, svc=node.light_service.stats())
+        finally:
+            if proxy is not None:
+                await proxy.stop()
+            for c in clients:
+                await c.close()
+            await node.stop()
+
+    batch.verify_batch, batch.verify_batch_submit, batch.verify_batch_finish = vb, sub, fin
+    try:
+        out = asyncio.run(drive())
+    finally:
+        batch.verify_batch, batch.verify_batch_submit, batch.verify_batch_finish = \
+            real_vb, real_sub, real_fin
+        shutil.rmtree(root, ignore_errors=True)
+    run_s = time.perf_counter() - t_phase - setup_s
+
+    # every answer of the service is the node's own light block
+    for h, method, res in answers:
+        sh_json, vs_json = out["want"][h]
+        if (res["hash"] != bids[h].hex().upper() or res["signed_header"] != sh_json
+                or not res["light_client_verified"]
+                or (method == "light_block" and res["validator_set"] != vs_json)):
+            raise SystemExit(f"rpc_light_10k service: the {method} answer at height {h} is "
+                             "not LocalNodeProvider's light block")
+    com = out["proxied"]["commit"]["signed_header"]
+    if com != out["want"][RPC_PROXY_HEIGHT][0] or out["proxied"]["validators"]["validators"] != \
+            out["want"][RPC_PROXY_HEIGHT][1]["validators"]:
+        raise SystemExit("rpc_light_10k proxy: the verified answers are not the node's")
+    # no route answered an error; nothing was shed or refused
+    bad = {m: a for m, a in metrics_seen["debug_rpc"]["methods"].items()
+           if a["error"] or a["shed"] or a["reject"]}
+    if bad:
+        raise SystemExit(f"rpc_light_10k: routes answered errors: {bad}")
+
+    # every recorded mask against the host arm's: each distinct row verified
+    # once on the pool, in pieces of DRAIN
+    t_host = time.perf_counter()
+    index = {}
+    for args, _ in recorded:
+        for row in zip(*args):
+            index.setdefault(row, len(index))
+    order = list(index)
+    masks = pool_map(pool, _host_masks, [tuple(map(list, zip(*order[lo:lo + DRAIN])))
+                                           for lo in range(0, len(order), DRAIN)], workers)
+    verdict = dict(zip(order, (ok for m in masks for ok in m)))
+    for args, mask in recorded:
+        if mask.tolist() != [verdict[row] for row in zip(*args)]:
+            raise SystemExit(f"rpc_light_10k: a {len(mask)}-row mask differs from the host "
+                             "arm's")
+    if any(ok == (row[2] in PoisonedClient.flipped) for row, ok in verdict.items()):
+        raise SystemExit("rpc_light_10k: a verdict other than the poisoned rows' is False, or "
+                         "a poisoned row passed")
+    n_false = sum(not ok for ok in verdict.values())
+    host_s = time.perf_counter() - t_host
+
+    card_line = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
+                   ).splitlines()[0] if dev.type == "cuda" else "cpu"
+    for k, st in enumerate(steps):
+        print(f"rpc_light_10k client run {k}: initialize {st['init_s'] * 1e3:.1f} ms, step "
+              f"1 -> {CONSENSUS_HEIGHTS} {st['step_s'] * 1e3:.1f} ms; fetch and JSON parse of "
+              f"the commits and the sets {st['fetch_s'] * 1e3:.1f} ms of both, the checks "
+              f"{(st['init_s'] + st['step_s'] - st['fetch_s']) * 1e3:.1f} ms; flushes (rows, "
+              f"route, ms) {windows['client'][k]}", flush=True)
+    cold = sorted(t for s, t in lats if s != "cache")
+    cached = sorted(t for s, t in lats if s == "cache")
+    svc = out["svc"]
+    print(f"rpc_light_10k service ({RPC_CLIENTS} HTTP clients x {RPC_REQUESTS} requests, "
+          f"light_verify and light_block in turn over heights 1-{CONSENSUS_HEIGHTS}): "
+          f"requests_per_s={len(lats) / out['serve_s']:.1f} wall_s={out['serve_s']:.3f}; cold "
+          f"(a flush) n={len(cold)} p50_ms={pct_ms(cold, 0.5) if cold else 0:.1f} "
+          f"p99_ms={pct_ms(cold, 0.99) if cold else 0:.1f}; cached n={len(cached)} "
+          f"p50_ms={pct_ms(cached, 0.5):.1f} p99_ms={pct_ms(cached, 0.99):.1f}; flushes "
+          f"{windows['service'][0]}; cache_hits={svc['cache_hits']} singleflight_waits="
+          f"{svc['singleflight_waits']} outcomes={svc['outcomes']}", flush=True)
+    print(f"rpc_light_10k proxy: verified commit and validators at height {RPC_PROXY_HEIGHT}; "
+          f"flushes {windows['proxy'][0]}", flush=True)
+    print(f"rpc_light_10k poisoned: {len(PoisonedClient.flipped)} signatures flipped, refused "
+          f"({out['refused'][:120]}); flushes {windows['poisoned'][0]}", flush=True)
+    fams = parse_exposition(metrics_seen["rpc"])
+    per_method = {lab["method"]: int(v) for name, lab, v in
+                  fams["tendermint_rpc_requests_total"]["samples"] if lab["outcome"] == "ok"}
+    prom = parse_exposition(metrics_seen["prometheus"])
+    print(f"rpc_light_10k metrics: RPC requests by method (ok) {per_method}; /metrics "
+          f"{len(fams)} families on the RPC listener, {len(prom)} on the Prometheus listener; "
+          f"/debug/light requests={metrics_seen['debug_light']['requests']}; "
+          f"/debug/verify_stats light requests="
+          f"{metrics_seen['verify_stats']['light']['requests']}", flush=True)
+    print(f"rpc_light_10k launches: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items() if k.startswith("rpc_light_10k")), flush=True)
+    print(f"rpc_light_10k checks: {len(recorded)} masks over {len(order)} distinct rows "
+          f"equal the host arm's ({n_false} rows False, all of them poisoned); the clients "
+          f"trust heights 1 and {CONSENSUS_HEIGHTS} at the node's block IDs; "
+          f"{len(answers)} service answers are LocalNodeProvider's light blocks; no route "
+          f"answered an error", flush=True)
+    print(f"rpc_light_10k: {time.perf_counter() - t_phase:.1f} s (setup {setup_s:.1f}, prewarm "
+          f"{out['prewarm_s']:.1f}, traffic {run_s - out['prewarm_s']:.1f}, host checks "
+          f"{host_s:.1f}); transport aiohttp {aiohttp.__version__}; card {card_line}", flush=True)
 
 
 def build_tx_admission(pool, workers: int) -> dict:
@@ -4936,9 +5340,14 @@ def run_phases(corpus, mixed, mixed_sr, cofactorless, light, light_mixed, catchu
     rows += g1_msm_phase(dev, bls, card, launches)
     print(f"g1_msm_phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     for phase, args in ((metrics_phase, (corpus, bls, launches)),
-                        (profile_report_phase, (corpus, launches)),
-                        (consensus_10k_phase, (mixed_sr, signing_pool, workers, launches,
-                                               memo_default)),
+                        (profile_report_phase, (corpus, launches))):
+        t_phase = time.perf_counter()
+        phase(dev, *args)
+        print(f"{phase.__name__}: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    chain10k = consensus_10k_phase(dev, mixed_sr, signing_pool, workers, launches, memo_default)
+    print(f"consensus_10k_phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    for phase, args in ((rpc_light_10k_phase, (chain10k, signing_pool, workers, launches)),
                         (tx_admission_phase, (adm, signing_pool, workers, launches,
                                               memo_default))):
         t_phase = time.perf_counter()

@@ -8,8 +8,9 @@ signed-tx envelope on every tx and consumes the node's admission-lane
 verdict (RequestCheckTx.sig_precheck) in place of its own serial verify;
 PersistentKVStoreApplication adds validator-update txs
 ("val:pubkeyhex!power"); CounterApplication checks serial nonces (reference
-abci/example/counter/counter.go:11). The Merkle app waits for the RPC slice
-with crypto/proof_ops.py (ROADMAP A2).
+abci/example/counter/counter.go:11); MerkleKVStoreApplication's app hash is
+the SimpleMap root of its pairs, and it answers `prove=true` queries with
+ValueOps (crypto/proof_ops.py).
 """
 
 from __future__ import annotations
@@ -334,3 +335,42 @@ class CounterApplication(abci.Application):
         if self.tx_count == 0:
             return abci.ResponseCommit()
         return abci.ResponseCommit(data=struct.pack(">Q", self.tx_count))
+
+
+class MerkleKVStoreApplication(KVStoreApplication):
+    """KVStore whose app hash is the SimpleMap merkle root over its pairs,
+    with `prove=true` queries answered by ValueOp proofs that chain to the
+    header's app_hash — the tree shape crypto/merkle/proof_value.go:14
+    verifies. This is what the light proxy's verified abci_query runs
+    against (light/rpc/client.go:116)."""
+
+    def _pairs(self) -> Dict[bytes, bytes]:
+        return {
+            k[len(b"kv/"):]: v for k, v in sorted(self.db.iterate_prefix(b"kv/"))
+        }
+
+    def _compute_app_hash(self) -> bytes:
+        from tendermint_tpu_torch.crypto.proof_ops import simple_map_proofs
+
+        # One tree build per commit; proved queries reuse the per-key
+        # ValueOps until the next commit replaces them.
+        root, ops = simple_map_proofs(self._pairs())
+        self._proof_cache = (self.height, ops)
+        return root
+
+    def _proofs(self):
+        cache = getattr(self, "_proof_cache", None)
+        if cache is None or cache[0] != self.height:
+            from tendermint_tpu_torch.crypto.proof_ops import simple_map_proofs
+
+            _, ops = simple_map_proofs(self._pairs())
+            cache = self._proof_cache = (self.height, ops)
+        return cache[1]
+
+    def query(self, req: abci.RequestQuery) -> abci.ResponseQuery:
+        res = super().query(req)
+        if req.prove and res.code == abci.CODE_TYPE_OK and res.value:
+            vop = self._proofs().get(req.data)
+            if vop is not None:
+                res.proof_ops = [vop.proof_op()]
+        return res

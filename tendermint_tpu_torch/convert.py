@@ -33,6 +33,8 @@
 - `proposal_from_reference`: a Proposal through its wire bytes.
 - `file_pv_from_reference`: a FilePV with the same key, files and last-sign
   state.
+- `proof_op_from_reference`: a crypto/proof_ops.ProofOp through its
+  protobuf bytes.
 """
 
 from __future__ import annotations
@@ -233,3 +235,10 @@ def file_pv_from_reference(pv):
                                               s.sign_bytes)
     out.state_file = pv.state_file
     return out
+
+
+def proof_op_from_reference(op):
+    """A ProofOp through its protobuf encoding (encoded there, decoded here)."""
+    from tendermint_tpu_torch.crypto.proof_ops import ProofOp
+
+    return ProofOp.decode(op.encode())

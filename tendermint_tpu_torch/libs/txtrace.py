@@ -12,11 +12,12 @@ A per-tx journey through the serving path's stages:
       -> committed(height, index)                 [block finalized]
       -> delivered(code)                          [ABCI DeliverTx verdict]
 
-Feeders in the port: mempool/mempool.py (admission, eviction, TTL, quotas,
-recheck), consensus/cs_state.py (proposal inclusion, commit) and
-state/execution.py (the deliver path); `first_gossiped` waits for the
-mempool reactor (ROADMAP A3) and the RPC ingress hook for the RPC server
-(A2). Consumers: `waterfall(hash)` (the `tx_status` document),
+Feeders in the port: rpc/server.py (`received` at the RPC edge),
+mempool/mempool.py (admission, eviction, TTL, quotas, recheck),
+consensus/cs_state.py (proposal inclusion, commit) and state/execution.py
+(the deliver path); `first_gossiped` waits for the mempool reactor (ROADMAP
+A3). Consumers: `waterfall(hash)` (the `tx_status` and /debug/tx_trace
+routes of rpc/server.py),
 `tendermint_tx_stage_seconds{stage}` histograms and terminal-outcome
 counters (libs/metrics.TxLifecycleMetrics), and the `tx_commit_latency`
 SLO budget (libs/slo.py). `StageStats` also serves the light service's

@@ -1,8 +1,8 @@
 """Light client: trust-minimized header verification, the port's copy of
 tendermint_tpu/light/ (reference light/: client.go, verifier.go, store/,
 provider/, detector.go), and the light service with its coalescer
-(light/service.py, light/coalescer.py). The proxy and HTTPProvider are not
-ported yet (ROADMAP A10).
+(light/service.py, light/coalescer.py). The proxy (light/proxy.py) is
+imported by its users, as in the reference.
 """
 
 from tendermint_tpu_torch.light.client import (  # noqa: F401
@@ -17,6 +17,7 @@ from tendermint_tpu_torch.light.provider import (  # noqa: F401
     ErrBadLightBlock,
     ErrLightBlockNotFound,
     ErrNoResponse,
+    HTTPProvider,
     MockProvider,
     Provider,
 )

@@ -30,8 +30,8 @@ against its own validator set before use. With `metrics=`
 conflicting headers); with `slo=` (libs/slo.SLOEngine) every request's
 latency is a light_verify_p99 observation. `LocalNodeProvider` serves
 light blocks from a node's own stores (node/node.py builds the service on
-it when `[light_service] enabled`). Not ported: the RPC routes (ROADMAP
-A2).
+it when `[light_service] enabled`); the RPC server's light_verify,
+light_block, light_status and /debug/light routes (rpc/server.py) call it.
 """
 
 from __future__ import annotations

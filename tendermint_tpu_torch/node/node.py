@@ -6,7 +6,11 @@ forensics, SLO engine, verification scheduler, tx tracker, timeline → DBs →
 state → the in-process app (4 conns) → handshake/replay → event bus + tx
 indexer → mempool (with the scheduler's admission lane) → evidence pool →
 block executor → consensus → light service (over LocalNodeProvider) →
-overload controller.
+overload controller; `start()` then serves the RPC server
+(rpc/server.py, `rpc.laddr`), the gRPC broadcast API (rpc/grpc_api.py,
+`rpc.grpc_laddr`) and the Prometheus listener (libs/prometheus_server.py,
+`instrumentation.prometheus`). There is no p2p switch: every route that
+touches p2p answers as the reference does with `switch is None`.
 
 `device` goes to the scheduler, consensus, the block executor, the
 handshake and the light service. `None` stays `None` down to
@@ -16,11 +20,10 @@ the card. Tests pass `device="cpu"`.
 
 What is not ported refuses to start instead of being skipped:
 `Node.__init__` raises NotImplementedError, naming the ROADMAP item, for
-`p2p.laddr` (A3), `rpc.laddr` / `rpc.grpc_laddr` /
-`instrumentation.prometheus` (A2), `statesync.enable` (A4), a remote
-`base.proxy_app` (A3) and `base.priv_validator_addr` (A3). A config made by
-`test_config()` still has the reference's `rpc.laddr`: the caller sets it
-empty.
+`p2p.laddr` (A3), `statesync.enable` (A4), a remote `base.proxy_app` (A3)
+and `base.priv_validator_addr` (A3). A config made by `test_config()` has
+the reference's `rpc.laddr` (127.0.0.1:26657): set it empty for no RPC
+server, or to `tcp://127.0.0.1:0` for a free port (`rpc_server.port`).
 
 No fallback (ROADMAP D1): a failed prewarm is kept in `prewarm_error`, and
 `wait_for_height` and `stop` raise it; a consensus halt (`halt_error`)
@@ -94,10 +97,6 @@ def _refuse_unported(config: Config) -> None:
     here, each naming the ROADMAP item that ports it."""
     asks = [
         (config.p2p.laddr, "p2p.laddr", "A3 (the p2p fabric and the reactors)"),
-        (config.rpc.laddr, "rpc.laddr", "A2 (the RPC server)"),
-        (config.rpc.grpc_laddr, "rpc.grpc_laddr", "A2 (the RPC server)"),
-        (config.instrumentation.prometheus, "instrumentation.prometheus",
-         "A2 (libs/prometheus_server.py)"),
         (config.statesync.enable, "statesync.enable", "A4 (state sync)"),
         (config.base.proxy_app, "base.proxy_app", "A3 (abci/socket.py, abci/grpc.py)"),
         (config.base.priv_validator_addr, "base.priv_validator_addr",
@@ -334,9 +333,18 @@ class Node:
                 device=device,
             )
 
-        # overload controller (node/overload.py): samples queue depths into
-        # a pressure level and sets the scheduler's budgets; the RPC gate,
-        # the switch and the mempool reactor it also reads are absent here
+        # the servers start in start(); no p2p fabric (ROADMAP A3): the
+        # routes and the overload controller read switch/node_key as None
+        self.rpc_server = None
+        self.grpc_server = None
+        self.prometheus_server = None
+        self.switch = None
+        self.node_key = None
+
+        # overload controller (node/overload.py): samples queue depths and
+        # the RPC gate's inflight into a pressure level, sets the
+        # scheduler's budgets and flips the gate's shed switches; the switch
+        # and the mempool reactor it also reads are absent here
         from tendermint_tpu_torch.node.overload import OverloadController
 
         self.overload = OverloadController(
@@ -353,6 +361,23 @@ class Node:
         self._start_crypto_prewarm()
         await self.indexer_service.start()
         await self.consensus.start()
+        if self.config.rpc.laddr:
+            from tendermint_tpu_torch.rpc.server import RPCServer
+
+            self.rpc_server = RPCServer(self)
+            await self.rpc_server.start()
+        if self.config.rpc.grpc_laddr:
+            from tendermint_tpu_torch.rpc.grpc_api import GrpcBroadcastServer
+
+            self.grpc_server = GrpcBroadcastServer(self, self.config.rpc.grpc_laddr)
+            self.grpc_server.start()
+        if self.config.instrumentation.prometheus:
+            from tendermint_tpu_torch.libs.prometheus_server import PrometheusServer
+
+            self.prometheus_server = PrometheusServer(
+                self.metrics, self.config.instrumentation.prometheus_listen_addr
+            )
+            await self.prometheus_server.start()
         if self.config.overload.enabled:
             self.overload.start()
         self._install_punish_hook()
@@ -419,6 +444,12 @@ class Node:
                 _sched.set_default(None)
             self.scheduler.close()
         await self.overload.stop()
+        if self.rpc_server is not None:
+            await self.rpc_server.stop()
+        if self.grpc_server is not None:
+            self.grpc_server.stop()
+        if self.prometheus_server is not None:
+            await self.prometheus_server.stop()
         await self.consensus.stop()
         await self.indexer_service.stop()
         self.mempool.close_wal()

@@ -52,7 +52,7 @@ def test_package_and_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_mods = int(res.stdout.split()[0])
-    assert n_mods >= 104
+    assert n_mods >= 112
     for mod in ("ops.cuda_fe", "ops.cuda_msm", "ops.msm_geometry", "ops.msm_torch",
                 "crypto.batch", "ops.fp381", "ops.cuda_bls", "ops.bls12_torch",
                 "ops.tower", "ops.pairing_torch", "crypto.bls_ref", "crypto.keys", "types.validator_set",
@@ -73,8 +73,32 @@ def test_package_and_smoke_import_no_jax():
                 "consensus.replay", "consensus.cs_state",
                 "node", "node.node", "node.overload", "config.config", "config.toml",
                 "types.signed_tx", "consensus.timeline", "libs.forensics", "libs.service",
-                "libs.log", "state.txindex"):
+                "libs.log", "state.txindex", "rpc", "rpc.server", "rpc.client",
+                "rpc.grpc_api", "libs.prometheus_server", "crypto.proof_ops", "abci.wire",
+                "light.proxy"):
         assert f"tendermint_tpu_torch.{mod}" in res.stdout.split(), mod
+
+
+_NO_GRPC = r"""
+import sys
+sys.modules["grpc"] = None  # an import of grpc now raises ImportError
+import tendermint_tpu_torch.node.node, tendermint_tpu_torch.rpc.server
+import tendermint_tpu_torch.rpc.client, tendermint_tpu_torch.light.proxy
+import tendermint_tpu_torch.light.provider
+print(sorted(m for m in sys.modules if m.startswith("grpc")))
+"""
+
+
+def test_rpc_path_needs_no_grpc():
+    """The node, the RPC server and clients, HTTPProvider and LightProxy
+    import without grpc: only rpc/grpc_api.py needs it, and the node imports
+    that module only when rpc.grpc_laddr is set. Their transport is aiohttp,
+    which the card machine has."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
+    res = subprocess.run([sys.executable, "-c", _NO_GRPC], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert res.stdout.split("\n")[-2] == "['grpc']"
 
 
 def test_no_jax_reference_in_sources():

@@ -12,9 +12,10 @@ package with tolerance 0:
 - a `signed_kvstore` node with the scheduler on admits a 300-tx signed
   flood through check_tx_batch (one admission-lane flush; the app consumes
   every verdict and verifies nothing itself), and the txs commit;
-- a config that asks for an unported server raises NotImplementedError,
-  and a failed prewarm is raised by wait_for_height and stop, not
-  swallowed.
+- a config that asks for an unported server raises NotImplementedError;
+  the RPC server, the gRPC broadcast API and the Prometheus listener each
+  start on a free port of 127.0.0.1 and answer; a failed prewarm is raised
+  by wait_for_height and stop, not swallowed.
 """
 
 import asyncio
@@ -47,7 +48,7 @@ def _port_memo_off():
 
 def _config(root=None, abci="kvstore"):
     cfg = test_config()
-    cfg.rpc.laddr = ""  # the RPC server waits for ROADMAP A2
+    cfg.rpc.laddr = ""  # no RPC server (test_config keeps the reference's 26657)
     cfg.base.abci = abci
     cfg.base.db_backend = "sqlite" if root else "memdb"
     cfg.root_dir = str(root) if root else ""
@@ -225,8 +226,7 @@ def test_signed_flood_admits_through_the_lane_and_commits(tmp_path, monkeypatch)
 
 
 @pytest.mark.parametrize("key,value", [
-    ("rpc.laddr", "tcp://127.0.0.1:26657"), ("p2p.laddr", "tcp://0.0.0.0:26656"),
-    ("rpc.grpc_laddr", "tcp://127.0.0.1:9090"), ("instrumentation.prometheus", True),
+    ("p2p.laddr", "tcp://0.0.0.0:26656"),
     ("statesync.enable", True), ("base.proxy_app", "tcp://127.0.0.1:26658"),
     ("base.priv_validator_addr", "tcp://127.0.0.1:26659"),
 ])
@@ -236,6 +236,56 @@ def test_unported_servers_refuse(key, value):
     setattr(getattr(cfg, section), field, value)
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         Node(cfg, _genesis(), priv_validator=FilePV(gen_ed25519(SEED32)), device="cpu")
+
+
+@pytest.mark.parametrize("server", ["rpc", "grpc", "prometheus"])
+def test_servers_start_and_answer(server, tmp_path, monkeypatch):
+    """Each server the config asks for starts with the node on a free port
+    of 127.0.0.1 and answers: the RPC server's `health`, the gRPC API's
+    Ping, the Prometheus listener's /metrics."""
+    import aiohttp
+
+    monkeypatch.chdir(tmp_path)
+    cfg = _config()
+    if server == "rpc":
+        cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    elif server == "grpc":
+        cfg.rpc.grpc_laddr = "tcp://127.0.0.1:0"
+    else:
+        cfg.instrumentation.prometheus = True
+        cfg.instrumentation.prometheus_listen_addr = "127.0.0.1:0"
+    node = Node(cfg, _genesis(), priv_validator=FilePV(gen_ed25519(SEED32)), device="cpu")
+
+    def ping(port):
+        import grpc
+
+        from tendermint_tpu_torch.rpc.grpc_api import _SERVICE
+
+        with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+            return ch.unary_unary(f"/{_SERVICE}/Ping", request_serializer=lambda b: b,
+                                  response_deserializer=lambda b: b)(b"", timeout=10)
+
+    async def run():
+        await node.start()
+        try:
+            if server == "grpc":
+                return await asyncio.get_running_loop().run_in_executor(
+                    None, ping, node.grpc_server.port)
+            srv = node.rpc_server if server == "rpc" else node.prometheus_server
+            path = "/health" if server == "rpc" else "/metrics"
+            async with aiohttp.ClientSession() as sess:
+                async with sess.get(f"http://127.0.0.1:{srv.port}{path}") as resp:
+                    return resp.status, await resp.text()
+        finally:
+            await node.stop()
+
+    out = asyncio.run(run())
+    if server == "grpc":
+        assert out == b""
+    elif server == "rpc":
+        assert out == (200, '{"jsonrpc": "2.0", "id": null, "result": {}}')
+    else:
+        assert out[0] == 200 and "tendermint_consensus_height" in out[1]
 
 
 def test_failed_prewarm_is_raised(tmp_path, monkeypatch):
