@@ -236,7 +236,27 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      flush's mask equals the host arm's (only the 100 planted rows False),
      the committed LastCommits and height 3's seen commit verify on the host
      arm without the planted rows, and consensus must not have halted;
-  20. "tx_admission": bench.py bench_tx_admission at its own parameters on
+  20. "rpc_light_10k": a port Node as a full node over SQLite copies of
+     consensus_10k's stores, RPC on 127.0.0.1:0 with the light service and
+     Prometheus: light clients over HTTPProvider, 16 HTTP clients of
+     light_verify / light_block, the light proxy, the metrics and debug
+     pages and a poisoned height-3 commit; every mask held to the host arm;
+  21. "p2p_sync_10k": a new full node J of consensus_10k's chain joins
+     through the port's p2p fabric (secret connections, three port Nodes on
+     the card, device None): J dials L, a full node whose blocksync reactor
+     swallows the first block request and serves block 2 with its
+     last_commit's first signatures flipped until <= 2/3 of the power is
+     valid; the verify stage refuses the run on the catch-up lane and J
+     drops L; J dials S, an honest full node with fast sync off, syncs
+     heights 1-2 in one catch-up run, hands off to consensus at height 3
+     and commits it from S's catch-up gossip (block parts and LastCommit
+     precommits into the deferred vote flushes). Launch windows "lie",
+     "blocksync" and "consensus". Prints the handshakes, J's bytes per
+     channel, the transfer ms, each flush, the dial-of-S-to-commit time in
+     three parts, L's punishment and the phase's seconds; every mask equals
+     the host arm's, only the flipped rows are False, J's blocks, commits
+     and app hash equal S's, J did not halt or store an error;
+  22. "tx_admission": bench.py bench_tx_admission at its own parameters on
      the port's Node (node/node.py, device None): one validator running
      signed_kvstore with deferred votes on the votes lane, memdb, mempool
      500,000 / cache 1,000,000 / TTL 2 blocks / recheck off, the scheduler
@@ -257,14 +277,16 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      paid no app-side verify, exactly the 3 planted txs are refused, each
      committed LastCommit verifies on the host arm, and the node did not
      halt or store an error;
-  21. a `kernels` JSON line (a row off every path counts 0 launches), the
+  23. a `kernels` JSON line (a row off every path counts 0 launches), the
      card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
 (the warm, pipelined and streamed paths per call); every kernel of a path must
 launch on it: the six Ed25519 kernels on the Ed25519 paths (pipelined,
 tampered, tampered_persig, mixed_commit, mixed_sr25519_10k, the four light
 paths, light_mixed, the consensus and catch-up paths, the scheduler paths,
-consensus_10k's heights and tx_admission's batched arm included; the
+consensus_10k's heights, p2p_sync_10k's lie and blocksync windows (its
+consensus window where a flush took a card route) and tx_admission's
+batched arm included; the
 tampered batch launches the ladder's three),
 the two BLS kernels on the BLS paths, fp381_mul on g1_msm_10k, none on host_small, the
 verify-at-add arm, the evidence check and the memo's answers. Exits non-zero without a result when no CUDA device
@@ -281,6 +303,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -435,6 +458,11 @@ ADM_TAMPERED = (17, 128, 255)
 # combined check: a flip that passes the precheck costs the step a
 # bisection of ~9 s a check on this set on an H100 (PERF.md section 7).
 RPC_CLIENT_RUNS, RPC_CLIENTS, RPC_REQUESTS, RPC_PROXY_HEIGHT = 3, 16, 6, 2
+# p2p_sync_10k: the joiner's [fastsync] peer_timeout (seconds): above the
+# ~4.4 s that two 10k-commit blocks (~1.1 MB each) take at the MConnection's
+# 512,000 B/s, below the 10 s default, which L's swallowed first request
+# would otherwise cost in full
+P2P_PEER_TIMEOUT = 6.0
 
 REPLACES = {
     "padd": "tendermint_tpu/ops/pallas_fe.py:249",
@@ -4861,6 +4889,489 @@ def rpc_light_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) ->
           f"{host_s:.1f}); transport aiohttp {aiohttp.__version__}; card {card_line}", flush=True)
 
 
+class LieFaults:
+    """L's serving faults, with the three methods of the reference's
+    chaos/catchup.ServeFaults that blocksync/reactor.py calls: the first
+    block request L receives is swallowed (block_stalled), so that the
+    joiner's pool holds blocks 2 and 3 when it asks again after its peer
+    timeout and the verify stage sees all three at once; the block at
+    height 2 is served once with its last_commit (the commit of height 1)
+    poisoned: bits 5 and 6 of byte 63 flipped (s >= L, for Ed25519 and
+    sr25519 alike) in each of the first for-block signatures until the valid
+    ones hold no more than 2/3 of the power. One flipped signature would not
+    do: the commit check tallies valid power, and 9,998 of 10,000 still pass."""
+
+    def __init__(self, power: list, total: int):
+        self.power, self.total = power, total
+        self.stalls, self.lied = 1, False
+        self.flipped: set = set()
+        self.fired: list = []
+
+    def block_stalled(self) -> bool:
+        if self.stalls:
+            self.stalls -= 1
+            self.fired.append(("stall", time.perf_counter()))
+            return True
+        return False
+
+    def take_block_lie(self) -> bool:
+        return not self.lied
+
+    def corrupt_block(self, block):
+        import dataclasses
+
+        if block.header.height != 2:
+            return block
+        self.lied = True
+        sigs = list(block.last_commit.signatures)
+        valid = sum(p for s, p in zip(sigs, self.power) if s.for_block())
+        for i, s in enumerate(sigs):
+            if valid <= self.total * 2 // 3:
+                break
+            if s.for_block():
+                raw = bytearray(s.signature)
+                raw[63] ^= 0x60
+                sigs[i] = dataclasses.replace(s, signature=bytes(raw))
+                self.flipped.add(bytes(raw))
+                valid -= self.power[i]
+        self.fired.append(("lie", time.perf_counter()))
+        return dataclasses.replace(block, last_commit=dataclasses.replace(
+            block.last_commit, signatures=tuple(sigs)))
+
+
+def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> None:
+    """p2p_sync_10k: a new full node of consensus_10k's chain (3 heights of
+    BASELINE config 5's set, 8,000 Ed25519 + 2,000 sr25519 validators)
+    joins through the port's p2p fabric. Three port Nodes (node/node.py,
+    `device` None, secret connections, the reference's rate defaults,
+    deferred vote verification, RPC and PEX off, the verified-row memo
+    off): S, an honest full node over
+    SQLite copies of consensus_10k's stores with fast sync off (its
+    consensus reactor gossips); L, the same over its own copies, whose
+    blocksync reactor serves LieFaults; J, from genesis with empty stores,
+    fast sync on, the kvstore app, no validator, `[fastsync] peer_timeout`
+    P2P_PEER_TIMEOUT s. J dials L alone: it fetches blocks 1-3 (the first
+    request after one peer timeout), and the verify stage refuses the run
+    [(1, 2'), (2', 3)] on the catch-up lane; the pool redoes heights 1 and
+    2, keeps block 3, and J drops L after reporting it to its trust scorer.
+    J then dials S: one run of heights 1-2 verified on the catch-up lane,
+    applied, the handoff to consensus at height 3, and height 3 from S's
+    consensus catch-up gossip: the block's parts from S's store and the
+    precommits of S's LastCommit as VoteMessages into the deferred vote
+    flushes. Each part has its launch window ("lie", "blocksync",
+    "consensus"). Prints the secret-connection handshakes, J's bytes
+    received per channel, the transfer ms of the blocks, the parts and the
+    votes, each flush (rows, route, lane, ms), the dial-of-S-to-commit time
+    split into blocksync, handoff and consensus, L's punishment (the pool's
+    score, the trust score, the time to the disconnect) and the phase's
+    seconds. Holds every flush's mask to the host arm's on the same rows,
+    the refused run's False rows to exactly the flipped signatures, J's
+    blocks 1-3, their commits and J's app hash to S's, and J to not having
+    halted or stored an error."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from tendermint_tpu_torch.blocksync import messages as bs_messages
+    from tendermint_tpu_torch.blocksync import verify as bs_verify
+    from tendermint_tpu_torch.config import test_config
+    from tendermint_tpu_torch.consensus.messages import (BlockPartMessage, VoteMessage,
+                                                         decode_message_traced)
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.libs.kvdb import SQLiteDB
+    from tendermint_tpu_torch.node.node import Node
+    from tendermint_tpu_torch.p2p.conn import secret_connection as scmod
+    from tendermint_tpu_torch.types import validator_set as valset_mod
+    from tendermint_tpu_torch.types import vote_set as vs_mod
+
+    t_phase = time.perf_counter()
+    node_dev = None if dev.type == "cuda" else dev
+    roots = []
+
+    def config(root: str, fast_sync: bool):
+        cfg = test_config()
+        cfg.root_dir = root
+        cfg.base.db_backend = "sqlite" if root else "memdb"
+        cfg.base.abci = "kvstore"
+        cfg.base.fast_sync = fast_sync
+        cfg.rpc.laddr = ""
+        cfg.p2p.laddr = "tcp://127.0.0.1:0"
+        cfg.p2p.pex = False
+        cfg.instrumentation.forensics_dir = ""
+        cfg.crypto.verified_memo_rows = 0
+        cfg.consensus.defer_vote_verification = True
+        cfg.fastsync.peer_timeout = P2P_PEER_TIMEOUT
+        if not root:
+            cfg.consensus.wal_path = os.path.join(tempfile.mkdtemp(prefix="p2p_sync_10k-wal-"),
+                                                  "wal")
+            roots.append(os.path.dirname(cfg.consensus.wal_path))
+        return cfg
+
+    def served_node(name: str) -> Node:
+        root = tempfile.mkdtemp(prefix=f"p2p_sync_10k-{name}-")
+        roots.append(root)
+        os.makedirs(os.path.join(root, "data"))
+        for db_name, db in chain["dbs"].items():
+            out = SQLiteDB(os.path.join(root, "data", f"{db_name}.db"))
+            out.write_batch(list(db.iterate_prefix(b"")))
+            out.close()
+        node = Node(config(root, False), chain["genesis"], device=node_dev)
+        if node.state.last_block_height != CONSENSUS_HEIGHTS or \
+                node.state.app_hash != chain["app_hash"]:
+            raise SystemExit(f"p2p_sync_10k {name}: restarted at height "
+                             f"{node.state.last_block_height}")
+        return node
+
+    S = served_node("S")
+    L = served_node("L")
+    vals = S.state_store.load_validators(1)
+    lie = LieFaults([v.voting_power for v in vals.validators], vals.total_voting_power())
+    L.blocksync_reactor.serve_faults = lie
+    J = Node(config("", True), chain["genesis"], device=node_dev)
+    if not J.fast_sync or J.blocksync_reactor is None or J.scheduler is None:
+        raise SystemExit("p2p_sync_10k: J is not fast-syncing on a scheduler")
+    setup_s = time.perf_counter() - t_phase
+
+    # every mask of the traffic with its rows and the window it fell in
+    WINDOWS = ("lie", "blocksync", "consensus")
+    window = {"name": "setup"}
+    recorded = []
+    # verify_batch as crypto/batch.py exports it (the scheduler's lanes) and as
+    # the vote sets, the commit checks and blocksync imported it
+    users = (batch, vs_mod, valset_mod, bs_verify)
+    real_vbs = [m.verify_batch for m in users]
+    real_sub, real_fin = batch.verify_batch_submit, batch.verify_batch_finish
+    pending = {}
+
+    def rows_of(pks, msgs, sigs, key_types):
+        return (list(pks), list(msgs), list(sigs),
+                list(key_types) if key_types is not None else ["ed25519"] * len(pks))
+
+    def sub(pks, msgs, sigs, device=None, key_types=None, backend=None):
+        # the asynchronous commit checks (verify_commit_light's submit / finish)
+        h = real_sub(pks, msgs, sigs, device, key_types, backend)
+        pending[id(h)] = (time.perf_counter(), rows_of(pks, msgs, sigs, key_types))
+        return h
+
+    def fin(h):
+        mask = real_fin(h)
+        t0, args = pending.pop(id(h), (None, None))
+        if args is not None and window["name"] in WINDOWS:
+            recorded.append(dict(window=window["name"], rows=len(args[0]), lane=lane_now(),
+                                 path=batch.LAST_FLUSH.get("path"), mask=np.asarray(mask, bool),
+                                 ms=(time.perf_counter() - t0) * 1e3, args=args))
+        return mask
+
+    # the lane of a flush: the scheduler's dispatch thread runs the queued
+    # lanes (only catch-up queues here), a votes-lane flush runs inline on
+    # the caller's thread inside verify_rows, anything else is a direct call
+    # (validate_block's LastCommit check)
+    lane_tls = threading.local()
+
+    def lane_now() -> str:
+        if threading.current_thread().name == "verify-scheduler":
+            return "catchup"
+        return getattr(lane_tls, "lane", None) or "direct"
+
+    def recording(real):
+        def vb(pks, msgs, sigs, device=None, key_types=None, backend=None, **kw):
+            t0 = time.perf_counter()
+            mask = real(pks, msgs, sigs, device, key_types, backend, **kw)
+            if window["name"] not in WINDOWS:  # the nodes' start-up (prewarm rows)
+                return mask
+            recorded.append(dict(
+                window=window["name"], rows=len(pks), path=batch.LAST_FLUSH.get("path"),
+                lane=lane_now(), ms=(time.perf_counter() - t0) * 1e3,
+                mask=np.asarray(mask, bool), args=rows_of(pks, msgs, sigs, key_types)))
+            return mask
+        return vb
+
+    # the secret-connection handshakes (both sides of each dial)
+    hs = []
+    real_upgrade = scmod.SecretConnection.__dict__["upgrade"]
+
+    async def upgrade(reader, writer, priv_key):
+        t0 = time.perf_counter()
+        sc = await real_upgrade.__func__(scmod.SecretConnection, reader, writer, priv_key)
+        side = "J" if priv_key == J.node_key.priv_key else "S/L"
+        hs.append((side, (time.perf_counter() - t0) * 1e3))
+        return sc
+
+    # what J receives, by channel and time
+    rx = {"blocks": [], "parts": [], "votes": []}
+    real_bs_rx, real_cs_rx = J.blocksync_reactor.receive, J.consensus_reactor.receive
+
+    async def bs_receive(chan_id, peer, msg_bytes):
+        if isinstance(bs_messages.decode_message(msg_bytes), bs_messages.BlockResponse):
+            rx["blocks"].append((peer.id, time.perf_counter(), len(msg_bytes)))
+        await real_bs_rx(chan_id, peer, msg_bytes)
+
+    async def cs_receive(chan_id, peer, msg_bytes):
+        msg, _ = decode_message_traced(msg_bytes)
+        if isinstance(msg, VoteMessage):
+            rx["votes"].append((time.perf_counter(), len(msg_bytes)))
+        elif isinstance(msg, BlockPartMessage):
+            rx["parts"].append((time.perf_counter(), len(msg_bytes)))
+        await real_cs_rx(chan_id, peer, msg_bytes)
+
+    punished = []
+    real_punish = J.blocksync_reactor._punish_peer
+
+    async def punish(peer_id, reason):
+        stats = J.blocksync_reactor.pool.peer_stats().get(peer_id, {})
+        await real_punish(peer_id, reason)
+        punished.append((peer_id, time.perf_counter(), stats, reason,
+                         J.switch.reporter.score(peer_id)))
+
+    requests = []
+    real_l_rx = L.blocksync_reactor.receive
+
+    async def l_receive(chan_id, peer, msg_bytes):
+        msg = bs_messages.decode_message(msg_bytes)
+        if isinstance(msg, bs_messages.BlockRequest):
+            requests.append((msg.height, time.perf_counter(), lie.stalls))
+        await real_l_rx(chan_id, peer, msg_bytes)
+
+    real_verify_rows = J.scheduler.verify_rows
+
+    def verify_rows(lane, *a, **kw):
+        prev, lane_tls.lane = getattr(lane_tls, "lane", None), lane
+        try:
+            return real_verify_rows(lane, *a, **kw)
+        finally:
+            lane_tls.lane = prev
+
+    J.scheduler.verify_rows = verify_rows
+    J.blocksync_reactor.receive, J.consensus_reactor.receive = bs_receive, cs_receive
+    J.blocksync_reactor._punish_peer = punish
+    L.blocksync_reactor.receive = l_receive
+    marks, counts = {}, {}
+
+    def close_window(name: str, kernels=ED25519_KERNELS) -> None:
+        counts[name] = read_launches(f"p2p_sync_10k {name}", kernels=kernels)
+        launches[f"p2p_sync_10k {name}"] = counts[name]
+        reset_launches()
+
+    async def until(cond, what: str, timeout: float) -> None:
+        t0 = time.perf_counter()
+        while not cond():
+            J._raise_stored()
+            if J.consensus.halt_error is not None:
+                raise SystemExit(f"p2p_sync_10k: J's consensus halted: {J.consensus.halt_error!r}")
+            if time.perf_counter() - t0 > timeout:
+                raise SystemExit(f"p2p_sync_10k: timed out waiting for {what}")
+            await asyncio.sleep(0.005)
+
+    async def drive() -> dict:
+        loop = asyncio.get_running_loop()
+        started = []
+        try:
+            for node in (S, L, J):
+                await node.start()
+                started.append(node)
+            t0 = time.perf_counter()
+            for node in started:
+                if node._prewarm_thread is not None:
+                    await loop.run_in_executor(None, node._prewarm_thread.join)
+                node._raise_stored()
+            prewarm_s = time.perf_counter() - t0
+            lid, sid = L.node_key.id, S.node_key.id
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            reset_launches()
+
+            # 1. J dials L alone: the lie is refused on the card, L dropped
+            window["name"] = "lie"
+            marks["dial_L"] = time.perf_counter()
+            await J.switch.dial_peer(f"{lid}@{L.p2p_addr}")
+            await until(lambda: punished and not J.switch.peers.has(lid), "L's punishment",
+                        4 * P2P_PEER_TIMEOUT + 30)
+            marks["L_dropped"] = time.perf_counter()
+            close_window("lie")
+            kept = sorted(h for h, req in J.blocksync_reactor.pool._requesters.items()
+                          if req.block is not None)
+
+            # 2. J dials S: blocksync of heights 1-2, the handoff at height 3
+            window["name"] = "blocksync"
+            real_switch = J.blocksync_reactor._switch_to_consensus
+
+            async def switch_to_consensus():
+                # the handoff: the pool stops, consensus takes the state and
+                # rebuilds its LastCommit (serial verifies, as the reference
+                # does), then starts and announces its round state
+                marks["handoff_begin"] = time.perf_counter()
+                await real_switch()
+                marks["handoff_end"] = time.perf_counter()
+
+            J.blocksync_reactor._switch_to_consensus = switch_to_consensus
+            marks["dial_S"] = time.perf_counter()
+            await J.switch.dial_peer(f"{sid}@{S.p2p_addr}")
+            await until(lambda: "handoff_end" in marks, "J's handoff to consensus", 60)
+            synced_at = J.blocksync_reactor.state.last_block_height
+            close_window("blocksync")
+
+            # 3. height 3 from S's consensus catch-up gossip
+            window["name"] = "consensus"
+            await until(lambda: J.block_store.height >= CONSENSUS_HEIGHTS, "J's height 3", 90)
+            marks["commit_3"] = time.perf_counter()
+            await until(lambda: not (J.consensus.rs.last_commit is not None
+                                     and J.consensus.rs.last_commit.pending_count()),
+                        "J's last flushes", 30)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            routes = {r["path"] for r in recorded if r["window"] == "consensus"}
+            card = bool(routes - {"cpu", "memo"})
+            close_window("consensus", kernels=ED25519_KERNELS if card else ())
+            window["name"] = "after"
+            J._raise_stored()
+            rxb = {lab[0]: int(v) for lab, v in
+                   J.metrics.p2p.peer_receive_bytes_total._values.items()}
+            heights = range(1, CONSENSUS_HEIGHTS + 1)
+            return dict(j_blocks=[J.block_store.load_block(h).encode() for h in heights],
+                        s_blocks=[S.block_store.load_block(h).encode() for h in heights],
+                        j_commits=[J.block_store.load_block_commit(h).encode() for h in heights[:-1]],
+                        s_commits=[S.block_store.load_block_commit(h).encode() for h in heights[:-1]],
+                        j_seen=J.block_store.load_seen_commit(CONSENSUS_HEIGHTS),
+                        s_seen=S.block_store.load_seen_commit(CONSENSUS_HEIGHTS),
+                        s3=S.block_store.load_block_meta(CONSENSUS_HEIGHTS)[0],
+                        prewarm_s=prewarm_s, kept=kept, synced_at=synced_at, rx_bytes=rxb,
+                        trust_L=J.switch.reporter.score(lid), L_peers=L.switch.num_peers(),
+                        sched_log=list(J.scheduler.flush_log) if J.scheduler else [],
+                        app_hash=J.state_store.load().app_hash,
+                        s_app_hash=S.state_store.load().app_hash,
+                        halt=J.consensus.halt_error)
+        finally:
+            for node in reversed(started):
+                await node.stop()
+
+    for m, real in zip(users, real_vbs):
+        m.verify_batch = recording(real)
+    batch.verify_batch_submit, batch.verify_batch_finish = sub, fin
+    scmod.SecretConnection.upgrade = staticmethod(upgrade)
+    try:
+        out = asyncio.run(drive())
+    finally:
+        for m, real in zip(users, real_vbs):
+            m.verify_batch = real
+        batch.verify_batch_submit, batch.verify_batch_finish = real_sub, real_fin
+        scmod.SecretConnection.upgrade = real_upgrade
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+    run_s = time.perf_counter() - t_phase - setup_s
+    if out["halt"] is not None:
+        raise SystemExit(f"p2p_sync_10k: J's consensus halted: {out['halt']!r}")
+    # blocks 1-3, their commits and the seen commit of 3, against S's
+    if out["j_blocks"] != out["s_blocks"] or out["j_commits"] != out["s_commits"]:
+        raise SystemExit("p2p_sync_10k: J's blocks 1-3 or their commits differ from S's")
+    if out["app_hash"] != out["s_app_hash"] or out["app_hash"] != chain["app_hash"]:
+        raise SystemExit("p2p_sync_10k: J's app hash differs from S's")
+    s_sigs = {s.signature for s in out["s_seen"].signatures if not s.absent()}
+    j_sigs = [s.signature for s in out["j_seen"].signatures if not s.absent()]
+    if out["j_seen"].block_id != out["s3"] or not set(j_sigs) <= s_sigs:
+        raise SystemExit("p2p_sync_10k: J's seen commit of height 3 is not S's block's")
+
+    # every mask against the host arm's: each distinct row once, in pieces of DRAIN
+    t_host = time.perf_counter()
+    index = {}
+    for r in recorded:
+        for row in zip(*r["args"]):
+            index.setdefault(row, len(index))
+    order = list(index)
+    masks = pool_map(pool, _host_masks, [tuple(map(list, zip(*order[lo:lo + DRAIN])))
+                                           for lo in range(0, len(order), DRAIN)], workers)
+    verdict = dict(zip(order, (ok for m in masks for ok in m)))
+    for r in recorded:
+        if r["mask"].tolist() != [verdict[row] for row in zip(*r["args"])]:
+            raise SystemExit(f"p2p_sync_10k: a {r['rows']}-row {r['window']} mask ({r['path']}) "
+                             "differs from the host arm's")
+    if any(ok == (row[2] in lie.flipped) for row, ok in verdict.items()):
+        raise SystemExit("p2p_sync_10k: a verdict other than the flipped rows' is False, or a "
+                         "flipped row passed")
+    refused = [r for r in recorded if r["window"] == "lie" and not r["mask"].all()]
+    if not refused or not lie.flipped or sum(int((~r["mask"]).sum()) for r in refused) != len(
+            lie.flipped):
+        raise SystemExit(f"p2p_sync_10k: the lie was not refused on its {len(lie.flipped)} "
+                         "flipped rows")
+    host_s = time.perf_counter() - t_host
+    if out["kept"] != [3] or out["synced_at"] != CONSENSUS_HEIGHTS - 1:
+        raise SystemExit(f"p2p_sync_10k: after L the pool kept {out['kept']}, and blocksync "
+                         f"handed off after height {out['synced_at']} (want [3] and 2)")
+    if not punished or punished[0][0] != L.node_key.id:
+        raise SystemExit("p2p_sync_10k: L was not punished")
+
+    card_line = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
+                   ).splitlines()[0] if dev.type == "cuda" else "cpu"
+    print(f"p2p_sync_10k handshakes (secret connection, ms; J's side and the listener's): "
+          f"{[(side, round(ms, 3)) for side, ms in hs]}", flush=True)
+    names = {"0x40": "blocksync", "0x21": "consensus data", "0x22": "consensus votes",
+             "0x20": "consensus state", "0x23": "vote set bits", "0x30": "mempool",
+             "0x38": "evidence", "0x0": "pex"}
+    print("p2p_sync_10k J's bytes received by channel: " + ", ".join(
+        f"{names.get(k, k)} ({k}) {v}" for k, v in sorted(out["rx_bytes"].items())), flush=True)
+    by_peer = {}
+    for pid, t, n in rx["blocks"]:
+        by_peer.setdefault("L" if pid == L.node_key.id else "S", []).append((t, n))
+    for who, items in sorted(by_peer.items()):
+        start = marks["dial_L"] if who == "L" else marks["dial_S"]
+        print(f"p2p_sync_10k blocks from {who}: {len(items)} BlockResponses, "
+              f"{sum(n for _, n in items)} bytes, last {(items[-1][0] - start) * 1e3:.1f} ms "
+              f"after the dial; requests L saw (height, ms after the dial, stall left) "
+              f"{[(h, round((t - marks['dial_L']) * 1e3, 1), s) for h, t, s in requests]}"
+              if who == "L" else
+              f"p2p_sync_10k blocks from {who}: {len(items)} BlockResponses, "
+              f"{sum(n for _, n in items)} bytes, last {(items[-1][0] - start) * 1e3:.1f} ms "
+              f"after the dial", flush=True)
+    for kind in ("parts", "votes"):
+        items = rx[kind]
+        if items:
+            print(f"p2p_sync_10k consensus {kind}: {len(items)} messages, "
+                  f"{sum(n for _, n in items)} bytes, first {(items[0][0] - marks['handoff_end']) * 1e3:.1f} "
+                  f"ms after the handoff, transfer {(items[-1][0] - items[0][0]) * 1e3:.1f} ms "
+                  f"(first to last)", flush=True)
+    lanes = {}
+    for f in out["sched_log"]:
+        lanes.setdefault(tuple(sorted(f["rows"])), []).append(sum(f["rows"].values()))
+    for name in WINDOWS:
+        fl = [r for r in recorded if r["window"] == name]
+        wide = [r for r in fl if r["rows"] >= 256]
+        small = [r for r in fl if r not in wide]
+        by_route = {}
+        for r in small:
+            by_route.setdefault((r["lane"], r["path"]), []).append(r)
+        print(f"p2p_sync_10k {name} flushes (rows, route, lane, ms, all rows True): " + ", ".join(
+            f"({r['rows']}, {r['path']}, {r['lane']}, {r['ms']:.1f}, {bool(r['mask'].all())})"
+            for r in wide) + "".join(
+            f"; {len(rs)} below 256 rows on lane {lane}, route {route}: rows "
+            f"{min(r['rows'] for r in rs)}-{max(r['rows'] for r in rs)} (sum "
+            f"{sum(r['rows'] for r in rs)}), ms median "
+            f"{statistics.median(r['ms'] for r in rs):.1f} sum {sum(r['ms'] for r in rs):.1f}"
+            for (lane, route), rs in sorted(by_route.items(), key=lambda kv: str(kv[0])))
+            + f"; launches {counts[name]}", flush=True)
+    print(f"p2p_sync_10k scheduler flush_log by lanes (rows of each flush): {lanes}", flush=True)
+    pid, t_pun, stats, reason, trust = punished[0]
+    print(f"p2p_sync_10k L punished {(t_pun - marks['dial_L']) * 1e3:.1f} ms after the dial "
+          f"({reason}); the pool's view of L then {stats}; trust score {trust:.4f} "
+          f"(after the disconnect {out['trust_L']:.4f}); dropped "
+          f"{(marks['L_dropped'] - marks['dial_L']) * 1e3:.1f} ms after the dial; the pool kept "
+          f"heights {out['kept']}; stalls/lies fired {[(k, round((t - marks['dial_L']) * 1e3, 1)) for k, t in lie.fired]}",
+          flush=True)
+    bs_ms = (marks["handoff_begin"] - marks["dial_S"]) * 1e3
+    ho_ms = (marks["handoff_end"] - marks["handoff_begin"]) * 1e3
+    cs_ms = (marks["commit_3"] - marks["handoff_end"]) * 1e3
+    print(f"p2p_sync_10k dial of S to J's commit of height {CONSENSUS_HEIGHTS}: "
+          f"{bs_ms + ho_ms + cs_ms:.1f} ms = blocksync {bs_ms:.1f} (heights 1-{out['synced_at']}) "
+          f"+ handoff {ho_ms:.1f} + consensus {cs_ms:.1f}", flush=True)
+    print(f"p2p_sync_10k checks: {len(recorded)} masks over {len(order)} distinct rows equal "
+          f"the host arm's; the refused run's {len(lie.flipped)} False rows are the flipped "
+          f"signatures; J's blocks 1-{CONSENSUS_HEIGHTS}, their commits and its app hash "
+          f"{out['app_hash'].hex()} equal S's; J's seen commit of height "
+          f"{CONSENSUS_HEIGHTS} holds {len(j_sigs)} of S's signatures; J did not halt or store "
+          f"an error", flush=True)
+    print(f"p2p_sync_10k: {time.perf_counter() - t_phase:.1f} s (setup {setup_s:.1f}, prewarm "
+          f"{out['prewarm_s']:.1f}, traffic {run_s - out['prewarm_s'] - host_s:.1f}, host checks "
+          f"{host_s:.1f}); card {card_line}", flush=True)
+
+
 def build_tx_admission(pool, workers: int) -> dict:
     """tx_admission's corpus, signed on the fork pool before the card is
     touched (_sign_votes, whose nonce points _base_mul computes): the serial
@@ -5348,6 +5859,7 @@ def run_phases(corpus, mixed, mixed_sr, cofactorless, light, light_mixed, catchu
     chain10k = consensus_10k_phase(dev, mixed_sr, signing_pool, workers, launches, memo_default)
     print(f"consensus_10k_phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     for phase, args in ((rpc_light_10k_phase, (chain10k, signing_pool, workers, launches)),
+                        (p2p_sync_10k_phase, (chain10k, signing_pool, workers, launches)),
                         (tx_admission_phase, (adm, signing_pool, workers, launches,
                                               memo_default))):
         t_phase = time.perf_counter()

@@ -35,6 +35,10 @@
   state.
 - `proof_op_from_reference`: a crypto/proof_ops.ProofOp through its
   protobuf bytes.
+- `node_key_from_reference`, `node_info_from_reference`,
+  `bit_array_from_reference`: a p2p NodeKey (the same key, so the same
+  node ID), a NodeInfo (through the handshake's wire bytes) and a
+  libs/bits.BitArray (through its bytes).
 """
 
 from __future__ import annotations
@@ -242,3 +246,25 @@ def proof_op_from_reference(op):
     from tendermint_tpu_torch.crypto.proof_ops import ProofOp
 
     return ProofOp.decode(op.encode())
+
+
+def node_key_from_reference(nk):
+    """A p2p NodeKey with the same ed25519 key (read: priv_key.bytes())."""
+    from tendermint_tpu_torch.crypto.keys import Ed25519PrivKey
+    from tendermint_tpu_torch.p2p.key import NodeKey
+
+    return NodeKey(Ed25519PrivKey(nk.priv_key.bytes()))
+
+
+def node_info_from_reference(ni):
+    """A NodeInfo through the bytes the transport's handshake exchanges."""
+    from tendermint_tpu_torch.p2p.node_info import NodeInfo
+
+    return NodeInfo.decode(ni.encode())
+
+
+def bit_array_from_reference(ba):
+    """A BitArray of the same size and bits, through to_bytes."""
+    from tendermint_tpu_torch.libs.bits import BitArray
+
+    return BitArray.from_bytes(ba.size(), ba.to_bytes())

@@ -23,11 +23,12 @@ a scrape of the reference:
   mempool, p2p, state, blocksync, statesync, RPC, overload, SLO, light,
   scheduler and tx-lifecycle families; the node hands each to its owner
   (ConsensusState, Mempool, BlockExecutor, OverloadController,
-  VerifyScheduler, LightService, TxTracker). The p2p, blocksync, statesync
-  and RPC families are declared so that a node's exposition has the
-  reference's series names; nothing of the port feeds them until the p2p,
-  RPC and state sync slices (ROADMAP A2-A4). `expose()` is the node's
-  series and then the global registry's.
+  VerifyScheduler, LightService, TxTracker, and with `p2p.laddr` the
+  Switch, its MConnections and the blocksync reactor and pool). The
+  statesync family is declared so that a node's exposition has the
+  reference's series names; nothing of the port feeds it until state sync
+  (ROADMAP A4). `expose()` is the node's series and then the global
+  registry's.
 
 The chaos, fleet, observatory and mesh families wait for the modules that
 feed them (ROADMAP A5, A6).

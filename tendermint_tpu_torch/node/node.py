@@ -6,11 +6,23 @@ forensics, SLO engine, verification scheduler, tx tracker, timeline → DBs →
 state → the in-process app (4 conns) → handshake/replay → event bus + tx
 indexer → mempool (with the scheduler's admission lane) → evidence pool →
 block executor → consensus → light service (over LocalNodeProvider) →
-overload controller; `start()` then serves the RPC server
-(rpc/server.py, `rpc.laddr`), the gRPC broadcast API (rpc/grpc_api.py,
-`rpc.grpc_laddr`) and the Prometheus listener (libs/prometheus_server.py,
-`instrumentation.prometheus`). There is no p2p switch: every route that
-touches p2p answers as the reference does with `switch is None`.
+overload controller → with `p2p.laddr`, the p2p fabric (node key,
+NodeInfo, MultiplexTransport with secret connections unless
+`p2p.plaintext`, Switch with the trust store) and its reactors: consensus
+(votes to `cs.add_peer_message`, so into the deferred flush), mempool
+(each gossiped batch one `check_tx_batch(txs, peer.id)` hop, into the
+scheduler's admission lane), evidence, blocksync (catch-up runs into the
+scheduler's catch-up lane) and PEX (`p2p.pex`). `start()` then listens on
+`p2p.laddr` (the bound address in `p2p_addr`), dials
+`p2p.persistent_peers`, and serves the RPC server (rpc/server.py,
+`rpc.laddr`), the gRPC broadcast API (rpc/grpc_api.py, `rpc.grpc_laddr`)
+and the Prometheus listener (libs/prometheus_server.py,
+`instrumentation.prometheus`). With fast sync on (and not the only
+validator), consensus starts at the blocksync handoff. Without `p2p.laddr`
+every route that touches p2p answers as the reference does with
+`switch is None`. The reference's statesync reactor is not added (ROADMAP
+A4): NodeInfo then lacks channels 0x60/0x61, which a reference peer
+accepts, as NodeInfo.compatible_with needs one common channel.
 
 `device` goes to the scheduler, consensus, the block executor, the
 handshake and the light service. `None` stays `None` down to
@@ -20,14 +32,16 @@ the card. Tests pass `device="cpu"`.
 
 What is not ported refuses to start instead of being skipped:
 `Node.__init__` raises NotImplementedError, naming the ROADMAP item, for
-`p2p.laddr` (A3), `statesync.enable` (A4), a remote `base.proxy_app` (A3)
-and `base.priv_validator_addr` (A3). A config made by `test_config()` has
+`statesync.enable` (A4), a remote `base.proxy_app` (A3b) and
+`base.priv_validator_addr` (A3b). A config made by `test_config()` has
 the reference's `rpc.laddr` (127.0.0.1:26657): set it empty for no RPC
 server, or to `tcp://127.0.0.1:0` for a free port (`rpc_server.port`).
 
-No fallback (ROADMAP D1): a failed prewarm is kept in `prewarm_error`, and
-`wait_for_height` and `stop` raise it; a consensus halt (`halt_error`)
-raises from `wait_for_height` too.
+No fallback (ROADMAP D1): a failed prewarm is kept in `prewarm_error`, a
+catch-up flush that raised in `blocksync_reactor.verify_error`, and
+`wait_for_height` and `stop` raise them; a consensus halt (`halt_error`)
+raises from `wait_for_height` too. An admission flush that raises under
+a gossiped batch reaches the mempool reactor's hop, which logs it.
 """
 
 from __future__ import annotations
@@ -96,11 +110,10 @@ def _refuse_unported(config: Config) -> None:
     """The parts of the reference's node the port has not taken yet raise
     here, each naming the ROADMAP item that ports it."""
     asks = [
-        (config.p2p.laddr, "p2p.laddr", "A3 (the p2p fabric and the reactors)"),
         (config.statesync.enable, "statesync.enable", "A4 (state sync)"),
-        (config.base.proxy_app, "base.proxy_app", "A3 (abci/socket.py, abci/grpc.py)"),
+        (config.base.proxy_app, "base.proxy_app", "A3b (abci/socket.py, abci/grpc.py)"),
         (config.base.priv_validator_addr, "base.priv_validator_addr",
-         "A3 (privval/remote.py)"),
+         "A3b (privval/remote.py)"),
     ]
     for value, key, item in asks:
         if value:
@@ -333,34 +346,185 @@ class Node:
                 device=device,
             )
 
-        # the servers start in start(); no p2p fabric (ROADMAP A3): the
-        # routes and the overload controller read switch/node_key as None
+        # the servers start in start()
         self.rpc_server = None
         self.grpc_server = None
         self.prometheus_server = None
-        self.switch = None
-        self.node_key = None
 
-        # overload controller (node/overload.py): samples queue depths and
-        # the RPC gate's inflight into a pressure level, sets the
-        # scheduler's budgets and flips the gate's shed switches; the switch
-        # and the mempool reactor it also reads are absent here
+        # overload controller (node/overload.py): samples queue depths, the
+        # RPC gate's inflight and the peers' send queues into a pressure
+        # level, sets the scheduler's budgets and flips the shed switches
+        # (the RPC gate, the mempool reactor, the evidence reactor)
         from tendermint_tpu_torch.node.overload import OverloadController
 
         self.overload = OverloadController(
             self, config.overload, metrics=self.metrics.overload
         )
 
+        # p2p (reference: node/node.go:754-793 createTransport/createSwitch)
+        self.switch = None
+        self.node_key = None
+        self.p2p_addr = None
+        self.consensus_reactor = None
+        self.mempool_reactor = None
+        self.blocksync_reactor = None
+        self.addr_book = None
+        self.pex_reactor = None
+        self.fast_sync = False
+        if config.p2p.laddr:
+            self._build_p2p(config, genesis, state, priv_validator)
+
         self._running = False
         self._punish_cb = None
         self._prewarm_thread: Optional[threading.Thread] = None
         self.prewarm_error: Optional[BaseException] = None
 
+    def _build_p2p(self, config: Config, genesis: GenesisDoc, state, priv_validator) -> None:
+        """The switch and its reactors (reference node/node.py:399-548,
+        without the statesync reactor, ROADMAP A4)."""
+        from tendermint_tpu_torch.blocksync.reactor import BlocksyncReactor
+        from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
+        from tendermint_tpu_torch.evidence.reactor import EvidenceReactor
+        from tendermint_tpu_torch.mempool.reactor import MempoolReactor
+        from tendermint_tpu_torch.p2p import MultiplexTransport, NodeInfo, NodeKey, Switch
+
+        if Switch is None:
+            # the package gates the networked pieces when the `cryptography`
+            # wheel is absent; a node that configured a listener fails loudly
+            raise ImportError(
+                "p2p.laddr is configured but the p2p transport is "
+                "unavailable (missing `cryptography` wheel)"
+            )
+        if not config.p2p.plaintext:
+            from tendermint_tpu_torch.p2p.conn.secret_connection import HAVE_CRYPTOGRAPHY
+
+            if not HAVE_CRYPTOGRAPHY:
+                raise ImportError(
+                    "p2p.laddr is configured with secret connections but "
+                    "the `cryptography` wheel is missing; set "
+                    "p2p.plaintext=true for unauthenticated in-process "
+                    "test nets"
+                )
+        if config.root_dir:
+            self.node_key = NodeKey.load_or_gen(
+                os.path.join(config.root_dir, "config", "node_key.json")
+            )
+        else:
+            self.node_key = NodeKey.generate()
+        node_info = NodeInfo(
+            node_id=self.node_key.id,
+            listen_addr=config.p2p.laddr,
+            network=genesis.chain_id,
+            moniker=config.base.moniker,
+        )
+        fuzz_cfg = None
+        if config.p2p.test_fuzz:
+            from tendermint_tpu_torch.p2p.fuzz import FuzzConfig
+
+            # seeded: every fuzzed connection's fault sequence replays from
+            # [p2p] fuzz_seed (transport._upgrade's derivation)
+            fuzz_cfg = FuzzConfig(seed=config.p2p.fuzz_seed)
+        transport = MultiplexTransport(
+            self.node_key,
+            node_info,
+            use_secret_conn=not config.p2p.plaintext,
+            fuzz_config=fuzz_cfg,
+        )
+        trust_path = (
+            os.path.join(config.root_dir, "data", "trust_metrics.json")
+            if config.root_dir
+            else None
+        )
+        recv_limit = None
+        if config.p2p.recv_rate_limit:
+            from tendermint_tpu_torch.p2p.conn.connection import RecvRateLimit
+
+            recv_limit = RecvRateLimit(
+                bytes_per_s=config.p2p.recv_rate_bytes_per_channel,
+                msgs_per_s=config.p2p.recv_rate_msgs_per_channel,
+                strikes=config.p2p.recv_rate_strikes,
+                strike_window=config.p2p.recv_rate_strike_window,
+            )
+        self.switch = Switch(
+            transport, metrics=self.metrics.p2p, trust_store_path=trust_path,
+            recv_limit=recv_limit,
+        )
+        # fast sync is pointless when we are the only validator
+        # (reference: node/node.go onlyValidatorIsUs)
+        only_us = (
+            priv_validator is not None
+            and state.validators.size() == 1
+            and state.validators.validators[0].address
+            == priv_validator.get_pub_key().address()
+        )
+        self.fast_sync = bool(config.base.fast_sync) and not only_us
+        self.consensus_reactor = ConsensusReactor(self.consensus, wait_sync=self.fast_sync)
+        self.switch.add_reactor("CONSENSUS", self.consensus_reactor)
+        self.mempool_reactor = MempoolReactor(
+            self.mempool, broadcast=config.mempool.broadcast,
+            metrics=self.metrics.overload,
+        )
+        self.switch.add_reactor("MEMPOOL", self.mempool_reactor)
+        self.switch.add_reactor("EVIDENCE", EvidenceReactor(self.evidence_pool))
+        # crash-resume checkpoints: only nodes with a real root dir persist
+        # them (memdb test nodes re-fetch, always safe)
+        catchup_ckpt = (
+            os.path.join(config.root_dir, "data", "catchup_checkpoint.json")
+            if config.root_dir
+            else None
+        )
+        self.blocksync_reactor = BlocksyncReactor(
+            state, self.block_exec, self.block_store,
+            consensus_reactor=self.consensus_reactor,
+            active=self.fast_sync,
+            metrics=self.metrics.blocksync,
+            peer_timeout=config.fastsync.peer_timeout,
+            retry_sleep=config.fastsync.retry_sleep,
+            scheduler=self.scheduler,
+            checkpoint_path=catchup_ckpt,
+            device=self.device,
+        )
+        self.switch.add_reactor("BLOCKSYNC", self.blocksync_reactor)
+        if config.p2p.pex:
+            from tendermint_tpu_torch.p2p.pex import AddrBook, PexReactor
+
+            book_file = (
+                os.path.join(config.root_dir, "config", "addrbook.json")
+                if config.root_dir
+                else None
+            )
+            self.addr_book = AddrBook(book_file)
+            seeds = [s.strip() for s in config.p2p.seeds.split(",") if s.strip()]
+            self.pex_reactor = PexReactor(
+                self.addr_book,
+                seeds=seeds,
+                max_outbound=config.p2p.max_num_outbound_peers,
+                seed_mode=config.p2p.seed_mode,
+            )
+            self.switch.add_reactor("PEX", self.pex_reactor)
+
+    @staticmethod
+    def _parse_laddr(laddr: str) -> tuple:
+        addr = laddr.split("://", 1)[-1]
+        host, _, port = addr.rpartition(":")
+        return host or "127.0.0.1", int(port)
+
     async def start(self) -> None:
         self._running = True
         self._start_crypto_prewarm()
         await self.indexer_service.start()
-        await self.consensus.start()
+        if not (self.switch is not None and self.fast_sync):
+            # with fast sync on, consensus starts at the blocksync handoff
+            # (reference: node/node.go:897 -> SwitchToConsensus)
+            await self.consensus.start()
+        if self.switch is not None:
+            await self.switch.start()
+            host, port = self._parse_laddr(self.config.p2p.laddr)
+            self.p2p_addr = await self.switch.transport.listen(host, port)
+            if self.config.p2p.persistent_peers:
+                peers = [a.strip() for a in self.config.p2p.persistent_peers.split(",")
+                         if a.strip()]
+                await self.switch.dial_peers_async(peers, persistent=True)
         if self.config.rpc.laddr:
             from tendermint_tpu_torch.rpc.server import RPCServer
 
@@ -385,13 +549,31 @@ class Node:
 
     def _install_punish_hook(self) -> None:
         """Route suspicion-scorer punishments (crypto/provenance.py): a
-        punished ``sender:<id>`` collapses that sender's mempool quota. The
-        ``peer:`` half reports to the p2p trust scorer, which waits for the
-        p2p fabric (ROADMAP A3)."""
+        punished ``peer:<id>`` feeds the switch's trust reporter a
+        BAD_MESSAGE report (repeated reports drop the peer below the trust
+        threshold and disconnect it), and a punished ``sender:<id>``
+        collapses that sender's mempool quota. The callback fires on a
+        verify thread, so p2p reports hop to the event loop."""
         from tendermint_tpu_torch.crypto import provenance as _prov
 
+        loop = asyncio.get_running_loop()
+
         def punish(source: str, info: dict) -> None:
-            if source.startswith("sender:"):
+            if source.startswith("peer:"):
+                if self.switch is None:
+                    return
+                from tendermint_tpu_torch.p2p.behaviour import BAD_MESSAGE, PeerBehaviour
+
+                pb = PeerBehaviour(
+                    source[len("peer:"):], BAD_MESSAGE,
+                    f"signature poisoning ({info.get('offenses', 0)} bad rows in quarantine)",
+                )
+
+                def _report():
+                    asyncio.ensure_future(self.switch.reporter.report(pb))
+
+                loop.call_soon_threadsafe(_report)
+            elif source.startswith("sender:"):
                 self.mempool.penalize_sender(source[len("sender:"):])
 
         self._punish_cb = punish
@@ -426,6 +608,9 @@ class Node:
     def _raise_stored(self) -> None:
         if self.prewarm_error is not None:
             raise RuntimeError("crypto prewarm failed") from self.prewarm_error
+        bs = self.blocksync_reactor
+        if bs is not None and bs.verify_error is not None:
+            raise RuntimeError("catch-up verification failed") from bs.verify_error
 
     async def stop(self) -> None:
         self._running = False
@@ -450,6 +635,8 @@ class Node:
             self.grpc_server.stop()
         if self.prometheus_server is not None:
             await self.prometheus_server.stop()
+        if self.switch is not None:
+            await self.switch.stop()
         await self.consensus.stop()
         await self.indexer_service.stop()
         self.mempool.close_wal()

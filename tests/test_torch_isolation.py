@@ -52,7 +52,7 @@ def test_package_and_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_mods = int(res.stdout.split()[0])
-    assert n_mods >= 112
+    assert n_mods >= 134
     for mod in ("ops.cuda_fe", "ops.cuda_msm", "ops.msm_geometry", "ops.msm_torch",
                 "crypto.batch", "ops.fp381", "ops.cuda_bls", "ops.bls12_torch",
                 "ops.tower", "ops.pairing_torch", "crypto.bls_ref", "crypto.keys", "types.validator_set",
@@ -75,7 +75,12 @@ def test_package_and_smoke_import_no_jax():
                 "types.signed_tx", "consensus.timeline", "libs.forensics", "libs.service",
                 "libs.log", "state.txindex", "rpc", "rpc.server", "rpc.client",
                 "rpc.grpc_api", "libs.prometheus_server", "crypto.proof_ops", "abci.wire",
-                "light.proxy"):
+                "light.proxy", "libs.bits", "libs.flowrate", "p2p", "p2p.base_reactor",
+                "p2p.behaviour", "p2p.fuzz", "p2p.key", "p2p.node_info", "p2p.peer", "p2p.pex",
+                "p2p.switch", "p2p.transport", "p2p.conn", "p2p.conn.connection",
+                "p2p.conn.secret_connection", "mempool.reactor", "evidence.reactor",
+                "consensus.reactor", "blocksync.messages", "blocksync.pool",
+                "blocksync.checkpoint", "blocksync.reactor"):
         assert f"tendermint_tpu_torch.{mod}" in res.stdout.split(), mod
 
 

@@ -12,7 +12,10 @@ package with tolerance 0:
 - a `signed_kvstore` node with the scheduler on admits a 300-tx signed
   flood through check_tx_batch (one admission-lane flush; the app consumes
   every verdict and verifies nothing itself), and the txs commit;
-- a config that asks for an unported server raises NotImplementedError;
+- a config that asks for an unported server raises NotImplementedError
+  (statesync, a remote app, a remote signer); a node with `p2p.laddr`
+  starts its Switch, and a reference Switch that dials it shows up in the
+  port's net_info;
   the RPC server, the gRPC broadcast API and the Prometheus listener each
   start on a free port of 127.0.0.1 and answer; a failed prewarm is raised
   by wait_for_height and stop, not swallowed.
@@ -225,17 +228,63 @@ def test_signed_flood_admits_through_the_lane_and_commits(tmp_path, monkeypatch)
     assert asyncio.run(run()) == (300, 0, True, True, None)
 
 
-@pytest.mark.parametrize("key,value", [
-    ("p2p.laddr", "tcp://0.0.0.0:26656"),
-    ("statesync.enable", True), ("base.proxy_app", "tcp://127.0.0.1:26658"),
-    ("base.priv_validator_addr", "tcp://127.0.0.1:26659"),
+@pytest.mark.parametrize("key,value,item", [
+    ("statesync.enable", True, "A4"), ("base.proxy_app", "tcp://127.0.0.1:26658", "A3b"),
+    ("base.priv_validator_addr", "tcp://127.0.0.1:26659", "A3b"),
 ])
-def test_unported_servers_refuse(key, value):
+def test_unported_servers_refuse(key, value, item):
     cfg = _config()
     section, field = key.split(".")
     setattr(getattr(cfg, section), field, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Node(cfg, _genesis(), priv_validator=FilePV(gen_ed25519(SEED32)), device="cpu")
+
+
+def test_p2p_node_answers_a_reference_switch(tmp_path, monkeypatch):
+    """p2p.laddr on :0 starts the port node's Switch with the consensus,
+    mempool, evidence, blocksync and PEX reactors; a reference Switch on
+    the same chain dials it over a secret connection, and the port's
+    net_info (over its RPC server) lists the reference switch as a peer."""
+    pytest.importorskip("cryptography")
+    from tendermint_tpu.p2p import MultiplexTransport as RefTransport
+    from tendermint_tpu.p2p import NodeInfo as RefNodeInfo
+    from tendermint_tpu.p2p import NodeKey as RefNodeKey
+    from tendermint_tpu.p2p import Switch as RefSwitch
+    from tendermint_tpu.p2p.pex import AddrBook, PexReactor
+    from tendermint_tpu_torch.rpc.client import HTTPClient
+
+    monkeypatch.chdir(tmp_path)
+    cfg = _config()
+    cfg.p2p.laddr = "tcp://127.0.0.1:0"
+    cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    node = Node(cfg, _genesis(), priv_validator=FilePV(gen_ed25519(SEED32)), device="cpu")
+    assert sorted(node.switch.reactors) == ["BLOCKSYNC", "CONSENSUS", "EVIDENCE", "MEMPOOL", "PEX"]
+    nk = REF.keys.gen_ed25519(b"\x43" * 32)
+    ref_key = RefNodeKey(nk)
+    ref_sw = RefSwitch(RefTransport(ref_key, RefNodeInfo(node_id=ref_key.id, network=CHAIN)))
+    ref_sw.add_reactor("PEX", PexReactor(AddrBook(), ensure_period=3600))
+
+    async def run():
+        await node.start()
+        await ref_sw.start()
+        client = HTTPClient(f"http://127.0.0.1:{node.rpc_server.port}")
+        try:
+            await node.wait_for_height(1)
+            await ref_sw.dial_peer(f"{node.node_key.id}@{node.p2p_addr}")
+            for _ in range(200):
+                if node.switch.num_peers():
+                    break
+                await asyncio.sleep(0.02)
+            info = await client.net_info()
+            return (info["listening"], info["n_peers"],
+                    [p["node_info"]["id"] for p in info["peers"]],
+                    [p["node_info"]["network"] for p in info["peers"]])
+        finally:
+            await client.close()
+            await ref_sw.stop()
+            await node.stop()
+
+    assert asyncio.run(asyncio.wait_for(run(), 60)) == (True, "1", [ref_key.id], [CHAIN])
 
 
 @pytest.mark.parametrize("server", ["rpc", "grpc", "prometheus"])
