@@ -223,19 +223,21 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      (mixed_sr25519_10k's keys, 8,000 Ed25519 and 2,000 sr25519, power 10),
      the node one Ed25519 validator with a FilePV, the verified-row memo on,
      the kvstore app, a WAL in a temporary directory and 1,000 64-byte txs;
-     3 heights, each: the proposal (the node's executor builds it, or the
+     4 heights, each: the proposal (the node's executor builds it, or the
      node proposes), every other validator's prevote and precommit signed on
      a pool forked before the card is touched (outside the timed window),
      the votes injected in bursts of 512 (one receive-loop drain each); 100
      bad precommits at height 3. Prints each height's injection-to-commit
      time and launches (the shapes join the shape check), each deferred
      flush's rows, route and ms, their median and votes/s, the LastCommit
-     checks of heights 2-3 (path "memo", 0 launches), height 2's device busy
+     checks of heights 2-4 (path "memo", 0 launches), height 2's device busy
      time and idle share and its hotstats stage totals (encode, verify,
      pubsub, wal), and the phase's seconds with signing apart; every
      flush's mask equals the host arm's (only the 100 planted rows False),
-     the committed LastCommits and height 3's seen commit verify on the host
-     arm without the planted rows, and consensus must not have halted;
+     the committed LastCommits and the seen commits of heights 3 and 4
+     verify on the host arm without the planted rows, and consensus must not
+     have halted; the stores as they stood after height 3 serve the next two
+     phases, those after height 4 statesync_10k;
   20. "rpc_light_10k": a port Node as a full node over SQLite copies of
      consensus_10k's stores, RPC on 127.0.0.1:0 with the light service and
      Prometheus: light clients over HTTPProvider, 16 HTTP clients of
@@ -256,6 +258,24 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      three parts, L's punishment and the phase's seconds; every mask equals
      the host arm's, only the flipped rows are False, J's blocks, commits
      and app hash equal S's, J did not halt or store an error;
+  21b. "statesync_10k": a new full node J of consensus_10k's 4-height
+     chain joins by snapshot: S (a full node over its stores, RPC on, its
+     kvstore behind a port SocketServer reached through base.proxy_app,
+     whose ListSnapshots answers the snapshot of height 1 alone), J
+     (statesync on, [statesync] rpc_servers = S's RPC, trust height 1, its
+     kvstore behind a port GrpcServer): J's light client verifies heights
+     1-3 on the card, the chunks are applied over gRPC, J bootstraps at
+     height 1, block-syncs height 2 (and 3 when block 4 is in) on the
+     catch-up lane and hands off. Launch windows "light", "blocksync" and
+     "handoff". Prints the light blocks' fetch ms beside each check's rows,
+     route and ms, the chunks, each flush, J's bytes per channel and dial
+     to handoff in parts; every mask equals the host arm's, J's restored
+     state and app hash equal S's at height 1, J's blocks and app hash
+     after block sync equal S's, J holds no block 1, did not halt, store an
+     error or fall back; then "device_fault": one armed DeviceFaultInjector error on a
+     warm 10k verify_commit raises at rlc_submit and leaves device_up 0;
+     after heal() the rows verify with the host arm's mask ("device_fault
+     healed");
   22. "tx_admission": bench.py bench_tx_admission at its own parameters on
      the port's Node (node/node.py, device None): one validator running
      signed_kvstore with deferred votes on the votes lane, memdb, mempool
@@ -285,7 +305,8 @@ launch on it: the six Ed25519 kernels on the Ed25519 paths (pipelined,
 tampered, tampered_persig, mixed_commit, mixed_sr25519_10k, the four light
 paths, light_mixed, the consensus and catch-up paths, the scheduler paths,
 consensus_10k's heights, p2p_sync_10k's lie and blocksync windows (its
-consensus window where a flush took a card route) and tx_admission's
+consensus window where a flush took a card route), statesync_10k's light
+and blocksync windows, device_fault healed and tx_admission's
 batched arm included; the
 tampered batch launches the ladder's three),
 the two BLS kernels on the BLS paths, fp381_mul on g1_msm_10k, none on host_small, the
@@ -409,15 +430,17 @@ CATCHUP_BAD_BLOCK, CATCHUP_BAD_ROWS, CATCHUP_WRONG_ID = 5, 43, 11
 # heights + 1, no max_pending) on light_skipping's chain, its 600 requests
 # cut to 256 (8 a client) once the whole run with rpc_light_10k passed
 # 1,000 s of its 1,200-s limit; its serial arm is sampled on the first
-# SERVE_SERIAL requests. poisoned_votes: bench.py
+# SERVE_SERIAL requests (~0.6 s each; 60 until consensus_10k's fourth
+# height took the whole run to 1,074.7 s). poisoned_votes: bench.py
 # bench_poisoned_flush's shape, POISON_ROWS-row vote batches from the 10k
 # corpus, POISON_CALLS calls at 0 and POISONED_CALLS at 1% poison (seed 20;
 # each poisoned call after the first runs two per-signature ladders at once,
-# ~3 s, so that arm is cut from 64 calls to 8: 16 until the whole run passed
-# 900 s of its 1,200-s limit with tx_admission). PEERS: the peers the vote
+# ~3 s, so that arm is cut from 64 calls to 4: 16 until the whole run passed
+# 900 s of its 1,200-s limit with tx_admission, 8 until consensus_10k's
+# fourth height took it to 1,074.7 s). PEERS: the peers the vote
 # paths tag their rows with.
-SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SEED, SERVE_WINDOW, SERVE_SERIAL = 32, 256, 7, 0.02, 60
-POISON_ROWS, POISON_CALLS, POISONED_CALLS, POISON_RATE, POISON_SEED = 512, 64, 8, 0.01, 20
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SEED, SERVE_WINDOW, SERVE_SERIAL = 32, 256, 7, 0.02, 30
+POISON_ROWS, POISON_CALLS, POISONED_CALLS, POISON_RATE, POISON_SEED = 512, 64, 4, 0.01, 20
 PEERS = 8
 # consensus_10k: BASELINE config 5's validator set (mixed_sr25519_10k's keys:
 # 8,000 Ed25519 and 2,000 sr25519 validators, power 10) under the port's
@@ -430,6 +453,11 @@ PEERS = 8
 # soon as the node enters PROPOSE, and this covers building a 1,000-tx block
 # on a loaded host.
 CONSENSUS_HEIGHTS, CONSENSUS_TXS, CONSENSUS_TX_BYTES, CONSENSUS_BAD = 3, 1_000, 64, 100
+# consensus_10k then commits one height more for statesync_10k alone: its
+# server must stand two heights above the joiner's restored height + 1 for
+# block sync to fetch a block (blocksync/reactor.py `_caught_up`); the
+# phases before it keep the stores as they stood at CONSENSUS_HEIGHTS
+STATESYNC_HEIGHTS = CONSENSUS_HEIGHTS + 1
 CONSENSUS_PROPOSE_S = 5.0
 # tx_admission: bench.py bench_tx_admission at its own parameters on the
 # port's Node: ADM_KEYS signing keys, check_tx_batch batches of ADM_BATCH
@@ -463,6 +491,10 @@ RPC_CLIENT_RUNS, RPC_CLIENTS, RPC_REQUESTS, RPC_PROXY_HEIGHT = 3, 16, 6, 2
 # 512,000 B/s, below the 10 s default, which L's swallowed first request
 # would otherwise cost in full
 P2P_PEER_TIMEOUT = 6.0
+# statesync_10k: the joiner's [statesync] discovery_time (seconds), opened
+# once it has dialed the server: its SnapshotsRequest is answered within
+# milliseconds on the loopback
+STATESYNC_DISCOVERY_S = 1.0
 
 REPLACES = {
     "padd": "tendermint_tpu/ops/pallas_fe.py:249",
@@ -4187,19 +4219,22 @@ def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
     the card from 256 rows), the verified-row memo on as a node runs it, the
     kvstore app over local ABCI, memory stores, a WAL in a temporary
     directory and CONSENSUS_TXS txs in the mempool. The node is one Ed25519
-    validator with a FilePV. For each of CONSENSUS_HEIGHTS heights: the
+    validator with a FilePV. For each of STATESYNC_HEIGHTS heights: the
     proposal block from the node's executor (or the node's own, when it
     proposes) injected with its parts, every other validator's prevote and
     precommit signed on the signing pool (outside the timed window), then
     the votes injected in bursts of DRAIN, one asyncio.sleep(0) between
-    bursts (one receive-loop drain each). At the last height the first
-    CONSENSUS_BAD precommits carry a bad signature. Prints each height's
+    bursts (one receive-loop drain each). At height CONSENSUS_HEIGHTS the
+    first CONSENSUS_BAD precommits carry a bad signature. Prints each height's
     injection-to-commit time and launches, each deferred flush (rows, route,
     ms), the LastCommit checks (path "memo", 0 launches), height 2's device
     busy time and idle share, and holds every flush's mask to the host
-    arm's, each committed LastCommit to the host arm, and consensus to not
-    having halted. Returns the genesis, the app hash and the state and block
-    stores' databases, for rpc_light_10k."""
+    arm's, each committed LastCommit and the seen commits of heights
+    CONSENSUS_HEIGHTS and STATESYNC_HEIGHTS to the host arm, and consensus to
+    not having halted. Returns the genesis, the app hash and copies of the
+    state and block stores' databases as they stood after CONSENSUS_HEIGHTS
+    heights (for rpc_light_10k and p2p_sync_10k), and under "ext" the app
+    hash and the stores after STATESYNC_HEIGHTS (for statesync_10k)."""
     import asyncio
     import shutil
     import tempfile
@@ -4390,13 +4425,24 @@ def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
                              launches=read_launches(f"consensus_10k h{h}"))
         launches[f"consensus_10k h{h}"] = per_height[h]["launches"]
 
+    served = {}
+
+    def stores_now() -> dict:
+        out = {}
+        for name, db in (("state", state_store.db), ("blockstore", block_store.db)):
+            out[name] = MemDB()
+            out[name].write_batch(list(db.iterate_prefix(b"")))
+        return out
+
     async def drive() -> None:
         await cs.start()
         try:
-            for h in range(1, CONSENSUS_HEIGHTS + 1):
+            for h in range(1, STATESYNC_HEIGHTS + 1):
                 await height(h)
                 if cs.halt_error is not None:
                     break
+                if h == CONSENSUS_HEIGHTS:  # the chain the next phases serve
+                    served.update(app_hash=cs.state.app_hash, dbs=stores_now())
         finally:
             await cs.stop()
 
@@ -4453,13 +4499,16 @@ def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
     if bad != CONSENSUS_BAD or sum((~f["mask"]).sum() for f in per_height[CONSENSUS_HEIGHTS]["flushes"]) != CONSENSUS_BAD:
         raise SystemExit(f"consensus_10k: {bad} rows rejected, expected the {CONSENSUS_BAD} planted")
     # the LastCommit checks of heights 2.. are answered from the memo
-    want_checks = {h for h in range(2, CONSENSUS_HEIGHTS + 1)}
+    want_checks = {h for h in range(2, STATESYNC_HEIGHTS + 1)}
     if {c[0] for c in checks} != want_checks or any(
             c[1] != "memo" or c[2] != 0 for c in checks):
         raise SystemExit(f"consensus_10k: LastCommit checks not all from the memo: {checks}")
-    # each committed LastCommit, and the last seen commit, on the host arm
-    commits = [(h, block_store.load_block(h).last_commit) for h in range(2, CONSENSUS_HEIGHTS + 1)]
-    commits.append((CONSENSUS_HEIGHTS + 1, block_store.load_seen_commit(CONSENSUS_HEIGHTS)))
+    # each committed LastCommit, and the seen commits the two chains end on,
+    # on the host arm
+    commits = [(f"block {h}'s LastCommit", block_store.load_block(h).last_commit)
+               for h in range(2, STATESYNC_HEIGHTS + 1)]
+    commits += [(f"the seen commit of height {h}", block_store.load_seen_commit(h))
+                for h in (CONSENSUS_HEIGHTS, STATESYNC_HEIGHTS)]
     jobs, owner = [], []
     for h, c in commits:
         idxs = [i for i, s in enumerate(c.signatures) if not s.absent()]
@@ -4470,20 +4519,22 @@ def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
             owner.append(h)
     for h, mask in zip(owner, pool_map(pool, _host_masks, jobs, workers)):
         if not all(mask):
-            raise SystemExit(f"consensus_10k: the commit carried by height {h} fails on the host arm")
-    last = commits[-1][1]
-    excluded = sum(1 for i, s in enumerate(last.signatures)
+            raise SystemExit(f"consensus_10k: {h} fails on the host arm")
+    excluded = sum(1 for _, c in commits for i, s in enumerate(c.signatures)
                    if (vals[i].pub_key.bytes(), s.signature) in planted)
     if excluded:
-        raise SystemExit(f"consensus_10k: the height-{CONSENSUS_HEIGHTS} commit holds {excluded} planted rows")
+        raise SystemExit(f"consensus_10k: the commits hold {excluded} planted rows")
+    last = commits[-2][1]
     host_s = time.perf_counter() - t_host
     print(f"consensus_10k checks: {len(all_fl)} flush masks equal the host arm's "
           f"({sum(f['rows'] for f in all_fl)} rows, only the {CONSENSUS_BAD} planted rows False); "
           f"LastCommit checks (height, path, launches, rows) {checks}; the commits carried by "
-          f"heights 2-{CONSENSUS_HEIGHTS} and the height-{CONSENSUS_HEIGHTS} seen commit "
-          f"({sum(not s.absent() for s in last.signatures)} rows, none planted) verify on the "
-          f"host arm; app hash {cs.state.app_hash.hex()} ({app.size} txs); consensus did not "
-          f"halt", flush=True)
+          f"heights 2-{STATESYNC_HEIGHTS} and the seen commits of heights {CONSENSUS_HEIGHTS} "
+          f"({sum(not s.absent() for s in last.signatures)} rows) and {STATESYNC_HEIGHTS} "
+          f"verify on the host arm, none holding a planted row; app hash "
+          f"{served['app_hash'].hex()} at height {CONSENSUS_HEIGHTS}, "
+          f"{cs.state.app_hash.hex()} at {STATESYNC_HEIGHTS} ({app.size} txs); consensus did "
+          f"not halt", flush=True)
     if hot:
         print(f"consensus_10k h2 hotstats (window {hot['wall_s'] * 1e3:.1f} ms; stages nest, "
               f"verify holds the flushes): " + ", ".join(
@@ -4500,10 +4551,11 @@ def consensus_10k_phase(dev, sr: dict, pool, workers: int, launches: dict,
     print(f"consensus_10k: {time.perf_counter() - t_phase:.1f} s (setup {setup_s:.1f}, signing "
           f"{sum(sign_s):.1f} = {[round(x, 1) for x in sign_s]}, consensus {run_s:.1f}, host "
           f"checks {host_s:.1f}); node validator {own} ({vals[own].pub_key.type_name()}), "
-          f"proposers {[block_store.load_block(h).header.proposer_address == vals[own].address for h in range(1, CONSENSUS_HEIGHTS + 1)]}",
+          f"proposers {[block_store.load_block(h).header.proposer_address == vals[own].address for h in range(1, STATESYNC_HEIGHTS + 1)]}",
           flush=True)
-    return {"genesis": gen, "app_hash": cs.state.app_hash,
-            "dbs": {"state": state_store.db, "blockstore": block_store.db}}
+    return {"genesis": gen, "app_hash": served["app_hash"], "dbs": served["dbs"],
+            "ext": {"app_hash": cs.state.app_hash,
+                    "dbs": {"state": state_store.db, "blockstore": block_store.db}}}
 
 
 def poisoned_commit_json(com: dict, power_of: dict, total: int) -> tuple:
@@ -4564,7 +4616,7 @@ def rpc_light_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) ->
     from tendermint_tpu_torch.config import test_config
     from tendermint_tpu_torch.crypto import batch
     from tendermint_tpu_torch.libs import trace
-    from tendermint_tpu_torch.libs.kvdb import MemDB, SQLiteDB
+    from tendermint_tpu_torch.libs.kvdb import MemDB
     from tendermint_tpu_torch.libs.metrics import parse_exposition
     from tendermint_tpu_torch.light.client import Client, TrustOptions
     from tendermint_tpu_torch.light.provider import HTTPProvider
@@ -4580,11 +4632,7 @@ def rpc_light_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) ->
     t_phase = time.perf_counter()
     node_dev = None if dev.type == "cuda" else dev
     root = tempfile.mkdtemp(prefix="rpc_light_10k-")
-    os.makedirs(os.path.join(root, "data"))
-    for name, db in chain["dbs"].items():
-        out = SQLiteDB(os.path.join(root, "data", f"{name}.db"))
-        out.write_batch(list(db.iterate_prefix(b"")))
-        out.close()
+    copy_chain_stores(chain["dbs"], root)
     cfg = test_config()
     cfg.root_dir, cfg.base.db_backend, cfg.base.abci = root, "sqlite", "kvstore"
     cfg.rpc.laddr = "tcp://127.0.0.1:0"
@@ -4845,8 +4893,7 @@ def rpc_light_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) ->
     n_false = sum(not ok for ok in verdict.values())
     host_s = time.perf_counter() - t_host
 
-    card_line = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
-                   ).splitlines()[0] if dev.type == "cuda" else "cpu"
+    card_line = card_name(dev)
     for k, st in enumerate(steps):
         print(f"rpc_light_10k client run {k}: initialize {st['init_s'] * 1e3:.1f} ms, step "
               f"1 -> {CONSENSUS_HEIGHTS} {st['step_s'] * 1e3:.1f} ms; fetch and JSON parse of "
@@ -4887,6 +4934,209 @@ def rpc_light_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) ->
     print(f"rpc_light_10k: {time.perf_counter() - t_phase:.1f} s (setup {setup_s:.1f}, prewarm "
           f"{out['prewarm_s']:.1f}, traffic {run_s - out['prewarm_s']:.1f}, host checks "
           f"{host_s:.1f}); transport aiohttp {aiohttp.__version__}; card {card_line}", flush=True)
+
+
+def copy_chain_stores(dbs: dict, root: str) -> None:
+    """A chain's state and block stores (consensus_10k's MemDBs) as the
+    SQLite files a Node with `root_dir` root opens."""
+    from tendermint_tpu_torch.libs.kvdb import SQLiteDB
+
+    os.makedirs(os.path.join(root, "data"))
+    for name, db in dbs.items():
+        out = SQLiteDB(os.path.join(root, "data", f"{name}.db"))
+        out.write_batch(list(db.iterate_prefix(b"")))
+        out.close()
+
+
+def p2p_node_config(phase: str, root: str, roots: list):
+    """A port Node's config in the p2p phases: SQLite stores under `root`
+    (memory stores and a temporary WAL, added to `roots`, when it is
+    empty), p2p on a free loopback port, PEX, RPC and forensics off, the
+    verified-row memo off, deferred vote verification."""
+    import tempfile
+
+    from tendermint_tpu_torch.config import test_config
+
+    cfg = test_config()
+    cfg.root_dir = root
+    cfg.base.db_backend = "sqlite" if root else "memdb"
+    cfg.rpc.laddr = ""
+    cfg.p2p.laddr = "tcp://127.0.0.1:0"
+    cfg.p2p.pex = False
+    cfg.instrumentation.forensics_dir = ""
+    cfg.crypto.verified_memo_rows = 0
+    cfg.consensus.defer_vote_verification = True
+    if not root:
+        cfg.consensus.wal_path = os.path.join(tempfile.mkdtemp(prefix=f"{phase}-wal-"), "wal")
+        roots.append(os.path.dirname(cfg.consensus.wal_path))
+    return cfg
+
+
+# the p2p channels by ID, as the port's node lists them
+CHANNEL_NAMES = {"0x40": "blocksync", "0x21": "consensus data", "0x22": "consensus votes",
+                 "0x20": "consensus state", "0x23": "vote set bits", "0x30": "mempool",
+                 "0x38": "evidence", "0x0": "pex", "0x60": "snapshot", "0x61": "chunk"}
+
+
+def channel_bytes(node) -> dict:
+    """The bytes a node received by channel, from its p2p metrics."""
+    return {lab[0]: int(v) for lab, v in node.metrics.p2p.peer_receive_bytes_total._values.items()}
+
+
+def card_name(dev) -> str:
+    if dev.type != "cuda":
+        return "cpu"
+    return sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
+              ).splitlines()[0]
+
+
+async def until_node(phase: str, node, cond, what: str, timeout: float) -> None:
+    """Polls `cond` every 5 ms; exits when the node stored an error, its
+    consensus halted or `timeout` seconds passed."""
+    import asyncio
+
+    t0 = time.perf_counter()
+    while not cond():
+        node._raise_stored()
+        if node.consensus.halt_error is not None:
+            raise SystemExit(f"{phase}: J's consensus halted: {node.consensus.halt_error!r}")
+        if time.perf_counter() - t0 > timeout:
+            raise SystemExit(f"{phase}: timed out waiting for {what}")
+        await asyncio.sleep(0.005)
+
+
+class FlushRecorder:
+    """Every verify flush of a node phase while `window` is one of
+    `windows`: verify_batch as crypto/batch.py exports it (the scheduler's
+    lanes) and as the vote sets, the commit checks and blocksync import it,
+    and the asynchronous commit checks' verify_batch_submit / finish (timed
+    from the submit). Each entry holds the window, the rows, the lane
+    ("catchup" on the scheduler's dispatch thread, the lane that
+    `track_lanes` saw on the caller's thread, else "direct": a direct call),
+    the route, the ms, the mask and the rows themselves. install() swaps the
+    recorders in and uninstall() puts the real functions back; close()
+    reads a window's launches into `launches` as "<phase> <window>";
+    host_check() holds every mask to the host arm's."""
+
+    def __init__(self, phase: str, windows: tuple, launches: dict):
+        from tendermint_tpu_torch.blocksync import verify as bs_verify
+        from tendermint_tpu_torch.crypto import batch
+        from tendermint_tpu_torch.types import validator_set as valset_mod
+        from tendermint_tpu_torch.types import vote_set as vs_mod
+
+        self.phase, self.windows, self.launches = phase, windows, launches
+        self.window, self.recorded, self.counts = "setup", [], {}
+        self._batch = batch
+        self._users = (batch, vs_mod, valset_mod, bs_verify)
+        self._real = [m.verify_batch for m in self._users]
+        self._real_sub, self._real_fin = batch.verify_batch_submit, batch.verify_batch_finish
+        self._pending = {}
+        self._lane = threading.local()
+
+    def lane_now(self) -> str:
+        if threading.current_thread().name == "verify-scheduler":
+            return "catchup"
+        return getattr(self._lane, "lane", None) or "direct"
+
+    @staticmethod
+    def _rows(pks, msgs, sigs, key_types) -> tuple:
+        return (list(pks), list(msgs), list(sigs),
+                list(key_types) if key_types is not None else ["ed25519"] * len(pks))
+
+    def _keep(self, t0: float, rows: tuple, mask) -> None:
+        if self.window in self.windows:
+            self.recorded.append(dict(
+                window=self.window, rows=len(rows[0]), lane=self.lane_now(),
+                path=self._batch.LAST_FLUSH.get("path"), mask=np.asarray(mask, bool),
+                ms=(time.perf_counter() - t0) * 1e3, args=rows))
+
+    def _recording(self, real):
+        def vb(pks, msgs, sigs, device=None, key_types=None, backend=None, **kw):
+            t0 = time.perf_counter()
+            mask = real(pks, msgs, sigs, device, key_types, backend, **kw)
+            self._keep(t0, self._rows(pks, msgs, sigs, key_types), mask)
+            return mask
+        return vb
+
+    def _sub(self, pks, msgs, sigs, device=None, key_types=None, backend=None):
+        t0 = time.perf_counter()
+        h = self._real_sub(pks, msgs, sigs, device, key_types, backend)
+        self._pending[id(h)] = (t0, self._rows(pks, msgs, sigs, key_types))
+        return h
+
+    def _fin(self, h):
+        mask = self._real_fin(h)
+        entry = self._pending.pop(id(h), None)
+        if entry is not None:
+            self._keep(*entry, mask)
+        return mask
+
+    def install(self) -> None:
+        for m, real in zip(self._users, self._real):
+            m.verify_batch = self._recording(real)
+        self._batch.verify_batch_submit, self._batch.verify_batch_finish = self._sub, self._fin
+
+    def uninstall(self) -> None:
+        for m, real in zip(self._users, self._real):
+            m.verify_batch = real
+        self._batch.verify_batch_submit = self._real_sub
+        self._batch.verify_batch_finish = self._real_fin
+
+    def track_lanes(self, scheduler) -> None:
+        """Labels the flushes that a scheduler's verify_rows runs inline on
+        the caller's thread (the votes lane) with their lane."""
+        real = scheduler.verify_rows
+
+        def verify_rows(lane, *a, **kw):
+            prev, self._lane.lane = getattr(self._lane, "lane", None), lane
+            try:
+                return real(lane, *a, **kw)
+            finally:
+                self._lane.lane = prev
+
+        scheduler.verify_rows = verify_rows
+
+    def close(self, name: str, kernels=ED25519_KERNELS) -> None:
+        self.counts[name] = read_launches(f"{self.phase} {name}", kernels=kernels)
+        self.launches[f"{self.phase} {name}"] = self.counts[name]
+        reset_launches()
+
+    def host_check(self, pool, workers: int) -> dict:
+        """Every recorded mask against the host arm's, each distinct row
+        verified once, in pieces of DRAIN; returns the host's verdict by row."""
+        index = {}
+        for r in self.recorded:
+            for row in zip(*r["args"]):
+                index.setdefault(row, len(index))
+        order = list(index)
+        masks = pool_map(pool, _host_masks, [tuple(map(list, zip(*order[lo:lo + DRAIN])))
+                                               for lo in range(0, len(order), DRAIN)], workers)
+        verdict = dict(zip(order, (ok for m in masks for ok in m)))
+        for r in self.recorded:
+            if r["mask"].tolist() != [verdict[row] for row in zip(*r["args"])]:
+                raise SystemExit(f"{self.phase}: a {r['rows']}-row {r['window']} mask "
+                                 f"({r['path']}) differs from the host arm's")
+        return verdict
+
+    def report(self, name: str) -> None:
+        """One line for a window: each flush from 256 rows (rows, route,
+        lane, ms, all rows True), the smaller ones grouped by lane and route,
+        and the window's launches."""
+        fl = [r for r in self.recorded if r["window"] == name]
+        wide = [r for r in fl if r["rows"] >= 256]
+        by_route = {}
+        for r in fl:
+            if r["rows"] < 256:
+                by_route.setdefault((r["lane"], r["path"]), []).append(r)
+        print(f"{self.phase} {name} flushes (rows, route, lane, ms, all rows True): " + ", ".join(
+            f"({r['rows']}, {r['path']}, {r['lane']}, {r['ms']:.1f}, {bool(r['mask'].all())})"
+            for r in wide) + "".join(
+            f"; {len(rs)} below 256 rows on lane {lane}, route {route}: rows "
+            f"{min(r['rows'] for r in rs)}-{max(r['rows'] for r in rs)} (sum "
+            f"{sum(r['rows'] for r in rs)}), ms median "
+            f"{statistics.median(r['ms'] for r in rs):.1f} sum {sum(r['ms'] for r in rs):.1f}"
+            for (lane, route), rs in sorted(by_route.items(), key=lambda kv: str(kv[0])))
+            + f"; launches {self.counts[name]}", flush=True)
 
 
 class LieFaults:
@@ -4973,48 +5223,26 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
     import tempfile
 
     from tendermint_tpu_torch.blocksync import messages as bs_messages
-    from tendermint_tpu_torch.blocksync import verify as bs_verify
-    from tendermint_tpu_torch.config import test_config
     from tendermint_tpu_torch.consensus.messages import (BlockPartMessage, VoteMessage,
                                                          decode_message_traced)
-    from tendermint_tpu_torch.crypto import batch
-    from tendermint_tpu_torch.libs.kvdb import SQLiteDB
     from tendermint_tpu_torch.node.node import Node
     from tendermint_tpu_torch.p2p.conn import secret_connection as scmod
-    from tendermint_tpu_torch.types import validator_set as valset_mod
-    from tendermint_tpu_torch.types import vote_set as vs_mod
 
     t_phase = time.perf_counter()
     node_dev = None if dev.type == "cuda" else dev
     roots = []
 
     def config(root: str, fast_sync: bool):
-        cfg = test_config()
-        cfg.root_dir = root
-        cfg.base.db_backend = "sqlite" if root else "memdb"
+        cfg = p2p_node_config("p2p_sync_10k", root, roots)
         cfg.base.abci = "kvstore"
         cfg.base.fast_sync = fast_sync
-        cfg.rpc.laddr = ""
-        cfg.p2p.laddr = "tcp://127.0.0.1:0"
-        cfg.p2p.pex = False
-        cfg.instrumentation.forensics_dir = ""
-        cfg.crypto.verified_memo_rows = 0
-        cfg.consensus.defer_vote_verification = True
         cfg.fastsync.peer_timeout = P2P_PEER_TIMEOUT
-        if not root:
-            cfg.consensus.wal_path = os.path.join(tempfile.mkdtemp(prefix="p2p_sync_10k-wal-"),
-                                                  "wal")
-            roots.append(os.path.dirname(cfg.consensus.wal_path))
         return cfg
 
     def served_node(name: str) -> Node:
         root = tempfile.mkdtemp(prefix=f"p2p_sync_10k-{name}-")
         roots.append(root)
-        os.makedirs(os.path.join(root, "data"))
-        for db_name, db in chain["dbs"].items():
-            out = SQLiteDB(os.path.join(root, "data", f"{db_name}.db"))
-            out.write_batch(list(db.iterate_prefix(b"")))
-            out.close()
+        copy_chain_stores(chain["dbs"], root)
         node = Node(config(root, False), chain["genesis"], device=node_dev)
         if node.state.last_block_height != CONSENSUS_HEIGHTS or \
                 node.state.app_hash != chain["app_hash"]:
@@ -5032,59 +5260,13 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
         raise SystemExit("p2p_sync_10k: J is not fast-syncing on a scheduler")
     setup_s = time.perf_counter() - t_phase
 
-    # every mask of the traffic with its rows and the window it fell in
+    # every mask of the traffic with its rows and the window it fell in (not
+    # the nodes' start-up: the prewarm rows); the votes lane runs inline in
+    # J's scheduler's verify_rows, the catch-up lane on its dispatch thread,
+    # validate_block's LastCommit check is a direct call
     WINDOWS = ("lie", "blocksync", "consensus")
-    window = {"name": "setup"}
-    recorded = []
-    # verify_batch as crypto/batch.py exports it (the scheduler's lanes) and as
-    # the vote sets, the commit checks and blocksync imported it
-    users = (batch, vs_mod, valset_mod, bs_verify)
-    real_vbs = [m.verify_batch for m in users]
-    real_sub, real_fin = batch.verify_batch_submit, batch.verify_batch_finish
-    pending = {}
-
-    def rows_of(pks, msgs, sigs, key_types):
-        return (list(pks), list(msgs), list(sigs),
-                list(key_types) if key_types is not None else ["ed25519"] * len(pks))
-
-    def sub(pks, msgs, sigs, device=None, key_types=None, backend=None):
-        # the asynchronous commit checks (verify_commit_light's submit / finish)
-        h = real_sub(pks, msgs, sigs, device, key_types, backend)
-        pending[id(h)] = (time.perf_counter(), rows_of(pks, msgs, sigs, key_types))
-        return h
-
-    def fin(h):
-        mask = real_fin(h)
-        t0, args = pending.pop(id(h), (None, None))
-        if args is not None and window["name"] in WINDOWS:
-            recorded.append(dict(window=window["name"], rows=len(args[0]), lane=lane_now(),
-                                 path=batch.LAST_FLUSH.get("path"), mask=np.asarray(mask, bool),
-                                 ms=(time.perf_counter() - t0) * 1e3, args=args))
-        return mask
-
-    # the lane of a flush: the scheduler's dispatch thread runs the queued
-    # lanes (only catch-up queues here), a votes-lane flush runs inline on
-    # the caller's thread inside verify_rows, anything else is a direct call
-    # (validate_block's LastCommit check)
-    lane_tls = threading.local()
-
-    def lane_now() -> str:
-        if threading.current_thread().name == "verify-scheduler":
-            return "catchup"
-        return getattr(lane_tls, "lane", None) or "direct"
-
-    def recording(real):
-        def vb(pks, msgs, sigs, device=None, key_types=None, backend=None, **kw):
-            t0 = time.perf_counter()
-            mask = real(pks, msgs, sigs, device, key_types, backend, **kw)
-            if window["name"] not in WINDOWS:  # the nodes' start-up (prewarm rows)
-                return mask
-            recorded.append(dict(
-                window=window["name"], rows=len(pks), path=batch.LAST_FLUSH.get("path"),
-                lane=lane_now(), ms=(time.perf_counter() - t0) * 1e3,
-                mask=np.asarray(mask, bool), args=rows_of(pks, msgs, sigs, key_types)))
-            return mask
-        return vb
+    rec = FlushRecorder("p2p_sync_10k", WINDOWS, launches)
+    rec.track_lanes(J.scheduler)
 
     # the secret-connection handshakes (both sides of each dial)
     hs = []
@@ -5132,35 +5314,13 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
             requests.append((msg.height, time.perf_counter(), lie.stalls))
         await real_l_rx(chan_id, peer, msg_bytes)
 
-    real_verify_rows = J.scheduler.verify_rows
-
-    def verify_rows(lane, *a, **kw):
-        prev, lane_tls.lane = getattr(lane_tls, "lane", None), lane
-        try:
-            return real_verify_rows(lane, *a, **kw)
-        finally:
-            lane_tls.lane = prev
-
-    J.scheduler.verify_rows = verify_rows
     J.blocksync_reactor.receive, J.consensus_reactor.receive = bs_receive, cs_receive
     J.blocksync_reactor._punish_peer = punish
     L.blocksync_reactor.receive = l_receive
-    marks, counts = {}, {}
+    marks = {}
 
-    def close_window(name: str, kernels=ED25519_KERNELS) -> None:
-        counts[name] = read_launches(f"p2p_sync_10k {name}", kernels=kernels)
-        launches[f"p2p_sync_10k {name}"] = counts[name]
-        reset_launches()
-
-    async def until(cond, what: str, timeout: float) -> None:
-        t0 = time.perf_counter()
-        while not cond():
-            J._raise_stored()
-            if J.consensus.halt_error is not None:
-                raise SystemExit(f"p2p_sync_10k: J's consensus halted: {J.consensus.halt_error!r}")
-            if time.perf_counter() - t0 > timeout:
-                raise SystemExit(f"p2p_sync_10k: timed out waiting for {what}")
-            await asyncio.sleep(0.005)
+    def until(cond, what: str, timeout: float):
+        return until_node("p2p_sync_10k", J, cond, what, timeout)
 
     async def drive() -> dict:
         loop = asyncio.get_running_loop()
@@ -5181,18 +5341,18 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
             reset_launches()
 
             # 1. J dials L alone: the lie is refused on the card, L dropped
-            window["name"] = "lie"
+            rec.window = "lie"
             marks["dial_L"] = time.perf_counter()
             await J.switch.dial_peer(f"{lid}@{L.p2p_addr}")
             await until(lambda: punished and not J.switch.peers.has(lid), "L's punishment",
                         4 * P2P_PEER_TIMEOUT + 30)
             marks["L_dropped"] = time.perf_counter()
-            close_window("lie")
+            rec.close("lie")
             kept = sorted(h for h, req in J.blocksync_reactor.pool._requesters.items()
                           if req.block is not None)
 
             # 2. J dials S: blocksync of heights 1-2, the handoff at height 3
-            window["name"] = "blocksync"
+            rec.window = "blocksync"
             real_switch = J.blocksync_reactor._switch_to_consensus
 
             async def switch_to_consensus():
@@ -5208,10 +5368,10 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
             await J.switch.dial_peer(f"{sid}@{S.p2p_addr}")
             await until(lambda: "handoff_end" in marks, "J's handoff to consensus", 60)
             synced_at = J.blocksync_reactor.state.last_block_height
-            close_window("blocksync")
+            rec.close("blocksync")
 
             # 3. height 3 from S's consensus catch-up gossip
-            window["name"] = "consensus"
+            rec.window = "consensus"
             await until(lambda: J.block_store.height >= CONSENSUS_HEIGHTS, "J's height 3", 90)
             marks["commit_3"] = time.perf_counter()
             await until(lambda: not (J.consensus.rs.last_commit is not None
@@ -5219,13 +5379,12 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
                         "J's last flushes", 30)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            routes = {r["path"] for r in recorded if r["window"] == "consensus"}
+            routes = {r["path"] for r in rec.recorded if r["window"] == "consensus"}
             card = bool(routes - {"cpu", "memo"})
-            close_window("consensus", kernels=ED25519_KERNELS if card else ())
-            window["name"] = "after"
+            rec.close("consensus", kernels=ED25519_KERNELS if card else ())
+            rec.window = "after"
             J._raise_stored()
-            rxb = {lab[0]: int(v) for lab, v in
-                   J.metrics.p2p.peer_receive_bytes_total._values.items()}
+            rxb = channel_bytes(J)
             heights = range(1, CONSENSUS_HEIGHTS + 1)
             return dict(j_blocks=[J.block_store.load_block(h).encode() for h in heights],
                         s_blocks=[S.block_store.load_block(h).encode() for h in heights],
@@ -5244,16 +5403,12 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
             for node in reversed(started):
                 await node.stop()
 
-    for m, real in zip(users, real_vbs):
-        m.verify_batch = recording(real)
-    batch.verify_batch_submit, batch.verify_batch_finish = sub, fin
+    rec.install()
     scmod.SecretConnection.upgrade = staticmethod(upgrade)
     try:
         out = asyncio.run(drive())
     finally:
-        for m, real in zip(users, real_vbs):
-            m.verify_batch = real
-        batch.verify_batch_submit, batch.verify_batch_finish = real_sub, real_fin
+        rec.uninstall()
         scmod.SecretConnection.upgrade = real_upgrade
         for r in roots:
             shutil.rmtree(r, ignore_errors=True)
@@ -5270,24 +5425,12 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
     if out["j_seen"].block_id != out["s3"] or not set(j_sigs) <= s_sigs:
         raise SystemExit("p2p_sync_10k: J's seen commit of height 3 is not S's block's")
 
-    # every mask against the host arm's: each distinct row once, in pieces of DRAIN
     t_host = time.perf_counter()
-    index = {}
-    for r in recorded:
-        for row in zip(*r["args"]):
-            index.setdefault(row, len(index))
-    order = list(index)
-    masks = pool_map(pool, _host_masks, [tuple(map(list, zip(*order[lo:lo + DRAIN])))
-                                           for lo in range(0, len(order), DRAIN)], workers)
-    verdict = dict(zip(order, (ok for m in masks for ok in m)))
-    for r in recorded:
-        if r["mask"].tolist() != [verdict[row] for row in zip(*r["args"])]:
-            raise SystemExit(f"p2p_sync_10k: a {r['rows']}-row {r['window']} mask ({r['path']}) "
-                             "differs from the host arm's")
+    verdict = rec.host_check(pool, workers)
     if any(ok == (row[2] in lie.flipped) for row, ok in verdict.items()):
         raise SystemExit("p2p_sync_10k: a verdict other than the flipped rows' is False, or a "
                          "flipped row passed")
-    refused = [r for r in recorded if r["window"] == "lie" and not r["mask"].all()]
+    refused = [r for r in rec.recorded if r["window"] == "lie" and not r["mask"].all()]
     if not refused or not lie.flipped or sum(int((~r["mask"]).sum()) for r in refused) != len(
             lie.flipped):
         raise SystemExit(f"p2p_sync_10k: the lie was not refused on its {len(lie.flipped)} "
@@ -5299,15 +5442,11 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
     if not punished or punished[0][0] != L.node_key.id:
         raise SystemExit("p2p_sync_10k: L was not punished")
 
-    card_line = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"]
-                   ).splitlines()[0] if dev.type == "cuda" else "cpu"
+    card_line = card_name(dev)
     print(f"p2p_sync_10k handshakes (secret connection, ms; J's side and the listener's): "
           f"{[(side, round(ms, 3)) for side, ms in hs]}", flush=True)
-    names = {"0x40": "blocksync", "0x21": "consensus data", "0x22": "consensus votes",
-             "0x20": "consensus state", "0x23": "vote set bits", "0x30": "mempool",
-             "0x38": "evidence", "0x0": "pex"}
     print("p2p_sync_10k J's bytes received by channel: " + ", ".join(
-        f"{names.get(k, k)} ({k}) {v}" for k, v in sorted(out["rx_bytes"].items())), flush=True)
+        f"{CHANNEL_NAMES.get(k, k)} ({k}) {v}" for k, v in sorted(out["rx_bytes"].items())), flush=True)
     by_peer = {}
     for pid, t, n in rx["blocks"]:
         by_peer.setdefault("L" if pid == L.node_key.id else "S", []).append((t, n))
@@ -5332,21 +5471,7 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
     for f in out["sched_log"]:
         lanes.setdefault(tuple(sorted(f["rows"])), []).append(sum(f["rows"].values()))
     for name in WINDOWS:
-        fl = [r for r in recorded if r["window"] == name]
-        wide = [r for r in fl if r["rows"] >= 256]
-        small = [r for r in fl if r not in wide]
-        by_route = {}
-        for r in small:
-            by_route.setdefault((r["lane"], r["path"]), []).append(r)
-        print(f"p2p_sync_10k {name} flushes (rows, route, lane, ms, all rows True): " + ", ".join(
-            f"({r['rows']}, {r['path']}, {r['lane']}, {r['ms']:.1f}, {bool(r['mask'].all())})"
-            for r in wide) + "".join(
-            f"; {len(rs)} below 256 rows on lane {lane}, route {route}: rows "
-            f"{min(r['rows'] for r in rs)}-{max(r['rows'] for r in rs)} (sum "
-            f"{sum(r['rows'] for r in rs)}), ms median "
-            f"{statistics.median(r['ms'] for r in rs):.1f} sum {sum(r['ms'] for r in rs):.1f}"
-            for (lane, route), rs in sorted(by_route.items(), key=lambda kv: str(kv[0])))
-            + f"; launches {counts[name]}", flush=True)
+        rec.report(name)
     print(f"p2p_sync_10k scheduler flush_log by lanes (rows of each flush): {lanes}", flush=True)
     pid, t_pun, stats, reason, trust = punished[0]
     print(f"p2p_sync_10k L punished {(t_pun - marks['dial_L']) * 1e3:.1f} ms after the dial "
@@ -5361,7 +5486,7 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
     print(f"p2p_sync_10k dial of S to J's commit of height {CONSENSUS_HEIGHTS}: "
           f"{bs_ms + ho_ms + cs_ms:.1f} ms = blocksync {bs_ms:.1f} (heights 1-{out['synced_at']}) "
           f"+ handoff {ho_ms:.1f} + consensus {cs_ms:.1f}", flush=True)
-    print(f"p2p_sync_10k checks: {len(recorded)} masks over {len(order)} distinct rows equal "
+    print(f"p2p_sync_10k checks: {len(rec.recorded)} masks over {len(verdict)} distinct rows equal "
           f"the host arm's; the refused run's {len(lie.flipped)} False rows are the flipped "
           f"signatures; J's blocks 1-{CONSENSUS_HEIGHTS}, their commits and its app hash "
           f"{out['app_hash'].hex()} equal S's; J's seen commit of height "
@@ -5370,6 +5495,408 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
     print(f"p2p_sync_10k: {time.perf_counter() - t_phase:.1f} s (setup {setup_s:.1f}, prewarm "
           f"{out['prewarm_s']:.1f}, traffic {run_s - out['prewarm_s'] - host_s:.1f}, host checks "
           f"{host_s:.1f}); card {card_line}", flush=True)
+
+
+def statesync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> None:
+    """statesync_10k: a new full node of consensus_10k's chain (BASELINE
+    config 5's set, 8,000 Ed25519 + 2,000 sr25519 validators, here at its
+    STATESYNC_HEIGHTS heights) joins by snapshot instead of by replay. Two
+    port Nodes (node/node.py, `device` None, secret connections, PEX off,
+    the verified-row memo off): S, a full node over SQLite copies of the
+    chain's stores with fast sync off and RPC on a free port, whose app
+    (the kvstore, a snapshot every height) runs behind a port SocketServer
+    (abci/socket.py) and is reached through `base.proxy_app`; its
+    Handshaker replays heights 1-4 into it over the socket, after which the
+    app's ListSnapshots answers only the snapshot of height 1 (the state
+    provider's state(1) needs the light blocks 1-3, and a snapshot at 1
+    leaves the joiner blocks to fetch). J, fresh, with `statesync.enable`,
+    `[statesync] rpc_servers` naming S's RPC and trust height 1 with block
+    1's hash, whose kvstore runs behind a port GrpcServer (abci/grpc.py,
+    `base.abci = "grpc"`), so the restore crosses gRPC. After both
+    prewarms J dials S: its statesync reactor (statesync/reactor.py)
+    discovers the snapshot in STATESYNC_DISCOVERY_S, its
+    LightClientStateProvider (statesync/stateprovider.py, HTTPProvider over
+    HTTPClient) verifies heights 1-3 on the card, its syncer fetches the
+    chunks on 0x61 and applies them over gRPC, the node bootstraps its
+    stores at height 1 and switches to block sync: its pool (at height 2)
+    fetches blocks 2-4 from S, the verify stage checks height 2 (and 3 when
+    block 4 is in) on the catch-up lane, the blocks are applied over gRPC,
+    and J hands off to consensus once within one block of S's head
+    (blocksync/reactor.py `_caught_up`), where the phase ends (the rest
+    would come by consensus gossip, what p2p_sync_10k measures). Launch
+    windows: "light" (the dial to the restore), "blocksync" (the restore to
+    the handoff) and "handoff" (the LastCommit rebuild, which verifies on
+    the host: no launch). Prints each light block's fetch and parse beside
+    each light check's rows, route and ms, the chunks, bytes and apply ms,
+    each flush, dial to handoff split into discovery, light and restore,
+    block sync and the handoff, J's bytes per channel and the phase's
+    seconds. Holds every mask to the host arm's on the same rows, J's
+    restored state (validators, last_block_id, app_hash, last_results_hash)
+    and app hash to S's at height 1, J's block store to block 1's seen
+    commit and S's blocks from 2 to the handoff, J's app hash then to S's,
+    and J to no halt, no stored error and no fallback."""
+    import asyncio
+    import shutil
+    import tempfile
+
+    from tendermint_tpu_torch.abci import types as abci_types
+    from tendermint_tpu_torch.abci.grpc import GrpcServer
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.abci.socket import SocketServer
+    from tendermint_tpu_torch.light.provider import HTTPProvider
+    from tendermint_tpu_torch.node.node import Node
+    from tendermint_tpu_torch.statesync import stateprovider as sp_mod
+    from tendermint_tpu_torch.statesync import syncer as syncer_mod
+
+    class AdvertisingKVStore(KVStoreApplication):
+        """The kvstore whose ListSnapshots answers only the heights in
+        `advertised` (every snapshot it holds while that is None)."""
+
+        advertised = None
+
+        def list_snapshots(self):
+            resp = super().list_snapshots()
+            if self.advertised is not None:
+                resp.snapshots = [s for s in resp.snapshots if s.height in self.advertised]
+            return resp
+
+    t_phase = time.perf_counter()
+    node_dev = None if dev.type == "cuda" else dev
+    roots = []
+
+    # S: the chain's stores, its kvstore behind the ABCI socket
+    ext = chain["ext"]
+    root = tempfile.mkdtemp(prefix="statesync_10k-S-")
+    roots.append(root)
+    copy_chain_stores(ext["dbs"], root)
+    s_app = AdvertisingKVStore(snapshot_interval=1, snapshot_keep=STATESYNC_HEIGHTS)
+    s_server = SocketServer("tcp://127.0.0.1:0", s_app)
+    s_server.start()
+    j_app = KVStoreApplication()
+    j_server = GrpcServer("tcp://127.0.0.1:0", j_app)
+    j_server.start()
+    s_cfg = p2p_node_config("statesync_10k", root, roots)
+    s_cfg.base.fast_sync = False
+    s_cfg.base.proxy_app = f"tcp://127.0.0.1:{s_server.bound_addr[1]}"
+    s_cfg.rpc.laddr = "tcp://127.0.0.1:0"
+    S = Node(s_cfg, chain["genesis"], device=node_dev)
+    if S.state.last_block_height != STATESYNC_HEIGHTS or S.state.app_hash != ext["app_hash"]:
+        raise SystemExit(f"statesync_10k S: restarted at height {S.state.last_block_height}")
+    replayed = sorted(s.height for s in s_app.list_snapshots().snapshots)
+    if replayed != list(range(1, STATESYNC_HEIGHTS + 1)):
+        raise SystemExit(f"statesync_10k S: snapshots at {replayed} after the replay over the "
+                         "socket")
+    s_app.advertised = {1}
+    snap, = s_app.list_snapshots().snapshots
+    snap_bytes = sum(len(s_app.load_snapshot_chunk(abci_types.RequestLoadSnapshotChunk(
+        height=snap.height, format=snap.format, chunk=i)).chunk) for i in range(snap.chunks))
+    bid1 = S.block_store.load_block_meta(1)[0]
+    want = dict(validators=S.state_store.load_validators(2).hash(),
+                next_validators=S.state_store.load_validators(3).hash(),
+                last_validators=S.state_store.load_validators(1).hash(),
+                last_block_id=bid1, app_hash=S.block_store.load_block(2).header.app_hash,
+                last_results_hash=S.block_store.load_block(2).header.last_results_hash)
+    setup_s = time.perf_counter() - t_phase
+
+    WINDOWS = ("light", "blocksync", "handoff")
+    rec = FlushRecorder("statesync_10k", WINDOWS, launches)
+    fetches, checks_t, applies, marks = [], [], [], {}
+    real_light_block = HTTPProvider.light_block
+
+    async def light_block(self, height):
+        t0 = time.perf_counter()
+        try:
+            return await real_light_block(self, height)
+        finally:
+            fetches.append((height, (time.perf_counter() - t0) * 1e3))
+
+    def timed_provider(name):
+        real = getattr(sp_mod.LightClientStateProvider, name)
+
+        async def call(self, height):
+            t0 = time.perf_counter()
+            marks.setdefault("light_begin", t0)
+            try:
+                return await real(self, height)
+            finally:
+                checks_t.append((name, height, t0, time.perf_counter()))
+        return real, call
+
+    real_add = syncer_mod.Syncer.add_snapshot
+
+    def add_snapshot(self, peer_id, snapshot):
+        added = real_add(self, peer_id, snapshot)
+        if added:
+            marks.setdefault("snapshot_added", time.perf_counter())
+        return added
+
+    async def drive() -> dict:
+        loop = asyncio.get_running_loop()
+        started, out = [], {}
+        try:
+            await S.start()
+            started.append(S)
+            j_cfg = p2p_node_config("statesync_10k", "", roots)
+            j_cfg.base.fast_sync = True
+            j_cfg.base.abci = "grpc"
+            j_cfg.base.proxy_app = f"tcp://127.0.0.1:{j_server.port}"
+            j_cfg.statesync.enable = True
+            j_cfg.statesync.rpc_servers = [f"http://127.0.0.1:{S.rpc_server.port}"]
+            j_cfg.statesync.trust_height = 1
+            j_cfg.statesync.trust_hash = bid1.hash.hex()
+            j_cfg.statesync.discovery_time = STATESYNC_DISCOVERY_S
+            J = Node(j_cfg, chain["genesis"], device=node_dev)
+            if not J.state_sync or J.statesync_reactor is None or J.scheduler is None:
+                raise SystemExit("statesync_10k: J is not state-syncing on a scheduler")
+            gate = asyncio.Event()
+            real_sync = J.statesync_reactor.sync
+
+            async def sync(provider, discovery_time, **kw):
+                # the discovery window opens once J has dialed S (after the
+                # prewarms), so the window measures discovery alone
+                await gate.wait()
+                marks["sync_begin"] = time.perf_counter()
+                state, commit = await real_sync(provider, discovery_time, **kw)
+                marks["restored"] = time.perf_counter()
+                out["state"], out["commit"] = state, commit
+                out["j_app_hash"] = J.proxy_app.query.info(
+                    abci_types.RequestInfo()).last_block_app_hash
+                rec.close("light")
+                rec.window = "blocksync"
+                return state, commit
+
+            J.statesync_reactor.sync = sync
+            real_apply = J.proxy_app.snapshot.apply_snapshot_chunk
+
+            def apply_chunk(req):
+                t0 = time.perf_counter()
+                resp = real_apply(req)
+                applies.append((req.index, len(req.chunk), (time.perf_counter() - t0) * 1e3))
+                return resp
+
+            J.proxy_app.snapshot.apply_snapshot_chunk = apply_chunk
+            real_switch = J.blocksync_reactor._switch_to_consensus
+
+            async def switch_to_consensus():
+                # the handoff: the pool stops, consensus takes the state and
+                # rebuilds its LastCommit (serial verifies, as the reference does)
+                marks["handoff_begin"] = time.perf_counter()
+                out["synced_at"] = J.blocksync_reactor.state.last_block_height
+                rec.close("blocksync")
+                rec.window = "handoff"
+                await real_switch()
+                rec.close("handoff", kernels=())
+                rec.window = "after"
+                marks["handoff_end"] = time.perf_counter()
+
+            J.blocksync_reactor._switch_to_consensus = switch_to_consensus
+            await J.start()
+            started.append(J)
+            t0 = time.perf_counter()
+            for node in started:
+                if node._prewarm_thread is not None:
+                    await loop.run_in_executor(None, node._prewarm_thread.join)
+                node._raise_stored()
+            out["prewarm_s"] = time.perf_counter() - t0
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            reset_launches()
+            rec.window = "light"
+            marks["dial"] = time.perf_counter()
+            await J.switch.dial_peer(f"{S.node_key.id}@{S.p2p_addr}")
+            gate.set()
+            await until_node("statesync_10k", J, lambda: "handoff_end" in marks,
+                             "J's handoff to consensus", 180)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            J._raise_stored()
+            synced = range(2, out["synced_at"] + 1)
+            out.update(
+                rx_bytes=channel_bytes(J), j_block1=J.block_store.load_block(1),
+                j_blocks=[J.block_store.load_block(h).encode() for h in synced],
+                s_blocks=[S.block_store.load_block(h).encode() for h in synced],
+                s_next_app_hash=S.block_store.load_block(out["synced_at"] + 1).header.app_hash,
+                j_app_hash_synced=J.proxy_app.query.info(
+                    abci_types.RequestInfo()).last_block_app_hash,
+                j_seen1=J.block_store.load_seen_commit(1), base=J.block_store.base,
+                j_height=J.block_store.height,
+                fallbacks=J.metrics.statesync.fallbacks_total._values.get((), 0.0),
+                sched_log=list(J.scheduler.flush_log),
+                halt=J.consensus.halt_error, error=J.statesync_error)
+            return out
+        finally:
+            for node in reversed(started):
+                await node.stop()
+
+    real_ah, ah = timed_provider("app_hash")
+    real_st, st = timed_provider("state")
+    real_cm, cm = timed_provider("commit")
+    rec.install()
+    HTTPProvider.light_block = light_block
+    sp_mod.LightClientStateProvider.app_hash = ah
+    sp_mod.LightClientStateProvider.state = st
+    sp_mod.LightClientStateProvider.commit = cm
+    syncer_mod.Syncer.add_snapshot = add_snapshot
+    try:
+        out = asyncio.run(drive())
+    finally:
+        rec.uninstall()
+        HTTPProvider.light_block = real_light_block
+        sp_mod.LightClientStateProvider.app_hash = real_ah
+        sp_mod.LightClientStateProvider.state = real_st
+        sp_mod.LightClientStateProvider.commit = real_cm
+        syncer_mod.Syncer.add_snapshot = real_add
+        s_server.stop()
+        j_server.stop()
+        for r in roots:
+            shutil.rmtree(r, ignore_errors=True)
+    run_s = time.perf_counter() - t_phase - setup_s
+    if out["halt"] is not None or out["error"] is not None or out["fallbacks"]:
+        raise SystemExit(f"statesync_10k: J halted ({out['halt']!r}), stored "
+                         f"{out['error']!r} or fell back to block sync ({out['fallbacks']})")
+    state = out["state"]
+    got = dict(validators=state.validators.hash(), next_validators=state.next_validators.hash(),
+               last_validators=state.last_validators.hash(), last_block_id=state.last_block_id,
+               app_hash=state.app_hash, last_results_hash=state.last_results_hash)
+    if got != want or state.last_block_height != 1 or out["j_app_hash"] != want["app_hash"]:
+        raise SystemExit(f"statesync_10k: J's restored state or app hash differs from S's at "
+                         f"height 1: {[k for k in want if got[k] != want[k]]}")
+    if out["commit"].height != 1 or out["commit"].block_id != bid1 or out["j_seen1"] is None:
+        raise SystemExit("statesync_10k: J's seen commit of height 1 is not block 1's")
+    if out["j_block1"] is not None or out["base"] != 2 or out["j_height"] != out["synced_at"] \
+            or not 2 <= out["synced_at"] < STATESYNC_HEIGHTS:
+        raise SystemExit(f"statesync_10k: J's block store runs {out['base']}-{out['j_height']} "
+                         f"(block 1 {'present' if out['j_block1'] is not None else 'absent'}) "
+                         f"and it handed off after height {out['synced_at']} (want blocks from "
+                         f"2 to the handoff, 2 or 3)")
+    if out["j_blocks"] != out["s_blocks"] or out["j_app_hash_synced"] != out["s_next_app_hash"]:
+        raise SystemExit("statesync_10k: J's blocks or app hash after block sync differ from S's")
+    card_routes = lambda rs: [r for r in rs if r["rows"] >= 256 and r["path"] not in ("cpu", "memo")]
+    light = [r for r in rec.recorded if r["window"] == "light"]
+    caught = [r for r in rec.recorded if r["window"] == "blocksync" and r["lane"] == "catchup"]
+    if len(card_routes(light)) < 3 or len(card_routes(light)) != len(
+            [r for r in light if r["rows"] >= 256]) or not card_routes(caught):
+        raise SystemExit(f"statesync_10k: the light checks or the catch-up flush did not run on "
+                         f"the card: light {[(r['rows'], r['path']) for r in light]}, catch-up "
+                         f"{[(r['rows'], r['path']) for r in caught]}")
+
+    t_host = time.perf_counter()
+    verdict = rec.host_check(pool, workers)
+    host_s = time.perf_counter() - t_host
+
+    card_line = card_name(dev)
+    print(f"statesync_10k S: kvstore over the ABCI socket, {len(replayed)} snapshots replayed, "
+          f"ListSnapshots answering height {snap.height}: {snap.chunks} chunk(s), {snap_bytes} "
+          f"bytes; J's kvstore over gRPC", flush=True)
+    print(f"statesync_10k light blocks fetched and parsed (height, ms): "
+          f"{[(h, round(ms, 1)) for h, ms in fetches]}", flush=True)
+    print(f"statesync_10k provider calls (call, height, ms): "
+          f"{[(n, h, round((t1 - t0) * 1e3, 1)) for n, h, t0, t1 in checks_t]}", flush=True)
+    for name in WINDOWS:
+        rec.report(name)
+    print(f"statesync_10k restore: {len(applies)} chunk(s) applied over gRPC (index, bytes, ms) "
+          f"{[(i, n, round(ms, 2)) for i, n, ms in applies]}", flush=True)
+    print("statesync_10k J's bytes received by channel: " + ", ".join(
+        f"{CHANNEL_NAMES.get(k, k)} ({k}) {v}" for k, v in sorted(out["rx_bytes"].items())),
+        flush=True)
+    lanes = {}
+    for f in out["sched_log"]:
+        lanes.setdefault(tuple(sorted(f["rows"])), []).append(sum(f["rows"].values()))
+    print(f"statesync_10k scheduler flush_log by lanes (rows of each flush): {lanes}", flush=True)
+    disc_ms = (marks["light_begin"] - marks["dial"]) * 1e3
+    lr_ms = (marks["restored"] - marks["light_begin"]) * 1e3
+    # light: the union of the provider calls (state and commit overlap);
+    # restore: the rest of the window (chunk fetches and applies)
+    light_ms, end = 0.0, 0.0
+    for _, _, t0, t1 in sorted(checks_t, key=lambda c: c[2]):
+        light_ms += max(0.0, t1 - max(t0, end)) * 1e3
+        end = max(end, t1)
+    bs_ms = (marks["handoff_begin"] - marks["restored"]) * 1e3
+    ho_ms = (marks["handoff_end"] - marks["handoff_begin"]) * 1e3
+    synced_heights = ("height 2" if out["synced_at"] == 2 else
+                      f"heights 2-{out['synced_at']}")
+    print(f"statesync_10k dial of S to J's handoff: {disc_ms + lr_ms + bs_ms + ho_ms:.1f} ms = "
+          f"discovery {disc_ms:.1f} (snapshot added "
+          f"{(marks['snapshot_added'] - marks['dial']) * 1e3:.1f} ms after the dial; window "
+          f"{STATESYNC_DISCOVERY_S} s) + light {light_ms:.1f} (the checks' submit to finish "
+          f"{sum(r['ms'] for r in light):.1f}, fetch and parse "
+          f"{sum(ms for _, ms in fetches):.1f}) + restore {lr_ms - light_ms:.1f} (chunk applies "
+          f"{sum(ms for *_, ms in applies):.1f}) + bootstrap and block sync {bs_ms:.1f} ({synced_heights}, the "
+          f"catch-up flushes {sum(r['ms'] for r in caught):.1f}) + handoff {ho_ms:.1f} "
+          f"(LastCommit of height {out['synced_at']} rebuilt)", flush=True)
+    print(f"statesync_10k checks: {len(rec.recorded)} masks over {len(verdict)} distinct rows "
+          f"equal the host arm's; J's restored state (validators, last_block_id, app_hash, "
+          f"last_results_hash) and app hash {out['j_app_hash'].hex()} equal S's at height 1; "
+          f"J's block store holds block 1's seen commit and S's {synced_heights.replace('height', 'block')}, "
+          f"its app hash then {out['j_app_hash_synced'].hex()} is S's; no halt, no stored "
+          f"error, no fallback", flush=True)
+    print(f"statesync_10k: {time.perf_counter() - t_phase:.1f} s (setup {setup_s:.1f}, prewarm "
+          f"{out['prewarm_s']:.1f}, traffic {run_s - out['prewarm_s'] - host_s:.1f}, host checks "
+          f"{host_s:.1f}); card {card_line}", flush=True)
+
+
+def device_fault_check(dev, corpus, pool, workers: int, launches: dict) -> None:
+    """device_fault: chaos/device.py's DeviceFaultInjector on the card path.
+    One armed error on a warm 10,000-validator verify_commit (the commit
+    phase's corpus, the default pipelined route): it must raise
+    DeviceFaultError at rlc_submit (the injector's `fired` names the site),
+    marked as a device error, with no fallback, and leave libs/trace's
+    device_up at 0; after heal() the next verify_batch of the same rows
+    gives the host arm's mask (path "device_fault healed", all six kernels
+    launched) and marks the device up."""
+    from tendermint_tpu_torch.chaos import DeviceFaultError, DeviceFaultInjector
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.libs import trace
+
+    t0 = time.perf_counter()
+    vals, block_id, commit, msgs = corpus
+    pks = [v.pub_key.bytes() for v in vals.validators]
+    sigs = [s.signature for s in commit.signatures]
+    memo = batch.verified_memo_stats()["capacity"]
+    batch.configure_verified_memo(0)
+    vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev)  # warm
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    inj = DeviceFaultInjector().install()
+    try:
+        inj.arm_errors(1)
+        reset_launches()
+        try:
+            vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev)
+        except DeviceFaultError as e:
+            if not batch.is_device_error(e):
+                raise SystemExit("device_fault: the injected error is not marked as a device error")
+            raised = repr(e)
+        else:
+            raise SystemExit("device_fault: the armed error did not raise")
+        faulted = launches["device_fault armed"] = read_launches("device_fault armed", kernels=())
+        up = trace.device_health()["device_up"]
+        if inj.fired != [("rlc_submit", "error")] or up != 0:
+            raise SystemExit(f"device_fault: fired {inj.fired}, device_up {up} (want rlc_submit "
+                             "and 0)")
+        inj.heal()
+        reset_launches()
+        t1 = time.perf_counter()
+        mask = batch.verify_batch(pks, msgs, sigs, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        healed_ms = (time.perf_counter() - t1) * 1e3
+        launches["device_fault healed"] = read_launches("device_fault healed")
+        path = batch.LAST_FLUSH.get("path")
+        up_after = trace.device_health()["device_up"]
+    finally:
+        inj.uninstall()
+        batch.configure_verified_memo(memo)
+    host = pool_map(pool, _host_masks, [(pks[lo:lo + DRAIN], msgs[lo:lo + DRAIN],
+                                         sigs[lo:lo + DRAIN], ["ed25519"] * len(pks[lo:lo + DRAIN]))
+                                        for lo in range(0, len(pks), DRAIN)], workers)
+    if mask.tolist() != [ok for m in host for ok in m] or up_after != 1:
+        raise SystemExit(f"device_fault: after heal() the mask differs from the host arm's or "
+                         f"device_up is {up_after}")
+    print(f"device_fault: {raised} at {inj.fired[0][0]} (injector calls {inj.calls}), "
+          f"device_up 0 after it, launches before the fault {sum(faulted.values())}; after "
+          f"heal() {len(pks)} rows on path {path} in {healed_ms:.1f} ms, mask equal to the host "
+          f"arm's, device_up {up_after}; {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def build_tx_admission(pool, workers: int) -> dict:
@@ -5860,6 +6387,8 @@ def run_phases(corpus, mixed, mixed_sr, cofactorless, light, light_mixed, catchu
     print(f"consensus_10k_phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     for phase, args in ((rpc_light_10k_phase, (chain10k, signing_pool, workers, launches)),
                         (p2p_sync_10k_phase, (chain10k, signing_pool, workers, launches)),
+                        (statesync_10k_phase, (chain10k, signing_pool, workers, launches)),
+                        (device_fault_check, (corpus, signing_pool, workers, launches)),
                         (tx_admission_phase, (adm, signing_pool, workers, launches,
                                               memo_default))):
         t_phase = time.perf_counter()

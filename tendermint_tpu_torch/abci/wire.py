@@ -1,8 +1,8 @@
 """ABCI wire codec for the socket transport (reference:
 proto/tendermint/abci/types.proto, abci/client/socket_client.go framing): the
 port's copy of tendermint_tpu/abci/wire.py, whole, the same bytes. The gRPC
-broadcast API encodes its responses with it; the socket and gRPC ABCI
-clients that also use it wait for ROADMAP A3.
+broadcast API encodes its responses with it, and the socket and gRPC ABCI
+transports (abci/socket.py, abci/grpc.py) frame their messages with it.
 
 Requests/responses are protowire messages inside a Request/Response oneof
 envelope, length-delimited on the socket (reference: libs/protoio). Field

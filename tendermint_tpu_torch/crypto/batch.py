@@ -98,7 +98,10 @@ verified-row memo counts its hits; and each device round trip (the single
 flush's finish, the per-signature ladder, the streamed planner's sync) is a
 libs/trace.mark_device_call: a device error marks the device down and
 re-raises. Each of them stamps its site into the forensics heartbeat first
-(libs/forensics.beat).
+(libs/forensics.beat), then calls the device fault hook
+(set_device_fault_hook, chaos/device.py), as the reference's
+`_device_fault(site)` does; the reference's "probe" site belongs to its
+circuit breaker, which the port leaves out (ROADMAP D1).
 
 Every route is COFACTORED with canonical encodings and s < L, except the
 serial loop in cofactorless mode, so a mask never depends on the route
@@ -159,18 +162,59 @@ def record_backend_rows(backend: str, rows: int) -> None:
     m.backend_flushes.labels(backend).inc()
 
 
+_DEVICE_FAULT_HOOK = None  # callable(site: str) -> None; may raise or sleep
+
+# the attribute `_on_device` sets on an error raised inside it (the site's
+# name), which is_device_error reads
+DEVICE_ERROR_ATTR = "tmtpu_device_site"
+
+
+def set_device_fault_hook(fn) -> None:
+    """Install (or clear, with None) the device fault hook
+    (chaos/device.DeviceFaultInjector), as in the reference."""
+    global _DEVICE_FAULT_HOOK
+    _DEVICE_FAULT_HOOK = fn
+
+
+def _device_fault(site: str) -> None:
+    """The reference's entry-point call: the forensics beat, then the hook."""
+    _forensics.beat(site)
+    hook = _DEVICE_FAULT_HOOK
+    if hook is not None:
+        hook(site)
+
+
+def is_device_error(exc: BaseException) -> bool:
+    """True when `exc`, or an exception it was raised from or during, came
+    out of device work (`_on_device` marked it). Callers that turn protocol
+    failures into something else (statesync's snapshot rejection, the
+    node's fallback) let such errors through (ROADMAP D1)."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        if getattr(exc, DEVICE_ERROR_ATTR, None) is not None:
+            return True
+        seen.add(id(exc))
+        exc = exc.__cause__ or exc.__context__
+    return False
+
+
 @contextlib.contextmanager
 def _on_device(site: str, sync: bool = False):
     """Device work at `site` (rlc_submit, rlc_finish, persig): the forensics
     heartbeat stamps the site first, before anything that can hang
-    (libs/forensics.py; one None check when forensics is off), as the
-    reference's `_device_fault` does. An error marks the device down
-    (libs/trace.mark_device_call) and re-raises, with no fallback (ROADMAP
-    D1); a completed round trip (`sync`) marks it up."""
-    _forensics.beat(site)
+    (libs/forensics.py; one None check when forensics is off), then the
+    device fault hook runs, as the reference's `_device_fault` does. An
+    error, injected or real, is marked (is_device_error), marks the device
+    down (libs/trace.mark_device_call) and re-raises, with no fallback
+    (ROADMAP D1); a completed round trip (`sync`) marks it up."""
     try:
+        _device_fault(site)
         yield
     except Exception as e:
+        try:
+            setattr(e, DEVICE_ERROR_ATTR, site)
+        except AttributeError:  # an exception type without a __dict__
+            pass
         _trace.mark_device_call(ok=False, error=repr(e))
         raise
     if sync:

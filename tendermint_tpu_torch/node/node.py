@@ -20,9 +20,19 @@ and the Prometheus listener (libs/prometheus_server.py,
 `instrumentation.prometheus`). With fast sync on (and not the only
 validator), consensus starts at the blocksync handoff. Without `p2p.laddr`
 every route that touches p2p answers as the reference does with
-`switch is None`. The reference's statesync reactor is not added (ROADMAP
-A4): NodeInfo then lacks channels 0x60/0x61, which a reference peer
-accepts, as NodeInfo.compatible_with needs one common channel.
+`switch is None`. The statesync reactor (channels 0x60/0x61) serves the
+app's snapshots; with `statesync.enable` on an empty chain it restores one
+(`_run_state_sync`: a LightClientStateProvider over `[statesync]
+rpc_servers` as HTTPClients, its light checks on `device`), bootstraps the
+stores and hands off to block sync.
+
+The app: the in-process app named by `base.abci`, or with `base.proxy_app`
+set a remote one through proxy/multi.default_client_creator (`base.abci =
+"grpc"` selects abci/grpc.py, which is then the only import of grpc;
+otherwise the socket client), with the non-consensus connections
+reconnecting (`[base] abci_reconnect_*`). The validator: `priv_validator`,
+or with `base.priv_validator_addr` set a privval/remote.SignerClient that
+the node closes at stop.
 
 `device` goes to the scheduler, consensus, the block executor, the
 handshake and the light service. `None` stays `None` down to
@@ -30,18 +40,18 @@ crypto/batch.verify_batch, so every flush routes as the reference's does:
 the host arm below 256 rows, the card above; for the scheduler `None` means
 the card. Tests pass `device="cpu"`.
 
-What is not ported refuses to start instead of being skipped:
-`Node.__init__` raises NotImplementedError, naming the ROADMAP item, for
-`statesync.enable` (A4), a remote `base.proxy_app` (A3b) and
-`base.priv_validator_addr` (A3b). A config made by `test_config()` has
-the reference's `rpc.laddr` (127.0.0.1:26657): set it empty for no RPC
-server, or to `tcp://127.0.0.1:0` for a free port (`rpc_server.port`).
+A config made by `test_config()` has the reference's `rpc.laddr`
+(127.0.0.1:26657): set it empty for no RPC server, or to
+`tcp://127.0.0.1:0` for a free port (`rpc_server.port`).
 
 No fallback (ROADMAP D1): a failed prewarm is kept in `prewarm_error`, a
-catch-up flush that raised in `blocksync_reactor.verify_error`, and
-`wait_for_height` and `stop` raise them; a consensus halt (`halt_error`)
-raises from `wait_for_height` too. An admission flush that raises under
-a gossiped batch reaches the mempool reactor's hop, which logs it.
+catch-up flush that raised in `blocksync_reactor.verify_error`, a device
+error of the state sync (crypto/batch.is_device_error) in
+`statesync_error`, and `wait_for_height` and `stop` raise them; a
+consensus halt (`halt_error`) raises from `wait_for_height` too. Any other
+failure of the state sync falls back to block sync from genesis, as in the
+reference. An admission flush that raises under a gossiped batch reaches
+the mempool reactor's hop, which logs it.
 """
 
 from __future__ import annotations
@@ -66,7 +76,8 @@ from tendermint_tpu_torch.evidence.pool import EvidencePool
 from tendermint_tpu_torch.libs.kvdb import KVDB, MemDB, SQLiteDB
 from tendermint_tpu_torch.mempool.mempool import Mempool
 from tendermint_tpu_torch.privval.file_pv import FilePV
-from tendermint_tpu_torch.proxy.multi import AppConns, local_client_creator
+from tendermint_tpu_torch.proxy.multi import (AppConns, default_client_creator,
+                                              local_client_creator)
 from tendermint_tpu_torch.state.execution import BlockExecutor
 from tendermint_tpu_torch.state.sm_state import state_from_genesis
 from tendermint_tpu_torch.state.store import StateStore
@@ -106,21 +117,6 @@ def default_app(name: str):
     raise ValueError(f"unknown in-proc app {name!r}")
 
 
-def _refuse_unported(config: Config) -> None:
-    """The parts of the reference's node the port has not taken yet raise
-    here, each naming the ROADMAP item that ports it."""
-    asks = [
-        (config.statesync.enable, "statesync.enable", "A4 (state sync)"),
-        (config.base.proxy_app, "base.proxy_app", "A3b (abci/socket.py, abci/grpc.py)"),
-        (config.base.priv_validator_addr, "base.priv_validator_addr",
-         "A3b (privval/remote.py)"),
-    ]
-    for value, key, item in asks:
-        if value:
-            raise NotImplementedError(
-                f"{key} = {value!r}: not ported yet (ROADMAP {item}); set it empty or false")
-
-
 class Node:
     def __init__(
         self,
@@ -130,7 +126,6 @@ class Node:
         app=None,
         device=None,
     ):
-        _refuse_unported(config)
         self.config = config
         self.genesis = genesis
         self.device = device
@@ -153,6 +148,15 @@ class Node:
             host_stripe=_parse_host_stripe(config.crypto.prep_host_stripe),
         )
         _batch.configure_verified_memo(rows=config.crypto.verified_memo_rows)
+        self._owns_priv_validator = False
+        if priv_validator is None and config.base.priv_validator_addr:
+            # dial the remote signer (reference: node/node.go:658
+            # createAndStartPrivValidatorSocketClient)
+            from tendermint_tpu_torch.privval.remote import SignerClient
+
+            host, port = self._parse_laddr(config.base.priv_validator_addr)
+            priv_validator = SignerClient(host, port)
+            self._owns_priv_validator = True
         self.priv_validator = priv_validator
 
         # metrics (reference: node/node.go:106 DefaultMetricsProvider)
@@ -237,10 +241,27 @@ class Node:
             genesis.validate_and_complete()
             state = state_from_genesis(genesis)
 
-        # the in-process ABCI app (4 logical connections)
-        app = app or default_app(config.base.abci)
+        # ABCI app (4 logical connections); an external proxy_app address
+        # selects the socket/grpc transport (reference: proxy/client.go)
+        remote_app = bool(config.base.proxy_app)
+        if remote_app:
+            client_creator = default_client_creator(
+                config.base.proxy_app, config.base.abci,
+                call_timeout=config.base.abci_call_timeout,
+            )
+        else:
+            app = app or default_app(config.base.abci)
+            client_creator = local_client_creator(app)
         self.app = app
-        self.proxy_app = AppConns(local_client_creator(app))
+        # a remote app's non-consensus conns reconnect with backoff (an app
+        # restart must not crash the node); the consensus conn stays fatal
+        self.proxy_app = AppConns(
+            client_creator,
+            resilient=remote_app,
+            attempts=config.base.abci_reconnect_attempts,
+            base_delay=config.base.abci_reconnect_base_delay,
+            max_delay=config.base.abci_reconnect_max_delay,
+        )
 
         # event bus + tx indexer (the pubsub counter rides the node's
         # registry: the port's global registry holds the batch family only)
@@ -368,11 +389,19 @@ class Node:
         self.consensus_reactor = None
         self.mempool_reactor = None
         self.blocksync_reactor = None
+        self.statesync_reactor = None
         self.addr_book = None
         self.pex_reactor = None
         self.fast_sync = False
+        # state sync only makes sense on an empty chain
+        # (reference: node/node.go:672 decide stateSync)
+        self.state_sync = bool(config.statesync.enable) and self.block_store.height == 0
+        self._statesync_task: Optional[asyncio.Task] = None
+        self.statesync_error: Optional[BaseException] = None
         if config.p2p.laddr:
             self._build_p2p(config, genesis, state, priv_validator)
+        else:
+            self.state_sync = False
 
         self._running = False
         self._punish_cb = None
@@ -380,13 +409,13 @@ class Node:
         self.prewarm_error: Optional[BaseException] = None
 
     def _build_p2p(self, config: Config, genesis: GenesisDoc, state, priv_validator) -> None:
-        """The switch and its reactors (reference node/node.py:399-548,
-        without the statesync reactor, ROADMAP A4)."""
+        """The switch and its reactors (reference node/node.py:399-548)."""
         from tendermint_tpu_torch.blocksync.reactor import BlocksyncReactor
         from tendermint_tpu_torch.consensus.reactor import ConsensusReactor
         from tendermint_tpu_torch.evidence.reactor import EvidenceReactor
         from tendermint_tpu_torch.mempool.reactor import MempoolReactor
         from tendermint_tpu_torch.p2p import MultiplexTransport, NodeInfo, NodeKey, Switch
+        from tendermint_tpu_torch.statesync.reactor import StatesyncReactor
 
         if Switch is None:
             # the package gates the networked pieces when the `cryptography`
@@ -458,7 +487,9 @@ class Node:
             == priv_validator.get_pub_key().address()
         )
         self.fast_sync = bool(config.base.fast_sync) and not only_us
-        self.consensus_reactor = ConsensusReactor(self.consensus, wait_sync=self.fast_sync)
+        self.consensus_reactor = ConsensusReactor(
+            self.consensus, wait_sync=self.fast_sync or self.state_sync
+        )
         self.switch.add_reactor("CONSENSUS", self.consensus_reactor)
         self.mempool_reactor = MempoolReactor(
             self.mempool, broadcast=config.mempool.broadcast,
@@ -473,10 +504,16 @@ class Node:
             if config.root_dir
             else None
         )
+        restore_ckpt = (
+            os.path.join(config.root_dir, "data", "statesync_checkpoint.json")
+            if config.root_dir
+            else None
+        )
         self.blocksync_reactor = BlocksyncReactor(
             state, self.block_exec, self.block_store,
             consensus_reactor=self.consensus_reactor,
-            active=self.fast_sync,
+            # a state-sync node starts blocksync only after the restore
+            active=self.fast_sync and not self.state_sync,
             metrics=self.metrics.blocksync,
             peer_timeout=config.fastsync.peer_timeout,
             retry_sleep=config.fastsync.retry_sleep,
@@ -485,6 +522,12 @@ class Node:
             device=self.device,
         )
         self.switch.add_reactor("BLOCKSYNC", self.blocksync_reactor)
+        self.statesync_reactor = StatesyncReactor(
+            self.proxy_app.snapshot, self.proxy_app.query, active=self.state_sync,
+            metrics=self.metrics.statesync,
+            checkpoint_path=restore_ckpt,
+        )
+        self.switch.add_reactor("STATESYNC", self.statesync_reactor)
         if config.p2p.pex:
             from tendermint_tpu_torch.p2p.pex import AddrBook, PexReactor
 
@@ -513,9 +556,9 @@ class Node:
         self._running = True
         self._start_crypto_prewarm()
         await self.indexer_service.start()
-        if not (self.switch is not None and self.fast_sync):
-            # with fast sync on, consensus starts at the blocksync handoff
-            # (reference: node/node.go:897 -> SwitchToConsensus)
+        if not (self.switch is not None and (self.fast_sync or self.state_sync)):
+            # with fast or state sync on, consensus starts at the blocksync
+            # handoff (reference: node/node.go:897 -> SwitchToConsensus)
             await self.consensus.start()
         if self.switch is not None:
             await self.switch.start()
@@ -542,6 +585,10 @@ class Node:
                 self.metrics, self.config.instrumentation.prometheus_listen_addr
             )
             await self.prometheus_server.start()
+        if self.state_sync:
+            self._statesync_task = asyncio.create_task(
+                self._run_state_sync(), name="statesync"
+            )
         if self.config.overload.enabled:
             self.overload.start()
         self._install_punish_hook()
@@ -579,6 +626,65 @@ class Node:
         self._punish_cb = punish
         _prov.default_scorer().add_punish_callback(punish)
 
+    async def _run_state_sync(self) -> None:
+        """Restore from a peer snapshot, bootstrap the stores, then hand off
+        to block sync (reference: node/node.go:560 startStateSync). A device
+        error is kept in `statesync_error` with no fallback (ROADMAP D1);
+        any other failure falls back to block sync from genesis, as in the
+        reference."""
+        from tendermint_tpu_torch.rpc.client import HTTPClient
+        from tendermint_tpu_torch.statesync.stateprovider import (
+            LightClientStateProvider,
+        )
+
+        cfg = self.config.statesync
+        clients = [HTTPClient(u) for u in cfg.rpc_servers]
+        provider = LightClientStateProvider(
+            self.genesis.chain_id,
+            clients,
+            cfg.trust_height,
+            bytes.fromhex(cfg.trust_hash),
+            int(cfg.trust_period * 1_000_000_000),
+            device=self.device,
+        )
+        try:
+            try:
+                state, commit = await self.statesync_reactor.sync(
+                    provider,
+                    cfg.discovery_time,
+                    chunk_fetchers=cfg.chunk_fetchers,
+                    chunk_timeout=cfg.chunk_request_timeout,
+                    chunk_retries=cfg.chunk_retries,
+                    chunk_backoff=cfg.chunk_backoff,
+                )
+            finally:
+                for c in clients:  # the sessions this node opened
+                    await c.close()
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:
+            from tendermint_tpu_torch.crypto.batch import is_device_error
+
+            if is_device_error(e):
+                logger.error("state sync hit a device error: %r", e)
+                self.statesync_error = e
+                return
+            # every snapshot or peer exhausted (the retry ladder's
+            # ErrNoSnapshots), or a provider failure: block sync from genesis
+            logger.exception("state sync failed; falling back to block sync")
+            self.metrics.statesync.fallbacks_total.inc()
+            await self.blocksync_reactor.switch_to_blocksync(self.state)
+            return
+        self.state_store.bootstrap(state)
+        self.block_store.save_seen_commit(state.last_block_height, commit)
+        self.state = state
+        self.evidence_pool.set_state(state)
+        logger.info(
+            "state synced to height %d; switching to block sync",
+            state.last_block_height,
+        )
+        await self.blocksync_reactor.switch_to_blocksync(state)
+
     def _start_crypto_prewarm(self) -> None:
         """Build and warm the steady-state verification path for this
         chain's validator-set size in a thread (crypto/batch.prewarm), so a
@@ -611,6 +717,8 @@ class Node:
         bs = self.blocksync_reactor
         if bs is not None and bs.verify_error is not None:
             raise RuntimeError("catch-up verification failed") from bs.verify_error
+        if self.statesync_error is not None:
+            raise RuntimeError("state sync failed on a device error") from self.statesync_error
 
     async def stop(self) -> None:
         self._running = False
@@ -629,6 +737,9 @@ class Node:
                 _sched.set_default(None)
             self.scheduler.close()
         await self.overload.stop()
+        if self._statesync_task is not None:
+            self._statesync_task.cancel()
+            await asyncio.gather(self._statesync_task, return_exceptions=True)
         if self.rpc_server is not None:
             await self.rpc_server.stop()
         if self.grpc_server is not None:
@@ -639,6 +750,8 @@ class Node:
             await self.switch.stop()
         await self.consensus.stop()
         await self.indexer_service.stop()
+        if self._owns_priv_validator:
+            self.priv_validator.close()
         self.mempool.close_wal()
         self.proxy_app.stop()
         if self.slo is not None:

@@ -52,7 +52,7 @@ def test_package_and_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_mods = int(res.stdout.split()[0])
-    assert n_mods >= 134
+    assert n_mods >= 147
     for mod in ("ops.cuda_fe", "ops.cuda_msm", "ops.msm_geometry", "ops.msm_torch",
                 "crypto.batch", "ops.fp381", "ops.cuda_bls", "ops.bls12_torch",
                 "ops.tower", "ops.pairing_torch", "crypto.bls_ref", "crypto.keys", "types.validator_set",
@@ -80,30 +80,55 @@ def test_package_and_smoke_import_no_jax():
                 "p2p.switch", "p2p.transport", "p2p.conn", "p2p.conn.connection",
                 "p2p.conn.secret_connection", "mempool.reactor", "evidence.reactor",
                 "consensus.reactor", "blocksync.messages", "blocksync.pool",
-                "blocksync.checkpoint", "blocksync.reactor"):
+                "blocksync.checkpoint", "blocksync.reactor", "abci.socket", "abci.grpc",
+                "privval.remote", "chaos", "chaos.device", "statesync", "statesync.messages",
+                "statesync.snapshots", "statesync.chunks", "statesync.checkpoint",
+                "statesync.stateprovider", "statesync.syncer", "statesync.reactor"):
         assert f"tendermint_tpu_torch.{mod}" in res.stdout.split(), mod
 
 
 _NO_GRPC = r"""
-import sys
+import sys, tempfile
 sys.modules["grpc"] = None  # an import of grpc now raises ImportError
 import tendermint_tpu_torch.node.node, tendermint_tpu_torch.rpc.server
 import tendermint_tpu_torch.rpc.client, tendermint_tpu_torch.light.proxy
-import tendermint_tpu_torch.light.provider
+import tendermint_tpu_torch.light.provider, tendermint_tpu_torch.statesync
+import tendermint_tpu_torch.privval.remote, tendermint_tpu_torch.chaos
+from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+from tendermint_tpu_torch.abci.socket import SocketServer
+from tendermint_tpu_torch.config import test_config
+from tendermint_tpu_torch.crypto.keys import gen_ed25519
+from tendermint_tpu_torch.privval.file_pv import FilePV
+from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+server = SocketServer("tcp://127.0.0.1:0", KVStoreApplication()); server.start()
+port = server.bound_addr[1]
+cfg = test_config()
+cfg.base.db_backend, cfg.root_dir, cfg.rpc.laddr = "memdb", "", ""
+cfg.instrumentation.forensics_dir = ""
+cfg.consensus.wal_path = tempfile.mkdtemp() + "/wal"
+cfg.base.proxy_app = f"tcp://127.0.0.1:{port}"
+key = gen_ed25519(b"B" * 32)
+node = tendermint_tpu_torch.node.node.Node(
+    cfg, GenesisDoc(chain_id="no-grpc", validators=[GenesisValidator(key.pub_key(), 10)]),
+    priv_validator=FilePV(key), device="cpu")
+print(type(node.proxy_app.consensus).__name__)
+node.proxy_app.stop(); server.stop()
 print(sorted(m for m in sys.modules if m.startswith("grpc")))
 """
 
 
 def test_rpc_path_needs_no_grpc():
-    """The node, the RPC server and clients, HTTPProvider and LightProxy
-    import without grpc: only rpc/grpc_api.py needs it, and the node imports
-    that module only when rpc.grpc_laddr is set. Their transport is aiohttp,
-    which the card machine has."""
+    """The node, the RPC server and clients, HTTPProvider, LightProxy, state
+    sync, the remote signer and the fault injector import without grpc, and
+    a node whose app runs behind a socket (base.proxy_app) is built without
+    it: only rpc/grpc_api.py and abci/grpc.py need grpc, and the node
+    imports them only when rpc.grpc_laddr is set or base.abci is "grpc".
+    The RPC transport is aiohttp, which the card machine has."""
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
     res = subprocess.run([sys.executable, "-c", _NO_GRPC], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert res.stdout.split("\n")[-2] == "['grpc']"
+    assert res.stdout.split("\n")[-3:-1] == ["SocketClient", "['grpc']"]
 
 
 def test_no_jax_reference_in_sources():

@@ -22,10 +22,10 @@ reference on its host arm):
 - a fresh port node fast-syncs 8 heights from a reference validator, and a
   fresh reference node from a port validator: the stores are equal block
   for block and consensus takes over;
-- a reference node with statesync on dials a port node (which has no
-  statesync reactor, ROADMAP A4): the handshake passes, then the port
-  node drops it on the reference's SnapshotsRequest on channel 0x60
-  (ROADMAP C pins the fault);
+- a reference node with statesync on dials a port node: the port node's
+  statesync reactor answers the reference's SnapshotsRequest on channel
+  0x60 with its snapshots and keeps the peer (a port node without a
+  statesync reactor dropped the peer on the unknown channel, ROADMAP C6);
 - an equivocator in a mixed net: its DuplicateVoteEvidence reaches both
   packages' pools and is committed.
 
@@ -340,19 +340,17 @@ def test_fast_sync_across_packages(source, syncer, tmp_path):
 
 
 def test_reference_statesync_node_dials_port_node(tmp_path, caplog):
-    """A reference node with statesync on, and so its statesync reactor
-    (channels 0x60/0x61), dials a port validator that has none (ROADMAP A4):
-    the handshake passes on both sides (NodeInfo.compatible_with needs one
-    common channel). Then the reference's active statesync reactor sends
-    SnapshotsRequest on 0x60, a channel the port node does not list (the
-    reference's Peer.send does not check, Go's does), and the port node's
-    MConnection stops the peer on the unknown channel: the fault in ROADMAP
-    C, pinned here until A4 gives the port the statesync reactor."""
+    """A reference node with statesync on (its active statesync reactor sends
+    SnapshotsRequest on 0x60 to every new peer) dials a port validator: the
+    port node lists 0x60/0x61, answers the request with its app's snapshots
+    on 0x60, and keeps the peer (before the port had a statesync reactor it
+    stopped the peer on the unknown channel, ROADMAP C6). The reference's
+    syncer takes the port's snapshots into its pool."""
     import logging
 
     def ss(cfg):
         cfg.statesync.enable = True
-        cfg.statesync.discovery_time = 0.3
+        cfg.statesync.discovery_time = 30.0  # the test ends before it runs out
         cfg.p2p.pex = False
 
     def no_pex(cfg):
@@ -360,37 +358,44 @@ def test_reference_statesync_node_dials_port_node(tmp_path, caplog):
 
     async def go():
         src = make_node(PORT, tmp_path, "src", "ss-chain", 1, val=0, edit=no_pex)
+        src.proxy_app.snapshot.app.snapshot_interval = 2
         ref = make_node(REF, tmp_path, "ref-ss", "ss-chain", 1, edit=ss)
-        added = []
-        orig_add = src.switch._add_peer
+        # the reference's syncer collects snapshots during its discovery
+        # window; its state provider is asked only after it
+        ref._state_provider = object()
+        served, offered = [], []
+        orig_rx = src.statesync_reactor.receive
 
-        async def spy(conn, persistent=False):
-            peer = await orig_add(conn, persistent)
-            added.append(peer.id)
-            return peer
+        async def spy(chan_id, peer, msg_bytes):
+            served.append(chan_id)
+            await orig_rx(chan_id, peer, msg_bytes)
 
-        src.switch._add_peer = spy
+        src.statesync_reactor.receive = spy
         try:
             await src.start()
-            await src.wait_for_height(2, timeout=30)
-            assert ref.state_sync and 0x60 in ref.switch.node_info.channels
-            assert 0x60 not in src.switch.node_info.channels
+            await src.wait_for_height(3, timeout=30)
+            assert ref.state_sync and {0x60, 0x61} <= set(ref.switch.node_info.channels)
+            assert {0x60, 0x61} <= set(src.switch.node_info.channels)
             await ref.start()
             await ref.switch.dial_peers_async([addr_of(src)])
             loop = asyncio.get_running_loop()
-            deadline = loop.time() + 10
-            while not (added and not src.switch.peers.has(ref.node_key.id)) \
-                    and loop.time() < deadline:
+            deadline = loop.time() + 15
+            while loop.time() < deadline:
+                syncer = ref.statesync_reactor.syncer
+                if syncer is not None and len(syncer.snapshots):
+                    offered = [(s.height, s.format) for s in syncer.snapshots.ranked()]
+                    break
                 await asyncio.sleep(0.02)
-            return added, src.switch.num_peers(), ref.block_store.height
+            return (served, offered, src.switch.peers.has(ref.node_key.id),
+                    [(s.height, s.format) for s in src.app.list_snapshots().snapshots])
         finally:
             await stop_all([ref, src])
 
     with caplog.at_level(logging.INFO, logger="tendermint_tpu_torch.p2p"):
-        added, peers_after, ref_height = run(go(), 60)
-    assert added and added[0] is not None
-    assert peers_after == 0 and ref_height == 0
-    assert any("unknown channel 96" in r.getMessage() for r in caplog.records)
+        served, offered, kept, snaps = run(go(), 60)
+    assert 0x60 in served and kept
+    assert offered and set(offered) <= set(snaps)
+    assert not any("unknown channel" in r.getMessage() for r in caplog.records)
 
 
 def test_mixed_net_equivocator_evidence_reaches_both_packages(tmp_path):

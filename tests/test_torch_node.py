@@ -12,8 +12,8 @@ package with tolerance 0:
 - a `signed_kvstore` node with the scheduler on admits a 300-tx signed
   flood through check_tx_batch (one admission-lane flush; the app consumes
   every verdict and verifies nothing itself), and the txs commit;
-- a config that asks for an unported server raises NotImplementedError
-  (statesync, a remote app, a remote signer); a node with `p2p.laddr`
+- statesync.enable, a socket proxy_app and a remote signer's
+  priv_validator_addr each start a node that commits; a node with `p2p.laddr`
   starts its Switch, and a reference Switch that dials it shows up in the
   port's net_info;
   the RPC server, the gRPC broadcast API and the Prometheus listener each
@@ -228,16 +228,52 @@ def test_signed_flood_admits_through_the_lane_and_commits(tmp_path, monkeypatch)
     assert asyncio.run(run()) == (300, 0, True, True, None)
 
 
-@pytest.mark.parametrize("key,value,item", [
-    ("statesync.enable", True, "A4"), ("base.proxy_app", "tcp://127.0.0.1:26658", "A3b"),
-    ("base.priv_validator_addr", "tcp://127.0.0.1:26659", "A3b"),
-])
-def test_unported_servers_refuse(key, value, item):
+@pytest.mark.parametrize("key", ["statesync.enable", "base.proxy_app",
+                                 "base.priv_validator_addr"])
+def test_remote_app_signer_and_statesync_keys_start_a_node(key, tmp_path):
+    """Each of the three keys starts a node that commits: a socket
+    proxy_app (the kvstore behind a port SocketServer), priv_validator_addr
+    (the validator's key behind a port SignerServer, dialed because no
+    priv_validator is passed) and statesync.enable. The last case only pins
+    the reference's rule that state sync is ignored without p2p.laddr;
+    tests/test_torch_statesync.py drives a real restore."""
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.abci.socket import SocketServer
+    from tendermint_tpu_torch.privval.remote import SignerServer
+
     cfg = _config()
-    section, field = key.split(".")
-    setattr(getattr(cfg, section), field, value)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        Node(cfg, _genesis(), priv_validator=FilePV(gen_ed25519(SEED32)), device="cpu")
+    cfg.consensus.wal_path = str(tmp_path / "wal")
+    pv, server = FilePV(gen_ed25519(SEED32)), None
+    if key == "statesync.enable":
+        cfg.statesync.enable = True
+    elif key == "base.proxy_app":
+        server = SocketServer("tcp://127.0.0.1:0", KVStoreApplication())
+        cfg.base.proxy_app = f"tcp://127.0.0.1:{server.bound_addr[1]}"
+    else:
+        server = SignerServer(FilePV(gen_ed25519(SEED32)), CHAIN, port=0)
+        cfg.base.priv_validator_addr = f"tcp://{server.addr[0]}:{server.addr[1]}"
+        pv = None
+    if server is not None:
+        server.start()
+
+    async def run():
+        node = Node(cfg, _genesis(), priv_validator=pv, device="cpu")
+        await node.start()
+        try:
+            await node.wait_for_height(3, timeout=30)
+            return node.state_sync, type(node.proxy_app.consensus).__name__, \
+                type(node.priv_validator).__name__
+        finally:
+            await node.stop()
+
+    try:
+        state_sync, conn, signer = asyncio.run(asyncio.wait_for(run(), 60))
+    finally:
+        if server is not None:
+            server.stop()
+    assert state_sync is False
+    assert conn == ("SocketClient" if key == "base.proxy_app" else "LocalClient")
+    assert signer == ("SignerClient" if key == "base.priv_validator_addr" else "FilePV")
 
 
 def test_p2p_node_answers_a_reference_switch(tmp_path, monkeypatch):
@@ -258,7 +294,8 @@ def test_p2p_node_answers_a_reference_switch(tmp_path, monkeypatch):
     cfg.p2p.laddr = "tcp://127.0.0.1:0"
     cfg.rpc.laddr = "tcp://127.0.0.1:0"
     node = Node(cfg, _genesis(), priv_validator=FilePV(gen_ed25519(SEED32)), device="cpu")
-    assert sorted(node.switch.reactors) == ["BLOCKSYNC", "CONSENSUS", "EVIDENCE", "MEMPOOL", "PEX"]
+    assert sorted(node.switch.reactors) == ["BLOCKSYNC", "CONSENSUS", "EVIDENCE", "MEMPOOL", "PEX",
+                                            "STATESYNC"]
     nk = REF.keys.gen_ed25519(b"\x43" * 32)
     ref_key = RefNodeKey(nk)
     ref_sw = RefSwitch(RefTransport(ref_key, RefNodeInfo(node_id=ref_key.id, network=CHAIN)))
