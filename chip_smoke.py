@@ -63,11 +63,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      17 combined checks and 3 per-signature leaves, as the reference's
      recursion gives on these rows), which must be False exactly there;
      "tampered_persig", the same rows with TMTPU_BISECT=0 (one per-signature
-     pass over all rows); each arm warmed once, timed once, profiled once;
+     pass over all rows); each arm warmed once and timed once (tampered's
+     profiled call, ~45-66 s of profiler for its ~227,000 kernels, was cut
+     to make room for the command-line and chaos phases, and
+     tampered_persig's, ~13 s, to keep a slow host inside the limit);
      verify_commit raises CommitVerifyError;
   6. the "streamed" path: verify_batch over 100,000 rows (the commit's signed
      rows tiled ten times) through the flush planner, 9 chunks of 24,576
-     lanes, once to warm and three timed runs, one more under torch.profiler;
+     lanes, once to warm and three timed runs (its profiled run, ~9 s, was
+     cut to keep a slow host inside the limit);
      then "streamed_tampered": two tampered rows in different chunks, the
      chunk-wise recovery (each 12,287-row chunk pipelined, then bisected;
      each chunk's path and flush count printed), a mask False exactly there;
@@ -131,7 +135,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      profiled); "light_tampered"
      (3 bad rows of known validators: both finishes recover by one
      per-signature pass, "persig-async", masks held against
-     ed25519_ref.verify_cofactored on every row, and the step passes);
+     ed25519_ref.verify_cofactored on every row, and the step passes; its
+     ~15-22-s profiled call was cut with tampered's);
      "light_skipping" (a light.client.Client in skipping mode over a
      MockProvider chain of 16 heights x 1,024 validators whose whole set
      rotates at height 9: the trusted heights must be the bisection's,
@@ -153,8 +158,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      corpus's commit signatures as precommits into a deferred
      types.vote_set.VoteSet, flushed every 512 adds, 19 flushes of 512 rows
      and one of 272, each flush's ms and label, votes/s, +2/3 and
-     make_commit's bytes equal to the corpus commit's, a storm of one drain
-     of each kind profiled;
+     make_commit's bytes equal to the corpus commit's (the profiled storm of
+     one drain of each kind, ~9 s, was cut to keep a slow host inside the
+     limit);
      the verify-at-add arm on the first 1,024 votes with no launch; with
      the default memo the storm again and its commit's verify_commit from
      the memo, path "memo", 0 launches; a drain with a bad vote, an
@@ -243,6 +249,13 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      Prometheus: light clients over HTTPProvider, 16 HTTP clients of
      light_verify / light_block, the light proxy, the metrics and debug
      pages and a poisoned height-3 commit; every mask held to the host arm;
+     inside its window "cli_light_10k": the port's command line
+     (cli/main.py) `--device cuda light` against that node's RPC, trust
+     height 1, verify height 3, in a worker thread (the command runs its
+     own asyncio loop); its printed hash and app hash held to the node's
+     block 3, its flushes (all on the card arm) held to the host arm, its
+     launches counted in their own window, its seconds split into fetch and
+     flush ms;
   21. "p2p_sync_10k": a new full node J of consensus_10k's chain joins
      through the port's p2p fabric (secret connections, three port Nodes on
      the card, device None): J dials L, a full node whose blocksync reactor
@@ -297,6 +310,30 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      paid no app-side verify, exactly the 3 planted txs are refused, each
      committed LastCommit verifies on the host arm, and the node did not
      halt or store an error;
+  22b. "cli_localnet": the path a user takes: the port's `testnet --v 4`
+     into a temporary directory ([instrumentation] prometheus on, each on a
+     free port), four children `python -m tendermint_tpu_torch.cli --device
+     cuda --home <h> start` (stdout and stderr to a file in each home); every
+     child reaches height 3 by RPC status, blocks 1-3 have equal hashes
+     across the four by RPC block, each child's /metrics shows card flushes
+     (tendermint_batch_verify_flushes_total{backend="cuda"}), and each
+     exits 0 on SIGINT. Prints each child's seconds from spawn to "node ...
+     started", to height 3, and its card flushes;
+  22c. "chaos_poison_10k": a chaos/harness.LocalChaosNet of four port Nodes
+     (device None, plaintext transport, SQLite stores, deferred vote
+     verification: the reference's chaos nets, tests/test_chaos.py
+     make_plain_net with the crash soak's db_backend, the deferred flush on) under a seeded ChaosSchedule: a partition of one node and
+     its heal, a crash of another with its WAL tail truncated and its
+     restart, then a sig_poison of CHAOS_POISON votes (chaos/byzantine.py,
+     written to each peer at once) from a third node into the other three.
+     The engine applies every event without error, assert_safety() holds,
+     every live node commits two heights past the schedule's top, the
+     poisoner is quarantined by the provenance scorer and then punished
+     (each victim's trust reporter holds a bad_message of it). Every flush
+     of 256 rows or more that holds poisoned rows ran on the card; each
+     flush's mask is False on the poisoned rows and equal to the host
+     arm's. Prints the schedule, the poisoned flushes (rows, route, lane,
+     ms), the time from the flood to the punishment and the launches;
   23. a `kernels` JSON line (a row off every path counts 0 launches), the
      card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
@@ -306,8 +343,10 @@ tampered, tampered_persig, mixed_commit, mixed_sr25519_10k, the four light
 paths, light_mixed, the consensus and catch-up paths, the scheduler paths,
 consensus_10k's heights, p2p_sync_10k's lie and blocksync windows (its
 consensus window where a flush took a card route), statesync_10k's light
-and blocksync windows, device_fault healed and tx_admission's
-batched arm included; the
+and blocksync windows, device_fault healed, tx_admission's
+batched arm and cli_light_10k included, and chaos_poison_10k's window where
+a poisoned flush took a combined check on the card (else the ladder's
+three); the
 tampered batch launches the ladder's three),
 the two BLS kernels on the BLS paths, fp381_mul on g1_msm_10k, none on host_small, the
 verify-at-add arm, the evidence check and the memo's answers. Exits non-zero without a result when no CUDA device
@@ -431,7 +470,8 @@ CATCHUP_BAD_BLOCK, CATCHUP_BAD_ROWS, CATCHUP_WRONG_ID = 5, 43, 11
 # cut to 256 (8 a client) once the whole run with rpc_light_10k passed
 # 1,000 s of its 1,200-s limit; its serial arm is sampled on the first
 # SERVE_SERIAL requests (~0.6 s each; 60 until consensus_10k's fourth
-# height took the whole run to 1,074.7 s). poisoned_votes: bench.py
+# height took the whole run to 1,074.7 s, 30 until the command-line and
+# chaos phases left a slow host too little of the limit). poisoned_votes: bench.py
 # bench_poisoned_flush's shape, POISON_ROWS-row vote batches from the 10k
 # corpus, POISON_CALLS calls at 0 and POISONED_CALLS at 1% poison (seed 20;
 # each poisoned call after the first runs two per-signature ladders at once,
@@ -439,7 +479,7 @@ CATCHUP_BAD_BLOCK, CATCHUP_BAD_ROWS, CATCHUP_WRONG_ID = 5, 43, 11
 # 900 s of its 1,200-s limit with tx_admission, 8 until consensus_10k's
 # fourth height took it to 1,074.7 s). PEERS: the peers the vote
 # paths tag their rows with.
-SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SEED, SERVE_WINDOW, SERVE_SERIAL = 32, 256, 7, 0.02, 30
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_SEED, SERVE_WINDOW, SERVE_SERIAL = 32, 256, 7, 0.02, 16
 POISON_ROWS, POISON_CALLS, POISONED_CALLS, POISON_RATE, POISON_SEED = 512, 64, 4, 0.01, 20
 PEERS = 8
 # consensus_10k: BASELINE config 5's validator set (mixed_sr25519_10k's keys:
@@ -1598,8 +1638,6 @@ def commit_phase(dev, corpus, launches: dict) -> None:
             print(f"{path} rows {bad}: verify_batch ms={batch_ms:.1f} path={f['path']} "
                   f"recovery_flushes={f['recovery_flushes']} "
                   f"recovery_ms={f['recovery_s'] * 1e3:.1f} launches={launches[path]}", flush=True)
-            profile_path(path, lambda: batch.verify_batch(pubkeys, msgs, sigs, device=dev),
-                         batch_ms)
         finally:
             del os.environ["TMTPU_BISECT"]
 
@@ -1787,8 +1825,6 @@ def streamed_phase(dev, corpus, launches: dict) -> None:
           f"host_prep_ms={statistics.median(x['prep_s'] for x in flushes) * 1e3:.1f} "
           f"prep_wait_ms={statistics.median(x['prep_wait_s'] for x in flushes) * 1e3:.1f} "
           f"launches={launches['streamed']}", flush=True)
-    profile_path("streamed", lambda: batch.verify_batch(pubkeys, msgs, sigs, device=dev),
-                 statistics.median(times))
 
     bad_sigs = list(sigs)
     for i in STREAM_TAMPERED:
@@ -2542,7 +2578,6 @@ def light_phase(dev, lc: dict, launches: dict) -> None:
           f"{statistics.median(t_ms):.1f} ms={[round(t, 1) for t in t_ms]}; labels persig-async, "
           f"persig-async; both masks equal ed25519_ref.verify_cofactored on all "
           f"{LIGHT_N} rows; launches per call={launches['light_tampered']}", flush=True)
-    profile_path("light_tampered", lambda: step(tampered_sh), statistics.median(t_ms))
 
     # light_skipping: a Client bisecting across the chain's full rotation
     chain = lc["chain"]
@@ -2929,13 +2964,6 @@ def vote_storm_phase(dev, corpus, launches: dict, memo_default: int) -> None:
           f"bytes equal "
           f"the corpus commit's; launches={launches['vote_storm_10k']}", flush=True)
     print(f"vote_storm_10k flush ms: {[round(t, 1) for t in flush_ms]}", flush=True)
-    # profiled: one drain of each kind (a whole storm is ~143,000 kernels,
-    # which the profiler takes tens of seconds to read)
-    sub = votes[:DRAIN + drains[-1]]
-    _, _, sub_ms = run_storm(dev, vals, sub)
-    profile_path(f"vote_storm_10k, first {len(sub)} votes (drains of {DRAIN} and "
-                 f"{drains[-1]})", lambda: run_storm(dev, vals, sub), sub_ms)
-
     reset_launches()
     _, _, at_add_ms = run_storm(dev, vals, votes[:AT_ADD_VOTES], defer=False)
     counts = read_launches("vote_storm_10k verify-at-add", kernels=())
@@ -3525,10 +3553,15 @@ def scheduler_mixed_phase(dev, corpus, cu, lc, launches) -> None:
         log = list(sched.flush_log)
         mixed_votes = [f["rows"] for f in log if "votes" in f["rows"] and len(f["rows"]) > 1]
         st = sched.stats()
+        # each catch-up flush's (queue wait s, flush wall s): a ticket's wait
+        # is their sum, held to the scheduler's wait_timeout
+        cu_flushes = [(round(f["wait_s"]["catchup"], 1), round(f["wall_s"], 1)) for f in log
+                      if "catchup" in f["rows"]]
         if mixed_votes or not between[0] or sched.fallbacks or not storms or not runs:
             raise SystemExit(f"scheduler_mixed: vote flushes with other rows {mixed_votes}, "
                              f"between-chunk preemptions {between[0]}, fallbacks "
-                             f"{sched.fallbacks}, storms {len(storms)}, runs {len(runs)}")
+                             f"{sched.fallbacks}, storms {len(storms)}, runs {len(runs)}, "
+                             f"catch-up flushes (wait s, wall s) {cu_flushes}")
         lanes = {lane: (v["flushes"], v["rows_total"]) for lane, v in st["lanes"].items()}
         votes_s = N_VALIDATORS * len(storms) / sum(storms) * 1e3
         blocks_s = CATCHUP["super_batch_1k"][0] * len(runs) / sum(runs) * 1e3
@@ -3541,7 +3574,8 @@ def scheduler_mixed_phase(dev, corpus, cu, lc, launches) -> None:
               f"{pct_ms(lats, 0.99):.1f} ms); queued vote flushes {len(qs)}; preemptions "
               f"{st['preemptions']} ({between[0]} between chunks); fallbacks 0; flushes by lane "
               f"(flushes, rows) {lanes}; launches={launches['scheduler_mixed']}", flush=True)
-        print(f"scheduler_mixed lane waits: {json.dumps(st['lane_wait_percentiles'])}", flush=True)
+        print(f"scheduler_mixed lane waits: {json.dumps(st['lane_wait_percentiles'])}; catch-up "
+              f"flushes (wait s, wall s) {cu_flushes}", flush=True)
 
         # one short window under the profiler: a catch-up run, two drains, 32
         # light requests of heights below the rotation on a fresh service
@@ -4723,6 +4757,38 @@ def rpc_light_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) ->
                     com, power_of, vals.total_voting_power())
             return com
 
+    def cli_light_call(url: str, home: str) -> tuple:
+        """The port's command line `light` (cli/main.py) in this worker
+        thread, as a user runs it: its exit code, stdout and seconds, and the
+        seconds HTTPProvider spent fetching and parsing light blocks."""
+        import io
+
+        from tendermint_tpu_torch.cli.main import main as cli_main
+        from tendermint_tpu_torch.light import provider as lprov
+
+        fetch = [0.0]
+        real_lb = lprov.HTTPProvider.light_block
+
+        async def timed_lb(self, height):
+            t0 = time.perf_counter()
+            try:
+                return await real_lb(self, height)
+            finally:
+                fetch[0] += time.perf_counter() - t0
+
+        lprov.HTTPProvider.light_block = timed_lb
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = cli_main(["--home", home, "--device", "cuda", "light", CHAIN_ID,
+                               "--primary", url, "--trust-height", "1",
+                               "--trust-hash", bids[1].hex().upper(),
+                               "--height", str(CONSENSUS_HEIGHTS)])
+        finally:
+            lprov.HTTPProvider.light_block = real_lb
+        return rc, out.getvalue(), time.perf_counter() - t0, fetch[0]
+
     async def run_client(client, fresh_store=True):
         provider = TimedProvider(client)
         lc = Client(CHAIN_ID, TrustOptions(LIGHT_PERIOD, 1, bids[1]), provider, [],
@@ -4836,8 +4902,33 @@ def rpc_light_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) ->
             window("poisoned")
             if "invalid commit" not in refused:
                 raise SystemExit(f"rpc_light_10k poisoned: refused with {refused!r}")
+
+            # cli_light_10k: the command line's light client, its own window
+            home = tempfile.mkdtemp(prefix="cli_light_10k-")
+            try:
+                rc, text, cli_s, cli_fetch = await loop.run_in_executor(
+                    None, cli_light_call, url, home)
+                sync()
+                cli_fl = [(e["attrs"]["n"], e["attrs"]["path"], e["attrs"]["total_ms"])
+                          for e in trace.tracer.dump() if e["name"] == "batch_verify.flush"]
+                launches["cli_light_10k"] = read_launches("cli_light_10k")
+                trace.tracer.clear()
+                reset_launches()
+            finally:
+                shutil.rmtree(home, ignore_errors=True)
+            res = json.loads(text.strip().splitlines()[-1]) if rc == 0 and text.strip() else {}
+            want_cli = {"height": CONSENSUS_HEIGHTS,
+                        "hash": bids[CONSENSUS_HEIGHTS].hex().upper(),
+                        "app_hash": node.block_store.load_block(
+                            CONSENSUS_HEIGHTS).header.app_hash.hex().upper()}
+            if rc != 0 or {k: res.get(k) for k in want_cli} != want_cli:
+                raise SystemExit(f"cli_light_10k: exit {rc}, printed {text[-400:]!r}, want "
+                                 f"{want_cli}")
+            if not cli_fl or any(path == "cpu" for _, path, _ in cli_fl):
+                raise SystemExit(f"cli_light_10k: a flush took the host arm or none ran: {cli_fl}")
+            cli = dict(s=cli_s, fetch_s=cli_fetch, flushes=cli_fl, res=res)
             return dict(prewarm_s=prewarm_s, serve_s=serve_s, want=want, proxied=proxied,
-                        refused=refused, svc=node.light_service.stats())
+                        refused=refused, svc=node.light_service.stats(), cli=cli)
         finally:
             if proxy is not None:
                 await proxy.stop()
@@ -4924,6 +5015,16 @@ def rpc_light_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) ->
           f"/debug/light requests={metrics_seen['debug_light']['requests']}; "
           f"/debug/verify_stats light requests="
           f"{metrics_seen['verify_stats']['light']['requests']}", flush=True)
+    cli = out["cli"]
+    cli_flush_ms = sum(ms for _, _, ms in cli["flushes"])
+    print(f"cli_light_10k: `cli --device cuda light {CHAIN_ID} --trust-height 1 --height "
+          f"{CONSENSUS_HEIGHTS}` {cli['s']:.3f} s of command: fetch and JSON parse of the "
+          f"light blocks {cli['fetch_s'] * 1e3:.1f} ms, flushes {cli_flush_ms:.1f} ms, the rest "
+          f"{cli['s'] * 1e3 - cli['fetch_s'] * 1e3 - cli_flush_ms:.1f} ms; flushes (rows, route, "
+          f"ms) {cli['flushes']}; printed height {cli['res']['height']} hash "
+          f"{cli['res']['hash'][:16]}... app_hash {cli['res']['app_hash'][:16]}... = the node's "
+          f"block {CONSENSUS_HEIGHTS}; trusted {cli['res']['trusted_heights']}; launches "
+          f"{launches['cli_light_10k']}", flush=True)
     print(f"rpc_light_10k launches: " + ", ".join(
         f"{k} {v}" for k, v in launches.items() if k.startswith("rpc_light_10k")), flush=True)
     print(f"rpc_light_10k checks: {len(recorded)} masks over {len(order)} distinct rows "
@@ -6281,6 +6382,394 @@ def tx_admission_phase(dev, adm: dict, pool, workers: int, launches: dict,
           flush=True)
 
 
+LOCALNET_NODES, LOCALNET_HEIGHT, LOCALNET_TIMEOUT = 4, 3, 300.0
+
+
+def free_port_block(n: int, seed: int) -> int:
+    """A base port b with b .. b + n - 1 all free on 127.0.0.1 now."""
+    import random
+    import socket
+
+    rng = random.Random(seed)
+    for _ in range(200):
+        base = rng.randrange(20_000, 60_000 - n)
+        socks = []
+        try:
+            for port in range(base, base + n):
+                sk = socket.socket()
+                socks.append(sk)
+                sk.bind(("127.0.0.1", port))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sk in socks:
+                sk.close()
+    raise SystemExit(f"no {n} consecutive free ports")
+
+
+def rpc_call(laddr: str, method: str, **params):
+    import urllib.request
+
+    req = urllib.request.Request(
+        "http://" + laddr.replace("tcp://", ""),
+        json.dumps({"jsonrpc": "2.0", "id": 1, "method": method, "params": params}).encode(),
+        {"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=5) as resp:
+        return json.load(resp)["result"]
+
+
+def cli_localnet_phase(dev, launches: dict) -> None:
+    """cli_localnet (module docstring 22b): the command line as a user runs
+    it, four processes on one card."""
+    import io
+    import shutil
+    import signal
+    import tempfile
+    import urllib.request
+
+    from tendermint_tpu_torch.cli.main import load_home
+    from tendermint_tpu_torch.cli.main import main as cli_main
+    from tendermint_tpu_torch.config.toml import save_config
+    from tendermint_tpu_torch.libs.metrics import parse_exposition
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="cli_localnet-")
+    base = free_port_block(3 * LOCALNET_NODES, SEED + 30)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_main(["testnet", "--v", str(LOCALNET_NODES), "--output-dir",
+                       os.path.join(root, "net"), "--chain-id", "cli-localnet",
+                       "--starting-port", str(base)])
+    nodes = json.loads(out.getvalue())
+    if rc != 0 or len(nodes) != LOCALNET_NODES:
+        raise SystemExit(f"cli_localnet: testnet exit {rc}: {out.getvalue()[-300:]}")
+    prom = {}
+    for i, nd in enumerate(nodes):
+        cfg = load_home(nd["home"])
+        cfg.instrumentation.prometheus = True
+        prom[nd["home"]] = base + 2 * LOCALNET_NODES + i
+        cfg.instrumentation.prometheus_listen_addr = f"127.0.0.1:{prom[nd['home']]}"
+        save_config(cfg, os.path.join(nd["home"], "config", "config.toml"))
+    here = os.path.dirname(os.path.abspath(__file__))
+    procs, logs, spawned = [], [], []
+
+    def tail(i: int, n: int = 30) -> str:
+        with open(logs[i], errors="replace") as f:
+            return "".join(f.readlines()[-n:])
+
+    try:
+        for nd in nodes:
+            logs.append(os.path.join(nd["home"], "node.log"))
+            with open(logs[-1], "w") as log:
+                spawned.append(time.perf_counter())
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "tendermint_tpu_torch.cli", "--device", "cuda",
+                     "--home", nd["home"], "start"],
+                    cwd=here, stdout=log, stderr=subprocess.STDOUT))
+        started, reached = [None] * LOCALNET_NODES, [None] * LOCALNET_NODES
+        deadline = time.perf_counter() + LOCALNET_TIMEOUT
+        while None in reached:
+            if time.perf_counter() > deadline:
+                raise SystemExit(f"cli_localnet: heights not all {LOCALNET_HEIGHT} after "
+                                 f"{LOCALNET_TIMEOUT} s; started {started}\n" + "".join(
+                                     f"--- node{i}\n{tail(i)}" for i in range(LOCALNET_NODES)))
+            for i, nd in enumerate(nodes):
+                if procs[i].poll() is not None:
+                    raise SystemExit(f"cli_localnet: node{i} exited {procs[i].returncode}:\n"
+                                     + tail(i))
+                now = time.perf_counter()
+                if started[i] is None:
+                    with open(logs[i], errors="replace") as f:
+                        if re.search(r"^node \S* ?started; chain", f.read(), re.M):
+                            started[i] = now - spawned[i]
+                if reached[i] is None and started[i] is not None:
+                    try:
+                        h = int(rpc_call(nd["rpc"], "status")["sync_info"]["latest_block_height"])
+                    except OSError:
+                        continue
+                    if h >= LOCALNET_HEIGHT:
+                        reached[i] = now - spawned[i]
+            time.sleep(0.25)
+        hashes = [[rpc_call(nd["rpc"], "block", height=h)["block_id"]["hash"]
+                   for h in range(1, LOCALNET_HEIGHT + 1)] for nd in nodes]
+        if any(hs != hashes[0] for hs in hashes):
+            raise SystemExit(f"cli_localnet: blocks 1-{LOCALNET_HEIGHT} differ: {hashes}")
+        card_flushes, paths = [], []
+        for nd in nodes:
+            url = f"http://127.0.0.1:{prom[nd['home']]}/metrics"
+            with urllib.request.urlopen(url, timeout=5) as resp:
+                fams = parse_exposition(resp.read().decode())
+            fam = fams.get("tendermint_batch_verify_flushes_total", {"samples": []})
+            by_path = {lab["path"]: int(v) for _, lab, v in fam["samples"]
+                       if lab.get("backend") == "cuda"}
+            card_flushes.append(sum(v for path, v in by_path.items() if path != "memo"))
+            paths.append(by_path)
+        if not all(card_flushes):  # the memo's answers launch nothing
+            raise SystemExit(f"cli_localnet: a child ran no card flush: {paths}")
+        for p in procs:
+            p.send_signal(signal.SIGINT)
+        codes = []
+        for i, p in enumerate(procs):
+            try:
+                codes.append(p.wait(60))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                codes.append(p.wait())
+        if any(codes):
+            raise SystemExit(f"cli_localnet: exit codes {codes} on SIGINT:\n" + "".join(
+                f"--- node{i}\n{tail(i)}" for i, c in enumerate(codes) if c))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"cli_localnet: `cli testnet --v {LOCALNET_NODES}`, then {LOCALNET_NODES} children "
+          f"`cli --device cuda --home <h> start`: spawn to \"node ... started\" "
+          f"{[round(x, 1) for x in started]} s, to height {LOCALNET_HEIGHT} "
+          f"{[round(x, 1) for x in reached]} s; blocks 1-{LOCALNET_HEIGHT} equal across the "
+          f"{LOCALNET_NODES} ({hashes[0][-1][:16]}... at {LOCALNET_HEIGHT}); card flushes per "
+          f"child {card_flushes} (by route {paths}); exit codes on SIGINT {codes}; "
+          f"{time.perf_counter() - t_phase:.1f} s; card {card_name(dev)}", flush=True)
+
+
+CHAOS_NODES, CHAOS_POISON, CHAOS_TIMEOUT = 4, 10_000, 240.0
+
+
+def chaos_poison_10k_phase(dev, pool, workers: int, launches: dict) -> None:
+    """chaos_poison_10k (module docstring 22c)."""
+    import asyncio
+    import random
+    import shutil
+    import tempfile
+
+    from tendermint_tpu_torch.abci.kvstore import KVStoreApplication
+    from tendermint_tpu_torch.chaos import ChaosEngine, ChaosSchedule, FaultEvent
+    from tendermint_tpu_torch.chaos.harness import LocalChaosNet
+    from tendermint_tpu_torch.config import test_config
+    from tendermint_tpu_torch.crypto import batch, provenance
+    from tendermint_tpu_torch.crypto import scheduler as sched
+    from tendermint_tpu_torch.crypto.keys import gen_ed25519
+    from tendermint_tpu_torch.node.node import Node
+    from tendermint_tpu_torch.p2p.behaviour import BAD_MESSAGE
+    from tendermint_tpu_torch.privval.file_pv import FilePV
+    from tendermint_tpu_torch.types.genesis import GenesisDoc, GenesisValidator
+
+    t_phase = time.perf_counter()
+    node_dev = None if dev.type == "cuda" else dev
+    root = tempfile.mkdtemp(prefix="chaos_poison_10k-")
+    privs = [gen_ed25519(bytes([40 + i]) * 32) for i in range(CHAOS_NODES)]
+    gen = GenesisDoc(chain_id="chaos-poison-10k",
+                     validators=[GenesisValidator(p.pub_key(), 10) for p in privs])
+
+    def make_node(i):
+        cfg = test_config()
+        cfg.base.db_backend = "sqlite"  # a crashed node restarts from its own stores
+        cfg.base.fast_sync = False
+        cfg.rpc.laddr = ""
+        cfg.p2p.laddr = "tcp://127.0.0.1:0"
+        cfg.p2p.plaintext = True
+        cfg.p2p.pex = False
+        cfg.root_dir = os.path.join(root, f"node{i}")
+        os.makedirs(cfg.root_dir, exist_ok=True)
+        cfg.consensus.defer_vote_verification = True
+        cfg.instrumentation.forensics_dir = ""
+        cfg.crypto.verified_memo_rows = 0
+        return Node(cfg, gen, priv_validator=FilePV(
+            privs[i], state_file=os.path.join(root, f"pv_state_{i}.json")),
+            app=KVStoreApplication(), device=node_dev)
+
+    # the schedule: seeded times and targets; the poisoner is never crashed
+    rng = random.Random(SEED + 40)
+    order = rng.sample(range(CHAOS_NODES), CHAOS_NODES)
+    poisoner, crashed, lonely = order[0], order[1], order[2]
+    t = 1.0 + round(rng.uniform(0.0, 0.5), 3)
+    part = round(rng.uniform(1.0, 2.0), 3)
+    down = round(rng.uniform(1.0, 2.0), 3)
+    events = [
+        FaultEvent.make(t, "partition", groups=[[i for i in range(CHAOS_NODES) if i != lonely],
+                                                [lonely]]),
+        FaultEvent.make(t + part, "heal"),
+        FaultEvent.make(t + part + 0.5, "crash", target=crashed, wal_fault="truncate"),
+        FaultEvent.make(t + part + 0.5 + down, "restart", target=crashed),
+        FaultEvent.make(t + part + 1.5 + down, "sig_poison", target=poisoner,
+                        count=CHAOS_POISON, burst=True),
+    ]
+    schedule = ChaosSchedule(SEED + 40, events)
+    poison_sigs = {privs[poisoner].sign(b"tmtpu-sig-poison:" + i.to_bytes(4, "big"))
+                   for i in range(CHAOS_POISON)}
+
+    # every verify_batch call (the scheduler's lane flushes): rows, mask,
+    # route, lane, ms
+    flushes = []
+    lanes_now = threading.local()
+    real_vb, real_flush = batch.verify_batch, sched.VerifyScheduler._flush
+
+    def vb(pks, msgs, sigs, device=None, key_types=None, backend=None, **kw):
+        t0 = time.perf_counter()
+        mask = real_vb(pks, msgs, sigs, device, key_types, backend, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        flushes.append(dict(rows=(list(pks), list(msgs), list(sigs),
+                                  list(key_types) if key_types is not None else
+                                  ["ed25519"] * len(pks)),
+                            mask=np.asarray(mask, bool), path=batch.LAST_FLUSH.get("path"),
+                            lane=",".join(sorted(getattr(lanes_now, "lanes", ()) or ("-",))),
+                            ms=ms))
+        return mask
+
+    def flush(self, entries, lanes):
+        lanes_now.lanes = tuple(lanes)
+        try:
+            return real_flush(self, entries, lanes)
+        finally:
+            lanes_now.lanes = ()
+
+    punished = []
+
+    def on_punish(src, info):
+        punished.append((time.perf_counter(), src, dict(info)))
+
+    flood = {}
+    state = {}
+
+    async def drive():
+        net = LocalChaosNet(make_node, CHAOS_NODES)
+        real_poison = net.sig_poison
+
+        async def sig_poison(**kw):
+            flood["t0"] = time.perf_counter()
+            flood["height"] = net.nodes[poisoner].consensus.rs.height
+            await real_poison(**kw)
+            flood["sent"] = time.perf_counter()
+
+        net.sig_poison = sig_poison
+        await net.start()
+        try:
+            loop = asyncio.get_running_loop()
+            t0 = loop.time()
+            while net.min_height() < 1:
+                if loop.time() - t0 > CHAOS_TIMEOUT:
+                    raise SystemExit("chaos_poison_10k: the net did not commit height 1")
+                await asyncio.sleep(0.05)
+            for node in net.live_nodes():
+                if node._prewarm_thread is not None:
+                    await loop.run_in_executor(None, node._prewarm_thread.join)
+            reset_launches()
+            engine = ChaosEngine(schedule, net)
+            t_run = time.perf_counter()
+            await engine.start()
+            state["schedule_s"] = time.perf_counter() - t_run
+            if engine.errors:
+                raise SystemExit(f"chaos_poison_10k: engine errors {engine.errors}")
+            top = net.max_height()
+            t1 = loop.time()
+            while not all(n.block_store.height >= top + 2 for n in net.live_nodes()):
+                for n in net.live_nodes():
+                    n.raise_failures()
+                if loop.time() - t1 > CHAOS_TIMEOUT:
+                    raise SystemExit(f"chaos_poison_10k: stalled at "
+                                     f"{[n.block_store.height for n in net.live_nodes()]} "
+                                     f"(top {top})")
+                await asyncio.sleep(0.05)
+            state["after_s"] = time.perf_counter() - t_run
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            net.assert_safety()
+            state["heights"] = [n.block_store.height for n in net.live_nodes()]
+            state["top"] = top
+            state["applied"] = [e.kind for e in engine.applied]
+            state["poisoner_id"] = net.nodes[poisoner].node_key.id
+            state["reports"] = {i: [(pb.peer_id, pb.kind) for pb in n.switch.reporter.history]
+                                for i, n in enumerate(net.nodes) if i != poisoner}
+            for n in net.live_nodes():
+                n.raise_failures()
+        finally:
+            await net.stop()
+
+    provenance.default_scorer().reset()
+    provenance.default_scorer().add_punish_callback(on_punish)
+    batch.verify_batch, sched.VerifyScheduler._flush = vb, flush
+    try:
+        asyncio.run(drive())
+    finally:
+        batch.verify_batch, sched.VerifyScheduler._flush = real_vb, real_flush
+        provenance.default_scorer().remove_punish_callback(on_punish)
+        shutil.rmtree(root, ignore_errors=True)
+    run_s = time.perf_counter() - t_phase
+
+    src = f"peer:{state['poisoner_id']}"
+    mine = [(t, info) for t, s_, info in punished if s_ == src]
+    if not mine or mine[0][1].get("quarantines", 0) < 1:
+        raise SystemExit(f"chaos_poison_10k: {src} was not quarantined and punished: "
+                         f"{punished}; scorer {provenance.default_scorer().stats()}")
+    for i, reps in state["reports"].items():
+        if (state["poisoner_id"], BAD_MESSAGE) not in reps:
+            raise SystemExit(f"chaos_poison_10k: node{i}'s reporter holds no {BAD_MESSAGE} of "
+                             f"the poisoner: {reps[:8]}")
+    poisoned = []
+    for f in flushes:
+        idx = [k for k, sg in enumerate(f["rows"][2]) if sg in poison_sigs]
+        if idx:
+            f["poisoned"] = idx
+            poisoned.append(f)
+    if not poisoned:
+        raise SystemExit("chaos_poison_10k: no flush held a poisoned row")
+    for f in poisoned:
+        n = len(f["mask"])
+        if f["mask"][f["poisoned"]].any():
+            raise SystemExit(f"chaos_poison_10k: a poisoned row passed in a {n}-row flush")
+        if n >= 256 and f["path"] == "cpu":
+            raise SystemExit(f"chaos_poison_10k: a {n}-row poisoned flush took the host arm")
+    card = [f for f in poisoned if f["path"] != "cpu"]
+    if not card:
+        raise SystemExit("chaos_poison_10k: no poisoned flush ran on the card")
+    kernels = (ED25519_KERNELS if any(f["path"].startswith("rlc") for f in card)
+               else ("padd", "pdbl", "fsquare_chain"))
+    launches["chaos_poison_10k"] = read_launches("chaos_poison_10k", kernels)
+    reset_launches()
+
+    # every flush's mask against the host arm's: each distinct row once
+    t_host = time.perf_counter()
+    index = {}
+    for f in flushes:
+        for row in zip(*f["rows"]):
+            index.setdefault(row, len(index))
+    order_rows = list(index)
+    masks = pool_map(pool, _host_masks, [tuple(map(list, zip(*order_rows[lo:lo + DRAIN])))
+                                           for lo in range(0, len(order_rows), DRAIN)], workers)
+    verdict = dict(zip(order_rows, (ok for m in masks for ok in m)))
+    for f in flushes:
+        if f["mask"].tolist() != [verdict[row] for row in zip(*f["rows"])]:
+            raise SystemExit(f"chaos_poison_10k: a {len(f['mask'])}-row mask differs from the "
+                             "host arm's")
+    host_s = time.perf_counter() - t_host
+
+    n_rows = sum(len(f["poisoned"]) for f in poisoned)
+    print(f"chaos_poison_10k schedule: seed {schedule.seed} fingerprint "
+          f"{schedule.fingerprint()}, {[(e.at, e.kind, e.param_dict()) for e in schedule]}; "
+          f"poisoner node{poisoner}, crashed node{crashed}, partitioned node{lonely}; applied "
+          f"{state['applied']}; schedule {state['schedule_s']:.1f} s, two heights past its top "
+          f"({state['top']}) at {state['after_s']:.1f} s; heights {state['heights']}", flush=True)
+    print(f"chaos_poison_10k flood: {CHAOS_POISON} votes at height {flood['height']} into "
+          f"{CHAOS_NODES - 1} peers, built and written in "
+          f"{(flood['sent'] - flood['t0']) * 1e3:.1f} ms; {n_rows} poisoned rows reached "
+          f"{len(poisoned)} flushes ({len(card)} on the card); the flood to the punishment "
+          f"{(mine[0][0] - flood['t0']) * 1e3:.1f} ms (punish info {mine[0][1]}); poisoned "
+          f"flushes (rows, poisoned, route, lane, ms) "
+          f"{[(len(f['mask']), len(f['poisoned']), f['path'], f['lane'], round(f['ms'], 1)) for f in poisoned]}",
+          flush=True)
+    other = [f for f in flushes if "poisoned" not in f]
+    print(f"chaos_poison_10k: {len(other)} other flushes (rows {sum(len(f['mask']) for f in other)}, "
+          f"routes {sorted({f['path'] for f in other})}); launches "
+          f"{launches['chaos_poison_10k']}; {len(flushes)} masks over {len(order_rows)} distinct "
+          f"rows equal the host arm's ({sum(not v for v in verdict.values())} False, all "
+          f"poisoned); {run_s:.1f} s (host checks {host_s:.1f}); card {card_name(dev)}",
+          flush=True)
+    if any(not v and row[2] not in poison_sigs for row, v in verdict.items()):
+        raise SystemExit("chaos_poison_10k: a row other than the poisoned ones is False")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6390,7 +6879,9 @@ def run_phases(corpus, mixed, mixed_sr, cofactorless, light, light_mixed, catchu
                         (statesync_10k_phase, (chain10k, signing_pool, workers, launches)),
                         (device_fault_check, (corpus, signing_pool, workers, launches)),
                         (tx_admission_phase, (adm, signing_pool, workers, launches,
-                                              memo_default))):
+                                              memo_default)),
+                        (cli_localnet_phase, (launches,)),
+                        (chaos_poison_10k_phase, (signing_pool, workers, launches))):
         t_phase = time.perf_counter()
         phase(dev, *args)
         print(f"{phase.__name__}: {time.perf_counter() - t_phase:.1f} s", flush=True)

@@ -22,7 +22,10 @@ from dataclasses import dataclass
 
 try:
     from cryptography.exceptions import InvalidSignature
-    from cryptography.hazmat.primitives.asymmetric.ed25519 import Ed25519PublicKey
+    from cryptography.hazmat.primitives.asymmetric.ed25519 import (
+        Ed25519PrivateKey,
+        Ed25519PublicKey,
+    )
 
     _HAVE_OPENSSL = True
 except ImportError:  # hosts without the `cryptography` wheel
@@ -156,10 +159,17 @@ class Ed25519PrivKey:
         return self.seed
 
     def sign(self, msg: bytes) -> bytes:
-        return ed25519_ref.sign(self.seed, msg)
+        # Ed25519 signing is deterministic: OpenSSL and ed25519_ref give the
+        # same bytes; OpenSSL is the fast one, as in the reference
+        if not _HAVE_OPENSSL:
+            return ed25519_ref.sign(self.seed, msg)
+        return Ed25519PrivateKey.from_private_bytes(self.seed).sign(msg)
 
     def pub_key(self) -> Ed25519PubKey:
-        return Ed25519PubKey(ed25519_ref.public_key(self.seed))
+        if not _HAVE_OPENSSL:
+            return Ed25519PubKey(ed25519_ref.public_key(self.seed))
+        pub = Ed25519PrivateKey.from_private_bytes(self.seed).public_key()
+        return Ed25519PubKey(pub.public_bytes_raw())
 
     def type_name(self) -> str:
         return ED25519_KEY_TYPE

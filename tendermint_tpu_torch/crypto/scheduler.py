@@ -40,8 +40,11 @@ Consumers integrate three ways:
         ...        # submit / finish phases; acc.flush() rides the lane
 
 All three block the calling thread until the lane's flush lands. A closed
-scheduler, or a verdict that misses `wait_timeout`, verifies inline on the
-caller's thread (on the same device).
+scheduler, or a ticket still queued at `wait_timeout`, verifies inline on the
+caller's thread (on the same device). A ticket that a running flush already
+holds at `wait_timeout` waits one more `wait_timeout` for that flush before
+it falls back (the reference falls back at once and verifies the same rows
+twice; ROADMAP lists the difference).
 
 With `metrics=` (libs/metrics.SchedulerMetrics) the scheduler feeds the
 tendermint_verify_lane_* series (queue depth per lane, each flush's queue
@@ -386,20 +389,37 @@ class VerifyScheduler:
             return ticket.wait(self.wait_timeout)
         except TimeoutError:
             with self._cv:
-                self.fallbacks += 1
                 # dequeue the abandoned ticket: its consumer verifies inline now
                 st = self._lanes[ticket.lane]
+                queued = False
                 for entry in list(st.queue):
                     if entry[0] is ticket:
                         st.queue.remove(entry)
                         st.rows -= ticket.rows
+                        queued = True
                         break
-            logger.warning("verify lane %s ticket (%d rows) missed the %.0fs wait timeout; "
-                           "verifying inline on the caller's thread", ticket.lane, ticket.rows,
-                           self.wait_timeout)
-            if rows is None:
-                raise
-            return self._inline(*rows)
+                if queued:
+                    self.fallbacks += 1
+        if not queued:
+            # the dispatch thread already holds the ticket in a running flush:
+            # an inline verify would repeat its rows on the same device beside
+            # that flush, so wait one more wait_timeout for it to land
+            if not ticket.done():
+                logger.warning("verify lane %s ticket (%d rows) is in a running flush at the "
+                               "%.0fs wait timeout; waiting for that flush", ticket.lane,
+                               ticket.rows, self.wait_timeout)
+            try:
+                return ticket.wait(self.wait_timeout)
+            except TimeoutError:
+                with self._cv:
+                    self.fallbacks += 1
+        logger.warning("verify lane %s ticket (%d rows) missed the %.0fs wait timeout; "
+                       "verifying inline on the caller's thread", ticket.lane, ticket.rows,
+                       self.wait_timeout)
+        if rows is None:
+            raise TimeoutError(f"verify ticket ({ticket.lane}, {ticket.rows} rows) not flushed "
+                               f"within {self.wait_timeout}s")
+        return self._inline(*rows)
 
     def _inline(self, pubkeys, msgs, sigs, key_types, sources=None) -> np.ndarray:
         from tendermint_tpu_torch.crypto import batch as _batch

@@ -17,7 +17,7 @@ a scrape of the reference:
   crypto/scheduler.VerifyScheduler(metrics=) and
   libs/pubsub.PubSubServer(metrics=) (types/event_bus.EventBus(metrics=)).
   The reference keeps its pubsub counter on the global registry; here the
-  global registry holds the batch family only.
+  global registry holds the batch and chaos families only.
 
 - `NodeMetrics`: one registry per node (node/node.py) holding the consensus,
   mempool, p2p, state, blocksync, statesync, RPC, overload, SLO, light,
@@ -30,8 +30,9 @@ a scrape of the reference:
   (ROADMAP A4). `expose()` is the node's series and then the global
   registry's.
 
-The chaos, fleet, observatory and mesh families wait for the modules that
-feed them (ROADMAP A5, A6).
+`ChaosMetrics` (chaos/engine.py) sits on the global registry beside the
+batch family, as in the reference. The fleet, observatory and mesh families
+wait for the modules that feed them (ROADMAP A5b, A6).
 """
 
 from __future__ import annotations
@@ -951,24 +952,45 @@ class TxLifecycleMetrics:
         )
 
 
-# Process-global registry: the series of the process-global crypto pipeline.
+class ChaosMetrics:
+    """chaos/engine.py accounting: how many faults a soak or smoke injected
+    per level, so a chaos run's /metrics scrape shows the injected load next
+    to the recovery counters it caused (reconnects, halts, punishments)."""
+
+    def __init__(self, reg: Registry):
+        self.faults_injected = reg.counter(
+            f"{NAMESPACE}_chaos_faults_injected_total",
+            "Faults injected by the chaos engine.",
+            ("level",),
+        )
+
+
+# Process-global registry: the series of the process-global crypto pipeline
+# and of the chaos engine.
 _GLOBAL_LOCK = threading.Lock()
 _GLOBAL_REGISTRY: Optional[Registry] = None
 _BATCH_METRICS: Optional[BatchVerifyMetrics] = None
+_CHAOS_METRICS: Optional[ChaosMetrics] = None
 
 
 def global_registry() -> Registry:
-    global _GLOBAL_REGISTRY, _BATCH_METRICS
+    global _GLOBAL_REGISTRY, _BATCH_METRICS, _CHAOS_METRICS
     with _GLOBAL_LOCK:
         if _GLOBAL_REGISTRY is None:
             _GLOBAL_REGISTRY = Registry()
             _BATCH_METRICS = BatchVerifyMetrics(_GLOBAL_REGISTRY)
+            _CHAOS_METRICS = ChaosMetrics(_GLOBAL_REGISTRY)
         return _GLOBAL_REGISTRY
 
 
 def batch_metrics() -> BatchVerifyMetrics:
     global_registry()
     return _BATCH_METRICS
+
+
+def chaos_metrics() -> ChaosMetrics:
+    global_registry()
+    return _CHAOS_METRICS
 
 
 class NodeMetrics:

@@ -720,6 +720,13 @@ class Node:
         if self.statesync_error is not None:
             raise RuntimeError("state sync failed on a device error") from self.statesync_error
 
+    def raise_failures(self) -> None:
+        """Raise the first failure the node has stored (`_raise_stored`) or
+        its consensus halt; the command line's `start` polls it."""
+        self._raise_stored()
+        if self.consensus.halt_error is not None:
+            raise RuntimeError("consensus halted") from self.consensus.halt_error
+
     async def stop(self) -> None:
         self._running = False
         if self._punish_cb is not None:
@@ -769,9 +776,7 @@ class Node:
         loop = asyncio.get_running_loop()
         deadline = loop.time() + timeout
         while self.block_store.height < height:
-            self._raise_stored()
-            if self.consensus.halt_error is not None:
-                raise RuntimeError("consensus halted") from self.consensus.halt_error
+            self.raise_failures()
             if loop.time() > deadline:
                 raise TimeoutError(
                     f"timed out waiting for height {height} (at {self.block_store.height})"

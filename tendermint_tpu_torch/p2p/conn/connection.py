@@ -17,7 +17,7 @@ import asyncio
 import logging
 import time
 from dataclasses import dataclass, field
-from typing import Awaitable, Callable, Dict, List, Optional
+from typing import Awaitable, Callable, Dict, List, Optional, Sequence
 
 from tendermint_tpu_torch.libs import protowire as pw
 from tendermint_tpu_torch.libs.flowrate import Monitor
@@ -232,6 +232,36 @@ class MConnection:
             return False
         await ch.send_queue.put(msg)
         self._send_event.set()
+        return True
+
+    async def write_burst(self, channel_id: int, msgs: Sequence[bytes]) -> bool:
+        """Write whole messages on a channel in one write, past the channel's
+        send queue and the send rate: the flooding peer of the chaos harness
+        (chaos/byzantine.py poison_votes), which ignores its own
+        backpressure. Each message goes as one packet, so none may exceed
+        MAX_PACKET_MSG_PAYLOAD_SIZE bytes; a message the send routine has
+        half sent on the channel is let finish first, so the receiver's
+        reassembly never interleaves two messages."""
+        ch = self._channels.get(channel_id)
+        if ch is None or self._stopped:
+            return False
+        out = bytearray()
+        for m in msgs:
+            if len(m) > MAX_PACKET_MSG_PAYLOAD_SIZE:
+                raise ValueError(f"a burst message of {len(m)} bytes exceeds one packet")
+            w = pw.Writer()
+            w.varint_field(1, channel_id)
+            w.varint_field(2, 1)
+            w.bytes_field(3, m, emit_empty=True)
+            env = pw.Writer()
+            env.message_field(_F_MSG, w.bytes(), always=True)
+            e = env.bytes()
+            out += pw.encode_varint(len(e)) + e
+        while ch.sent_pos < len(ch.sending) and not self._stopped:
+            await asyncio.sleep(0.001)
+        if self._stopped:
+            return False
+        await self._t.write(bytes(out))
         return True
 
     def try_send(self, channel_id: int, msg: bytes) -> bool:

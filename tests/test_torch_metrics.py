@@ -121,6 +121,8 @@ def test_global_registry_holds_the_batch_family_only():
     names = {m.name for m in reg._metrics}
     fresh = T.Registry()
     T.BatchVerifyMetrics(fresh)
+    T.ChaosMetrics(fresh)
     assert names == {m.name for m in fresh._metrics}
+    assert T.chaos_metrics() is T.chaos_metrics()
     assert T.batch_metrics().flushes.name == "tendermint_batch_verify_flushes_total"
     assert T.batch_metrics() is T.batch_metrics()

@@ -359,6 +359,9 @@ def test_reference_statesync_node_dials_port_node(tmp_path, caplog):
     async def go():
         src = make_node(PORT, tmp_path, "src", "ss-chain", 1, val=0, edit=no_pex)
         src.proxy_app.snapshot.app.snapshot_interval = 2
+        # keep every snapshot listed: the chain may pass height 12 before the
+        # check below, and the default keep of 5 would prune an offered one
+        src.proxy_app.snapshot.app.snapshot_keep = 1000
         ref = make_node(REF, tmp_path, "ref-ss", "ss-chain", 1, edit=ss)
         # the reference's syncer collects snapshots during its discovery
         # window; its state provider is asked only after it

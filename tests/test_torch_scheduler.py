@@ -17,9 +17,11 @@ reference's SchedulerConfig across).
   verify_batch.
 - lane_scope routing of verify_commit and begin_verify_commit_light*,
   LaneAccumulator slicing and its error latch, the quarantine partition,
-  a closed scheduler going inline, the wait-timeout fallback, and a flush
-  that raises (it re-raises in every ticket, the thread survives, no
-  inline verification is taken).
+  a closed scheduler going inline, the wait-timeout fallback, a ticket
+  already in a running flush at the wait timeout (the port waits for that
+  flush; the reference verifies its rows again inline), and a flush that
+  raises (it re-raises in every ticket, the thread survives, no inline
+  verification is taken).
 - The vote path and blocksync on their lanes: VoteSet.flush with peer IDs
   through each package's default scheduler (committed votes, failed
   indices, scorer state), verify_run_batched(scheduler=) on a good and a
@@ -314,6 +316,41 @@ def test_wait_timeout_falls_back_inline(monkeypatch):
     assert got["port"] == got["ref"]
     assert got["port"][2]["inline_fallbacks"] == 1
     assert got["port"][2]["lanes"]["light"]["depth_rows"] == 0
+
+
+@pytest.mark.parametrize("lands", [True, False])
+def test_in_flight_ticket_at_wait_timeout(monkeypatch, lands):
+    """A ticket that the dispatch thread already holds at wait_timeout: the
+    port waits one more wait_timeout for that flush and takes its mask with
+    no second verify (lands) or, when the flush does not land by then, falls
+    back inline once. The reference falls back at once, verifying the rows
+    a second time beside the flush (asserted beside it)."""
+    import threading
+
+    cfgs = _configs(wait_timeout=2.0 if lands else 0.05)
+    got = {}
+    for pkg in PKGS:
+        calls = []
+        s = _manual(pkg, cfgs[pkg], _Clock(), monkeypatch, calls)
+        try:
+            ticket = s.submit("catchup", *_rows(6, "c", bad=(1,)))
+            with s._cv:
+                s._lanes["catchup"].queue.popleft()  # the dispatch thread's take
+                s._lanes["catchup"].rows = 0
+            out = []
+            waiter = threading.Thread(target=lambda: out.append(s._wait_or_fallback(
+                ticket, (*_rows(6, "c", bad=(1,)), None))))
+            waiter.start()
+            if lands:
+                waiter.join(3.0)  # the reference is back by now; the port still waits
+                s._flush([(ticket, *_rows(6, "c", bad=(1,)), None, None)], {"catchup"})
+            waiter.join()
+            got[pkg] = (out[0].tolist(), len(calls), s.fallbacks)
+        finally:
+            s.close()
+    mask = [i != 1 for i in range(6)]
+    assert got["port"] == ((mask, 1, 0) if lands else (mask, 1, 1))
+    assert got["ref"] == ((mask, 2, 1) if lands else (mask, 1, 1))
 
 
 # ---------------------------------------------------------------------------
