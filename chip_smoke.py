@@ -255,7 +255,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      own asyncio loop); its printed hash and app hash held to the node's
      block 3, its flushes (all on the card arm) held to the host arm, its
      launches counted in their own window, its seconds split into fetch and
-     flush ms;
+     flush ms; then "observatory_scrape_10k": the observatory's CLI
+     (tools/chain_observatory.py `--nodes <url>`) in a worker thread, exit
+     0 with one node merged, and a scrape_node of the same node whose
+     `mesh` block equals GET /debug/mesh's answer;
   21. "p2p_sync_10k": a new full node J of consensus_10k's chain joins
      through the port's p2p fabric (secret connections, three port Nodes on
      the card, device None): J dials L, a full node whose blocksync reactor
@@ -270,7 +273,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      channel, the transfer ms, each flush, the dial-of-S-to-commit time in
      three parts, L's punishment and the phase's seconds; every mask equals
      the host arm's, only the flipped rows are False, J's blocks, commits
-     and app hash equal S's, J did not halt or store an error;
+     and app hash equal S's, J did not halt or store an error; before S
+     and J stop, each node's dump (tools/chain_observatory.py
+     write_node_dump) and the fleet referee over the two: verdict pass, a
+     clean safety audit of the 3 shared heights, and
+     tendermint_fleet_safety_checks_total raised by that count;
   21b. "statesync_10k": a new full node J of consensus_10k's 4-height
      chain joins by snapshot: S (a full node over its stores, RPC on, its
      kvstore behind a port SocketServer reached through base.proxy_app,
@@ -334,6 +341,27 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      flush's mask is False on the poisoned rows and equal to the host
      arm's. Prints the schedule, the poisoned flushes (rows, route, lane,
      ms), the time from the flood to the punishment and the launches;
+  22d. "fleet_smoke_7": chaos/fleet.run_fleet_soak on the reference's
+     tier-1 smoke spec (tests/test_fleet_soak.py _smoke_spec, seed
+     20260807: 4 Ed25519 validators, one of them the poisoner, a resident
+     full node, a blocksync joiner, a light edge; partition, peer_stall and
+     sig_poison) with each node's `device` None (the card with the
+     reference's routing, as the other node phases: the fleet's flushes of
+     1-49 rows take the host arm), FLEET_MIN_HEIGHTS heights, the referee
+     on, the provenance scorer reset first (with every node's device the
+     card, the 7 in-process nodes' launching threads convoy on the GIL and
+     the fleet does not fit the limit: tools/fleet_probe.py measures it).
+     The run must give verdict pass with 0 safety violations, the poisoner
+     (and no other source) quarantined and punished, the joiner within 2
+     heights of the head,
+     full coverage, the referee CLI and release_gate.evaluate(skip_perf)
+     agreeing with it and fleet_safety_checks_total raised by the audit's
+     count; every flush's mask equals the host arm's. Prints the spec, the
+     heights by node, each node's flushes by lane (rows, route, ms; the
+     vote sets' flushes ride the process-global default scheduler, the last
+     node's), the flood to the quarantine and to the punishment, the fleet
+     series and the launches (window "fleet_smoke_7 soak", the ladder's
+     three where a flush took the card);
   23. a `kernels` JSON line (a row off every path counts 0 launches), the
      card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
@@ -346,7 +374,7 @@ consensus window where a flush took a card route), statesync_10k's light
 and blocksync windows, device_fault healed, tx_admission's
 batched arm and cli_light_10k included, and chaos_poison_10k's window where
 a poisoned flush took a combined check on the card (else the ladder's
-three); the
+three), and fleet_smoke_7's soak (the ladder's three); the
 tampered batch launches the ladder's three),
 the two BLS kernels on the BLS paths, fp381_mul on g1_msm_10k, none on host_small, the
 verify-at-add arm, the evidence check and the memo's answers. Exits non-zero without a result when no CUDA device
@@ -4617,6 +4645,35 @@ def poisoned_commit_json(com: dict, power_of: dict, total: int) -> tuple:
     return out, flipped
 
 
+def observatory_scrape(url: str) -> dict:
+    """The observatory over RPC, in the calling worker thread (each call runs
+    its own asyncio loop): the CLI `chain_observatory --nodes <url>` into a
+    temporary directory (its exit code, the chain report it wrote, its
+    seconds), then one scrape_node of the same node (the dump the CLI merged;
+    the CLI keeps it in memory only)."""
+    import asyncio
+    import io
+    import shutil
+    import tempfile
+
+    from tendermint_tpu_torch.tools import chain_observatory as obs
+
+    out_dir = tempfile.mkdtemp(prefix="observatory_scrape-")
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = obs.main(["--nodes", url, "--out", out_dir, "--heights", "0"])
+        cli_s = time.perf_counter() - t0
+        with open(os.path.join(out_dir, "chain_report.json")) as f:
+            report = json.load(f)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    dump = asyncio.run(obs.scrape_node(url))
+    return dict(rc=rc, report=report, cli_s=cli_s, dump=dump,
+                scrape_s=time.perf_counter() - t0)
+
+
 def rpc_light_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> None:
     """rpc_light_10k: the port's Node (node/node.py) as a full node over
     consensus_10k's stores (3 heights of BASELINE config 5's set, 8,000
@@ -4927,8 +4984,15 @@ def rpc_light_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) ->
             if not cli_fl or any(path == "cpu" for _, path, _ in cli_fl):
                 raise SystemExit(f"cli_light_10k: a flush took the host arm or none ran: {cli_fl}")
             cli = dict(s=cli_s, fetch_s=cli_fetch, flushes=cli_fl, res=res)
+
+            # the observatory's RPC scrape of this node, then /debug/mesh
+            scrape = await loop.run_in_executor(None, observatory_scrape, url)
+            async with aiohttp.ClientSession() as sess:
+                async with sess.get(url + "/debug/mesh") as resp:
+                    scrape["debug_mesh"] = (await resp.json())["result"]
             return dict(prewarm_s=prewarm_s, serve_s=serve_s, want=want, proxied=proxied,
-                        refused=refused, svc=node.light_service.stats(), cli=cli)
+                        refused=refused, svc=node.light_service.stats(), cli=cli,
+                        scrape=scrape, url=url)
         finally:
             if proxy is not None:
                 await proxy.stop()
@@ -4984,6 +5048,21 @@ def rpc_light_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) ->
     n_false = sum(not ok for ok in verdict.values())
     host_s = time.perf_counter() - t_host
 
+    # the observatory's scrape: the CLI merged this one node, and the dump's
+    # mesh block is /debug/mesh's answer
+    sc = out["scrape"]
+    rep, dump = sc["report"], sc["dump"]
+    errors = {k: v["error"] for k, v in dump.items() if isinstance(v, dict) and "error" in v}
+    if sc["rc"] != 0 or rep["coverage"] != {"expected": 1, "merged": 1, "missing": [],
+                                            "partial": False}:
+        raise SystemExit(f"observatory_scrape_10k: exit {sc['rc']}, coverage {rep['coverage']}")
+    if errors or dump.get("scrape_error"):
+        raise SystemExit(f"observatory_scrape_10k: the scrape failed: {errors} "
+                         f"{dump.get('scrape_error')}")
+    if dump["mesh"] != sc["debug_mesh"]:
+        raise SystemExit(f"observatory_scrape_10k: the scraped mesh block {dump['mesh']} is not "
+                         f"/debug/mesh's {sc['debug_mesh']}")
+
     card_line = card_name(dev)
     for k, st in enumerate(steps):
         print(f"rpc_light_10k client run {k}: initialize {st['init_s'] * 1e3:.1f} ms, step "
@@ -5025,6 +5104,14 @@ def rpc_light_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) ->
           f"{cli['res']['hash'][:16]}... app_hash {cli['res']['app_hash'][:16]}... = the node's "
           f"block {CONSENSUS_HEIGHTS}; trusted {cli['res']['trusted_heights']}; launches "
           f"{launches['cli_light_10k']}", flush=True)
+    print(f"observatory_scrape_10k: `chain_observatory --nodes {out['url']}` exit "
+          f"{sc['rc']} in {sc['cli_s']:.3f} s, its report merging 1 node over "
+          f"{rep['nodes'][0]['heights']} heights (range {rep['nodes'][0]['height_range']}, SLO "
+          f"{'tripped' if rep['slo_any_tripped'] else 'held'}); a scrape_node of the same "
+          f"node {sc['scrape_s'] * 1e3:.1f} ms, its sections "
+          f"{sorted(k for k, v in dump.items() if isinstance(v, dict))}; its mesh block equals "
+          f"/debug/mesh's (mesh {dump['mesh']['mesh']}, ladder {dump['mesh']['ladder']}, "
+          f"health devices {dump['mesh']['health']['devices']})", flush=True)
     print(f"rpc_light_10k launches: " + ", ".join(
         f"{k} {v}" for k, v in launches.items() if k.startswith("rpc_light_10k")), flush=True)
     print(f"rpc_light_10k checks: {len(recorded)} masks over {len(order)} distinct rows "
@@ -5326,8 +5413,11 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
     from tendermint_tpu_torch.blocksync import messages as bs_messages
     from tendermint_tpu_torch.consensus.messages import (BlockPartMessage, VoteMessage,
                                                          decode_message_traced)
+    from tendermint_tpu_torch.libs.metrics import fleet_metrics
     from tendermint_tpu_torch.node.node import Node
     from tendermint_tpu_torch.p2p.conn import secret_connection as scmod
+    from tendermint_tpu_torch.tools import chain_observatory as obs
+    from tendermint_tpu_torch.tools import fleet_referee
 
     t_phase = time.perf_counter()
     node_dev = None if dev.type == "cuda" else dev
@@ -5485,6 +5575,20 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
             rec.close("consensus", kernels=ED25519_KERNELS if card else ())
             rec.window = "after"
             J._raise_stored()
+            # the observatory: S's and J's dumps, and the referee over them
+            t_obs = time.perf_counter()
+            dump_dir = tempfile.mkdtemp(prefix="p2p_sync_10k-observatory-")
+            roots.append(dump_dir)
+            for node in (S, J):
+                obs.write_node_dump(node, dump_dir)
+            checks0 = fleet_metrics().safety_checks._values.get((), 0.0)
+            dumps = obs.load_dumps(dump_dir)
+            report = fleet_referee.build_report(dumps)
+            observatory = dict(
+                report=report, s=time.perf_counter() - t_obs,
+                checks=fleet_metrics().safety_checks._values.get((), 0.0) - checks0,
+                bytes=sum(os.path.getsize(d["source_file"]) for d in dumps),
+                labels={"S": S.node_key.id[:10], "J": J.node_key.id[:10]})
             rxb = channel_bytes(J)
             heights = range(1, CONSENSUS_HEIGHTS + 1)
             return dict(j_blocks=[J.block_store.load_block(h).encode() for h in heights],
@@ -5499,7 +5603,7 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
                         sched_log=list(J.scheduler.flush_log) if J.scheduler else [],
                         app_hash=J.state_store.load().app_hash,
                         s_app_hash=S.state_store.load().app_hash,
-                        halt=J.consensus.halt_error)
+                        halt=J.consensus.halt_error, observatory=observatory)
         finally:
             for node in reversed(started):
                 await node.stop()
@@ -5542,6 +5646,14 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
                          f"handed off after height {out['synced_at']} (want [3] and 2)")
     if not punished or punished[0][0] != L.node_key.id:
         raise SystemExit("p2p_sync_10k: L was not punished")
+    ob = out["observatory"]
+    rep = ob["report"]
+    safety = rep["safety"]
+    if (rep["verdict"] != "pass" or safety["violations"] or safety["nodes_audited"] != 2
+            or safety["heights_checked"] < CONSENSUS_HEIGHTS
+            or ob["checks"] != safety["heights_checked"]):
+        raise SystemExit(f"p2p_sync_10k observatory: verdict {rep['verdict']}, safety {safety}, "
+                         f"fleet_safety_checks_total +{ob['checks']}; SLO {rep['role_slo']}")
 
     card_line = card_name(dev)
     print(f"p2p_sync_10k handshakes (secret connection, ms; J's side and the listener's): "
@@ -5593,6 +5705,13 @@ def p2p_sync_10k_phase(dev, chain: dict, pool, workers: int, launches: dict) -> 
           f"{out['app_hash'].hex()} equal S's; J's seen commit of height "
           f"{CONSENSUS_HEIGHTS} holds {len(j_sigs)} of S's signatures; J did not halt or store "
           f"an error", flush=True)
+    print(f"p2p_sync_10k observatory: S's and J's dumps ({ob['bytes']} bytes) written and the "
+          f"referee's report built in {ob['s'] * 1e3:.1f} ms; verdict {rep['verdict']} (exit "
+          f"{rep['exit_code']}); safety audit over {safety['nodes_audited']} nodes: "
+          f"{safety['heights_checked']} shared heights compared, {len(safety['violations'])} "
+          f"violations, tendermint_fleet_safety_checks_total +{ob['checks']:.0f}; waterfall "
+          f"{rep['waterfall']['per_node']} ({ob['labels']}); SLO tripped "
+          f"{rep['slo_any_tripped']}", flush=True)
     print(f"p2p_sync_10k: {time.perf_counter() - t_phase:.1f} s (setup {setup_s:.1f}, prewarm "
           f"{out['prewarm_s']:.1f}, traffic {run_s - out['prewarm_s'] - host_s:.1f}, host checks "
           f"{host_s:.1f}); card {card_line}", flush=True)
@@ -6770,6 +6889,219 @@ def chaos_poison_10k_phase(dev, pool, workers: int, launches: dict) -> None:
         raise SystemExit("chaos_poison_10k: a row other than the poisoned ones is False")
 
 
+# fleet_smoke_7: the reference's tier-1 fleet smoke spec (tests/test_fleet_soak.py
+# _smoke_spec), seed 20260807; its acceptance soak's 50 nodes and 20 heights cut
+# to 7 nodes and the smoke's 6 heights
+FLEET_SEED, FLEET_NODES, FLEET_MIN_HEIGHTS, FLEET_DEADLINE_S = 20260807, 7, 6, 240.0
+FLEET_SPEC_KW = dict(validator_frac=0.58, light_frac=0.15, joiner_frac=0.5, bls_validators=0,
+                     statesync_joiners=0, poisoners=1, peer_degree=3, episodes=2, min_gap=0.5,
+                     max_gap=1.0, min_episode=0.8, max_episode=1.5, start_delay=0.5,
+                     join_window=(2.0, 4.0),
+                     chaos_kinds=("partition", "peer_stall", "sig_poison"))
+
+
+def fleet_smoke_7_phase(dev, pool, workers: int, launches: dict) -> None:
+    """fleet_smoke_7 (module docstring 22d)."""
+    import asyncio
+    import io
+    import shutil
+    import tempfile
+
+    from tendermint_tpu_torch.chaos import fleet
+    from tendermint_tpu_torch.chaos.harness import LocalChaosNet
+    from tendermint_tpu_torch.crypto import provenance
+    from tendermint_tpu_torch.libs.metrics import fleet_metrics
+    from tendermint_tpu_torch.tools import chain_observatory as obs
+    from tendermint_tpu_torch.tools import fleet_referee, release_gate
+
+    t_phase = time.perf_counter()
+    # the card with the reference's routing, as the other node phases: with
+    # every node's device the card the in-process fleet does not fit the
+    # limit (tools/fleet_probe.py measures it)
+    node_dev = None if dev.type == "cuda" else dev
+    spec = fleet.FleetSpec.generate(FLEET_SEED, FLEET_NODES, **FLEET_SPEC_KW)
+    root = tempfile.mkdtemp(prefix="fleet_smoke_7-")
+    fm = fleet_metrics()
+
+    def fleet_series() -> dict:
+        return {"safety_checks": fm.safety_checks._values.get((), 0.0),
+                **{f"verdict {k[0]}": v for k, v in fm.referee_verdicts._values.items()}}
+
+    # the suspicion scorer is process-global and chaos_poison_10k left its
+    # poisoner quarantined: this fleet's adversary starts from a clean slate
+    scorer = provenance.default_scorer()
+    scorer.reset()
+    marks, ever = {}, set()  # every source quarantined during the soak
+    real_record = scorer.record_rows
+
+    def record_rows(sources, mask):
+        real_record(sources, mask)
+        q = scorer.quarantined_sources()
+        ever.update(q)
+        if "quarantine" not in marks and q:
+            marks["quarantine"] = (time.perf_counter(), sorted(q))
+
+    def on_punish(src, info):
+        marks.setdefault("punish", (time.perf_counter(), src))
+
+    real_poison = LocalChaosNet.sig_poison
+
+    async def sig_poison(self, **kw):
+        marks.setdefault("flood", time.perf_counter())
+        await real_poison(self, **kw)
+
+    # each node's scheduler flushes carry its index into the recorder's lane
+    rec = FlushRecorder("fleet_smoke_7", ("soak",), launches)
+    node_now = threading.local()
+    rec.lane_now = lambda: getattr(node_now, "label", None) or "direct"
+    real_start = fleet.FleetNet._start_node
+
+    async def start_node(self, i):
+        await real_start(self, i)
+        sch = self.nodes[i].scheduler
+        real_flush = sch._flush
+
+        def flush(entries, lanes, _i=i, _real=real_flush):
+            prev = getattr(node_now, "label", None)
+            node_now.label = f"node{_i} {'+'.join(sorted(lanes))}"
+            try:
+                return _real(entries, lanes)
+            finally:
+                node_now.label = prev
+
+        sch._flush = flush
+        real_rows = sch.verify_rows
+
+        def verify_rows(lane, *a, _i=i, _real=real_rows, **kw):
+            # the votes lane flushes inline on the caller's thread
+            prev = getattr(node_now, "label", None)
+            node_now.label = f"node{_i} {lane}"
+            try:
+                return _real(lane, *a, **kw)
+            finally:
+                node_now.label = prev
+
+        sch.verify_rows = verify_rows
+
+    before = fleet_series()
+    scorer.record_rows = record_rows
+    scorer.add_punish_callback(on_punish)
+    LocalChaosNet.sig_poison, fleet.FleetNet._start_node = sig_poison, start_node
+    rec.install()
+    try:
+        rec.window = "soak"
+        reset_launches()
+        t_run = time.perf_counter()
+        res = asyncio.run(fleet.run_fleet_soak(spec, root, min_heights=FLEET_MIN_HEIGHTS,
+                                               deadline_s=FLEET_DEADLINE_S, device=node_dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        soak_s = time.perf_counter() - t_run
+        routes = {r["path"] for r in rec.recorded}
+        rec.close("soak", kernels=("padd", "pdbl", "fsquare_chain")
+                  if routes - {"cpu", "memo"} else ())
+        rec.window = "after"
+        after = fleet_series()
+        dumps_dir = res["dumps_dir"]
+        dumps = obs.load_dumps(dumps_dir)
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_rc = fleet_referee.main(["--dumps", dumps_dir, "--check"])
+        with open(os.path.join(dumps_dir, "fleet_report.json")) as f:
+            cli_report = json.load(f)
+        gate = release_gate.evaluate(fleet_dumps=dumps_dir, skip_perf=True)
+    finally:
+        rec.uninstall()
+        LocalChaosNet.sig_poison, fleet.FleetNet._start_node = real_poison, real_start
+        scorer.record_rows = real_record
+        scorer.remove_punish_callback(on_punish)
+        shutil.rmtree(root, ignore_errors=True)
+
+    report = res["report"]
+    poisoner = next(ns.index for ns in spec.nodes if ns.poisoner)
+    tag = f"peer:{res['poisoners'][poisoner]}"
+    sus = res["suspicion"]
+    (joiner,) = res["joiners"].values()
+    card = [r for r in rec.recorded if r["path"] not in ("cpu", "memo")]
+    checks = after["safety_checks"] - before["safety_checks"]
+    card_line = card_name(dev)
+    heights = {d.get("moniker"): (d.get("chain") or {}).get("height") for d in dumps}
+    print(f"fleet_smoke_7 spec: seed {spec.seed} fingerprint {spec.fingerprint()} schedule "
+          f"{spec.schedule.fingerprint()} {[(e.at, e.kind, e.param_dict()) for e in spec.schedule]}"
+          f"; roles {[(ns.index, ns.role, ns.sync_mode, ns.join_at, ns.poisoner) for ns in spec.nodes]}",
+          flush=True)
+    print(f"fleet_smoke_7 heights by node: {heights}; head {res['heights']}, the joiner "
+          f"{joiner}; soak {soak_s:.1f} s ({res['elapsed_s']} s in run_fleet_soak); "
+          f"workload {res['workload']}; chaos applied {res['chaos_applied']}", flush=True)
+    by_node = {}
+    for r in rec.recorded:
+        by_node.setdefault(r["lane"], []).append(r)
+    for label, rs in sorted(by_node.items()):
+        print(f"fleet_smoke_7 flushes of {label}: {len(rs)} flushes, {sum(r['rows'] for r in rs)} "
+              f"rows, {sum(r['ms'] for r in rs):.1f} ms (median "
+              f"{statistics.median(r['ms'] for r in rs):.1f}); (rows, route, ms), the first 24 "
+              f"{[(r['rows'], r['path'], round(r['ms'], 1)) for r in rs[:24]]}", flush=True)
+    flood = marks.get("flood")
+    q_at, q_src = marks.get("quarantine", (None, None))
+    p_at, p_src = marks.get("punish", (None, None))
+    print(f"fleet_smoke_7 poison: {tag} (node{poisoner}); flood to quarantine "
+          f"{(q_at - flood) * 1e3 if flood and q_at else float('nan'):.1f} ms (quarantined "
+          f"{q_src}), flood to punishment "
+          f"{(p_at - flood) * 1e3 if flood and p_at else float('nan'):.1f} ms ({p_src}); "
+          f"scorer {sus}", flush=True)
+    print(f"fleet_smoke_7 fleet series: before {before}, after {after}; nodes_by_role "
+          f"{ {k[0]: v for k, v in fm.nodes_by_role._values.items()} }", flush=True)
+    print(f"fleet_smoke_7 referee: verdict {report['verdict']}, safety "
+          f"{report['safety']['heights_checked']} heights over "
+          f"{report['safety']['nodes_audited']} nodes, {len(report['safety']['violations'])} "
+          f"violations; waterfall {report['waterfall']['per_node']}; role SLO "
+          f"{report['role_slo']}; tripped objectives "
+          f"{[(e['node'], e['objective'], e['breaches'], e['worst_s']) for e in report['observatory']['slo'] if e['tripped']]}; "
+          f"quarantine {report['quarantine']}; the CLI exit {cli_rc} "
+          f"and the release gate ({gate['verdict']}, exit {gate['exit_code']}, perf "
+          f"{gate['gates']['perf']['status']}) agree", flush=True)
+    if res["verdict"] != "pass" or res["safety_violations"] != 0:
+        raise SystemExit(f"fleet_smoke_7: verdict {res['verdict']}, "
+                         f"{res['safety_violations']} safety violations; SLO "
+                         f"{report['role_slo']}; coverage {report['coverage']}")
+    # a source is paroled after 64 clean rows (the poisoner votes honestly
+    # too): what was quarantined during the soak is the record
+    if ever != {tag} or sus["punished"] < 1 or (tag not in sus["quarantined"]
+                                                and sus["paroles"] < 1):
+        raise SystemExit(f"fleet_smoke_7: the poisoner {tag} was not the one source quarantined "
+                         f"and punished: quarantined during the soak {sorted(ever)}; {sus}")
+    if (res["heights"] < FLEET_MIN_HEIGHTS or res["live_nodes"] != FLEET_NODES
+            or res["chaos_errors"] or res["chaos_applied"] < len(spec.schedule)):
+        raise SystemExit(f"fleet_smoke_7: heights {res['heights']}, live {res['live_nodes']}, "
+                         f"chaos {res['chaos_applied']} applied, errors {res['chaos_errors']}")
+    if joiner["height"] is None or joiner["height"] < res["heights"] - 2:
+        raise SystemExit(f"fleet_smoke_7: the joiner is at {joiner['height']}, the head at "
+                         f"{res['heights']}")
+    if report["coverage"]["partial"] or report["waterfall"]["uncovered"]:
+        raise SystemExit(f"fleet_smoke_7: coverage {report['coverage']}, uncovered "
+                         f"{report['waterfall']['uncovered']}")
+    if (cli_rc != 0 or cli_report["verdict"] != report["verdict"]
+            or cli_report["safety"] != report["safety"]
+            or gate["exit_code"] != 0 or gate["verdict"] != "pass"
+            or gate["gates"]["fleet"]["status"] != report["verdict"]
+            or gate["gates"]["perf"]["status"] != "skipped"):
+        raise SystemExit(f"fleet_smoke_7: the referee CLI (exit {cli_rc}, "
+                         f"{cli_report['verdict']}) and the release gate ({gate['verdict']}, "
+                         f"{gate['gates']}) do not agree with the soak's {report['verdict']}")
+    if checks != report["safety"]["heights_checked"] or checks < 1:
+        raise SystemExit(f"fleet_smoke_7: fleet_safety_checks_total moved {checks}, the audit "
+                         f"compared {report['safety']['heights_checked']} heights")
+
+    t_host = time.perf_counter()
+    verdict = rec.host_check(pool, workers)
+    host_s = time.perf_counter() - t_host
+
+    print(f"fleet_smoke_7 checks: {len(rec.recorded)} masks ({len(card)} on the card, routes "
+          f"{sorted({r['path'] for r in rec.recorded})}) over {len(verdict)} distinct rows equal "
+          f"the host arm's ({sum(not v for v in verdict.values())} False); launches "
+          f"{launches['fleet_smoke_7 soak']}; {time.perf_counter() - t_phase:.1f} s (soak "
+          f"{soak_s:.1f}, host checks {host_s:.1f}); card {card_line}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6881,7 +7213,8 @@ def run_phases(corpus, mixed, mixed_sr, cofactorless, light, light_mixed, catchu
                         (tx_admission_phase, (adm, signing_pool, workers, launches,
                                               memo_default)),
                         (cli_localnet_phase, (launches,)),
-                        (chaos_poison_10k_phase, (signing_pool, workers, launches))):
+                        (chaos_poison_10k_phase, (signing_pool, workers, launches)),
+                        (fleet_smoke_7_phase, (signing_pool, workers, launches))):
         t_phase = time.perf_counter()
         phase(dev, *args)
         print(f"{phase.__name__}: {time.perf_counter() - t_phase:.1f} s", flush=True)

@@ -1,5 +1,5 @@
 """Chaos engine: seeded, deterministic fault injection for the full stack.
-The port's copy of tendermint_tpu/chaos/ (chaos/fleet.py is ROADMAP A5b).
+The port's copy of tendermint_tpu/chaos/, chaos/fleet.py's seeded fleet soak included.
 
 Three fault levels, matching where a production validator actually breaks:
 

@@ -13,7 +13,7 @@ The shard and mesh half of the reference's injector (shard errors and
 hangs, lost devices, the mesh health probe intercept) needs the sharded
 verify path, which the port has not taken yet: those methods raise
 NotImplementedError naming ROADMAP A6, and install() installs only the
-batch hook.
+batch hook, not an intercept on parallel/health.py's probes.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import threading
 import time
 from typing import List, Optional, Tuple
 
-_A6 = "not ported yet (ROADMAP A6: parallel/ and the mesh health manager)"
+_A6 = "not ported yet (ROADMAP A6: the sharded mesh, parallel/sharded.py)"
 
 
 class DeviceFaultError(RuntimeError):

@@ -184,18 +184,25 @@ def _device_fault(site: str) -> None:
         hook(site)
 
 
-def is_device_error(exc: BaseException) -> bool:
-    """True when `exc`, or an exception it was raised from or during, came
-    out of device work (`_on_device` marked it). Callers that turn protocol
-    failures into something else (statesync's snapshot rejection, the
-    node's fallback) let such errors through (ROADMAP D1)."""
+def device_error_of(exc: BaseException) -> Optional[BaseException]:
+    """The error in `exc`'s chain (itself, or one it was raised from or
+    during) that came out of device work (`_on_device` marked it), else
+    None."""
     seen = set()
     while exc is not None and id(exc) not in seen:
         if getattr(exc, DEVICE_ERROR_ATTR, None) is not None:
-            return True
+            return exc
         seen.add(id(exc))
         exc = exc.__cause__ or exc.__context__
-    return False
+    return None
+
+
+def is_device_error(exc: BaseException) -> bool:
+    """True when `exc`, or an exception it was raised from or during, came
+    out of device work. Callers that turn protocol failures into something
+    else (statesync's snapshot rejection, the node's fallback) let such
+    errors through (ROADMAP D1)."""
+    return device_error_of(exc) is not None
 
 
 @contextlib.contextmanager
@@ -389,6 +396,14 @@ def configure_verified_memo(rows: Optional[int] = None) -> None:
 
 def verified_memo_stats() -> dict:
     return _MEMO.stats()
+
+
+def configure_mesh_health(**kwargs) -> None:
+    """Apply `[crypto] mesh_health_*` config (node/node.py): the mesh health
+    model's scoring thresholds and rejoin hysteresis (parallel/health.py)."""
+    from tendermint_tpu_torch.parallel import health as _mh
+
+    _mh.MESH_HEALTH.configure(**kwargs)
 
 # ---------------------------------------------------------------------------
 # Streamed flush planner: a flush above the lane budget runs as fixed chunks

@@ -77,9 +77,15 @@ class Heartbeat:
             _HEADER.pack_into(self._mm, 0, _MAGIC, self.slots, 0)
 
     def beat(self, phase: str) -> None:
+        """Stamp one phase. A beat on a ring that `configure` already
+        retired (another in-process node configured its own ring while this
+        thread was on its way here) is dropped: the new ring takes the next
+        beat."""
         b = phase.encode()[:36]
         now_m, now_w = time.monotonic(), time.time()
         with self._lock:
+            if self._mm.closed:
+                return
             self._seq += 1
             slot = (self._seq - 1) % self.slots
             _RECORD.pack_into(
@@ -90,10 +96,11 @@ class Heartbeat:
             _HEADER.pack_into(self._mm, 0, _MAGIC, self.slots, self._seq)
 
     def close(self) -> None:
-        try:
-            self._mm.close()
-        except Exception:
-            pass
+        with self._lock:  # never under a beat's pack_into
+            try:
+                self._mm.close()
+            except Exception:
+                pass
 
     @staticmethod
     def read(path: str, limit: Optional[int] = None) -> List[dict]:
@@ -354,6 +361,12 @@ def capture(
     except Exception:
         # last resort: the diagnosis still reaches the scenario log
         print(json.dumps(doc, default=repr), file=sys.stderr, flush=True)
+    try:
+        from tendermint_tpu_torch.libs import metrics as _metrics
+
+        _metrics.observatory_metrics().forensics_captures.labels(kind).inc()
+    except Exception:
+        pass
     try:
         from tendermint_tpu_torch.libs.trace import tracer
 

@@ -25,14 +25,15 @@ a scrape of the reference:
   (ConsensusState, Mempool, BlockExecutor, OverloadController,
   VerifyScheduler, LightService, TxTracker, and with `p2p.laddr` the
   Switch, its MConnections and the blocksync reactor and pool). The
-  statesync family is declared so that a node's exposition has the
-  reference's series names; nothing of the port feeds it until state sync
-  (ROADMAP A4). `expose()` is the node's series and then the global
-  registry's.
+  node and its state sync syncer (statesync/syncer.py) feed the statesync
+  family. `expose()` is the node's series and then the global registry's.
 
-`ChaosMetrics` (chaos/engine.py) sits on the global registry beside the
-batch family, as in the reference. The fleet, observatory and mesh families
-wait for the modules that feed them (ROADMAP A5b, A6).
+The global registry also holds, as in the reference: `ChaosMetrics`
+(chaos/engine.py); `MeshMetrics` (parallel/telemetry.py, whose flush, prep
+and rebuild records nothing of the port feeds until the sharded mesh,
+ROADMAP A6); `ObservatoryMetrics` (libs/profiler.py's actions,
+libs/forensics.py's captures); `FleetMetrics` (tools/fleet_referee.py,
+chaos/fleet.py).
 """
 
 from __future__ import annotations
@@ -965,21 +966,144 @@ class ChaosMetrics:
         )
 
 
-# Process-global registry: the series of the process-global crypto pipeline
-# and of the chaos engine.
+class MeshMetrics:
+    """Multi-device mesh telemetry (parallel/telemetry.py), the reference's
+    tendermint_mesh_* series: the mesh's devices and shard lanes, flush,
+    submit, finish, all_gather and prep accounting, the kernel-artifact
+    cache outcomes, per-device health and the degrade-ladder rung."""
+
+    def __init__(self, reg: Registry):
+        ns = f"{NAMESPACE}_mesh"
+        self.devices = reg.gauge(
+            f"{ns}_devices", "Devices in the active sharding mesh."
+        )
+        self.shard_lanes = reg.gauge(
+            f"{ns}_shard_lanes",
+            "Lanes per device shard in the last sharded flush.",
+            ("device",),
+        )
+        self.pad_waste_fraction = reg.gauge(
+            f"{ns}_pad_waste_fraction",
+            "Fraction of lanes that were padding in the last sharded flush.",
+        )
+        self.flushes = reg.counter(
+            f"{ns}_flushes_total", "Sharded device flushes.", ("kind",)
+        )
+        self.submit_seconds = reg.counter(
+            f"{ns}_submit_seconds_total",
+            "Wall seconds dispatching sharded programs (host-side submit).",
+        )
+        self.finish_seconds = reg.counter(
+            f"{ns}_finish_seconds_total",
+            "Wall seconds blocked syncing sharded results (D2H + stragglers).",
+        )
+        self.all_gathers = reg.counter(
+            f"{ns}_all_gathers_total",
+            "Cross-chip all_gather collectives issued by sharded flushes.",
+        )
+        self.all_gather_bytes = reg.counter(
+            f"{ns}_all_gather_bytes_total",
+            "Logical bytes moved by sharded all_gather collectives.",
+        )
+        self.prep_seconds = reg.counter(
+            f"{ns}_prep_seconds_total",
+            "Host wall seconds in per-shard RLC prep (window sort + bounds).",
+        )
+        self.aot_cache = reg.counter(
+            f"{ns}_aot_cache_total",
+            "AOT artifact-cache outcomes (hit=deserialized, miss=fresh "
+            "export, corrupt=deleted+re-exported); machine-scoped keys make "
+            "a foreign host's artifacts misses, never loader failures.",
+            ("result",),
+        )
+        self.device_health = reg.gauge(
+            f"{ns}_device_health",
+            "Per-device mesh health: 1=healthy, 0.5=dead-but-probing-clean "
+            "(mid-rejoin), 0=dead. replace_series'd from the health "
+            "snapshot, so a departed device's series drops instead of "
+            "freezing.",
+            ("device",),
+        )
+        self.rebuilds = reg.counter(
+            f"{ns}_rebuilds_total",
+            "Mesh topology rebuilds (device loss shrank the mesh, or a "
+            "recovered device re-joined after clean probes).",
+        )
+        self.ladder_state = reg.gauge(
+            f"{ns}_ladder_state",
+            "Verification degrade-ladder rung: 0=full mesh, 1=survivor "
+            "mesh, 2=single-chip, 3=host (breaker open).",
+        )
+
+
+class ObservatoryMetrics:
+    """Profiler-capture and stall-forensics accounting (libs/profiler.py,
+    libs/forensics.py): how often the observatory itself was used. A
+    forensics capture counted here means a run hit a hard hang and left a
+    diagnosis file behind."""
+
+    def __init__(self, reg: Registry):
+        self.profiler_actions = reg.counter(
+            f"{NAMESPACE}_profiler_actions_total",
+            "Profiler session actions (start/stop/trace_function).",
+            ("action",),
+        )
+        self.forensics_captures = reg.counter(
+            f"{NAMESPACE}_forensics_captures_total",
+            "FORENSICS_*.json captures written, by trigger "
+            "(watchdog/signal/timeout/manual).",
+            ("kind",),
+        )
+
+
+class FleetMetrics:
+    """Fleet-soak referee accounting (tools/fleet_referee.py, chaos/fleet.py):
+    the live nodes of each role, the cross-node safety comparisons the
+    referee ran and the verdicts it handed down. Global, not per node: the
+    referee audits every node from outside."""
+
+    def __init__(self, reg: Registry):
+        self.nodes_by_role = reg.gauge(
+            f"{NAMESPACE}_fleet_nodes_by_role",
+            "Live fleet nodes per role (validator/full/light_edge).",
+            ("role",),
+        )
+        self.safety_checks = reg.counter(
+            f"{NAMESPACE}_fleet_safety_checks_total",
+            "Per-height cross-node block-hash comparisons run by the "
+            "fleet referee's safety auditor.",
+        )
+        self.referee_verdicts = reg.counter(
+            f"{NAMESPACE}_fleet_referee_verdicts_total",
+            "Fleet-referee verdicts handed down, by verdict "
+            "(pass/partial/slo_tripped/safety_violation/no_data).",
+            ("verdict",),
+        )
+
+
+# Process-global registry: the series of process-global subsystems (the
+# crypto pipeline, the chaos engine, the mesh telemetry, the observatory and
+# the fleet referee) rather than of a Node.
 _GLOBAL_LOCK = threading.Lock()
 _GLOBAL_REGISTRY: Optional[Registry] = None
 _BATCH_METRICS: Optional[BatchVerifyMetrics] = None
 _CHAOS_METRICS: Optional[ChaosMetrics] = None
+_MESH_METRICS: Optional[MeshMetrics] = None
+_OBSERVATORY_METRICS: Optional[ObservatoryMetrics] = None
+_FLEET_METRICS: Optional[FleetMetrics] = None
 
 
 def global_registry() -> Registry:
     global _GLOBAL_REGISTRY, _BATCH_METRICS, _CHAOS_METRICS
+    global _MESH_METRICS, _OBSERVATORY_METRICS, _FLEET_METRICS
     with _GLOBAL_LOCK:
         if _GLOBAL_REGISTRY is None:
             _GLOBAL_REGISTRY = Registry()
             _BATCH_METRICS = BatchVerifyMetrics(_GLOBAL_REGISTRY)
             _CHAOS_METRICS = ChaosMetrics(_GLOBAL_REGISTRY)
+            _MESH_METRICS = MeshMetrics(_GLOBAL_REGISTRY)
+            _OBSERVATORY_METRICS = ObservatoryMetrics(_GLOBAL_REGISTRY)
+            _FLEET_METRICS = FleetMetrics(_GLOBAL_REGISTRY)
         return _GLOBAL_REGISTRY
 
 
@@ -991,6 +1115,21 @@ def batch_metrics() -> BatchVerifyMetrics:
 def chaos_metrics() -> ChaosMetrics:
     global_registry()
     return _CHAOS_METRICS
+
+
+def mesh_metrics() -> MeshMetrics:
+    global_registry()
+    return _MESH_METRICS
+
+
+def observatory_metrics() -> ObservatoryMetrics:
+    global_registry()
+    return _OBSERVATORY_METRICS
+
+
+def fleet_metrics() -> FleetMetrics:
+    global_registry()
+    return _FLEET_METRICS
 
 
 class NodeMetrics:

@@ -19,6 +19,10 @@ bucket_fold, bls), the point kernels by the record_function range they
 were launched in (ops/msm_torch.py's "decompress" and "msm",
 crypto/batch.py's "persig"), the plain torch ops' kernels as glue.
 
+Every start, stop and trace_function counts one in
+tendermint_profiler_actions_total{action} (libs/metrics.py
+ObservatoryMetrics), as in the reference.
+
 On the CPU the capture holds host events only: stage attribution of
 device time needs the card. The capture and report pipeline is the same.
 """
@@ -97,6 +101,14 @@ def _card() -> bool:
     return torch.cuda.is_available()
 
 
+def _metrics_inc(action: str) -> None:
+    """tendermint_profiler_actions_total{action} (libs/metrics.py
+    ObservatoryMetrics)."""
+    from tendermint_tpu_torch.libs import metrics as _metrics
+
+    _metrics.observatory_metrics().profiler_actions.labels(action).inc()
+
+
 def start(base_dir: Optional[str] = None) -> dict:
     """Begin a capture into a fresh run directory; returns {"dir", ...}.
     Raises ProfilerError while any torch.profiler session is live."""
@@ -123,6 +135,7 @@ def start(base_dir: Optional[str] = None) -> dict:
             raise ProfilerError(f"torch.profiler start failed: {e!r}") from e
         _PROF[0] = prof
         _STATE.update(active=True, dir=run_dir, started_at=time.time())
+    _metrics_inc("start")
     from tendermint_tpu_torch.libs.trace import tracer
 
     if tracer.enabled:
@@ -155,6 +168,7 @@ def stop() -> dict:
            "artifacts": _artifacts(run_dir)}
     with _LOCK:
         _STATE["last_capture"] = cap
+    _metrics_inc("stop")
     from tendermint_tpu_torch.libs.trace import tracer
 
     if tracer.enabled:
@@ -196,4 +210,5 @@ def trace_function(fn, *args, base_dir: Optional[str] = None, **kwargs):
             torch.cuda.synchronize()
     finally:
         stop()
+    _metrics_inc("trace_function")
     return out, info["dir"]

@@ -26,8 +26,9 @@ instrumented paths make no tracer call beyond one flag read (they hoist
 `tracer if tracer.enabled else None`), and the ring never exceeds its size.
 TMTPU_TRACE=0 turns it off at import.
 
-Not ported: verify_stats' `breaker` block (the port has no circuit breaker,
-ROADMAP D1) and its `mesh` block (the sharded mesh, A8).
+verify_stats' `mesh` block is parallel/telemetry.mesh_stats(), the snapshot
+GET /debug/mesh serves. Not ported: its `breaker` block (the port has no
+circuit breaker, ROADMAP D1).
 """
 
 from __future__ import annotations
@@ -328,7 +329,8 @@ def verify_stats() -> dict:
     time split, the counters, the last flush's breakdown, the slope samples
     (the last recorded fit, and the (rows, seconds, path) samples of the
     last rlc* flushes), the `device` block (device_health()), and the
-    default scheduler's `scheduler` block when one is installed."""
+    default scheduler's `scheduler` block when one is installed, and the
+    `mesh` block (parallel/telemetry.mesh_stats(), as /debug/mesh)."""
     with _STATS_LOCK:
         out = {
             "totals": {f"{backend}/{path}": dict(t) for (backend, path), t in _TOTALS.items()},
@@ -339,6 +341,9 @@ def verify_stats() -> dict:
                               "flush_samples": [list(s) for s in _FLUSH_SAMPLES]},
         }
     out["device"] = device_health()
+    from tendermint_tpu_torch.parallel import telemetry as _mesh_tm
+
+    out["mesh"] = _mesh_tm.mesh_stats()
     # lazy: crypto/batch imports this module; the scheduler imports batch
     from tendermint_tpu_torch.crypto import scheduler as _scheduler
 

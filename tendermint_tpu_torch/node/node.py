@@ -148,6 +148,14 @@ class Node:
             host_stripe=_parse_host_stripe(config.crypto.prep_host_stripe),
         )
         _batch.configure_verified_memo(rows=config.crypto.verified_memo_rows)
+        # the mesh health model's policy (parallel/health.py; process-global)
+        _batch.configure_mesh_health(
+            enabled=config.crypto.mesh_health_enabled,
+            fail_threshold=config.crypto.mesh_health_fail_threshold,
+            stall_threshold_s=config.crypto.mesh_health_stall_threshold,
+            rejoin_probes=config.crypto.mesh_health_rejoin_probes,
+            probe_interval_s=config.crypto.mesh_health_probe_interval,
+        )
         self._owns_priv_validator = False
         if priv_validator is None and config.base.priv_validator_addr:
             # dial the remote signer (reference: node/node.go:658
@@ -397,6 +405,10 @@ class Node:
         # (reference: node/node.go:672 decide stateSync)
         self.state_sync = bool(config.statesync.enable) and self.block_store.height == 0
         self._statesync_task: Optional[asyncio.Task] = None
+        # the state provider state sync uses; None builds the reference's
+        # LightClientStateProvider over `[statesync] rpc_servers` (a fleet
+        # harness sets one over a LocalClient, chaos/fleet.py)
+        self._state_provider = None
         self.statesync_error: Optional[BaseException] = None
         if config.p2p.laddr:
             self._build_p2p(config, genesis, state, priv_validator)
@@ -638,15 +650,18 @@ class Node:
         )
 
         cfg = self.config.statesync
-        clients = [HTTPClient(u) for u in cfg.rpc_servers]
-        provider = LightClientStateProvider(
-            self.genesis.chain_id,
-            clients,
-            cfg.trust_height,
-            bytes.fromhex(cfg.trust_hash),
-            int(cfg.trust_period * 1_000_000_000),
-            device=self.device,
-        )
+        clients = []
+        provider = self._state_provider
+        if provider is None:
+            clients = [HTTPClient(u) for u in cfg.rpc_servers]
+            provider = LightClientStateProvider(
+                self.genesis.chain_id,
+                clients,
+                cfg.trust_height,
+                bytes.fromhex(cfg.trust_hash),
+                int(cfg.trust_period * 1_000_000_000),
+                device=self.device,
+            )
         try:
             try:
                 state, commit = await self.statesync_reactor.sync(

@@ -1252,40 +1252,12 @@ class RPCServer:
         return out
 
     async def _debug_mesh(self, params) -> dict:
-        """Multi-chip mesh telemetry snapshot (the reference's
-        parallel/telemetry.py mesh_stats). The port drives one card and has
-        no mesh yet (ROADMAP A6), so this is the reference's answer on a
-        single-device node: mesh: null, zeroed totals, and the mesh health
-        manager's `[crypto] mesh_health_*` policy with no device tracked.
-        Read-only, served regardless of rpc.unsafe."""
-        crypto = getattr(getattr(self.node, "config", None), "crypto", None)
-        return {
-            "mesh": None,
-            "flushes": {},
-            "totals": {
-                "submit_seconds": 0.0,
-                "finish_seconds": 0.0,
-                "all_gathers": 0,
-                "all_gather_bytes": 0,
-                "prep_seconds": 0.0,
-                "prep_calls": 0,
-            },
-            "last_flush": None,
-            "last_prep": None,
-            "last_pad": None,
-            "aot_cache": {},
-            "ladder": None,
-            "rebuilds": 0,
-            "last_rebuild": None,
-            "health": {
-                "enabled": bool(getattr(crypto, "mesh_health_enabled", True)),
-                "generation": 0,
-                "fail_threshold": max(1, int(getattr(crypto, "mesh_health_fail_threshold", 2))),
-                "rejoin_probes": max(1, int(getattr(crypto, "mesh_health_rejoin_probes", 3))),
-                "dead": 0,
-                "devices": {},
-            },
-        }
+        """Multi-device mesh telemetry: parallel/telemetry.mesh_stats(), the
+        snapshot that verify_stats' `mesh` block and the observatory's dumps
+        read too. Read-only, served regardless of rpc.unsafe."""
+        from tendermint_tpu_torch.parallel import telemetry
+
+        return telemetry.mesh_stats()
 
     # one-line description per debug surface — served by GET /debug so the
     # ~10 endpoints are discoverable from the node itself, not only the docs.

@@ -1,10 +1,12 @@
 """The port's metrics core (libs/metrics.py) against the JAX package's: one
 sequence of counter, gauge and histogram calls on each package's Registry
 gives identical exposition text and snapshots; parse_exposition reads both
-alike and refuses the same malformed lines; the four families the port
-feeds (BatchVerifyMetrics less its three breaker_* series, SLOMetrics,
-LightServiceMetrics, SchedulerMetrics) have the reference's series names,
-kinds, help, label names and buckets. Fresh Registry objects only: the
+alike and refuses the same malformed lines; the families the port feeds
+(BatchVerifyMetrics less its three breaker_* series, SLOMetrics,
+LightServiceMetrics, SchedulerMetrics, MeshMetrics, ObservatoryMetrics,
+FleetMetrics) have the reference's series names, kinds, help, label names
+and buckets, and the global registry holds the reference's families less
+its pubsub counter and breaker series. Fresh Registry objects only: the
 process-global registry is read, never written, so the file is order-free.
 Tolerance: zero (exposition text, parsed samples).
 """
@@ -14,7 +16,8 @@ import pytest
 from tendermint_tpu.libs import metrics as J
 from tendermint_tpu_torch.libs import metrics as T
 
-FAMILIES = ("BatchVerifyMetrics", "SLOMetrics", "LightServiceMetrics", "SchedulerMetrics")
+FAMILIES = ("BatchVerifyMetrics", "SLOMetrics", "LightServiceMetrics", "SchedulerMetrics",
+            "MeshMetrics", "ObservatoryMetrics", "FleetMetrics")
 
 
 def drive(mod):
@@ -120,9 +123,16 @@ def test_global_registry_holds_the_batch_family_only():
     assert T.global_registry() is reg
     names = {m.name for m in reg._metrics}
     fresh = T.Registry()
-    T.BatchVerifyMetrics(fresh)
-    T.ChaosMetrics(fresh)
+    for family in (T.BatchVerifyMetrics, T.ChaosMetrics, T.MeshMetrics, T.ObservatoryMetrics,
+                   T.FleetMetrics):
+        family(fresh)
     assert names == {m.name for m in fresh._metrics}
+    # the reference's global registry less its pubsub counter and breaker series
+    want = {m.name for m in J.global_registry()._metrics
+            if "_breaker_" not in m.name and "_pubsub_" not in m.name}
+    assert names == want
     assert T.chaos_metrics() is T.chaos_metrics()
+    for getter in ("mesh_metrics", "observatory_metrics", "fleet_metrics"):
+        assert getattr(T, getter)() is getattr(T, getter)()
     assert T.batch_metrics().flushes.name == "tendermint_batch_verify_flushes_total"
     assert T.batch_metrics() is T.batch_metrics()

@@ -84,7 +84,10 @@ def _isolated():
 
 def scrape(mod) -> dict:
     """{(sample name, sorted labels): value} of the verify-path families,
-    the backend label "jax" read as "cuda"."""
+    the backend label "jax" read as "cuda". Where a registry holds both a
+    "jax" and a "cuda" series of one sample (a test elsewhere in the process
+    recorded the reference's name into the port's registry), the two are
+    summed, so a move of either shows."""
     out = {}
     for fam, body in mod.parse_exposition(mod.global_registry().expose()).items():
         if not fam.startswith(FAMILY_PREFIXES) or "_breaker_" in fam:
@@ -92,7 +95,8 @@ def scrape(mod) -> dict:
         for name, labels, value in body["samples"]:
             if labels.get("backend") == "jax":
                 labels = dict(labels, backend="cuda")
-            out[(fam, name, tuple(sorted(labels.items())))] = value
+            key = (fam, name, tuple(sorted(labels.items())))
+            out[key] = out.get(key, 0.0) + value
     return out
 
 
