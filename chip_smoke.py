@@ -362,6 +362,37 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      node's), the flood to the quarantine and to the punishment, the fleet
      series and the launches (window "fleet_smoke_7 soak", the ladder's
      three where a flush took the card);
+  22e. "mesh_10k": the sharded mesh (parallel/sharded.py and the sharded
+     arms of crypto/batch.py) on MESH_SHARDS = 4 shards of the one card,
+     pinned as the reference's tests pin their virtual devices
+     (batch._sharded_env -> _build_sharded_env([card] * 4); shard keys
+     "cuda:0#0".."cuda:0#3"), over the commit phase's 10,000 rows with the
+     memo off. First the single-card `rlc` flush (stream off) and the host
+     arm's mask on the fork pool; then, on the mesh: verify_batch (one warm,
+     3 timed, counts the same on each) and ValidatorSet.verify_commit take
+     path "rlc-sharded", 4 x 5,120 lanes in LAST_FLUSH and in the mesh
+     telemetry's flush record, the mask byte-identical to the single-card
+     and host masks; one flipped signature (row MESH_TAMPERED): the combined
+     check fails and the bisection over sharded halves, its leaf on the
+     sharded ladder, gives the host's mask ("rlc-bisect"); the rows tiled
+     MESH_STREAM_TILES times (20,000 rows, over the planner's budget):
+     "rlc-sharded-streamed", 2 chunks, 6,144 lanes a shard, the tiled host
+     mask; sharded_commit_step over the 10k rows (4,096 lanes a shard):
+     ok, its mask the host's and its tally the verify_commit tally;
+     aggregate_bitmap_sharded over build_bls_set's 10,000 keys and the full
+     bitmap: affine ints equal to the single-card fold and to bls_ref's
+     sum, with a kernel row for each fp381_mul shape of its shard folds
+     that no earlier row has (path mesh_bls_fold); chaos/device.py's arm_shard_error(2): the flush
+     raises ShardFaultError, a device error (no replay, no launch), the
+     health model strikes "cuda:0#2" once, and the next flush on a freshly
+     pinned env passes with the host's mask; then /debug/mesh's numbers
+     (telemetry.mesh_stats(): flushes, pad waste, submit and finish
+     seconds, gathers and their bytes, prep). With two cards or more the
+     "auto" mesh over the distinct cards verifies the rows too; on one card
+     that arm prints that it did not run (_sharded_env() is None). Every
+     Ed25519 shape the phase gives a kernel gets its row from
+     recorded_rows (the per-shard MSMs' 5,120- and 6,144-lane shapes, the
+     sharded ladders');
   23. a `kernels` JSON line (a row off every path counts 0 launches), the
      card line, and last the `ok` JSON line.
 The launch counts are zeroed just before each path and read just after it
@@ -374,9 +405,11 @@ consensus window where a flush took a card route), statesync_10k's light
 and blocksync windows, device_fault healed, tx_admission's
 batched arm and cli_light_10k included, and chaos_poison_10k's window where
 a poisoned flush took a combined check on the card (else the ladder's
-three), and fleet_smoke_7's soak (the ladder's three); the
-tampered batch launches the ladder's three),
-the two BLS kernels on the BLS paths, fp381_mul on g1_msm_10k, none on host_small, the
+three), and fleet_smoke_7's soak (the ladder's three), and mesh_10k's
+single-card, rlc-sharded, verify_commit, tampered, streamed and healed
+paths; the tampered batch and mesh_10k's commit step launch the ladder's
+three), the two BLS kernels on the BLS paths, fp381_mul on g1_msm_10k and
+mesh_10k's shard folds, none on host_small, mesh_10k's armed shard fault, the
 verify-at-add arm, the evidence check and the memo's answers. Exits non-zero without a result when no CUDA device
 is available.
 """
@@ -7102,6 +7135,296 @@ def fleet_smoke_7_phase(dev, pool, workers: int, launches: dict) -> None:
           f"{soak_s:.1f}, host checks {host_s:.1f}); card {card_line}", flush=True)
 
 
+MESH_SHARDS = 4  # shards of the one card: the reference's mesh of 4 chips
+MESH_TAMPERED = 4_242  # the one flipped signature of the sharded bisection
+MESH_STREAM_TILES = 2  # the commit's rows twice: 20,000 rows, 2 planner chunks
+
+
+def mesh_auto_arm(dev, corpus, host, host_tampered, run) -> None:
+    """The several-card arm of mesh_10k: the reference's "auto" mesh
+    (batch._sharded_env unpinned) over the distinct healthy cards, on a
+    machine with two or more: the clean rows ("rlc-sharded"), the rows with
+    MESH_TAMPERED flipped (the bisection over the real mesh) and the rows
+    tiled MESH_STREAM_TILES times ("rlc-sharded-streamed"), each mask equal
+    to the host arm's (`host`, `host_tampered`). `run(path, fn)` zeroes the
+    counts before fn and reads them after. On one card the mesh must not
+    stand, and the arm prints that it did not run."""
+    from tendermint_tpu_torch.crypto import batch
+
+    vals, _, commit, msgs = corpus
+    pks = [v.pub_key.bytes() for v in vals.validators]
+    sigs = [cs.signature for cs in commit.signatures]
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    env = batch._sharded_env()
+    if cards < 2:
+        if env is not None:
+            raise SystemExit("mesh_10k: the auto mesh stood on one card")
+        print(f"mesh_10k auto: not run ({cards} card; the several-card arm needs 2 or "
+              f"more), _sharded_env() is None, ladder {batch.mesh_ladder_state()}", flush=True)
+        return
+    nd = 1 << (cards.bit_length() - 1)
+    if env is None or env.nd != nd or env.mesh.keys != [f"cuda:{i}" for i in range(nd)]:
+        raise SystemExit(f"mesh_10k auto: {cards} cards gave the mesh {env and env.mesh.keys}")
+    bad = list(sigs)
+    bad[MESH_TAMPERED % len(sigs)] = flip(bad[MESH_TAMPERED % len(sigs)])
+    tiles = MESH_STREAM_TILES
+    for path, rows, want, label in (
+            ("mesh auto", (pks, msgs, sigs), host, "rlc-sharded"),
+            ("mesh auto tampered", (pks, msgs, bad), host_tampered, "rlc-bisect"),
+            ("mesh auto streamed", tuple(list(x) * tiles for x in (pks, msgs, sigs)),
+             np.tile(host, tiles), "rlc-sharded-streamed")):
+        mask, ms, f = run(path, lambda: batch.verify_batch(*rows, device=dev))
+        if mask.tobytes() != want.tobytes() or f.get("path") != label:
+            raise SystemExit(f"{path} over {nd} cards: mask or path wrong: {f}")
+        print(f"{path}: {nd} cards {env.mesh.keys}, {len(rows[0])} rows, {ms:.1f} ms, path "
+              f"{f['path']}, mask == host arm", flush=True)
+    print(f"mesh_10k auto: ladder {batch.mesh_ladder_state()}", flush=True)
+
+
+def mesh_10k_phase(dev, corpus, bls: dict, pool, workers: int, launches: dict,
+                   card: dict, rows: list) -> list:
+    """mesh_10k (module docstring 22e): the sharded mesh on MESH_SHARDS
+    shards of the one card, pinned as the reference's tests pin theirs
+    (batch._sharded_env -> _build_sharded_env([card] * 4)). Returns the
+    kernel rows of the fp381_mul shapes its sharded BLS fold gives that no
+    row of `rows` has (the Ed25519 shapes get theirs from recorded_rows)."""
+    from tendermint_tpu_torch.chaos import DeviceFaultInjector
+    from tendermint_tpu_torch.crypto import batch
+    from tendermint_tpu_torch.crypto import bls_ref as B
+    from tendermint_tpu_torch.ops import bls12_torch as G
+    from tendermint_tpu_torch.parallel import health, sharded
+    from tendermint_tpu_torch.parallel import telemetry as mesh_tm
+    from tendermint_tpu_torch.types.validator_set import _bls_pubkey_entry
+
+    t_phase = time.perf_counter()
+    vals, block_id, commit, msgs = corpus
+    pks = [v.pub_key.bytes() for v in vals.validators]
+    sigs = [cs.signature for cs in commit.signatures]
+    powers = [v.voting_power for v in vals.validators]
+    n = len(pks)
+    card0 = torch.device("cuda", torch.cuda.current_device()) if dev.type == "cuda" else dev
+    shard_devs = [card0] * MESH_SHARDS
+    lanes = 2 * batch._sharded_lanes(n, MESH_SHARDS)  # 20,480 at 10k rows: 4 x 5,120
+    tampered = MESH_TAMPERED % n
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def host_mask(p, m, s):
+        part = pool_map(pool, _host_masks, [
+            (p[lo:lo + DRAIN], m[lo:lo + DRAIN], s[lo:lo + DRAIN], ["ed25519"] * len(p[lo:lo + DRAIN]))
+            for lo in range(0, len(p), DRAIN)], workers)
+        return np.array([ok for f in part for ok in f], dtype=bool)
+
+    def run(path, fn, kernels=ED25519_KERNELS, per_call=False):
+        """fn() with the counts zeroed just before and read just after;
+        per_call: the counts must be the same on every call of the path."""
+        reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_launches(path, kernels)
+        if per_call:
+            same_counts(launches, path, counts)
+        else:
+            launches[path] = counts
+        return out, ms, dict(batch.LAST_FLUSH)
+
+    def pin(env):
+        batch._sharded_env = lambda: env
+        return env
+
+    real_env = batch._sharded_env
+    memo = batch.verified_memo_stats()["capacity"]
+    stream = batch._stream_enabled()
+    batch.configure_verified_memo(0)
+    health.MESH_HEALTH.reset()
+    mesh_tm.reset()
+    inj = None
+    new_rows = []
+    steps = {}  # seconds of each step, for the phase's breakdown
+
+    def step(name, t0):
+        steps[name] = round(time.perf_counter() - t0, 1)
+        return time.perf_counter()
+
+    t_step = time.perf_counter()
+    try:
+        # the single-card rlc mask and the host arm's, before the mesh stands
+        batch.configure_prep(stream=False)
+        single, single_ms, f = run("mesh single rlc", lambda: batch.verify_batch(
+            pks, msgs, sigs, device=dev))
+        if f.get("path") != "rlc":
+            raise SystemExit(f"mesh_10k: the single-card flush took {f.get('path')}, not rlc")
+        host = host_mask(pks, msgs, sigs)
+        if single.tobytes() != host.tobytes() or not single.all():
+            raise SystemExit("mesh_10k: the single-card rlc mask differs from the host arm's")
+        t_step = step("single card and host", t_step)
+
+        env = pin(batch._build_sharded_env(shard_devs))
+        mesh = env.mesh
+        print(f"mesh_10k: mesh of {mesh.size} shards {mesh.keys} on {card0}", flush=True)
+        batch.verify_batch(pks, msgs, sigs, device=dev)  # warm: the sharded shapes
+        times = []
+        for _ in range(3):
+            mask, ms, f = run("mesh_rlc_sharded", lambda: batch.verify_batch(
+                pks, msgs, sigs, device=dev), per_call=True)
+            times.append(ms)
+            if mask.tobytes() != single.tobytes():
+                raise SystemExit("mesh_10k: the rlc-sharded mask differs from the single-card one")
+            lf = mesh_tm.mesh_stats()["last_flush"]
+            if not (f.get("path") == "rlc-sharded" and f.get("shards") == MESH_SHARDS
+                    and f.get("lanes") == lanes and f.get("shard_lanes") == lanes // MESH_SHARDS
+                    and lf["kind"] == "rlc" and lf["shards"] == MESH_SHARDS
+                    and lf["lanes_per_shard"] == lanes // MESH_SHARDS and lf["ok"] is True):
+                raise SystemExit(f"mesh_10k: rlc-sharded flush wrong: {f}, mesh record {lf}")
+        reset_launches()
+        t0 = time.perf_counter()
+        vals.verify_commit(CHAIN_ID, block_id, HEIGHT, commit, device=dev)
+        sync()
+        commit_ms = (time.perf_counter() - t0) * 1e3
+        launches["mesh verify_commit"] = read_launches("mesh verify_commit")
+        if batch.LAST_FLUSH.get("path") != "rlc-sharded":
+            raise SystemExit(f"mesh_10k: verify_commit took {batch.LAST_FLUSH.get('path')}")
+        tally = sum(p for p, ok in zip(powers, single) if ok)
+        print(f"mesh_10k rlc-sharded {n} rows: median_ms={statistics.median(times):.1f} "
+              f"ms={[round(t, 1) for t in times]} (single-card rlc {single_ms:.1f} ms) "
+              f"verify_commit_ms={commit_ms:.1f} tally={tally} lanes {MESH_SHARDS} x "
+              f"{lanes // MESH_SHARDS}, "
+              f"mask == single-card rlc == host arm; launches per call="
+              f"{launches['mesh_rlc_sharded']}", flush=True)
+        t_step = step("rlc-sharded", t_step)
+
+        # one flipped signature: the combined check fails, the bisection runs
+        # over sharded halves, the leaf on the sharded ladder
+        bad = list(sigs)
+        bad[tampered] = flip(bad[tampered])
+        mask, ms, f = run("mesh_tampered", lambda: batch.verify_batch(pks, msgs, bad, device=dev))
+        host_bad = host_mask(pks, msgs, bad)
+        if (mask.tobytes() != host_bad.tobytes()
+                or tuple(np.flatnonzero(~mask)) != (tampered,)
+                or f.get("path") != "rlc-bisect" or not f.get("rlc_fallback")):
+            raise SystemExit(f"mesh_10k tampered: False at {np.flatnonzero(~mask)}, flush {f}")
+        print(f"mesh_10k tampered row {tampered}: ms={ms:.1f} path={f['path']} "
+              f"recovery_flushes={f['recovery_flushes']} recovery_ms="
+              f"{f['recovery_s'] * 1e3:.1f}, mask == host arm; launches="
+              f"{launches['mesh_tampered']}", flush=True)
+        t_step = step("tampered", t_step)
+
+        # over the planner's budget: the combined check streams across the mesh
+        spks, smsgs, ssigs = (list(x) * MESH_STREAM_TILES for x in (pks, msgs, sigs))
+        smask, ms, f = run("mesh_streamed", lambda: batch.verify_batch(
+            spks, smsgs, ssigs, device=dev))
+        if (smask.tobytes() != np.tile(host, MESH_STREAM_TILES).tobytes()
+                or f.get("path") != "rlc-sharded-streamed"
+                or f.get("chunks") != len(batch._planner_chunks(len(spks)))
+                or f.get("shards") != MESH_SHARDS
+                or f.get("shard_lanes") != batch.planner_budget() // MESH_SHARDS):
+            raise SystemExit(f"mesh_10k streamed: mask or flush wrong: {f}")
+        print(f"mesh_10k rlc-sharded-streamed {len(spks)} rows: ms={ms:.1f} chunks={f['chunks']} "
+              f"chunk_lanes={f['chunk_lanes']} shard_lanes={f['shard_lanes']} "
+              f"peak_lanes_in_flight={f['peak_lanes_in_flight']} prep_ms={f['prep_s'] * 1e3:.1f} "
+              f"prep_wait_ms={f['prep_wait_s'] * 1e3:.1f}, mask == host arm; launches="
+              f"{launches['mesh_streamed']}", flush=True)
+        t_step = step("streamed", t_step)
+
+        # the commit step: the ladder per shard and the power planes' tally
+        a, r, s_d, h_d, precheck, _ = batch.prepare_batch(pks, msgs, sigs)
+        planes = sharded.split_powers(powers + [0] * (a.shape[1] - n))
+        (cmask, ok), ms, _ = run("mesh_commit_step", lambda: sharded.sharded_commit_step(mesh)(
+            a, r, s_d, h_d, planes), kernels=("padd", "pdbl", "fsquare_chain"))
+        cmask = cmask[:n] & precheck
+        step_tally = sum(p for p, v in zip(powers, cmask) if v)
+        if cmask.tobytes() != host.tobytes() or step_tally != tally or ok is not True:
+            raise SystemExit(f"mesh_10k commit step: ok {ok}, tally {step_tally} vs "
+                             f"verify_commit's {tally}, or its mask differs")
+        print(f"mesh_10k sharded_commit_step {n} rows ({a.shape[1] // MESH_SHARDS} lanes a "
+              f"shard): ms={ms:.1f} ok={ok} tally={step_tally} == verify_commit's, mask == host "
+              f"arm; launches={launches['mesh_commit_step']}", flush=True)
+        t_step = step("commit step", t_step)
+
+        # the BLS aggregate key folded a shard at a time
+        entries = [_bls_pubkey_entry(v.pub_key.bytes()) for v in bls["vals"].validators]
+        coords = [e[0] for e in entries]
+        bitmap = [True] * len(coords)
+        apk, ms, _ = run("mesh_bls_fold", lambda: sharded.aggregate_bitmap_sharded(
+            coords, bitmap, mesh=mesh), kernels=("fp381_mul",))
+        whole = G.fold_points(np.stack([e[1] for e in entries], axis=-1), dev)
+        acc = B.G1_IDENTITY
+        for x, y in coords:
+            acc = B._jac_add(acc, (B._G1Field(x), B._G1Field(y), B._G1Field(1)))
+        ref = B._jac_to_affine(acc)
+        if not apk == whole == (ref[0].v, ref[1].v):
+            raise SystemExit("mesh_10k: aggregate_bitmap_sharded differs from the single-card "
+                             "fold or bls_ref's sum")
+        with recorded_products() as seen:
+            sharded.aggregate_bitmap_sharded(coords, bitmap, mesh=mesh)
+        print(f"mesh_10k aggregate_bitmap_sharded {len(coords)} keys on {mesh.size} shards: "
+              f"ms={ms:.1f} == single-card fold == bls_ref; fp381_mul shapes {sorted(seen)}; "
+              f"launches={launches['mesh_bls_fold']}", flush=True)
+        have = {(r["name"], r["lanes"]) for r in rows}
+        new_rows = check_cases([
+            fp381_case_of("mesh_bls_fold", x, y, f"shard fold: {k[0]} x {k[1]}")
+            for k, (x, y) in sorted(seen.items(), key=lambda kv: -kv[0][1])
+            if ("fp381_mul", k[0] * k[1]) not in have], card)
+        t_step = step("bls fold and its new rows", t_step)
+
+        # an armed shard error: the flush raises a device error (no replay),
+        # the health model strikes that shard; a freshly pinned env passes
+        inj = DeviceFaultInjector().install()
+        inj.arm_shard_error(2)
+        reset_launches()
+        try:
+            batch.verify_batch(pks, msgs, sigs, device=dev)
+        except sharded.ShardFaultError as e:
+            if not batch.is_device_error(e) or e.device != mesh.keys[2]:
+                raise SystemExit(f"mesh_10k: the shard fault is not a device error of shard 2: {e!r}")
+            raised, site = repr(e), e.site
+        else:
+            raise SystemExit("mesh_10k: the armed shard error did not raise")
+        launches["mesh shard_fault armed"] = read_launches("mesh shard_fault armed", kernels=())
+        struck = health.MESH_HEALTH.snapshot()["devices"][mesh.keys[2]]
+        if struck["failures_total"] != 1 or inj.fired[-1] != ("mesh_rlc_submit", "shard_error:2"):
+            raise SystemExit(f"mesh_10k: shard 2 not struck once: {struck}, fired {inj.fired}")
+        inj.uninstall()
+        inj = None
+        batch._RUNNER_CACHE.pop(tuple(str(d) for d in shard_devs), None)
+        pin(batch._build_sharded_env(shard_devs))
+        mask, ms, f = run("mesh shard_fault healed", lambda: batch.verify_batch(
+            pks, msgs, sigs, device=dev))
+        if mask.tobytes() != host.tobytes() or f.get("path") != "rlc-sharded":
+            raise SystemExit(f"mesh_10k: the flush after the fault: {f}")
+        print(f"mesh_10k shard fault: {raised} at {site}, {mesh.keys[2]} struck "
+              f"(failures_total 1, state {struck['state']}), no replay; the next flush on a "
+              f"fresh pin: {ms:.1f} ms, path {f['path']}, mask == host arm", flush=True)
+        t_step = step("shard fault", t_step)
+
+        st = mesh_tm.mesh_stats()
+        t = st["totals"]
+        print(f"mesh_10k /debug/mesh: flushes={st['flushes']} last_pad={st['last_pad']} "
+              f"submit_s={t['submit_seconds']} finish_s={t['finish_seconds']} "
+              f"all_gathers={t['all_gathers']} all_gather_bytes={t['all_gather_bytes']} "
+              f"prep_s={t['prep_seconds']} prep_calls={t['prep_calls']} "
+              f"ladder={st['ladder']}", flush=True)
+
+        batch._sharded_env = real_env
+        batch.invalidate_sharded_env()
+        mesh_auto_arm(dev, corpus, host, host_bad, run)
+        t_step = step("auto", t_step)
+    finally:
+        if inj is not None:
+            inj.uninstall()
+        batch._sharded_env = real_env
+        batch.invalidate_sharded_env()
+        batch.configure_prep(stream=stream)
+        batch.configure_verified_memo(memo)
+    print(f"mesh_10k_phase steps (s): {steps}; {len(new_rows)} new fp381_mul rows; "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return new_rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7218,6 +7541,9 @@ def run_phases(corpus, mixed, mixed_sr, cofactorless, light, light_mixed, catchu
         t_phase = time.perf_counter()
         phase(dev, *args)
         print(f"{phase.__name__}: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+    rows += mesh_10k_phase(dev, corpus, bls, signing_pool, workers, launches, card, rows)
+    print(f"mesh_10k_phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
     rows += recorded_rows(card, launches)
     coverage(rows)
     for r in rows:  # the count on the path whose shape the row checks; none off the path

@@ -16,9 +16,12 @@ heal exercises the real dial/handshake path, not a kept-alive socket.
 The device kinds go to the port's chaos/device.py injector. An injected
 `device_error` is a device error like a real one (ROADMAP D1): the flush it
 meets raises, and a node whose deferred vote flush meets it halts with
-`halt_error`, where the reference's fallbacks absorb it. The shard kinds,
-`device_lost` and `device_revive` raise NotImplementedError naming ROADMAP
-A6 there, and the engine records the error.
+`halt_error`, where the reference's fallbacks absorb it. The shard kinds
+(`shard_error`, `shard_hang`), `device_lost` and `device_revive` arm the
+injector's shard half, which parallel/sharded.py's dispatches meet: a node
+whose card flushes run on a mesh sees the armed shard's flush raise (D1),
+the health model strike that shard and the next mesh built on the healthy
+devices.
 """
 
 from __future__ import annotations
@@ -103,11 +106,11 @@ class LocalChaosNet:
         self.injector.arm_hang(seconds)
 
     def shard_error(self, shard: int) -> None:
-        """Next sharded dispatch fails at lane slice `shard`."""
+        """Next sharded dispatch fails at shard `shard`."""
         self.injector.arm_shard_error(shard)
 
     def shard_hang(self, shard: int, seconds: float) -> None:
-        """Next sharded dispatch straggles `seconds` at lane slice `shard`."""
+        """Next sharded dispatch straggles `seconds` at shard `shard`."""
         self.injector.arm_shard_hang(shard, seconds)
 
     def device_lost(self, device) -> None:

@@ -12,7 +12,8 @@ window:
   it, the state rebuilt from the saved ABCI responses by a mock app
   (reference consensus/replay.go:414).
 The executor checks that block's LastCommit on `device` (None: the
-reference's routing). The replay console waits for the node (ROADMAP A10).
+reference's routing). The replay console is cli/main.py's `replay` and
+`replay-console` commands.
 """
 
 from __future__ import annotations

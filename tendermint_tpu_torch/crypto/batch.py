@@ -1,9 +1,9 @@
 """Batch Ed25519 verification: `verify_batch -> bool mask`.
 
-The counterpart of tendermint_tpu/crypto/batch.py's `verify_batch` in the
-single-device configuration, with the reference's knobs, defaults and route
-labels (LAST_FLUSH["path"]: the third value of the reference's
-`_verify_batch_routed`).
+The counterpart of tendermint_tpu/crypto/batch.py's `verify_batch`, with
+the reference's knobs, defaults and route labels (LAST_FLUSH["path"]: the
+third value of the reference's `_verify_batch_routed`), on one card or on a
+mesh of cards (below).
 
 `backend` picks the arm, as the reference's does. None follows
 `backend_default`: the host in cofactorless mode, else TMTPU_CRYPTO_BACKEND
@@ -46,10 +46,18 @@ The card arm (`verify_batch_cuda`):
   padd each, and checked once. If that check fails, each chunk runs the
   in-budget path above ("rlc-streamed-recovery").
 
-A kernel or launch failure raises: there is no retry on another schedule
-and no recovery from a device error (ROADMAP.md section C). The host arm's
-two catches (a host combined check that raises counts as failed) touch no
-device.
+While a mesh stands (`_sharded_env`: two healthy cards or more, the
+largest power of two of them; or a mesh a caller pinned) the card arm's
+flushes run sharded across it (parallel/sharded.py) at the reference's
+points: the combined check ("rlc-sharded"), the per-signature ladder
+("sharded"), the bisection's halves and the streamed planner
+("rlc-sharded-streamed"). A failed sharded flush strikes its shard in the
+health model (parallel/health.py), drops the mesh and raises.
+
+A kernel or launch failure raises: there is no retry on another schedule,
+no replay on another mesh and no recovery from a device error (ROADMAP.md
+section C). The host arm's two catches (a host combined check that raises
+counts as failed) touch no device.
 
 A set holding other key types (`key_types`) takes, as the reference's does,
 ONE mixed combined check on the card ("rlc-mixed": Ed25519 R lanes
@@ -126,7 +134,7 @@ import logging
 import os
 import threading
 import time
-from collections import OrderedDict, deque
+from collections import OrderedDict, deque, namedtuple
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -206,16 +214,21 @@ def is_device_error(exc: BaseException) -> bool:
 
 
 @contextlib.contextmanager
-def _on_device(site: str, sync: bool = False):
-    """Device work at `site` (rlc_submit, rlc_finish, persig): the forensics
-    heartbeat stamps the site first, before anything that can hang
-    (libs/forensics.py; one None check when forensics is off), then the
-    device fault hook runs, as the reference's `_device_fault` does. An
-    error, injected or real, is marked (is_device_error), marks the device
-    down (libs/trace.mark_device_call) and re-raises, with no fallback
-    (ROADMAP D1); a completed round trip (`sync`) marks it up."""
+def _on_device(site: str, sync: bool = False, hook: bool = True):
+    """Device work at `site` (rlc_submit, rlc_finish, persig, the mesh's
+    sites): the forensics heartbeat stamps the site first, before anything
+    that can hang (libs/forensics.py; one None check when forensics is off),
+    then the device fault hook runs, as the reference's `_device_fault` does
+    (`hook=False` at the sharded sites where the reference calls no hook:
+    parallel/sharded.py's shard hook fires there). An error, injected or
+    real, is marked (is_device_error), marks the device down
+    (libs/trace.mark_device_call) and re-raises, with no fallback (ROADMAP
+    D1); a completed round trip (`sync`) marks it up."""
     try:
-        _device_fault(site)
+        if hook:
+            _device_fault(site)
+        else:
+            _forensics.beat(site)
         yield
     except Exception as e:
         try:
@@ -1322,16 +1335,27 @@ def verify_batch_cpu(pubkeys: Sequence[bytes], msgs: Sequence[bytes],
 _PATH = threading.local()
 
 
-def _persig_flush(pubkeys, msgs, sigs, device) -> np.ndarray:
-    """The per-signature ladder over all rows: device mask & host precheck."""
+def _persig_flush(pubkeys, msgs, sigs, device, env=None) -> np.ndarray:
+    """The per-signature ladder over all rows: device mask & host precheck.
+    With a mesh `env` the ladder runs sharded (its per-signature runner,
+    path "sharded"); a sharded failure is scored and drops the mesh
+    (_mesh_failed), then raises."""
     from tendermint_tpu_torch.ops.ed25519_torch import verify_prepared
 
     a, r, s_d, h_d, precheck, n = prepare_batch(pubkeys, msgs, sigs)
     t_dev = time.perf_counter()
     with _on_device("persig", sync=True), record_function(PERSIG):
-        t = [torch.from_numpy(x).to(device) for x in (a, r, s_d, h_d)]
-        _PATH.label = "persig"
-        mask = verify_prepared(*t).cpu().numpy()[:n]
+        if env is not None:
+            _PATH.label = "sharded"
+            try:
+                mask = env[1](a, r, s_d, h_d)[:n]
+            except Exception as exc:
+                _mesh_failed(env, exc)
+                raise
+        else:
+            t = [torch.from_numpy(x).to(device) for x in (a, r, s_d, h_d)]
+            _PATH.label = "persig"
+            mask = verify_prepared(*t).cpu().numpy()[:n]
     LAST_FLUSH["transfer_s"] = time.perf_counter() - t_dev
     return mask & precheck
 
@@ -1458,11 +1482,22 @@ def _verify_batch_streamed(pubkeys, msgs, sigs, device) -> np.ndarray:
     bisection), so recovery never exceeds the budget either. LAST_FLUSH
     keeps the streamed flush's detail and gains recovered_chunks (each
     chunk's rows, path, mode and recovery flushes) and, where a chunk
-    recovered, recovery_flushes, their sum (as the reference counts)."""
-    mask = _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device)
-    if mask is not None:
-        _PATH.label = "rlc-streamed"
-        return mask
+    recovered, recovery_flushes, their sum (as the reference counts). On a
+    mesh the combined check streams across it
+    (_verify_batch_rlc_sharded_streamed, path "rlc-sharded-streamed"), and
+    a failed one goes straight to the chunk-wise recovery, whose chunks
+    take the sharded arms."""
+    env = _mesh_env(device)
+    if env is not None:
+        mask = _verify_batch_rlc_sharded_streamed(pubkeys, msgs, sigs, env)
+        if mask is not None:
+            _PATH.label = "rlc-sharded-streamed"
+            return mask
+    else:
+        mask = _verify_batch_rlc_streamed(pubkeys, msgs, sigs, device)
+        if mask is not None:
+            _PATH.label = "rlc-streamed"
+            return mask
     detail = dict(LAST_FLUSH)
     t0 = time.perf_counter()
     parts, recovered = [], []
@@ -1480,6 +1515,348 @@ def _verify_batch_streamed(pubkeys, msgs, sigs, device) -> np.ndarray:
         LAST_FLUSH["recovery_flushes"] = flushes
     _PATH.label = "rlc-streamed-recovery"
     return np.concatenate(parts)
+
+
+# ---------------------------------------------------------------------------
+# The sharded mesh (the reference's _sharded_env and its arms): while the
+# process sees two healthy cards or more, a card flush spreads over a mesh of
+# the largest power of two of them (parallel/sharded.py). A caller may pin
+# the env instead (tests, chip_smoke.py), over a mesh that repeats one
+# device. Under D1 nothing replays a sharded flush that failed: the failure
+# is scored, the mesh is dropped so the next is built on the healthy cards,
+# and the error raises as a device error.
+
+MeshEnv = namedtuple("MeshEnv", "nd persig rlc stream mesh")
+MeshEnv.__doc__ = """A mesh's runners: its shard count, the per-signature
+runner, the combined check's, the streamed planner's (run_chunk, finish)
+and the mesh (parallel/sharded.Mesh). Indexed like the reference's
+(n_devices, persig_run, rlc_run, (run_chunk, finish)) tuple."""
+
+_SHARDED_RUNNER = None  # cached ((n_devices, health generation), env)
+_SHARDED_BUILD_LOCK = threading.Lock()  # non-blocking: a flush never waits on a build
+_RUNNER_CACHE: dict = {}  # device-key tuple -> env; survives rebuilds, so
+# re-selecting a topology built before (a rejoin to the full mesh, the
+# prewarmed half mesh) reuses its runners
+_LAST_MESH_ND = [0]  # the mesh size built before (rebuild telemetry)
+
+
+def _mesh_health():
+    from tendermint_tpu_torch.parallel import health as _mh
+
+    return _mh.MESH_HEALTH
+
+
+def _visible_cards() -> list:
+    from tendermint_tpu_torch.parallel import health as _mh
+
+    return _mh._visible_devices()
+
+
+def invalidate_sharded_env() -> None:
+    """Drop the cached mesh runner (a health-generation change, a shard
+    failure): the next _sharded_env() call re-selects the healthy topology.
+    Runners persist in _RUNNER_CACHE."""
+    global _SHARDED_RUNNER
+    _SHARDED_RUNNER = None
+
+
+def mesh_ladder_state() -> str:
+    """The degrade-ladder rung: full | survivor | single (parallel/health.py;
+    gauge tendermint_mesh_ladder_state). The reference's breaker arguments
+    are False: the breaker is not ported (D1), so "host" never shows."""
+    cur = _SHARDED_RUNNER
+    mesh_nd = cur[1][0] if cur is not None else 0
+    return _mesh_health().ladder_state(len(_visible_cards()), mesh_nd, False, False)
+
+
+def _publish_mesh_health() -> None:
+    """Push per-device health and the ladder rung into mesh telemetry (the
+    /debug/mesh and verify_stats `mesh` health block and the
+    tendermint_mesh_device_health / _ladder_state gauges)."""
+    try:
+        from tendermint_tpu_torch.parallel import telemetry as _mesh_tm
+
+        _mesh_tm.record_mesh_health(_mesh_health().snapshot(), mesh_ladder_state())
+    except Exception:  # observability must never break the verify path
+        pass
+
+
+def _on_mesh_rejoin() -> None:
+    """Health-prober callback: a dead device passed its clean probes, so
+    drop the survivor runner and the next flush rebuilds toward the full
+    mesh."""
+    invalidate_sharded_env()
+    _publish_mesh_health()
+
+
+def _build_sharded_env(devs) -> MeshEnv:
+    """Construct (or fetch from _RUNNER_CACHE) the runners for an exact
+    device list; a device may repeat (parallel/sharded.make_mesh)."""
+    key = tuple(str(d) for d in devs)
+    env = _RUNNER_CACHE.get(key)
+    if env is None:
+        from tendermint_tpu_torch.parallel.sharded import (
+            make_mesh, sharded_rlc_check, sharded_rlc_stream, sharded_verify)
+
+        mesh = make_mesh(list(devs), axis_names=("vals",))
+        env = MeshEnv(len(devs), sharded_verify(mesh), sharded_rlc_check(mesh),
+                      sharded_rlc_stream(mesh), mesh)
+        _RUNNER_CACHE[key] = env
+    return env
+
+
+def _env_devices(env) -> list:
+    """An env's shard keys (health attribution for a failure that surfaced
+    outside sharded.py's guard, at a sync); [] for an env without a mesh
+    (test fakes), whose attribution rides the exception's own stamp."""
+    mesh = env[4] if len(env) > 4 else None
+    return list(mesh.keys) if mesh is not None else []
+
+
+def _sharded_env():
+    """The mesh a card flush shards across, or None: TMTPU_SHARDED "0"
+    never; "auto" (the default) and "1" when the healthy cards
+    (parallel/health.py) number two or more, a 1D mesh of the largest power
+    of two of them. (The reference's "1" also lets its virtual CPU devices
+    form a mesh; the port has none: a CPU mesh is pinned by its caller.) The
+    cache is keyed on (mesh size, health generation), and a rebuild happens
+    behind a NON-BLOCKING lock: a flush arriving mid-rebuild gets None and
+    runs on one card instead of waiting. Returns a MeshEnv or None."""
+    global _SHARDED_RUNNER
+    if os.environ.get("TMTPU_SHARDED", "auto") == "0":
+        return None
+    hm = _mesh_health()
+    hm.add_rejoin_listener(_on_mesh_rejoin)
+    healthy = hm.healthy_devices(_visible_cards())
+    if not healthy:
+        return None
+    nd = 1 << (len(healthy).bit_length() - 1)  # largest power of two <= healthy
+    if nd < 2:
+        return None
+    key = (nd, hm.generation)
+    cur = _SHARDED_RUNNER
+    if cur is not None and cur[0] == key:
+        return cur[1]
+    if not _SHARDED_BUILD_LOCK.acquire(blocking=False):
+        return None  # a rebuild is in flight: this flush runs on one card
+    try:
+        cur = _SHARDED_RUNNER
+        if cur is not None and cur[0] == key:
+            return cur[1]
+        t0 = time.perf_counter()
+        env = _build_sharded_env(healthy[:nd])
+        _SHARDED_RUNNER = (key, env)
+        prev = _LAST_MESH_ND[0]
+        _LAST_MESH_ND[0] = nd
+        if prev and prev != nd:
+            from tendermint_tpu_torch.parallel import telemetry as _mesh_tm
+
+            _mesh_tm.record_rebuild(prev, nd, time.perf_counter() - t0)
+    finally:
+        _SHARDED_BUILD_LOCK.release()
+    _publish_mesh_health()
+    return env
+
+
+def _sharded_runner():
+    env = _sharded_env()
+    return env[1] if env is not None else None
+
+
+def _mesh_env(device):
+    """The mesh a flush on `device` runs on: _sharded_env()'s when its
+    devices are of `device`'s type (the cards for a card flush; a CPU mesh
+    only where a caller pinned one), else None. A cpu flush never meets the
+    card mesh."""
+    env = _sharded_env()
+    if env is None:
+        return None
+    mesh = env[4] if len(env) > 4 else None
+    if mesh is not None and mesh.platform != torch.device(device).type:
+        return None
+    return env
+
+
+def _mesh_failed(env, exc: BaseException) -> None:
+    """A sharded flush raised: score it against the shards unless
+    parallel/sharded.py's guard did, drop the mesh (the next is built on
+    the healthy devices) and publish the health. The caller re-raises,
+    marked as a device error (D1): where the reference replays the flush on
+    the survivor mesh or on one chip, the port does not."""
+    if not getattr(exc, "_mesh_scored", False):
+        _mesh_health().record_failure(_env_devices(env), exc)
+    invalidate_sharded_env()
+    _publish_mesh_health()
+    logging.getLogger("tendermint_tpu_torch.crypto.batch").error(
+        "sharded flush failed on %s: %r", _env_devices(env), exc)
+
+
+def _sharded_lanes(n: int, nd: int) -> int:
+    """The A-block lanes of a sharded combined check over n rows, the
+    reference's padding: the lane bucket of n + 1 raised until 2 na tiles
+    the nd shards, then rounded up to whole 1,024-lane chunks a shard (the
+    fused schedule) when that pads at most 25% more."""
+    from tendermint_tpu_torch.ops import msm_torch
+
+    na = _lane_bucket(n + 1)
+    while (2 * na) % nd:
+        na += 1
+    if msm_torch.fused_for_lanes(nd * 1024):
+        target = nd * 1024
+        padded = -(-2 * na // target) * target
+        if 4 * padded <= 5 * (2 * na):
+            na = padded // 2
+    return na
+
+
+def _verify_batch_rlc_sharded(pubkeys, msgs, sigs, env) -> Optional[np.ndarray]:
+    """ONE combined check with its lanes sharded across the mesh
+    (parallel/sharded.sharded_rlc_check): each shard runs the MSM over its
+    lanes, the partial points are gathered and added on the first device.
+    No A cache on this path, as in the reference. Returns the mask when the
+    check passes (path "rlc-sharded"), None when the caller must recover
+    the exact mask; a device error raises (_mesh_failed, D1)."""
+    from tendermint_tpu_torch.ops import msm_torch
+    from tendermint_tpu_torch.parallel import telemetry as _mesh_tm
+    from tendermint_tpu_torch.parallel.sharded import prepare_rlc_shards
+
+    t0 = time.perf_counter()
+    n = len(pubkeys)
+    nd, rlc_run = env[0], env[2]
+    precheck, a_rows, r_rows, s_rows, h_rows = _precheck_and_hash_fast(pubkeys, msgs, sigs)
+    na = _sharded_lanes(n, nd)
+    # the padding is decided here (sharded.py sees only padded arrays)
+    _mesh_tm.record_pad(requested_lanes=2 * n + 1, padded_lanes=2 * na)
+    pts, scalars = _rlc_layout(precheck, a_rows, r_rows, s_rows, h_rows, na)
+    shards = prepare_rlc_shards(pts, scalars, nd)
+    prep_s = time.perf_counter() - t0
+    try:
+        with _on_device("mesh_rlc_submit", sync=True, hook=False):
+            bok, ok = rlc_run(*shards)
+    except Exception as exc:
+        _mesh_failed(env, exc)
+        raise
+    lanes_ok = (bool(ok[:n][precheck].all() and ok[na : na + n][precheck].all())
+                if precheck.any() else True)
+    LAST_FLUSH.update(mode="sharded", shards=nd, lanes=2 * na, shard_lanes=2 * na // nd,
+                      fused=msm_torch.fused_for_lanes(2 * na // nd), jit_bucket=na,
+                      padding_lanes=2 * na - (2 * n + 1), prep_s=prep_s,
+                      total_s=time.perf_counter() - t0)
+    if bok and lanes_ok:
+        _PATH.label = "rlc-sharded"
+        return precheck
+    return None
+
+
+def _prep_stream_chunk_sharded(pubkeys, msgs, sigs, lo: int, hi: int, na_c: int, nd: int):
+    """Host prep of one planner chunk for the mesh, on the prep worker: the
+    chunk's lanes (_rlc_layout, its own B lane) split into nd shards, each
+    with its window sort (prepare_rlc_shards). Returns (precheck, shards,
+    (start, end))."""
+    from tendermint_tpu_torch.parallel.sharded import prepare_rlc_shards
+
+    t0 = time.perf_counter()
+    precheck, a_rows, r_rows, s_rows, h_rows = _precheck_and_hash_fast(
+        pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi])
+    pts, scalars = _rlc_layout(precheck, a_rows, r_rows, s_rows, h_rows, na_c)
+    return precheck, prepare_rlc_shards(pts, scalars, nd), (t0, time.perf_counter())
+
+
+def _verify_batch_rlc_sharded_streamed(pubkeys, msgs, sigs, env) -> Optional[np.ndarray]:
+    """The planner's mesh arm: fixed-bucket chunks stream ACROSS the mesh
+    (parallel/sharded.sharded_rlc_stream): each chunk's lanes split into
+    shards (the bucket raised until it tiles the mesh), each shard's
+    partial folded into that shard's accumulator on its device, ONE gather
+    at the end. Host prep double-buffers on the prep worker as on one card;
+    at most 2 chunks are in flight. A bad signature is not a fault: the
+    check returns None and the caller recovers the exact mask. A device
+    error raises (_mesh_failed, D1), where the reference replays the flush
+    from chunk 0 on the survivor topology."""
+    from tendermint_tpu_torch.ops import msm_torch
+    from tendermint_tpu_torch.parallel import telemetry as _mesh_tm
+
+    t0 = time.perf_counter()
+    nd = env[0]
+    run_chunk, finish = env[3]
+    n = len(pubkeys)
+    na_c = planner_budget() // 2
+    while (2 * na_c) % nd:
+        na_c += 1  # per-shard lane slices must tile the mesh exactly
+    chunks = _planner_chunks(n)
+    _mesh_tm.record_pad(requested_lanes=2 * n + len(chunks),
+                        padded_lanes=len(chunks) * 2 * na_c)
+    pool = _prep_pool()
+    prechecks: list = [None] * len(chunks)
+    inflight: deque = deque()  # (chunk index, lane flags)
+    lanes_ok = True
+    prep_spans, wait_s, overlap_s, peak = [], 0.0, 0.0, 0
+
+    def sync_oldest():
+        k, dev_ok = inflight.popleft()
+        with _on_device("rlc_finish"):
+            ok = np.asarray(dev_ok).reshape(-1)
+        pc = prechecks[k]
+        c = chunks[k][1] - chunks[k][0]
+        return not pc.any() or bool(ok[:c][pc].all() and ok[na_c : na_c + c][pc].all())
+
+    try:
+        acc = None
+        fut = pool.submit(_prep_stream_chunk_sharded, pubkeys, msgs, sigs, *chunks[0], na_c, nd)
+        for k in range(len(chunks)):
+            tw = time.perf_counter()
+            precheck, shards, span = fut.result()
+            blocked = time.perf_counter() - tw
+            wait_s += blocked
+            prep_spans.append(span)
+            if k > 0:
+                overlap_s += max(0.0, span[1] - span[0] - blocked)
+            prechecks[k] = precheck
+            if k + 1 < len(chunks):
+                fut = pool.submit(_prep_stream_chunk_sharded, pubkeys, msgs, sigs,
+                                  *chunks[k + 1], na_c, nd)
+            with _on_device("mesh_rlc_stream_submit", hook=False):
+                acc, dev_ok = run_chunk(*shards, acc)
+            inflight.append((k, dev_ok))
+            peak = max(peak, len(inflight) * 2 * na_c)
+            if len(inflight) >= 2:
+                lanes_ok &= sync_oldest()
+        while inflight:
+            lanes_ok &= sync_oldest()
+        t_sync = time.perf_counter()
+        with _on_device("mesh_rlc_stream_finish", sync=True, hook=False):
+            batch_ok = bool(finish(acc).item())
+    except Exception as exc:
+        _mesh_failed(env, exc)
+        raise
+    LAST_FLUSH.update(mode="streamed", shards=nd, fused=msm_torch.fused_for_lanes(2 * na_c // nd),
+                      chunks=len(chunks), chunk_lanes=2 * na_c, shard_lanes=2 * na_c // nd,
+                      peak_lanes_in_flight=peak, lanes=len(chunks) * 2 * na_c,
+                      prep_s=sum(e - s for s, e in prep_spans), prep_wait_s=wait_s,
+                      prep_overlap_s=overlap_s, transfer_s=time.perf_counter() - t_sync,
+                      jit_bucket=na_c, padding_lanes=len(chunks) * 2 * na_c - (2 * n + len(chunks)),
+                      total_s=time.perf_counter() - t0)
+    if batch_ok and lanes_ok:
+        return np.concatenate(prechecks)
+    return None
+
+
+def _prewarm_survivor_mesh(pk: bytes, msg: bytes, sig: bytes, device) -> None:
+    """Build the HALF-mesh runners (the next power of two down, the
+    topology one card's loss rebuilds to) and push one minimal 2-chunk
+    streamed flush through them, so the first flush on a survivor mesh
+    finds its runners in _RUNNER_CACHE and its kernels built. Only on a
+    mesh of 4 cards or more with enough healthy cards (a 2-card mesh falls
+    to one card). A failure raises, as every prewarm failure does (D1)."""
+    env = _mesh_env(device)
+    if env is None or env[0] < 4:
+        return
+    nd2 = env[0] // 2
+    healthy = _mesh_health().healthy_devices(_visible_cards())
+    if len(healthy) < nd2:
+        return
+    surv = _build_sharded_env(healthy[:nd2])
+    rows = planner_chunk_rows() + 1
+    _verify_batch_rlc_sharded_streamed([pk] * rows, [msg] * rows, [sig] * rows, surv)
 
 
 # ---------------------------------------------------------------------------
@@ -1562,14 +1939,23 @@ def _bisect(n: int, combined, leaf, leaf_rows: int, min_rows: int):
 def _bisect_recover(pubkeys, msgs, sigs, device):
     """The card arm's bisection (_bisect): combined checks by _rlc_submit /
     _rlc_finish, leaves of TMTPU_BISECT_LEAF rows on the per-signature
-    ladder, no sub-check under 2 RLC_MIN rows. One bad row over
+    ladder, no sub-check under 2 RLC_MIN rows. While a mesh stands both are
+    sharded (_verify_batch_rlc_sharded, the sharded ladder), as in the
+    reference; the mesh is read again at each flush. One bad row over
     C = ceil(n / leaf) chunks costs at most 2 ceil(log2 C) + 1 flushes.
     Returns (mask, flushes); the path becomes "rlc-bisect" unless the
     recovery was one leaf."""
+
+    def combined(lo, hi):
+        env = _mesh_env(device)
+        if env is not None:
+            return _verify_batch_rlc_sharded(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], env)
+        return _rlc_finish(_rlc_submit(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], device))
+
     mask, flushes, bad_leaves = _bisect(
-        len(pubkeys),
-        lambda lo, hi: _rlc_finish(_rlc_submit(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], device)),
-        lambda lo, hi: _persig_flush(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], device),
+        len(pubkeys), combined,
+        lambda lo, hi: _persig_flush(pubkeys[lo:hi], msgs[lo:hi], sigs[lo:hi], device,
+                                     _mesh_env(device)),
         _bisect_leaf_rows(), RLC_MIN)
     if bad_leaves > 1 or flushes > 1:
         _PATH.label = "rlc-bisect"
@@ -1586,14 +1972,23 @@ def verify_batch_cuda(pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Seq
     flush's detail, the recovery's last values of _RECOVERY_KEYS (as the
     reference's detail ends), rlc_fallback, recovery_flushes and recovery_s.
     With TMTPU_RLC=0 every size runs one per-signature pass, as the
-    reference's does."""
+    reference's does. While a mesh of `device`'s kind stands (_mesh_env),
+    the combined check, the ladder, the bisection's halves and the streamed
+    planner run sharded across it ("rlc-sharded", "sharded",
+    "rlc-sharded-streamed"), as the reference's verify_batch_jax consults
+    its mesh; a sharded failure raises (D1)."""
     n = len(pubkeys)
+    env = _mesh_env(device)
     if n < RLC_MIN or not _rlc_enabled():
         LAST_FLUSH.update(mode="persig")
-        return _persig_flush(pubkeys, msgs, sigs, device)
+        return _persig_flush(pubkeys, msgs, sigs, device, env)
     if planner_engaged(n):
         return _verify_batch_streamed(pubkeys, msgs, sigs, device)
-    if _stream_enabled() and n >= _stream_floor():
+    if env is not None:
+        mask = _verify_batch_rlc_sharded(pubkeys, msgs, sigs, env)
+        if mask is not None:
+            return mask
+    elif _stream_enabled() and n >= _stream_floor():
         mask = _verify_batch_pipelined(pubkeys, msgs, sigs, device)
         if mask is not None:
             _PATH.label = "rlc-pipelined"
@@ -1608,7 +2003,7 @@ def verify_batch_cuda(pubkeys: Sequence[bytes], msgs: Sequence[bytes], sigs: Seq
     if _bisect_enabled():
         mask, flushes = _bisect_recover(pubkeys, msgs, sigs, device)
     else:
-        mask, flushes = _persig_flush(pubkeys, msgs, sigs, device), 1
+        mask, flushes = _persig_flush(pubkeys, msgs, sigs, device, _mesh_env(device)), 1
     last = {k: LAST_FLUSH[k] for k in _RECOVERY_KEYS if k in LAST_FLUSH}
     LAST_FLUSH.clear()
     LAST_FLUSH.update(detail, **last, rlc_fallback=True, recovery_flushes=flushes,
@@ -1691,10 +2086,11 @@ def _verify_batch_mixed_routed(pubkeys, msgs, sigs, key_types, device, backend) 
     eligible set (_mixed_rlc_eligible) runs ONE mixed combined check on the
     card ("rlc-mixed"); when it fails, the exact per-type split gives the
     mask ("mixed", LAST_FLUSH rlc_fallback and the failed check's seconds
-    in combined_s). Anything else takes the split directly. A device error
-    raises (D1)."""
+    in combined_s). Anything else takes the split directly, a set on a mesh
+    too (its Ed25519 rows then take the sharded arms, as the reference's
+    mixed route steps aside for its mesh). A device error raises (D1)."""
     be = backend_default() if backend is None else _card_alias(backend)
-    if _mixed_rlc_eligible(len(pubkeys), key_types, be):
+    if _mixed_rlc_eligible(len(pubkeys), key_types, be) and _mesh_env(resolve(device)) is None:
         t0 = time.perf_counter()
         mask = _rlc_finish(_rlc_submit(pubkeys, msgs, sigs, resolve(device), key_types))
         if mask is not None:
@@ -1998,9 +2394,10 @@ def verify_batch_submit(
     verify_batch eagerly, whose own memo reading covers it, and the handle
     comes back resolved. Inside a scheduler's lane_scope (and outside an accumulator)
     the rows go to that lane and the handle comes back resolved: the lane's
-    combined flush is the overlap. The reference's sharded runner has no
-    counterpart yet (ROADMAP A8), nor has its circuit breaker (D1); its
-    catch around the submit is not ported (D1): a failure raises."""
+    combined flush is the overlap. While a mesh of the device's kind stands
+    (_sharded_env), the submit runs verify_batch eagerly on the sharded
+    arms, as the reference's does. The reference's circuit breaker is not
+    ported, nor its catch around the submit (D1): a failure raises."""
     if not (len(pubkeys) == len(msgs) == len(sigs)):
         raise ValueError("pubkeys/msgs/sigs length mismatch")
     acc = current_accumulator()
@@ -2029,6 +2426,9 @@ def verify_batch_submit(
             _record_memo_hits(n, t_memo, None)
             return BatchHandle(mask=np.ones(n, dtype=bool))
     dev = resolve(device)
+    if _mesh_env(dev) is not None:
+        return BatchHandle(mask=verify_batch(pubkeys, msgs, sigs, device=device,
+                                             key_types=key_types, backend=backend))
     t0 = time.perf_counter()
     kt = key_types if mixed else None
     return BatchHandle(call=_rlc_submit(pubkeys, msgs, sigs, dev, kt),
@@ -2120,7 +2520,9 @@ def prewarm(n_vals: int, backend: Optional[str] = None, pubkeys: Optional[Sequen
     with `pubkeys`, the A cache filled from the real keys. bls=True also
     warms the aggregate path (_prewarm_bls). Nothing off the card arm, nor
     below _CUDA_MIN_BATCH validators unless `device` names a card (the rule
-    verify_batch routes by). The throwaway key comes from OS entropy."""
+    verify_batch routes by). On a mesh the flushes run its sharded arms, and
+    the half mesh is warmed too (_prewarm_survivor_mesh). The throwaway key
+    comes from OS entropy."""
     if bls:
         _prewarm_bls(device)
     be = _card_alias(backend) or backend_default()
@@ -2151,6 +2553,7 @@ def prewarm(n_vals: int, backend: Optional[str] = None, pubkeys: Optional[Sequen
     if planner_chunk:
         rows = planner_chunk_rows() + 1
         verify_batch_cuda([pk] * rows, [msg] * rows, [sig] * rows, dev)
+        _prewarm_survivor_mesh(pk, msg, sig, dev)
     good = [np.frombuffer(bytes(k), dtype=np.uint8) for k in (pubkeys or ()) if len(k) == 32]
     if good:
         enc = np.stack(good)

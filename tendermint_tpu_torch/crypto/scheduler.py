@@ -50,8 +50,8 @@ With `metrics=` (libs/metrics.SchedulerMetrics) the scheduler feeds the
 tendermint_verify_lane_* series (queue depth per lane, each flush's queue
 wait and rows per lane, vote preemptions); with `slo=` (libs/slo.SLOEngine)
 each flush's lane waits are verify_lane_wait_<lane> observations. The
-reference's `mesh_ladder` stats entry waits for the sharded mesh (ROADMAP
-A8).
+stats carry the reference's `mesh_ladder` entry: the rung every queued
+flush routes through (crypto/batch.mesh_ladder_state).
 """
 
 from __future__ import annotations
@@ -738,6 +738,7 @@ class VerifyScheduler:
         from tendermint_tpu_torch.crypto import provenance as _prov
 
         out["verified_memo"] = _batch.verified_memo_stats()
+        out["mesh_ladder"] = _batch.mesh_ladder_state()
         out["suspicion"] = _prov.default_scorer().stats()
         return out
 

@@ -29,9 +29,9 @@ a scrape of the reference:
   family. `expose()` is the node's series and then the global registry's.
 
 The global registry also holds, as in the reference: `ChaosMetrics`
-(chaos/engine.py); `MeshMetrics` (parallel/telemetry.py, whose flush, prep
-and rebuild records nothing of the port feeds until the sharded mesh,
-ROADMAP A6); `ObservatoryMetrics` (libs/profiler.py's actions,
+(chaos/engine.py); `MeshMetrics` (parallel/telemetry.py's flush, prep,
+pad, rebuild and health records, which the sharded mesh feeds:
+parallel/sharded.py and crypto/batch.py); `ObservatoryMetrics` (libs/profiler.py's actions,
 libs/forensics.py's captures); `FleetMetrics` (tools/fleet_referee.py,
 chaos/fleet.py).
 """

@@ -18,8 +18,9 @@ Feeds in the port: libs/trace.record_flush (`feed_flush`, the
 verify_flush_wall of every flush, to the engine registered with
 `set_default`: process-global, last registered wins), the scheduler's lane
 waits (crypto/scheduler.py `slo=`) and the light service's request
-latency (light/service.py `slo=`). The consensus objectives wait for the
-node (ROADMAP A10).
+latency (light/service.py `slo=`); consensus/cs_state.py feeds the
+consensus objectives (commit interval, prevote quorum delay) of the node's
+engine (node/node.py).
 
 Observations and evaluation take explicit timestamps (the monotonic clock's
 domain), so tests drive synthetic clocks; omitted, they read

@@ -9,9 +9,11 @@ reference's operation order, its 12 products in two stacked product calls
 (two B7 launches on the card), so the limbs equal the reference's numpy
 twin.
 
-`fold_points` is the aggregate-pubkey sum of an aggregate commit: the
-signers' keys, identity-padded to a power of two, folded by a halving tree
-(lo = first half, hi = second half) as the reference's g1_aggregate_bitmap /
+`fold_points` is the aggregate-pubkey sum of an aggregate commit (its
+unsynced form `fold_points_submit` runs a shard at a time in
+parallel/sharded.py): the signers' keys, identity-padded to a power of two,
+folded by a halving tree (lo = first half, hi = second half) as the
+reference's g1_aggregate_bitmap /
 g1_aggregate_bitmap_device do.
 
 `g1_msm` is the general-base MSM sum s_i P_i on the reference's schedule:
@@ -116,10 +118,11 @@ def point_to_affine_int(pt: torch.Tensor, lane: int = 0) -> Optional[Tuple[int, 
 # the bitmap fold
 
 
-def fold_points(xy: np.ndarray, device=None) -> Optional[Tuple[int, int]]:
+def fold_points_submit(xy: np.ndarray, device=None) -> Optional[torch.Tensor]:
     """Sum of k affine points given as (2, 33, k) Montgomery limbs: padded
     with the identity to m = 2^max(1, ceil(log2 k)) lanes, then log2 m
-    halving levels of `padd` on `device`. Returns affine ints or None."""
+    halving levels of `padd` on `device`. Returns the (3, 33, 1) sum,
+    unsynced, or None for k = 0."""
     dev = resolve(device)
     k = xy.shape[-1]
     if k == 0:
@@ -129,7 +132,13 @@ def fold_points(xy: np.ndarray, device=None) -> Optional[Tuple[int, int]]:
     while pts.shape[-1] > 1:
         half = pts.shape[-1] // 2
         pts = padd(pts[..., :half], pts[..., half:])
-    return point_to_affine_int(pts)
+    return pts
+
+
+def fold_points(xy: np.ndarray, device=None) -> Optional[Tuple[int, int]]:
+    """fold_points_submit's sum as affine ints, or None."""
+    pts = fold_points_submit(xy, device)
+    return None if pts is None else point_to_affine_int(pts)
 
 
 # ---------------------------------------------------------------------------

@@ -144,8 +144,9 @@ def fp381_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.numel():
         groups = a.numel() // (NL * lanes)
         fn = getattr(build(), fp381_mul_entry(groups * lanes))
-        cuda_fe._launched("fp381_mul", fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes,
-                                          groups, cuda_fe._stream(a)), LAUNCHES)
+        with cuda_fe._on_card(a):
+            cuda_fe._launched("fp381_mul", fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes,
+                                              groups, cuda_fe._stream(a)), LAUNCHES)
     return out
 
 
@@ -161,7 +162,8 @@ def fp12_sparse_mul(f: torch.Tensor, line: torch.Tensor) -> torch.Tensor:
     _field(line, "fp12_sparse_mul line", (3, 2))
     out = torch.empty_like(f)
     if f.numel():
-        cuda_fe._launched("fp12_sparse_mul", build().tm_fp12_sparse_mul(
-            f.data_ptr(), line.data_ptr(), out.data_ptr(), f.shape[-1],
-            cuda_fe._stream(f)), LAUNCHES)
+        with cuda_fe._on_card(f):
+            cuda_fe._launched("fp12_sparse_mul", build().tm_fp12_sparse_mul(
+                f.data_ptr(), line.data_ptr(), out.data_ptr(), f.shape[-1],
+                cuda_fe._stream(f)), LAUNCHES)
     return out

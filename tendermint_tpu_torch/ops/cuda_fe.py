@@ -23,8 +23,9 @@ in radix-2^13 limbs, lanes innermost); a field batch is `(20, ...batch)`.
 
 Each wrapper, for a tensor on the CPU, returns its plain version (`*_plain`,
 built on ops/fe25519.py). For a CUDA tensor it checks dtype, shape and
-contiguity, allocates the output, launches the kernel on the current stream,
-raises if the launch failed, and adds one to `LAUNCHES[name]`. There is no
+contiguity, allocates the output, launches the kernel on the tensor's
+device's current stream with that device current (`_on_card`), raises if
+the launch failed, and adds one to `LAUNCHES[name]`. There is no
 fallback from a CUDA tensor to the plain version.
 
 The kernels are built with nvcc for sm_90a at first use into `_build/` (keyed
@@ -36,6 +37,7 @@ with nvcc's stderr.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -270,6 +272,21 @@ def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+_SAME_CARD = contextlib.nullcontext()
+
+
+def _on_card(x: torch.Tensor):
+    """A launch's device guard: the C launchers size their grids and keep
+    per-device state by the current CUDA device (cudaGetDevice), so every
+    wrapper launches with its tensor's card current, restored after. A
+    tensor on the current card (every launch on one card) switches
+    nothing; on a mesh of cards a shard on cuda:1 launches in cuda:1's
+    context (parallel/sharded.py)."""
+    if x.device.index == torch.cuda.current_device():
+        return _SAME_CARD
+    return torch.cuda.device(x.device)
+
+
 PADD_FEW_LANES = 4096
 
 
@@ -290,7 +307,8 @@ def padd(p: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(p)
     if n:
         fn = getattr(build(), padd_entry(n))
-        _launched("padd", fn(p.data_ptr(), q.data_ptr(), out.data_ptr(), n, _stream(p)))
+        with _on_card(p):
+            _launched("padd", fn(p.data_ptr(), q.data_ptr(), out.data_ptr(), n, _stream(p)))
     return out
 
 
@@ -318,7 +336,8 @@ def pdbl(p: torch.Tensor, times: int = 1) -> torch.Tensor:
     out = torch.empty_like(p)
     if n:
         fn = getattr(build(), pdbl_entry(n))
-        _launched("pdbl", fn(p.data_ptr(), out.data_ptr(), n, int(times), _stream(p)))
+        with _on_card(p):
+            _launched("pdbl", fn(p.data_ptr(), out.data_ptr(), n, int(times), _stream(p)))
     return out
 
 
@@ -345,5 +364,6 @@ def fsquare_chain(x: torch.Tensor, k: int) -> torch.Tensor:
     out = torch.empty_like(x)
     if n:
         fn = getattr(build(), fsquare_chain_entry(n))
-        _launched("fsquare_chain", fn(x.data_ptr(), out.data_ptr(), n, int(k), _stream(x)))
+        with _on_card(x):
+            _launched("fsquare_chain", fn(x.data_ptr(), out.data_ptr(), n, int(k), _stream(x)))
     return out

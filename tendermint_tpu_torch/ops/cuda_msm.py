@@ -161,9 +161,10 @@ def uptree(pts: torch.Tensor, perm: torch.Tensor, ch: int):
     # per chunk ch / 128 group arrival counts, then the work queue's head
     counters = torch.zeros(nchunks * (ch // 128) + 1, dtype=torch.int32, device=pts.device)
     if nchunks:
-        cuda_fe._launched("uptree", build().tm_uptree(
-            rows.data_ptr(), perm.data_ptr(), n, t_, ch, g.rows_out, lvl0.data_ptr(),
-            out.data_ptr(), counters.data_ptr(), cuda_fe._stream(pts)), LAUNCHES)
+        with cuda_fe._on_card(pts):
+            cuda_fe._launched("uptree", build().tm_uptree(
+                rows.data_ptr(), perm.data_ptr(), n, t_, ch, g.rows_out, lvl0.data_ptr(),
+                out.data_ptr(), counters.data_ptr(), cuda_fe._stream(pts)), LAUNCHES)
     return lvl0, out
 
 
@@ -188,10 +189,11 @@ def fenwick_reduce(lvl0: torch.Tensor, ctree: torch.Tensor, top: torch.Tensor,
     # v-major rows v * T + t: a block of the kernel takes 32 buckets of one window
     t_windows = m // NBUCKETS
     if m:
-        cuda_fe._launched("fenwick_reduce", build().tm_fenwick_reduce(
-            lvl0.data_ptr(), n0, ctree.data_ptr(), n1, top.data_ptr(), n2,
-            node_idx.data_ptr(), kf, out.data_ptr(), m, t_windows, cuda_fe._stream(lvl0)),
-            LAUNCHES)
+        with cuda_fe._on_card(lvl0):
+            cuda_fe._launched("fenwick_reduce", build().tm_fenwick_reduce(
+                lvl0.data_ptr(), n0, ctree.data_ptr(), n1, top.data_ptr(), n2,
+                node_idx.data_ptr(), kf, out.data_ptr(), m, t_windows, cuda_fe._stream(lvl0)),
+                LAUNCHES)
     return out
 
 
@@ -209,7 +211,8 @@ def bucket_fold(prefix: torch.Tensor, t_windows: int):
     # level 3) and the window's three arrival counters
     nodes = torch.empty((t_windows, 96, 4 * NL), dtype=torch.int32, device=prefix.device)
     arrived = torch.zeros(3 * t_windows, dtype=torch.int32, device=prefix.device)
-    cuda_fe._launched("bucket_fold", build().tm_bucket_fold(
-        prefix.data_ptr(), int(t_windows), nodes.data_ptr(), arrived.data_ptr(), s.data_ptr(),
-        p255.data_ptr(), cuda_fe._stream(prefix)), LAUNCHES)
+    with cuda_fe._on_card(prefix):
+        cuda_fe._launched("bucket_fold", build().tm_bucket_fold(
+            prefix.data_ptr(), int(t_windows), nodes.data_ptr(), arrived.data_ptr(),
+            s.data_ptr(), p255.data_ptr(), cuda_fe._stream(prefix)), LAUNCHES)
     return s, p255

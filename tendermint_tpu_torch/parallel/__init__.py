@@ -1,2 +1,2 @@
-"""Multi-device telemetry and health (parallel/telemetry.py, parallel/health.py).
-The sharded mesh itself is ROADMAP A6."""
+"""Multi-device verification: the sharded mesh (parallel/sharded.py), its
+telemetry (parallel/telemetry.py) and its health model (parallel/health.py)."""

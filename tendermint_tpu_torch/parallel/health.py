@@ -23,9 +23,13 @@ participant. A failure no probe can attribute returns False from
 What the port uses of it: node/node.py applies `[crypto] mesh_health_*`
 through `configure_mesh_health`, and parallel/telemetry.mesh_stats() reads
 `MESH_HEALTH.snapshot()` live for /debug/mesh, verify_stats' `mesh` block
-and the observatory's dumps. The sharded mesh that feeds
-`record_success` / `record_failure` is ROADMAP A6, and under D1 nothing in
-the port consumes the ladder as a fallback: a failed flush raises.
+and the observatory's dumps. parallel/sharded.py feeds `record_success` /
+`record_failure` from every sharded dispatch, keyed by shard
+(`Mesh.keys`: a device that appears more than once in a mesh is scored per
+shard, "cuda:0#2", and probed as its device), and crypto/batch.py's
+`_sharded_env` builds the next mesh over the healthy cards. Under D1
+nothing in the port consumes the ladder as a fallback: a failed sharded
+flush raises.
 
 The default probe is a tiny torch round trip pinned to the device (the
 reference's is a jax.device_put), imported lazily, so the module is
@@ -155,8 +159,7 @@ class MeshHealthManager:
 
     def set_probe_intercept(self, fn: Optional[Callable]) -> None:
         """Chaos hook: runs BEFORE the real probe so an injected device loss
-        also fails probes (the reference's injector installs one; the
-        port's mesh half of the injector is ROADMAP A6)."""
+        also fails probes (chaos/device.py's injector installs one)."""
         with self._lock:
             self._intercept = fn
 
@@ -297,8 +300,9 @@ class MeshHealthManager:
             if intercept is not None:
                 intercept(key)
             if probe is _default_probe:
+                dev_key = key.split("#")[0]  # a shard of a repeated device probes its device
                 for d in _visible_devices():
-                    if str(d) == key:
+                    if str(d) == dev_key:
                         probe(d)
                         return True
                 return False

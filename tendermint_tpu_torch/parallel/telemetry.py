@@ -7,10 +7,12 @@ libs/trace.verify_stats() (GET /debug/verify_stats) and GET /debug/mesh
 (rpc/server.py), and by the observatory's dumps
 (tools/chain_observatory.py). All three read one `mesh_stats()`.
 
-Nothing in the port feeds the mesh, flush, prep, pad, rebuild, health-push
-or artifact-cache records yet: they are the sharded mesh's (ROADMAP A6),
-and the port builds its kernels with nvcc rather than an AOT artifact
-cache. On a single-card node the snapshot is therefore the reference's
+The sharded mesh feeds the records as the reference's does:
+parallel/sharded.py the mesh (make_mesh), flush and prep records, with
+devices named by their shard keys; crypto/batch.py the pad decision, the
+rebuilds and the health pushes. The artifact-cache record stays unfed: the
+port builds its kernels with nvcc rather than an AOT artifact cache. On a
+single-card node no mesh is built, so the snapshot is the reference's
 single-device answer: `mesh: null`, zeroed totals, and the health manager
 (parallel/health.py MESH_HEALTH, read live) with the node's
 `[crypto] mesh_health_*` policy and no device tracked.

@@ -6,8 +6,8 @@ state {height, round, step, signature, sign_bytes}. check_hrs refuses a
 lower (H, R, S) and allows re-signing the identical payload; a vote or
 proposal that differs only in its timestamp gets the previous signature and
 timestamp back (reference privval/file.go:93 CheckHRS,
-checkVotesOnlyDifferByTimestamp). The remote signer waits for the node
-(ROADMAP A10).
+checkVotesOnlyDifferByTimestamp). The remote signer that serves it over a
+socket is privval/remote.py.
 """
 
 from __future__ import annotations

@@ -8,9 +8,10 @@ are the reference's, so a client of either package talks to the other.
 
 The light routes call the node's LightService, whose flushes run on the
 node's `device`; a failed flush raises out of the handler and the transport
-answers it as the route's JSON-RPC error (-32603), with no retry. The
-multi-chip mesh telemetry behind /debug/mesh is not ported (ROADMAP A6):
-the route answers as the reference does on a single-device node."""
+answers it as the route's JSON-RPC error (-32603), with no retry.
+/debug/mesh serves parallel/telemetry.mesh_stats(), which the sharded mesh
+feeds (parallel/sharded.py); on a single-card node it answers as the
+reference does on a single-device node."""
 
 from __future__ import annotations
 

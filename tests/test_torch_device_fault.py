@@ -9,7 +9,8 @@ variable unset): an armed error raises at the flush's first device entry
 error, marks the device down, and is re-raised by the scheduler in every
 ticket of the flush; the host arm never reaches the hook; after heal() the
 same rows verify with the host arm's mask. The shard and mesh half of the
-injector raises naming ROADMAP A6.
+injector leaves the port's injector in the reference's state
+(tests/test_torch_mesh_d1.py drives it through sharded flushes).
 """
 
 import os
@@ -103,8 +104,13 @@ def test_injector_hang_delays_one_call(which):
     ("probe_intercept", ("cuda:0",)),
 ])
 def test_shard_half_names_a6(method, args):
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        getattr(DeviceFaultInjector(), method)(*args)
+    """The shard half once raised naming ROADMAP A6; ported, each method
+    returns what the reference's returns and leaves the same state."""
+    port, ref = DeviceFaultInjector(), ref_device.DeviceFaultInjector()
+    assert getattr(port, method)(*args) == getattr(ref, method)(*args)
+    for attr in ("_shard_errors", "_shard_hangs", "_lost_indices", "_lost_devices",
+                 "_lost_by_index", "shard_calls", "fired"):
+        assert getattr(port, attr) == getattr(ref, attr), attr
 
 
 def test_install_sets_the_batch_hook_only():

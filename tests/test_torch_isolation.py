@@ -52,7 +52,7 @@ def test_package_and_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     n_mods = int(res.stdout.split()[0])
-    assert n_mods >= 172
+    assert n_mods >= 174
     for mod in ("ops.cuda_fe", "ops.cuda_msm", "ops.msm_geometry", "ops.msm_torch",
                 "crypto.batch", "ops.fp381", "ops.cuda_bls", "ops.bls12_torch",
                 "ops.tower", "ops.pairing_torch", "crypto.bls_ref", "crypto.keys", "types.validator_set",
@@ -90,7 +90,8 @@ def test_package_and_smoke_import_no_jax():
                 "chaos.byzantine", "chaos.harness", "tools.mixed_ab", "parallel",
                 "parallel.health", "parallel.telemetry", "tools.chain_observatory",
                 "tools.fleet_referee", "tools.perf_ledger", "tools.release_gate",
-                "chaos.fleet", "tools.fleet_probe"):
+                "chaos.fleet", "tools.fleet_probe", "parallel.sharded",
+                "tools.mesh_cards"):
         assert f"tendermint_tpu_torch.{mod}" in res.stdout.split(), mod
 
 
