@@ -332,7 +332,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      make_plain_net with the crash soak's db_backend, the deferred flush on) under a seeded ChaosSchedule: a partition of one node and
      its heal, a crash of another with its WAL tail truncated and its
      restart, then a sig_poison of CHAOS_POISON votes (chaos/byzantine.py,
-     written to each peer at once) from a third node into the other three.
+     written to each peer at once) from a third node into the other three,
+     sent once every live node stands at the poisoner's height and round
+     before its precommit step (a vote for another height is dropped
+     unverified, so a flood that lands after the victims have moved on
+     tests nothing; at most CHAOS_ALIGN_S seconds).
      The engine applies every event without error, assert_safety() holds,
      every live node commits two heights past the schedule's top, the
      poisoner is quarantined by the provenance scorer and then punished
@@ -353,7 +357,8 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
      the fleet does not fit the limit: tools/fleet_probe.py measures it).
      The run must give verdict pass with 0 safety violations, the poisoner
      (and no other source) quarantined and punished, the joiner within 2
-     heights of the head,
+     heights of the head where the settle gate read both (the chain commits
+     on after it),
      full coverage, the referee CLI and release_gate.evaluate(skip_perf)
      agreeing with it and fleet_safety_checks_total raised by the audit's
      count; every flush's mask equals the host arm's. Prints the spec, the
@@ -444,6 +449,11 @@ INT32_MAD_PER_SM_PER_CLK = 64  # CUDA C++ Programming Guide, cc 9.0 throughput t
 # Product multiply-adds per lane, counted from csrc/fe25519.cuh: a field mul
 # is 20 x 20 = 400, a square 20 + 190 = 210, a mul by a small constant 20.
 MUL, SQR, SMALL = 400, 210, 20
+# fsquare_chain's bound, counted from csrc/fe25519_w32.cuh (the 8 x 32-bit
+# form of fsquare_chain_kernel, fewer multiplies than SQR): a squaring's 36
+# word products (28 cross, 8 squares) as lo and hi, 16 for T_lo + 38 T_hi
+# and 1 for the top fold; a launch adds 2 for the pack's and the freeze's folds.
+FSQ_W32_MADS = 2 * 36 + 16 + 1
 # a, b, pt qt, (pt qt) 2d, pz qz and the 4 outputs: 9 products; 2 * zz
 PADD_MADS = 9 * MUL + SMALL
 POINT_BYTES = 4 * 20 * 4
@@ -663,9 +673,11 @@ def timed(fn, reps: int = 5):
 
 
 # Card ms recorded by chip_smoke.py runs before each kernel's redesign (the
-# thread-per-lane pdbl and fsquare_chain, padd, bucket_fold, fenwick_reduce,
-# fp12_sparse_mul, fp381_mul's Miller launches), by (kernel, path, lanes)
-# (PERF.md's kernel table and findings; NVIDIA H100 80GB HBM3, 700.00 W).
+# thread-per-lane pdbl, padd, bucket_fold, fenwick_reduce, fp12_sparse_mul,
+# fp381_mul's Miller launches; fsquare_chain: the radix-2^13 kernels' times
+# that PERF.md's kernel table held before the 8 x 32-bit thread kernel), by
+# (kernel, path, lanes) (PERF.md's kernel table and findings; NVIDIA H100
+# 80GB HBM3, 700.00 W).
 # Printed on the row's text line only, labelled as recorded: the `kernels`
 # JSON line holds only what this run measured.
 RECORDED_BEFORE_MS = {
@@ -673,9 +685,20 @@ RECORDED_BEFORE_MS = {
     ("padd", "streamed", 192): 0.0205, ("padd", "tampered_persig", 16_384): 0.0215,
     ("bucket_fold", "warm", 8_192): 0.1695,
     ("pdbl", "tampered_persig", 16_384): 0.0378,
-    ("fsquare_chain", "warm", 10_240): 0.0301, ("fsquare_chain", "cold", 20_480): 0.0470,
-    ("fsquare_chain", "streamed", 24_576): 0.0461,
-    ("fsquare_chain", "tampered_persig", 16_384): 0.0292,
+    ("fsquare_chain", "warm", 10_240): 0.0293, ("fsquare_chain", "cold", 20_480): 0.0465,
+    ("fsquare_chain", "streamed", 24_576): 0.0465, ("fsquare_chain", "pipelined", 24_576): 0.0464,
+    ("fsquare_chain", "tampered_persig", 16_384): 0.0293,
+    ("fsquare_chain", "light_accumulated", 24_576): 0.0462,
+    ("fsquare_chain", "catchup_128", 24_576): 0.0463,
+    ("fsquare_chain", "super_batch_1k", 24_576): 0.0464,
+    ("fsquare_chain", "light_trusting_4k", 5_120): 0.0290,
+    ("fsquare_chain", "light_trusting_4k", 8_192): 0.0290,
+    ("fsquare_chain", "mixed_sr25519_10k tampered", 6_144): 0.0290,
+    ("fsquare_chain", "mixed_sr25519_10k", 8_192): 0.0292,
+    ("fsquare_chain", "mixed_sr25519_10k cold", 8_000): 0.0292,
+    ("fsquare_chain", "tampered", 1_024): 0.0174, ("fsquare_chain", "cofactored_300", 512): 0.0174,
+    ("fsquare_chain", "light_trusting_4k", 4_096): 0.0167,
+    ("fsquare_chain", "verify_commit_1k", 1_024): 0.0174,
     ("fenwick_reduce", "warm", 8_192): 0.3327,
     ("fp12_sparse_mul", "bls_warm", 2): 0.1221, ("fp12_sparse_mul", None, 16_384): 0.4642,
     ("fp381_mul", "bls_warm", 216): 0.0063,
@@ -701,7 +724,7 @@ def fenwick_gather_sectors(node_idx, n0: int, n1: int, n2: int) -> int:
 KERNEL_SYMBOL = {  # the __global__ function each wrapper launches
     "padd": ("padd_quad_kernel", "padd_lanes_kernel"),
     "pdbl": ("pdbl_quad_kernel", "pdbl_lanes_kernel"),
-    "fsquare_chain": ("fsquare_chain_kernel", "fsquare_chain_quad_kernel"),
+    "fsquare_chain": ("fsquare_chain_kernel",),
     "uptree": ("uptree_kernel",),
     "fenwick_reduce": ("fenwick_kernel",), "bucket_fold": ("bucket_fold_kernel",),
     "fp381_mul": ("fp381_mul_kernel", "fp381_mul_few_kernel"),
@@ -766,9 +789,6 @@ def launched_symbol(name: str, lanes: int) -> str:
         return ENTRY_SYMBOL[cuda_fe.padd_entry(lanes)]
     if name == "fp381_mul":  # `lanes`: the launch's products
         return ENTRY_SYMBOL[cuda_bls.fp381_mul_entry(lanes)]
-    if name == "fsquare_chain":
-        return ("fsquare_chain_quad_kernel" if cuda_fe.fsquare_chain_entry(lanes)
-                == "tm_fsquare_chain_quad" else "fsquare_chain_kernel")
     return KERNEL_SYMBOL[name][0]
 
 
@@ -925,14 +945,23 @@ def bucket_fold_case_of(path, prefix, t_):
 
 
 def fsq_case_of(path, x, k, variant):
+    """fsquare_chain on x. The kernel writes canonical limbs: its row
+    compares through fe25519.freeze (`view`) and checks that its limbs are
+    canonical (`canonical`). The bound counts k x FSQ_W32_MADS + 2 multiplies
+    a lane; the text line also gives the radix-2^13 count's (k x SQR,
+    `mads_before`)."""
     from tendermint_tpu_torch.ops import cuda_fe
+    from tendermint_tpu_torch.ops import fe25519 as fe
 
     lanes = x.numel() // 20
     return dict(name="fsquare_chain", path=path, variant=variant, lanes=lanes,
                 kern=lambda: cuda_fe.fsquare_chain(x, k),
                 plain=lambda: cuda_fe.fsquare_chain_plain(x, k),
-                key=shape_key("fsquare_chain", x, k), mads=k * SQR, items=lanes,
-                bytes=2 * 80 * lanes)
+                key=shape_key("fsquare_chain", x, k), mads=k * FSQ_W32_MADS + 2,
+                mads_before=k * SQR, items=lanes, bytes=2 * 80 * lanes, view=fe.freeze,
+                canonical=True,
+                bound_note=f"operations: k x {FSQ_W32_MADS} + 2 multiply instructions a lane "
+                           f"(8 x 32-bit words) over the whole card")
 
 
 def uptree_case_of(path, x, perm, ch, variant):
@@ -979,7 +1008,9 @@ def kernel_checks(dev, rng, card: dict) -> list:
     20,480 lanes), cold (A and R decompressed on 20,480), tampered_persig
     (the per-signature ladder on the 16,384-lane bucket), tampered (the
     bisection's ladder leaf on 1,024 lanes), streamed and pipelined
-    (24,576-lane chunks: A and R decompressed, the fused MSM)."""
+    (24,576-lane chunks: A and R decompressed, the fused MSM); then padd's
+    sweep, each width on both kernels (off the path: the rows that set
+    PADD_FEW_LANES)."""
     from tendermint_tpu_torch.ops import cuda_fe, msm_torch
 
     enc = seeded_points(2048, rng)
@@ -1149,6 +1180,8 @@ def check_cases(cases, card: dict) -> list:
     items on the whole card), ptxas's registers and spills, and on the text
     line the card ms recorded before the redesign where the row has one
     (RECORDED_BEFORE_MS)."""
+    from tendermint_tpu_torch.ops import fe25519 as fe
+
     usage = ptxas_usage()
     rows = []
     for c in cases:
@@ -1157,9 +1190,12 @@ def check_cases(cases, card: dict) -> list:
         want = c["plain"]()
         torch.cuda.synchronize()
         err = max_err(view(got), view(want))
-        if err != 0:  # limb-identical, so equal after freeze too
+        if err != 0:  # limb for limb, or through `view` (freeze, or uptree's written nodes)
             raise SystemExit(f"kernel {c['name']} {c['variant']} disagrees with its "
                              f"plain version: max |err| {err}")
+        if c.get("canonical") and not (bool(((got >= 0) & (got < 1 << 13)).all())
+                                       and torch.equal(fe.freeze(got), got)):
+            raise SystemExit(f"kernel {c['name']} {c['variant']}: output limbs not canonical")
         ms, symbol, other_ms, ms_by = device_ms(c["kern"], c["name"], c["lanes"],
                                                 symbol=c.get("symbol"))
         call_ms = timed(c["kern"])
@@ -1176,6 +1212,10 @@ def check_cases(cases, card: dict) -> list:
             library_note=NO_LIBRARY[c["name"]],
         )
         row["regs"], row["spill_bytes"] = kernel_usage(symbol, usage)
+        row["compared"] = ("freeze, canonical" if c.get("canonical")
+                           else "view" if "view" in c else "limbs")
+        if "mads_before" in c:
+            row["bound_before_ms"] = imad_seconds(c["mads_before"], c["items"], card) * 1e3
         for k in ("bound_note", "sectors"):
             if k in c:
                 row[k] = c[k]
@@ -1188,9 +1228,11 @@ def check_cases(cases, card: dict) -> list:
               f"call_ms={call_ms:.4f} "
               f"(events) plain_ms={plain_ms:.3f} bound_ms={row['bound_ms']:.5f} "
               f"({bound_text(row['bound_by'], c.get('bound_note'))}) "
-              f"max_abs_err={err} library_ms=null regs={row['regs']} "
+              f"max_abs_err={err} ({row['compared']}) library_ms=null regs={row['regs']} "
               f"spill_bytes={row['spill_bytes']}"
               + (f" sectors={c['sectors']}" if "sectors" in c else "")
+              + (f" bound_before_ms={row['bound_before_ms']:.5f} (k x {SQR} multiply-adds, the "
+                 f"radix-2^13 count)" if "bound_before_ms" in row else "")
               + (f" recorded_before_ms={RECORDED_BEFORE_MS[key]} (PERF.md, not this run)"
                  if (key := (c["name"], c["path"], c["lanes"])) in RECORDED_BEFORE_MS else ""),
               flush=True)
@@ -1319,14 +1361,16 @@ def msm_reference_check(dev, rng, base) -> None:
 def ristretto_check(dev, rng) -> None:
     """ops/ristretto_torch.ristretto_decode on the card (pow_p58 on the
     fsquare_chain kernel) against the same function on a CPU tensor (the
-    plain chain), limb for limb and verdict for verdict, at the decode's
-    lane counts on the mixed paths: 2,048 (mixed_sr25519_10k's sr25519 R
-    block and A fill) and 1,024 (the mixed light check's); seeded multiples
-    of the basepoint, every ninth lane an odd (invalid) encoding. Prints
-    each decode's call ms (events)."""
+    plain chain), verdict for verdict, and coordinate for coordinate through
+    fe25519.freeze (the kernel's canonical limbs carry through the decode's
+    later products), at the decode's lane counts on the mixed paths: 2,048 (mixed_sr25519_10k's
+    sr25519 R block and A fill) and 1,024 (the mixed light check's); seeded
+    multiples of the basepoint, every ninth lane an odd (invalid) encoding.
+    Prints each decode's call ms (events)."""
     from tendermint_tpu_torch.crypto import ed25519_ref as ref
     from tendermint_tpu_torch.crypto import sr25519
     from tendermint_tpu_torch.ops import ristretto_torch
+    from tendermint_tpu_torch.ops import fe25519 as fe
 
     step = ref.point_mul(int(rng.integers(1, 1 << 62)), ref.BASE)
     p = ref.point_mul(int(rng.integers(1, 1 << 62)), ref.BASE)
@@ -1342,13 +1386,15 @@ def ristretto_check(dev, rng) -> None:
         on_card = cols.to(dev)
         got, ok = ristretto_torch.ristretto_decode(on_card)
         want, ok_w = ristretto_torch.ristretto_decode(cols)
-        err = max_err(got.cpu(), want)
+        got, want = (torch.stack([fe.freeze(c) for c in t]) for t in (got.cpu(), want))
+        err = max_err(got, want)
         if err != 0 or not torch.equal(ok.cpu(), ok_w) or int(ok_w.sum()) != lanes - lanes // 9:
             raise SystemExit(f"ristretto_decode at {lanes} lanes: card differs from plain "
-                             f"(max |err| {err}) or verdicts differ")
+                             f"(through freeze, max |err| {err}) or verdicts differ")
         ms = timed(lambda: ristretto_torch.ristretto_decode(on_card))
         print(f"ristretto_decode ({lanes} lanes) on the card equals its plain version: max |err| "
-              f"0, {int(ok.sum())} valid lanes; call_ms={ms:.3f} (events)", flush=True)
+              f"0 through freeze, {int(ok.sum())} valid lanes; call_ms={ms:.3f} (events)",
+              flush=True)
 
 
 def _sign_rows(args):
@@ -6686,7 +6732,7 @@ def cli_localnet_phase(dev, launches: dict) -> None:
           f"{time.perf_counter() - t_phase:.1f} s; card {card_name(dev)}", flush=True)
 
 
-CHAOS_NODES, CHAOS_POISON, CHAOS_TIMEOUT = 4, 10_000, 240.0
+CHAOS_NODES, CHAOS_POISON, CHAOS_TIMEOUT, CHAOS_ALIGN_S = 4, 10_000, 240.0, 60.0
 
 
 def chaos_poison_10k_phase(dev, pool, workers: int, launches: dict) -> None:
@@ -6700,6 +6746,7 @@ def chaos_poison_10k_phase(dev, pool, workers: int, launches: dict) -> None:
     from tendermint_tpu_torch.chaos import ChaosEngine, ChaosSchedule, FaultEvent
     from tendermint_tpu_torch.chaos.harness import LocalChaosNet
     from tendermint_tpu_torch.config import test_config
+    from tendermint_tpu_torch.consensus.round_state import RoundStepType
     from tendermint_tpu_torch.crypto import batch, provenance
     from tendermint_tpu_torch.crypto import scheduler as sched
     from tendermint_tpu_torch.crypto.keys import gen_ed25519
@@ -6790,8 +6837,29 @@ def chaos_poison_10k_phase(dev, pool, workers: int, launches: dict) -> None:
         real_poison = net.sig_poison
 
         async def sig_poison(**kw):
+            # the flood's votes carry the poisoner's height and round, and a
+            # node that stands at another height drops them unverified
+            # (cs_state._add_vote): the flood waits until every live node
+            # stands at the poisoner's height and round, none past prevote,
+            # so that no victim can commit that height before the flood
+            # reaches its vote flush
+            t_wait = time.perf_counter()
+            while True:
+                rs = net.nodes[poisoner].consensus.rs
+                states = [(n.consensus.rs.height, n.consensus.rs.round, n.consensus.rs.step)
+                          for n in net.live_nodes()]
+                if all(h == rs.height and r == rs.round and st < RoundStepType.PRECOMMIT
+                       for h, r, st in states):
+                    break
+                if time.perf_counter() - t_wait > CHAOS_ALIGN_S:
+                    raise SystemExit(f"chaos_poison_10k: the live nodes did not stand at one "
+                                     f"height before precommit within {CHAOS_ALIGN_S} s: "
+                                     f"{[(h, r, st.name) for h, r, st in states]}")
+                await asyncio.sleep(0.001)
             flood["t0"] = time.perf_counter()
-            flood["height"] = net.nodes[poisoner].consensus.rs.height
+            flood["wait_s"] = flood["t0"] - t_wait
+            flood["states"] = [(h, r, st.name) for h, r, st in states]
+            flood["height"] = rs.height
             await real_poison(**kw)
             flood["sent"] = time.perf_counter()
 
@@ -6904,7 +6972,8 @@ def chaos_poison_10k_phase(dev, pool, workers: int, launches: dict) -> None:
           f"{state['applied']}; schedule {state['schedule_s']:.1f} s, two heights past its top "
           f"({state['top']}) at {state['after_s']:.1f} s; heights {state['heights']}", flush=True)
     print(f"chaos_poison_10k flood: {CHAOS_POISON} votes at height {flood['height']} into "
-          f"{CHAOS_NODES - 1} peers, built and written in "
+          f"{CHAOS_NODES - 1} peers after {flood['wait_s'] * 1e3:.1f} ms waiting for the live "
+          f"nodes (height, round, step) {flood['states']}, built and written in "
           f"{(flood['sent'] - flood['t0']) * 1e3:.1f} ms; {n_rows} poisoned rows reached "
           f"{len(poisoned)} flushes ({len(card)} on the card); the flood to the punishment "
           f"{(mine[0][0] - flood['t0']) * 1e3:.1f} ms (punish info {mine[0][1]}); poisoned "
@@ -7053,7 +7122,7 @@ def fleet_smoke_7_phase(dev, pool, workers: int, launches: dict) -> None:
     poisoner = next(ns.index for ns in spec.nodes if ns.poisoner)
     tag = f"peer:{res['poisoners'][poisoner]}"
     sus = res["suspicion"]
-    (joiner,) = res["joiners"].values()
+    ((joiner_idx, joiner),) = res["joiners"].items()
     card = [r for r in rec.recorded if r["path"] not in ("cpu", "memo")]
     checks = after["safety_checks"] - before["safety_checks"]
     card_line = card_name(dev)
@@ -7063,7 +7132,7 @@ def fleet_smoke_7_phase(dev, pool, workers: int, launches: dict) -> None:
           f"; roles {[(ns.index, ns.role, ns.sync_mode, ns.join_at, ns.poisoner) for ns in spec.nodes]}",
           flush=True)
     print(f"fleet_smoke_7 heights by node: {heights}; head {res['heights']}, the joiner "
-          f"{joiner}; soak {soak_s:.1f} s ({res['elapsed_s']} s in run_fleet_soak); "
+          f"{joiner}; at the settle {res['settled']}; soak {soak_s:.1f} s ({res['elapsed_s']} s in run_fleet_soak); "
           f"workload {res['workload']}; chaos applied {res['chaos_applied']}", flush=True)
     by_node = {}
     for r in rec.recorded:
@@ -7106,9 +7175,12 @@ def fleet_smoke_7_phase(dev, pool, workers: int, launches: dict) -> None:
             or res["chaos_errors"] or res["chaos_applied"] < len(spec.schedule)):
         raise SystemExit(f"fleet_smoke_7: heights {res['heights']}, live {res['live_nodes']}, "
                          f"chaos {res['chaos_applied']} applied, errors {res['chaos_errors']}")
-    if joiner["height"] is None or joiner["height"] < res["heights"] - 2:
-        raise SystemExit(f"fleet_smoke_7: the joiner is at {joiner['height']}, the head at "
-                         f"{res['heights']}")
+    # both heights as the settle gate read them (the chain commits on after it)
+    joiner_settled = res["settled"]["heights"].get(joiner_idx)
+    if joiner_settled is None or joiner_settled < res["settled"]["head"] - 2:
+        raise SystemExit(f"fleet_smoke_7: the joiner was at {joiner_settled}, the head at "
+                         f"{res['settled']['head']} at the settle (at the end {joiner['height']} "
+                         f"and {res['heights']})")
     if report["coverage"]["partial"] or report["waterfall"]["uncovered"]:
         raise SystemExit(f"fleet_smoke_7: coverage {report['coverage']}, uncovered "
                          f"{report['waterfall']['uncovered']}")

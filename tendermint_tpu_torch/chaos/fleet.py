@@ -962,9 +962,13 @@ async def run_fleet_soak(
             )
 
         await _gate(_settled, f"min_heights={min_heights} + catch-up")
+        # the heights the settle gate passed on, read together: the chain
+        # commits on while the dumps are written, so the heights read after
+        # them no longer hold a laggard to the head it was gated on
+        settled = {"head": net.max_height(), "heights": _heights()}
         logger.info(
             "fleet soak settled at head=%d in %.1fs",
-            net.max_height(), loop.time() - t0,
+            settled["head"], loop.time() - t0,
         )
         for t in joiner_tasks:
             t.result()  # surface joiner exceptions
@@ -1000,6 +1004,7 @@ async def run_fleet_soak(
             "n_nodes": spec.n_nodes,
             "heights": net.max_height(),
             "min_height": net.min_height(),
+            "settled": settled,
             "elapsed_s": round(elapsed, 2),
             "live_nodes": len(net.live_nodes()),
             "joiners": {

@@ -142,7 +142,7 @@ __device__ __forceinline__ fp_t fp_mul_stream(A a_at, const fp_t &b) {
 // rotated by 2t from a doubled shared buffer, rot[m] = X[(2t + m) mod 64],
 // and the second factor Y un-rotated, so term m of column j pairs rot[m]
 // with Y[(j - m) mod 64]: one instruction stream with compile-time indices
-// for every lane (fsquare_chain_quad_kernel's scheme). A term lands in the
+// for every lane (a cyclic product over a rotated buffer). A term lands in the
 // low column when m <= j inside block 0 (m < 2), or when its block d = m / 2
 // wrapped (d >= 32 - t): so the running sum of blocks 1..d, kept at
 // d = 31 - t by one AND-OR a block, is the high part, and the rest of the

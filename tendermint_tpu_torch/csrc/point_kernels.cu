@@ -3,8 +3,8 @@
 // Replaces the Pallas TPU kernels of tendermint_tpu/ops/pallas_fe.py:
 //   tm_padd, tm_padd_lanes <- _padd_kernel / _padd_call  (public pallas_fe.padd)
 //   tm_pdbl, tm_pdbl_lanes <- _pdbl_kernel, _pdbl_n_kernel / _pdbl_call (pallas_fe.pdbl)
-//   tm_fsquare_chain, tm_fsquare_chain_quad <- _fsq_n_kernel / _fsq_call
-//                                             (pallas_fe.fsquare_chain)
+//   tm_fsquare_chain <- _fsq_n_kernel / _fsq_call (pallas_fe.fsquare_chain;
+//                       writes canonical limbs)
 //
 // Layout: a point batch is int32 (4, 20, n) — coordinate c, limb i, lane j at
 // c*20*n + i*n + j; a field batch is (20, n). In the thread-per-lane kernels
@@ -54,20 +54,44 @@
 //   x, y, z stay in shared memory across doublings; t is produced on the
 //   last one only, since dbl-2008-hwcd never reads it; `times` is a
 //   run-time count.
-// - fsquare_chain has two kernels behind one wrapper (cuda_fe.fsquare_chain_
-//   entry). A lane is one dependent chain of squarings; a squaring is ~230
-//   IMADs then ~340 ALU instructions (LOP3 + LEA.HI a carry step), each
-//   phase on one pipe at half rate when one warp issues alone. The paths'
-//   10,240-24,576 lanes run fsquare_chain_kernel, one thread a lane (one
-//   or two warps a scheduler). Splitting a lane's squaring over 4 threads
-//   (fsquare_chain_quad_kernel) doubles its instructions: it wins only up to
-//   FSQ_FEW_LANES lanes, where one thread a lane leaves the card idle.
-//   IMAD forms of the carry step, two lanes a thread and column-ordered
-//   products were measured too and lost (PERF.md).
+// - fsquare_chain is one kernel at every width. A lane is one dependent
+//   chain of k squarings (k = 10 ... 100 in the pow_p58 / inv chains of every
+//   decompression). Bytes are no limit (80 B in and out a lane); one warp's
+//   dependent chain is. The paths' 512-24,576
+//   lanes put at most one warp on each of the card's 528 warp schedulers up
+//   to 16,384 lanes and two above, so a launch takes as long as one warp takes
+//   to issue its chain. fsquare_chain_kernel (one thread a lane) therefore
+//   cuts the instructions of a squaring: the radix-2^13 form (fe25519.cuh,
+//   the reference's limbs) issued ~230 IMADs and ~340 LOP3 / LEA.HI carry
+//   steps a squaring; this kernel packs the 20 carried limbs into 8 x 32-bit
+//   words once, squares in radix 2^32 on PTX carry chains (fe25519_w32.cuh:
+//   28 cross products on two row-wavefront accumulators, 2C by funnel
+//   shifts, the 8 squares on one chain, T_lo + 38 T_hi, a 19-fold of the top
+//   bits) with lazy reduction below 2^256, freezes once and writes canonical
+//   limbs (each < 2^13, value < p: a carried form that every consumer takes;
+//   the limbs differ from the reference's, the field element does not).
+//   That is 89 multiply instructions a squaring (the function's bound below)
+//   and 131 SASS instructions in all (tools/fe_probe.py), against 572.
+//   PTX has one carry flag, so ptxas keeps the chains in order: one warp
+//   still waits on each dependent step, and forms without the flag (plain
+//   64-bit C++, radix 2^25.5 with 64-bit column sums) measured no faster; the
+//   loop is unrolled twice, so consecutive squarings overlap at their ends.
+//   Tensor cores do not apply (the products are 32-bit integer ones, IMMA
+//   is int8), nor do TMA or shared memory (each lane reads 80 B once and
+//   writes 80 B once, and nothing is shared between lanes).
+//   A 4-threads-a-lane radix-2^13 kernel for few lanes lost to it at every
+//   width of the card sweep (1,024-67,584 lanes, k = 50; PERF.md) and was
+//   removed: `tools/fe_probe.py --before <an older csrc>` still times it.
+//   The bound: a squaring of 8 words needs 36 products of 32-bit words (28
+//   cross, 8 squares) of two multiply instructions each (lo and hi), and the
+//   reduction 8 more (x 38), plus one for the fold: 89 int32 multiply
+//   instructions, k x 89 + 2 (the pack's and the freeze's folds) a lane, over
+//   132 SMs x 64 a clock. The radix-2^13 count was 210 a squaring.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "fe25519.cuh"
+#include "fe25519_w32.cuh"
 #include "fe25519_warp.cuh"
 
 #define PK_THREADS 128
@@ -329,119 +353,24 @@ padd_lanes_kernel(const int32_t *__restrict__ p, const int32_t *__restrict__ q,
   }
 }
 
-// x -> x^(2^k) (pallas_fe._fsq_n_kernel).
+// x -> x^(2^k) (pallas_fe._fsq_n_kernel), one thread a lane, in 8 x 32-bit
+// words (fe25519_w32.cuh); writes canonical limbs.
 __global__ void __launch_bounds__(PK_THREADS)
 fsquare_chain_kernel(const int32_t *__restrict__ x, int32_t *__restrict__ out, int64_t n,
                      int k) {
   const int64_t lane = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= n) return;
-  fe_t v = fe_load(x, n, lane);
-  for (int it = 0; it < k; it++) v = fe_square(v);
-  fe_store(out, n, lane, v);
-}
-
-// x -> x^(2^k) on 4 threads a lane (FQ_LANES lanes a block of 128), for
-// launches of few lanes, where one thread a lane leaves most of the card's
-// schedulers empty and one warp's chain sets the time. Thread t owns limbs
-// 5t..5t+4 and rows 5t..5t+4 and 5t+20..5t+24 of each product, on
-// fe25519.cuh's carry schedule. The element passes through a doubled shared
-// buffer (limb m at m and m + 20) that thread t reads rotated by 5t, so one
-// instruction stream computes every thread's columns as a cyclic product:
-// the rotated block d of the first factor lands in the low rows when
-// d >= 4 - t (it wrapped), else in the high rows, chosen by prefix sums of
-// the blocks. Carries cross threads by __shfl_sync. The products are the
-// full 20 x 20 (the squaring's symmetry does not survive the rotation), so
-// a lane issues about twice a thread-per-lane squaring (tools/fe_probe.py):
-// it wins where the card is otherwise idle, not above.
-#define FQ_LANES 32
-__global__ void __launch_bounds__(4 * FQ_LANES)
-fsquare_chain_quad_kernel(const int32_t *__restrict__ x, int32_t *__restrict__ out, int64_t n,
-                        int k) {
-  __shared__ int32_t buf[FQ_LANES][41];
-  const int t = threadIdx.x & 3, l = threadIdx.x >> 2, src = (t + 3) & 3;
-  const int64_t at = (int64_t)blockIdx.x * FQ_LANES + l;
-  const int64_t lane = at < n ? at : n - 1;
-  int32_t *const d = buf[l];
-  const int32_t lo_in = t ? 1 : 0, top = t == 3 ? FE_WRAP : 0, keep4 = t == 3 ? 0 : -1;
-  const int32_t wrap = t ? 1 : FE_WRAP;
-  int32_t v[5];
+  int32_t limb[FE_NL];
 #pragma unroll
-  for (int m = 0; m < 5; m++) v[m] = __ldg(x + (int64_t)(5 * t + m) * n + lane);
-  for (int it = 0; it < k; it++) {
-    __syncwarp();
+  for (int i = 0; i < FE_NL; i++) limb[i] = __ldg(x + (int64_t)i * n + lane);
+  uint32_t w[8];
+  w32_pack(limb, w);
+#pragma unroll 2
+  for (int it = 0; it < k; it++) w32_square(w);
+  w32_freeze(w);
+  w32_unpack(w, limb);
 #pragma unroll
-    for (int m = 0; m < 5; m++) {
-      d[5 * t + m] = v[m];
-      d[5 * t + m + FE_NL] = v[m];
-    }
-    __syncwarp();
-    int32_t rot[FE_NL], un[FE_NL];
-#pragma unroll
-    for (int r = 0; r < FE_NL; r++) {
-      rot[r] = d[5 * t + r];
-      un[r] = d[r];
-    }
-    int32_t lo[5], hi[5];
-#pragma unroll
-    for (int j = 0; j < 5; j++) {
-      int32_t a = 0, b = 0;
-#pragma unroll
-      for (int m = 0; m < 5; m++) {
-        const int32_t p = rot[m] * un[(j - m + FE_NL) % FE_NL];
-        if (m <= j) a += p; else b += p;
-      }
-      int32_t s3 = 0;
-#pragma unroll
-      for (int m = 0; m < 5; m++) s3 += rot[15 + m] * un[(j - 15 - m + 2 * FE_NL) % FE_NL];
-      int32_t s23 = s3;
-#pragma unroll
-      for (int m = 0; m < 5; m++) s23 += rot[10 + m] * un[(j - 10 - m + 2 * FE_NL) % FE_NL];
-      int32_t s123 = s23;
-#pragma unroll
-      for (int m = 0; m < 5; m++) s123 += rot[5 + m] * un[(j - 5 - m + 2 * FE_NL) % FE_NL];
-      const int32_t low = t == 0 ? 0 : t == 1 ? s3 : t == 2 ? s23 : s123;
-      lo[j] = a + low;
-      hi[j] = b + (s123 - low);
-    }
-    // fe_reduce39's two passes over rows (5t+j, 5t+20+j)
-#pragma unroll
-    for (int pass = 0; pass < 2; pass++) {
-      int32_t cl[5], ch[5];
-#pragma unroll
-      for (int j = 0; j < 5; j++) {
-        cl[j] = lo[j] >> FE_RADIX;
-        ch[j] = hi[j] >> FE_RADIX;
-      }
-      const int32_t ul = __shfl_sync(0xffffffffu, cl[4], src, 4);
-      const int32_t uh = __shfl_sync(0xffffffffu, ch[4], src, 4);
-      lo[0] = (lo[0] & FE_MASK) + lo_in * ul;
-      hi[0] = (hi[0] & FE_MASK) + (t ? uh : ul);
-#pragma unroll
-      for (int j = 1; j < 5; j++) {
-        lo[j] = (lo[j] & FE_MASK) + cl[j - 1];
-        hi[j] = (hi[j] & FE_MASK) + ch[j - 1];
-      }
-      hi[4] &= keep4;             // row 39 does not exist
-      lo[4] += top * ch[3];       // row 19 takes 608 x row 38's carry
-    }
-#pragma unroll
-    for (int j = 0; j < 5; j++) v[j] = lo[j] + FE_WRAP * hi[j];
-    // fe_carry's four passes
-#pragma unroll
-    for (int pass = 0; pass < 4; pass++) {
-      int32_t c[5];
-#pragma unroll
-      for (int j = 0; j < 5; j++) c[j] = v[j] >> FE_RADIX;
-      const int32_t u = __shfl_sync(0xffffffffu, c[4], src, 4);
-      v[0] = (v[0] & FE_MASK) + wrap * u;
-#pragma unroll
-      for (int j = 1; j < 5; j++) v[j] = (v[j] & FE_MASK) + c[j - 1];
-    }
-  }
-  if (at < n) {
-#pragma unroll
-    for (int m = 0; m < 5; m++) out[(int64_t)(5 * t + m) * n + lane] = v[m];
-  }
+  for (int i = 0; i < FE_NL; i++) out[(int64_t)i * n + lane] = limb[i];
 }
 
 static inline unsigned pk_blocks(int64_t n) {
@@ -478,12 +407,5 @@ extern "C" int tm_pdbl_lanes(const int32_t *p, int32_t *out, int64_t n, int time
 extern "C" int tm_fsquare_chain(const int32_t *x, int32_t *out, int64_t n, int k,
                                 void *stream) {
   fsquare_chain_kernel<<<pk_blocks(n), PK_THREADS, 0, (cudaStream_t)stream>>>(x, out, n, k);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int tm_fsquare_chain_quad(const int32_t *x, int32_t *out, int64_t n, int k,
-                                   void *stream) {
-  fsquare_chain_quad_kernel<<<(unsigned)((n + FQ_LANES - 1) / FQ_LANES), 4 * FQ_LANES, 0,
-                            (cudaStream_t)stream>>>(x, out, n, k);
   return (int)cudaGetLastError();
 }

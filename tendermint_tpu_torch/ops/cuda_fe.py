@@ -2,7 +2,8 @@
 
 The counterpart of tendermint_tpu/ops/pallas_fe.py. Hand-written Hopper
 kernels behind three wrappers (csrc/point_kernels.cu; field arithmetic in
-csrc/fe25519.cuh, split over a warp in csrc/fe25519_warp.cuh):
+csrc/fe25519.cuh, split over a warp in csrc/fe25519_warp.cuh, and in 8 x
+32-bit words in csrc/fe25519_w32.cuh):
 
 - `padd(p, q)`            unified a=-1 extended add (add-2008-hwcd-3): a
                           warp per lane on PADD_FEW_LANES lanes or fewer (the
@@ -14,9 +15,9 @@ csrc/fe25519.cuh, split over a warp in csrc/fe25519_warp.cuh):
                           fold's latency-bound chains, the ladder of a
                           small commit), 4 threads a lane above, one
                           independent field op each (the 10k ladder)
-- `fsquare_chain(x, k)`   x^(2^k), k squarings: 4 threads a lane on
-                          FSQ_FEW_LANES lanes or fewer, a thread per lane
-                          above (every decompression of the 10k paths)
+- `fsquare_chain(x, k)`   x^(2^k), k squarings (every decompression): a
+                          thread a lane in 8 x 32-bit words, writing
+                          canonical limbs
 
 A point batch is one contiguous int32 tensor `(4, 20, ...batch)` (x, y, z, t
 in radix-2^13 limbs, lanes innermost); a field batch is `(20, ...batch)`.
@@ -69,7 +70,7 @@ THREAD_LAUNCHES = _ThreadLaunches()
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("fe25519.cuh", "fe25519_warp.cuh", "point_kernels.cu")
+SOURCES = ("fe25519.cuh", "fe25519_w32.cuh", "fe25519_warp.cuh", "point_kernels.cu")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -237,9 +238,8 @@ def _bind(lib) -> None:
     lib.tm_pdbl.argtypes = [vp, vp, i64, ci, vp]
     lib.tm_pdbl_lanes.argtypes = [vp, vp, i64, ci, vp]
     lib.tm_fsquare_chain.argtypes = [vp, vp, i64, ci, vp]
-    lib.tm_fsquare_chain_quad.argtypes = [vp, vp, i64, ci, vp]
     for fn in (lib.tm_padd, lib.tm_padd_lanes, lib.tm_pdbl, lib.tm_pdbl_lanes,
-               lib.tm_fsquare_chain, lib.tm_fsquare_chain_quad):
+               lib.tm_fsquare_chain):
         fn.restype = ci
 
 
@@ -341,21 +341,16 @@ def pdbl(p: torch.Tensor, times: int = 1) -> torch.Tensor:
     return out
 
 
-# The largest lane count of the card sweep (tools/fe_probe.py: 1,024, 4,096,
-# 10,240, ... lanes, k = 50) at which the 4-threads-a-lane kernel beat the
-# thread-per-lane kernel (4,096: 0.0180 vs 0.0301 ms; 10,240: 0.0403 vs
-# 0.0302; NVIDIA H100 80GB HBM3, 700 W).
-FSQ_FEW_LANES = 4096
-
-
-def fsquare_chain_entry(n: int) -> str:
-    """The fsquare_chain kernel that n lanes launch: the 4-threads-a-lane
-    kernel on FSQ_FEW_LANES lanes or fewer, the thread-per-lane kernel above."""
-    return "tm_fsquare_chain_quad" if n <= FSQ_FEW_LANES else "tm_fsquare_chain"
-
-
 def fsquare_chain(x: torch.Tensor, k: int) -> torch.Tensor:
-    """x^(2^k) for a field batch (20, ...batch)."""
+    """x^(2^k) for a field batch (20, ...batch) of carried limbs. The
+    plain version (a CPU tensor) returns the reference's carried limbs, the
+    kernel (one thread a lane, at every width) the same field element in
+    canonical limbs (each < 2^13, value < p): both carried forms, equal after
+    `fe25519.freeze`. The kernel beat the 4-threads-a-lane radix-2^13 kernel
+    it replaced on few lanes at every width of the card sweep
+    (tools/fe_probe.py, k = 50; NVIDIA H100 80GB HBM3, 700.00 W): 1,024
+    lanes 0.0117 vs 0.0182 ms, 4,096 0.0118 vs 0.0182, 24,576 0.0168 vs
+    0.0766, 67,584 0.0303 vs 0.1968."""
     if x.device.type == "cpu":
         return fsquare_chain_plain(x, k)
     n = _check(x, (NL,), "fsquare_chain x")
@@ -363,7 +358,7 @@ def fsquare_chain(x: torch.Tensor, k: int) -> torch.Tensor:
         raise ValueError("fsquare_chain: k must be >= 1")
     out = torch.empty_like(x)
     if n:
-        fn = getattr(build(), fsquare_chain_entry(n))
+        fn = build().tm_fsquare_chain
         with _on_card(x):
             _launched("fsquare_chain", fn(x.data_ptr(), out.data_ptr(), n, int(k), _stream(x)))
     return out

@@ -15,10 +15,13 @@ package build; every subprocess loads them, verifies them once on the card
 signatures of rows 17, 4,242 and 9,999 (chip_smoke.py's tampered rows),
 checks the exact mask, then profiles PROFILED tampered calls under
 torch.profiler: device busy = the sum of the kernels' device time (one
-stream, so kernels do not overlap). ROUNDS rounds run the trees in order,
-then in reverse (OLD, NEW, NEW, OLD). Prints a line per reading, each
-tree's median busy, the card's name and power limit, and last one JSON
-object (also written to --json). Exits 2 without a card.
+stream, so kernels do not overlap), and each of the port's own kernels'
+device time (every kernel not from at::native), which a change to one
+kernel moves without the clock drift of the ~40,000 PyTorch kernels around
+it. ROUNDS rounds run the trees in order, then in reverse (OLD, NEW, NEW,
+OLD). Prints a line per reading, each tree's median busy and median ms of
+each own kernel, the card's name and power limit, and last one JSON object
+(also written to --json). Exits 2 without a card.
 """
 
 from __future__ import annotations
@@ -110,7 +113,7 @@ def child(tree: str, corpus_path: str) -> dict:
     mask = batch.verify_batch(pubkeys, msgs, bad_sigs, device=dev)
     if tuple(int(i) for i in np.flatnonzero(~mask)) != TAMPERED:
         raise SystemExit(f"busy_ab: tampered mask wrong: False at {np.flatnonzero(~mask)}")
-    busy, kernels, top = [], [], {}
+    busy, kernels, top, own = [], [], {}, []
     for _ in range(PROFILED):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             batch.verify_batch(pubkeys, msgs, bad_sigs, device=dev)
@@ -118,11 +121,13 @@ def child(tree: str, corpus_path: str) -> dict:
         rows = profiler.device_rows(prof)
         busy.append(sum(e.self_device_time_total for e in rows) / 1e3)
         kernels.append(sum(e.count for e in rows))
+        own.append({e.key: [round(e.self_device_time_total / 1e3, 4), e.count]
+                    for e in rows if "at::native" not in e.key})
         top = {e.key: [round(e.self_device_time_total / 1e3, 4), e.count]
                for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:10]}
     if min(busy) <= 0:
         raise SystemExit("busy_ab: the profiler recorded no device time")
-    return {"tree": tree, "busy_ms": busy, "kernels": kernels, "top": top}
+    return {"tree": tree, "busy_ms": busy, "kernels": kernels, "top": top, "own": own}
 
 
 def main() -> int:
@@ -159,10 +164,21 @@ def main() -> int:
                for t in trees}
     for t, m in medians.items():
         print(f"busy median {t}: {m:.3f} ms", flush=True)
+    own = {t: {} for t in trees}
+    for r in readings:
+        for reading in r["own"]:
+            for name, (ms, n) in reading.items():
+                own[r["tree"]].setdefault(name, []).append((ms, n))
+    own_medians = {t: {name: [statistics.median(ms for ms, _ in v), v[-1][1]]
+                       for name, v in sorted(got.items())} for t, got in own.items()}
+    for t, got in own_medians.items():
+        for name, (ms, n) in got.items():
+            print(f"own median {t}: {ms:8.3f} ms x{n:<5d} {name[:90]}", flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    result = {"card": card, "median_busy_ms": medians, "readings": readings}
+    result = {"card": card, "median_busy_ms": medians, "median_own_ms": own_medians,
+              "readings": readings}
     if args.json:
         with open(args.json, "w") as f:
             json.dump(result, f)

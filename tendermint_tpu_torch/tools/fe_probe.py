@@ -1,5 +1,5 @@
 """Pipe mix and lane sweeps of the padd, pdbl and fsquare_chain kernels,
-beside an older tree's.
+beside an older tree's fsquare_chain kernels (with --before).
 
 Run from the repository root on a machine with a CUDA card and nvcc:
 
@@ -8,14 +8,21 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 
 1. Builds: the point_kernels library (cuda_fe.build()) and, with --before,
    an older tree's csrc/point_kernels.cu (e.g. the parent commit unpacked by
-   `git archive`), each with `-Xptxas -v` (registers, spills).
+   `git archive`: DIR is its tendermint_tpu_torch/csrc), each with
+   `-Xptxas -v` (registers, spills).
 2. SASS (`cuobjdump -sass`) of every kernel by pipe: FMA (every IMAD form),
-   ALU (IADD3, LOP3, SHF, LEA, SEL, ...), memory, other; for the whole
-   kernel and for its largest loop, with the loop's product IMADs (IMADs
-   of four register operands: the multiply-adds of the field products).
+   ALU (IADD3, LOP3, SHF, LEA, SEL, ...), memory, other, and by op family
+   (IMAD, IADD3 and the other adds with carry, LOP3, SHF, LEA, SEL); for the
+   whole kernel and for its largest loop, with the loop's product IMADs
+   (IMADs of four register operands). For the fsquare_chain kernels also
+   the loop's mix a squaring (LOOP_SQUARINGS: squarings in a loop body).
 3. Times: each entry at each lane count of the three sweeps (fsquare_chain
-   k = 50, pdbl times = 4, padd) on the same seeded carried-limb inputs, after
-   checking it against the plain torch version (max |err| 0): CUDA events
+   k = 50, the shipped kernel beside the older tree's two; pdbl times = 4;
+   padd) on the same seeded
+   carried-limb inputs, the first lanes at the carried maxima, after checking
+   each against the plain torch version: limb for limb, or through
+   fe25519.freeze with canonical limbs (each < 2^13, value < p) for a kernel
+   that writes those (the shipped fsquare_chain_kernel); CUDA events
    around 20 launches queued behind a device sleep, entries in order then
    in reverse, the median of the two rounds.
 
@@ -41,6 +48,7 @@ import numpy as np
 import torch
 
 from tendermint_tpu_torch.ops import cuda_fe
+from tendermint_tpu_torch.ops import fe25519 as fe
 
 FSQ_LANES = (1_024, 4_096, 10_240, 16_384, 20_480, 24_576, 33_792, 50_688, 67_584)
 PDBL_LANES = (32, 33, 64, 512, 1_024, 4_096, 10_240, 16_384, 20_480, 24_576)
@@ -48,18 +56,31 @@ PADD_LANES = (32, 192, 1_024, 4_096, 4_097, 8_192, 10_240, 16_384, 20_480, 24_57
 K, TIMES, REPS = 50, 4, 20
 # entry -> kernel symbol, per build
 SHIPPED = {"tm_fsquare_chain": "fsquare_chain_kernel",
-           "tm_fsquare_chain_quad": "fsquare_chain_quad_kernel",
            "tm_pdbl": "pdbl_quad_kernel", "tm_pdbl_lanes": "pdbl_lanes_kernel",
            "tm_padd": "padd_quad_kernel", "tm_padd_lanes": "padd_lanes_kernel"}
-# the kernels each entry launched in the tree before padd_quad_kernel (--before)
-BEFORE = {"tm_fsquare_chain": "fsquare_chain_kernel", "tm_pdbl": "pdbl_quad_kernel",
-          "tm_padd": "padd_kernel"}
+# the fsquare_chain kernels of a tree before the 8 x 32-bit kernel (--before;
+# radix 2^13, the reference's limbs: one thread a lane, and 4 threads a lane
+# for few lanes)
+BEFORE = {"tm_fsquare_chain": "fsquare_chain_kernel",
+          "tm_fsquare_chain_quad": "fsquare_chain_quad_kernel"}
+# squarings in the body of each fsquare_chain kernel's largest loop, per build:
+# the 8 x 32-bit kernel's loop is unrolled twice (`#pragma unroll 2`)
+LOOP_SQUARINGS = {("shipped", "fsquare_chain_kernel"): 2,
+                  ("before", "fsquare_chain_kernel"): 1, ("before", "fsquare_chain_quad_kernel"): 1}
 
 PIPES = (
     ("fma", re.compile(r"^IMAD(\.|$)")),
     ("alu", re.compile(r"^(IADD3|IADD|VIADD|LEA|LOP3|SHF|SHL|SHR|PRMT|SGXT|BMSK|SEL|ISETP|"
                        r"IABS|IMNMX|VIMNMX|PLOP3|P2R|R2P|MOV|FSEL)(\.|$)")),
     ("memory", re.compile(r"^(LDG|STG|LD|ST|LDC|ULDC|LDS|STS)(\.|$)")),
+)
+FAMILIES = (
+    ("IMAD", re.compile(r"^IMAD(\.|$)")),
+    ("IADD3/carry", re.compile(r"^(IADD3|IADD|VIADD)(\.|$)")),
+    ("LOP3", re.compile(r"^LOP3(\.|$)")),
+    ("SHF", re.compile(r"^SHF(\.|$)")),
+    ("LEA", re.compile(r"^LEA(\.|$)")),
+    ("SEL", re.compile(r"^SEL(\.|$)")),
 )
 
 
@@ -97,14 +118,23 @@ def ptxas(log: str, symbols) -> dict:
 
 
 def pipe_mix(ops) -> dict:
-    by_pipe, products = Counter(), 0
+    by_pipe, by_op, products = Counter(), Counter(), 0
     for op, rest in ops:
         if op == "NOP":
             continue
         by_pipe[next((p for p, pat in PIPES if pat.match(op)), "other")] += 1
+        by_op[next((f for f, pat in FAMILIES if pat.match(op)), "other")] += 1
         if op == "IMAD" and "c[" not in rest and rest.count("R") >= 4:
             products += 1
-    return {"total": sum(by_pipe.values()), **dict(by_pipe), "product_imads": products}
+    return {"total": sum(by_pipe.values()), **dict(by_pipe), "product_imads": products,
+            "by_op": dict(by_op)}
+
+
+def per_squaring(mix: dict, squarings: int) -> dict:
+    """A loop's pipe and op-family counts over the squarings in its body."""
+    flat = {k: v for k, v in mix.items() if k != "by_op"}
+    return {**{k: round(v / squarings, 1) for k, v in flat.items()},
+            "by_op": {k: round(v / squarings, 1) for k, v in mix["by_op"].items()}}
 
 
 def sass(so_path: str, symbols, dump: str | None = None) -> dict:
@@ -205,11 +235,27 @@ def main() -> int:
         for name, mix in result["builds"][tag]["sass"].items():
             print(f"sass {tag} {name}: kernel {mix['kernel']} largest loop "
                   f"{mix.get('largest_loop')}", flush=True)
+            if (tag, name) in LOOP_SQUARINGS and "largest_loop" in mix:
+                mix["loop_per_squaring"] = per_squaring(mix["largest_loop"],
+                                                        LOOP_SQUARINGS[tag, name])
+                print(f"sass {tag} {name}: a squaring {mix['loop_per_squaring']}", flush=True)
     rng = np.random.default_rng(7)
     def carried(lead, n):
         host = rng.integers(0, 8193, size=(*lead, n), dtype=np.int32)
         host[..., 0, :] = rng.integers(0, 8192 + 608, size=host[..., 0, :].shape)
+        host[..., :, :2] = 8192  # the carried maxima
+        host[..., 0, :2] = 8192 + 607
         return torch.from_numpy(host).to(dev)
+
+    def compared(out, want, kind) -> str:
+        """"limbs" where out equals the plain version limb for limb,
+        "freeze" where fsquare_chain's out is its canonical form."""
+        if torch.equal(out, want):
+            return "limbs"
+        if (kind == "fsquare_chain" and torch.equal(out, fe.freeze(want))
+                and bool(((out >= 0) & (out < 1 << 13)).all())):
+            return "freeze"
+        return ""
 
     for kind, shapes in (("fsquare_chain", FSQ_LANES), ("pdbl", PDBL_LANES), ("padd", PADD_LANES)):
         for n in shapes:
@@ -218,7 +264,7 @@ def main() -> int:
             want = (cuda_fe.fsquare_chain_plain(x, K) if kind == "fsquare_chain"
                     else cuda_fe.pdbl_plain(x, TIMES) if kind == "pdbl"
                     else cuda_fe.padd_plain(x, y))
-            runs = {}
+            runs, how = {}, {}
             for tag, (lib, _) in builds.items():
                 for entry in entries[tag]:
                     if not entry.startswith(f"tm_{kind}"):
@@ -228,16 +274,18 @@ def main() -> int:
                     runs[key] = launcher(lib, entry, x, out, y)
                     runs[key]()
                     torch.cuda.synchronize()
-                    if not torch.equal(out, want):
+                    how[key] = compared(out, want, kind)
+                    if not how[key]:
                         raise SystemExit(f"{key} at {n} lanes differs from the plain version")
             times = {key: [] for key in runs}
             for order in (list(runs), list(runs)[::-1]):
                 for key in order:
                     times[key].append(queued_ms(runs[key]))
             med = {key: statistics.median(v) for key, v in times.items()}
-            result["times"].append({"kernel": kind, "lanes": n, "ms": med})
+            result["times"].append({"kernel": kind, "lanes": n, "ms": med, "compared": how})
             print(f"time {kind} lanes={n}: " + " ".join(f"{t}={v:.4f}" for t, v in med.items())
-                  + " ms (max |err| 0 against the plain version)", flush=True)
+                  + " ms (max |err| 0 against the plain version: "
+                  + ", ".join(f"{t} {h}" for t, h in how.items()) + ")", flush=True)
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip().splitlines()[0]
     result["card"] = card

@@ -24,19 +24,20 @@ FP_FEW_PRODUCTS: the few-product kernel holds 4 products a block, one a
 warp; and B7 on five products whose M keeps a digit of 4096 after 3 carry
 passes, which the few-product kernel's vote loop settles. B6 at T = 1, 32 and 33 windows: 4 blocks a window,
 with nodes handed over through device memory. B2 and B6 inputs are seeded points and their doubles
-(carried limbs). B1 (fsquare_chain) at 1, 31, 32, 33, FSQ_FEW_LANES,
-FSQ_FEW_LANES + 1, 10,240, 24,576 and 24,577 lanes with k = 1, 50 and 100,
-routed and with each kernel forced: the 4-threads-a-lane kernel holds 32
-lanes a block, the thread-per-lane kernel 128, so these cover part blocks,
-ragged last warps and blocks, the switch between the kernels, and the 10k
-commit's and the planner chunk's widths. B3 (pdbl) at 33,
+(carried limbs). B1 (fsquare_chain) at 1, 31, 32, 33, 4,096, 4,097,
+10,240, 24,576 and 24,577 lanes with k = 1, 50 and 100: the kernel holds
+128 lanes a block, so these cover part blocks, ragged last warps and
+blocks, and the 10k commit's and the planner chunk's widths; lane 0 holds
+the largest carried limbs. The kernel writes canonical limbs, so its
+results are compared through fe25519.freeze and checked canonical. B3 (pdbl) at 33,
 PDBL_FEW_LANES, PDBL_FEW_LANES + 1, 16,384 and 16,385 lanes with times =
 1-4, routed and with each kernel forced: the 4-threads-a-lane kernel holds
 16 lanes a block, so 16,385 leaves one group in its last block. B1 and B3
 inputs are the y coordinates and points of the same seeded points and their
 doubles.
 
-Tolerance: zero (integer arithmetic, limb for limb). Every test needs a
+Tolerance: zero (integer arithmetic, limb for limb; through freeze for
+the fsquare_chain kernel). Every test needs a
 CUDA card and skips without one. The file imports neither JAX nor the JAX
 package, so it also runs where JAX is not installed, without
 tests/conftest.py (which imports JAX):
@@ -51,6 +52,7 @@ import torch
 from tendermint_tpu_torch.crypto import batch, keys
 from tendermint_tpu_torch.crypto import ed25519_ref as ref
 from tendermint_tpu_torch.ops import cuda_bls, cuda_fe, cuda_msm, msm_torch
+from tendermint_tpu_torch.ops import fe25519 as fe
 from tendermint_tpu_torch.ops.ed25519_torch import identity
 
 NL = cuda_msm.NL
@@ -228,19 +230,19 @@ def test_malformed_cuda_inputs_raise_not_fall_back(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 50, 100])
-@pytest.mark.parametrize("n", [1, 31, 32, 33, "few", "few+1", 10_240, 24_576, 24_577])
-def test_fsquare_chain_kernels_equal_plain_at_edge_lanes(cuda_device, monkeypatch, n, k):
-    n = {"few": cuda_fe.FSQ_FEW_LANES, "few+1": cuda_fe.FSQ_FEW_LANES + 1}.get(n, n)
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 4096, 4097, 10_240, 24_576, 24_577])
+def test_fsquare_chain_kernels_equal_plain_at_edge_lanes(cuda_device, n, k):
+    """The kernel (8 x 32-bit words) writes canonical limbs: equal to the
+    plain chain through freeze, each limb < 2^13 and the value < p."""
     x = carried_points(n, 3 * n + k)[1].contiguous().to(cuda_device)
+    x[:, :1] = torch.tensor([8192 + 607] + [8192] * 19, dtype=torch.int32,
+                             device=cuda_device)[:, None]  # the carried maxima
     want = cuda_fe.fsquare_chain_plain(x, k)  # the plain version, on the card
-    # the routing as shipped, then the 4-threads-a-lane kernel (n <= limit)
-    # and the thread-per-lane kernel (n > limit) forced
-    for limit in (cuda_fe.FSQ_FEW_LANES, n, n - 1):
-        monkeypatch.setattr(cuda_fe, "FSQ_FEW_LANES", limit)
-        cuda_fe.reset_launches()
-        got = cuda_fe.fsquare_chain(x, k)
-        assert torch.equal(got, want), cuda_fe.fsquare_chain_entry(n)
-        assert cuda_fe.LAUNCHES["fsquare_chain"] == 1
+    cuda_fe.reset_launches()
+    got = cuda_fe.fsquare_chain(x, k)
+    assert torch.equal(got, fe.freeze(want))
+    assert bool(((got >= 0) & (got < 1 << 13)).all()) and torch.equal(fe.freeze(got), got)
+    assert cuda_fe.LAUNCHES["fsquare_chain"] == 1
 
 
 @pytest.mark.cuda

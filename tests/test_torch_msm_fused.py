@@ -374,20 +374,18 @@ def test_pdbl_routes_by_lane_count(monkeypatch):
 
 
 def test_fsquare_chain_routes_by_lane_count(monkeypatch):
-    """A decompression's pow chains (k = 10, 20, 50, 100) on few lanes take
-    the 4-threads-a-lane kernel, the 10k paths' 10,240-24,576 lanes the
-    thread-per-lane kernel; on the CPU both are the plain version, equal to
-    the reference's decompression."""
-    assert cuda_fe.FSQ_FEW_LANES == 4096
-    few = (1, 40, 512, 4096)
-    assert [cuda_fe.fsquare_chain_entry(n) for n in few] == ["tm_fsquare_chain_quad"] * 4
-    wide = (4097, 10_240, 16_384, 20_480, 24_576)
-    assert [cuda_fe.fsquare_chain_entry(n) for n in wide] == ["tm_fsquare_chain"] * 5
+    """Every lane count takes the one fsquare_chain kernel (8 x 32-bit
+    words), which beat the 4-threads-a-lane kernel it replaced on few lanes
+    at every width of the card sweep, so no threshold or kernel chooser is
+    left; a decompression's pow chains (k = 10, 20, 50, 100) on 40 lanes go
+    through the wrapper, which on the CPU is the plain version, equal to the
+    reference's decompression."""
+    assert not hasattr(cuda_fe, "FSQ_FEW_LANES") and not hasattr(cuda_fe, "fsquare_chain_entry")
     seen = []
     plain = cuda_fe.fsquare_chain
 
     def spy(x, k):
-        seen.append((x.shape[-1], k, cuda_fe.fsquare_chain_entry(x.shape[-1])))
+        seen.append((x.shape[-1], k))
         return plain(x, k)
 
     monkeypatch.setattr(cuda_fe, "fsquare_chain", spy)
@@ -397,8 +395,8 @@ def test_fsquare_chain_routes_by_lane_count(monkeypatch):
         p = ref.point_add(p, ref.BASE)
     pts, ok = M.decompress_rows(np.stack(enc), device="cpu")
     assert bool(ok.all())
-    assert sorted({k for _, k, _ in seen}) == [10, 20, 50, 100]
-    assert all(n == 40 and e == "tm_fsquare_chain_quad" for n, _, e in seen)
+    assert sorted({k for _, k in seen}) == [10, 20, 50, 100]
+    assert all(n == 40 for n, _ in seen)
     got = te.compress(pts)
     assert [bytes(got[:, i].numpy()) for i in range(40)] == [e.tobytes() for e in enc]
 

@@ -4,8 +4,8 @@ ristretto_decode, decode_rows) against the JAX package: its host decode
 random multiples of the basepoint, the identity and each kind of invalid
 encoding, and its device decode (tendermint_tpu/ops/ristretto_jax.py) on
 JAX-CPU, limb for limb. A `cuda` test holds the card decode against the plain
-one (the same function on a CPU tensor) at 64, FSQ_FEW_LANES and
-FSQ_FEW_LANES + 1 lanes.
+one (the same function on a CPU tensor) at 64, 4,096 and 4,097 lanes,
+through fe25519.freeze (the fsquare_chain kernel writes canonical limbs).
 
 Tolerance: zero. Coordinates are compared as field integers against the
 host decode (whose point has Z = 1, as the port's) and re-encoded to the
@@ -164,11 +164,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("lanes", [64, cuda_fe.FSQ_FEW_LANES, cuda_fe.FSQ_FEW_LANES + 1])
+@pytest.mark.parametrize("lanes", [64, 4096, 4097])
 def test_card_decode_equals_plain(cuda_device, lanes):
     """ristretto_decode on the card (pow_p58's six fsquare_chain launches)
-    against the same function on a CPU tensor (the plain chain), limb for
-    limb, on valid multiples with every tenth lane invalid."""
+    against the same function on a CPU tensor (the plain chain), on valid
+    multiples with every tenth lane invalid, through fe25519.freeze of each
+    coordinate: the kernel's canonical limbs carry through the decode's
+    later products."""
     encs = _multiples(64, seed=30)
     rows = _rows([encs[i % 64] if i % 10 else _invalid(INVALID[i % 6]) for i in range(lanes)])
     cols = torch.from_numpy(np.ascontiguousarray(rows.T))
@@ -176,4 +178,5 @@ def test_card_decode_equals_plain(cuda_device, lanes):
     got, ok = R.ristretto_decode(cols.to(cuda_device))
     assert cuda_fe.LAUNCHES["fsquare_chain"] == 6
     want, ok_w = R.ristretto_decode(cols)
-    assert torch.equal(got.cpu(), want) and torch.equal(ok.cpu(), ok_w)
+    got, want = (torch.stack([fe.freeze(c) for c in t]) for t in (got.cpu(), want))
+    assert torch.equal(got, want) and torch.equal(ok.cpu(), ok_w)
